@@ -1,0 +1,150 @@
+"""Device-backend protocol — the seam between algorithm and substrate.
+
+Counterpart of ``repro/backends/base.py``, forward path only:
+
+  vmm(drive, weights)      forward matrix–vector product — where input
+                           quantization and bit-streaming live.
+  quantize_readout(pre)    the fused output ADC, applied after the bias
+                           add (identity for digital paths).
+  prepare_weights(params)  per-forward weight preparation, hoisted out of
+                           the per-step loop.
+  device_recurrence(...)   the whole MiRU recurrence on this substrate.
+
+Every backend carries a :class:`~repro_torch.telemetry.Telemetry`
+accumulator (disabled by default) that the ``device_*`` wrappers meter.
+
+Ported substrates are deterministic, so the reference's PRNG keys have
+no counterpart here. Device state and fault injection (``FaultSpec``)
+are not ported yet: a spec with ``faults`` set raises.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.kernels.ref import tanh_f32
+from repro_torch.telemetry.meters import Telemetry
+
+Params = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSpec:
+    """Substrate description consumed by a :class:`DeviceBackend`.
+
+      input_bits   sign-magnitude drive precision (None = full precision).
+      adc_bits     fused readout ADC precision (None = no quantization).
+      adc_range    symmetric ADC full scale, logical units.
+      gain_sigma   WBS per-plane memristor-ratio variability (§V-A).
+      weight_clip  logical dynamic range of a stored weight (None = ∞).
+      faults       a fault model; only None is ported.
+    """
+    input_bits: Optional[int] = None
+    adc_bits: Optional[int] = None
+    adc_range: float = 4.0
+    gain_sigma: float = 0.0
+    weight_clip: Optional[float] = None
+    faults: Optional[Any] = None
+
+
+class DeviceBackend(abc.ABC):
+    """Abstract substrate. Subclasses implement ``vmm``."""
+
+    name: str = "abstract"
+
+    def __init__(self, spec: Optional[DeviceSpec] = None):
+        self.spec = spec if spec is not None else self.default_spec()
+        if self.spec.faults is not None:
+            raise NotImplementedError(
+                "fault injection is not ported yet (ROADMAP queue A8); "
+                "use faults=None")
+        self.telemetry = Telemetry(enabled=False)
+
+    @classmethod
+    def default_spec(cls) -> DeviceSpec:
+        return DeviceSpec()
+
+    @abc.abstractmethod
+    def vmm(self, drive: torch.Tensor, weights: torch.Tensor
+            ) -> torch.Tensor:
+        """y = drive @ weights on this substrate. drive (..., n_in),
+        weights (n_in, n_out)."""
+
+    def quantize_readout(self, pre: torch.Tensor) -> torch.Tensor:
+        """Fused output ADC, applied after the bias add. Identity by
+        default."""
+        return pre
+
+    def prepare_weights(self, params: Params) -> Optional[dict[str, Any]]:
+        """Per-forward weight preparation keyed by crossbar tag
+        (``w_h``/``u_h``/``w_o``), computed once before the per-step loop
+        and passed to every :meth:`device_vmm`. None (the default) means
+        each call derives what it needs, with the same bits."""
+        del params
+        return None
+
+    def device_vmm(self, drive: torch.Tensor, weights: torch.Tensor, *,
+                   tag: str = "",
+                   prepared: Optional[dict[str, Any]] = None
+                   ) -> torch.Tensor:
+        """``vmm`` + activity metering. ``tag`` names the crossbar tile;
+        ``prepared`` is a :meth:`prepare_weights` result for the same
+        params."""
+        y = self._vmm_impl(drive, weights, tag, prepared)
+        self.telemetry.meter_vmm(drive, weights, self.spec.input_bits, tag)
+        return y
+
+    def _vmm_impl(self, drive, weights, tag, prepared) -> torch.Tensor:
+        return self.vmm(drive, weights)
+
+    def device_readout(self, pre: torch.Tensor,
+                       tag: str = "hidden") -> torch.Tensor:
+        """``quantize_readout`` + ADC-conversion metering."""
+        q = self.quantize_readout(pre)
+        if self.spec.adc_bits is not None:
+            self.telemetry.meter_adc(pre, tag)
+        return q
+
+    def device_recurrence(self, params: Params, cfg, x_seq: torch.Tensor, *,
+                          fused: Optional[bool] = None,
+                          h0: Optional[torch.Tensor] = None
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """Run the MiRU hidden recurrence (eqs. 1-2) over x_seq
+        (B, T, n_x). ``cfg`` carries beta, lam, n_h and dtype. ``h0``
+        (B, n_h) resumes from a carried hidden state (the serve engine's
+        slab); None starts from zeros. Returns (h_all, h_prev, pre), each
+        (B, T, n_h).
+
+        The default is the per-step loop: two ``device_vmm`` calls and
+        one ``device_readout`` per step. Substrates with a fused path
+        override this; ``fused`` lets a caller force the per-step path
+        (False) and is otherwise ignored here. Metering happens once per
+        step, so a fused override that meters once under ``scaled(T)``
+        reaches the same totals."""
+        del fused
+        B, T, _ = x_seq.shape
+        prepared = self.prepare_weights(params)
+        h = h0 if h0 is not None else torch.zeros(
+            (B, cfg.n_h), dtype=cfg.dtype, device=x_seq.device)
+        h_all, h_prev, pre_all = [], [], []
+        for t in range(T):
+            pre = self.device_vmm(x_seq[:, t], params["w_h"], tag="w_h",
+                                  prepared=prepared) \
+                + self.device_vmm(cfg.beta * h, params["u_h"], tag="u_h",
+                                  prepared=prepared) \
+                + params["b_h"]
+            pre = self.device_readout(pre)
+            h_new = cfg.lam * h + (1.0 - cfg.lam) * tanh_f32(pre)
+            h_all.append(h_new)
+            h_prev.append(h)
+            pre_all.append(pre)
+            h = h_new
+        return (torch.stack(h_all, 1), torch.stack(h_prev, 1),
+                torch.stack(pre_all, 1))
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} name={self.name!r} spec={self.spec}>"

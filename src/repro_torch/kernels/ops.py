@@ -1,0 +1,129 @@
+"""Padded, dispatched wrappers around the WBS kernels — counterpart of
+the WBS half of ``repro/kernels/ops.py``.
+
+Dispatch is by device and nothing else: a CUDA tensor goes to the CUDA
+kernel (padded here to the shapes it takes), a CPU tensor to the plain
+version in :mod:`repro_torch.kernels.ref`. There is no fallback from one
+to the other. The kernels compute forward values only: the
+straight-through backward (``_wbs_miru_scan_bwd`` in the reference) waits
+for the training slice, so an input that requires grad raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.analog.wbs import ideal_gains, quantize_signed
+from repro_torch.kernels import ref
+from repro_torch.kernels import wbs_matmul as _matmul_kernel
+from repro_torch.kernels import wbs_miru_scan as _scan_kernel
+from repro_torch.utils import round_up
+
+
+def _forward_only(*tensors: Optional[torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the WBS kernels compute forward values only; the straight-"
+            "through backward waits for the training slice (ROADMAP queue "
+            "A3) — call under torch.no_grad()")
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad the leading axis to ``rows`` (no copy when it fits)."""
+    extra = rows - x.shape[0]
+    if extra == 0:
+        return x.contiguous()
+    return F.pad(x, (0, 0) * (x.ndim - 1) + (0, extra))
+
+
+def pad_wbs_weights(w: torch.Tensor) -> torch.Tensor:
+    """Pad a (K, N) weight tile's columns to the kernel's column tile.
+    Zero columns are exact: they only produce output columns that are
+    sliced away."""
+    N = w.shape[1]
+    return F.pad(w, (0, round_up(N, _matmul_kernel.TN) - N)).contiguous()
+
+
+def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
+               gains: torch.Tensor, adc_bits: Optional[int] = None,
+               adc_range: float = 4.0) -> torch.Tensor:
+    """WBS crossbar product, (M, K) × (K, N) → (M, N) f32."""
+    _forward_only(w)
+    if not sign.is_cuda:
+        return ref.wbs_matmul_ref(sign, code, w, gains, adc_bits, adc_range)
+    M, N = sign.shape[0], w.shape[1]
+    Mp = round_up(M, _matmul_kernel.TM)
+    y = _matmul_kernel.wbs_matmul(
+        _pad_rows(sign, Mp), _pad_rows(code, Mp),
+        pad_wbs_weights(w.to(torch.float32)),
+        gains.to(torch.float32).contiguous(), adc_bits, adc_range)
+    return y[:M, :N]
+
+
+def wbs_dense(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
+              adc_bits: Optional[int] = 8,
+              adc_range: float = 4.0) -> torch.Tensor:
+    """WBS linear layer with the ideal plane gains: float activations →
+    sign-magnitude codes → bit-plane crossbar product. x (..., K) @ w
+    (K, N)."""
+    lead = x.shape[:-1]
+    sign, code = quantize_signed(x.reshape(-1, x.shape[-1]), n_bits)
+    y = wbs_matmul(sign, code, w, ideal_gains(n_bits, device=x.device),
+                   adc_bits, adc_range)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def wbs_input_drive(x_seq: torch.Tensor, w_h: torch.Tensor, n_bits: int,
+                    weight_scale: float = 1.0) -> torch.Tensor:
+    """The hoisted WBS input projection: x@W_h has no sequential
+    dependency, so the whole (B, T, K) sequence goes through the crossbar
+    as ONE (B·T, K) product instead of T per-step calls — row for row the
+    same bits as the per-step ``wbs_matmul``. Ideal plane gains only
+    (per-step gains come with ``gain_sigma > 0``, ROADMAP queue A1).
+    Returns the drive (B, T, H) f32: no bias, no ADC (both are applied
+    inside the scan)."""
+    B, T, K = x_seq.shape
+    w = (w_h / weight_scale).to(torch.float32)
+    y = wbs_dense(x_seq.reshape(B * T, K), w, n_bits, adc_bits=None)
+    return (y * weight_scale).reshape(B, T, w.shape[-1])
+
+
+def wbs_miru_scan(drive: torch.Tensor, u_h: torch.Tensor,
+                  b_h: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+                  beta: float, lam: float, n_bits: int,
+                  adc_bits: Optional[int] = None, adc_range: float = 4.0,
+                  weight_scale: float = 1.0,
+                  gains: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused device-true MiRU recurrence over a precomputed drive.
+
+    drive (B, T, H) from :func:`wbs_input_drive`; u_h (H, H) *raw*
+    logical recurrent weights (divided by ``weight_scale`` once, here);
+    b_h (H,); h0 (B, H) or None for zeros; gains (T, n_bits) or None for
+    ideal ratios. Unlike the reference there is no H limit that silently
+    switches to the plain version: the kernel takes every H its shared
+    memory holds and raises beyond. Returns (h_all, h_prev, pre), each
+    (B, T, H) f32.
+    """
+    _forward_only(drive, u_h, b_h, h0)
+    B, T, H = drive.shape
+    if h0 is None:
+        h0 = torch.zeros((B, H), dtype=torch.float32, device=drive.device)
+    u_scaled = (u_h / weight_scale).to(torch.float32)
+    kw = dict(beta=beta, lam=lam, adc_bits=adc_bits, adc_range=adc_range,
+              w_scale=weight_scale)
+    if not drive.is_cuda:
+        return ref.wbs_miru_scan_ref(drive, u_scaled, h0, b_h, n_bits=n_bits,
+                                     gains=gains, **kw)
+    if gains is None:
+        gains = ideal_gains(n_bits, device=drive.device).expand(T, n_bits)
+    Bp = round_up(B, _scan_kernel.BM)
+    h_all, h_prev, pre = _scan_kernel.wbs_miru_scan(
+        _pad_rows(drive.to(torch.float32), Bp), u_scaled.contiguous(),
+        _pad_rows(h0.to(torch.float32), Bp),
+        b_h.reshape(H).to(torch.float32).contiguous(),
+        gains.to(torch.float32).contiguous(), **kw)
+    return h_all[:B], h_prev[:B], pre[:B]

@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the WBS kernels — the correctness contract.
+
+Counterparts of ``repro/kernels/ref.py``'s ``wbs_matmul_ref`` and
+``wbs_miru_scan_ref``, with the same inputs, outputs, integer/bit
+semantics and fp order of the epilogue, ``(drive + y) + b_h`` and
+``acc·norm·w_scale``. Two choices go further than the reference, so that
+the plain versions repeat the CUDA kernels bit for bit on any device:
+
+* The contraction is written out in the kernels' order — K tiles of
+  :data:`BK`, inside a tile plane by plane (MSB first), k ascending, fp32
+  — where the reference leaves it to an einsum. Summation order is the
+  only freedom in these products, and a library matmul picks its own:
+  at the serve path's shapes (B = 64, T = 14) that made one or more
+  batch rows flip an ADC code on a rounding tie in 15 % (H = 100) and
+  35 % (H = 256) of simulated calls.
+* tanh is taken in float64 and rounded once to float32 (the correctly
+  rounded float tanh), as the scan kernel does: PyTorch's CPU tanh and
+  CUDA's ``tanhf`` differ in the last bit on some inputs.
+
+Against the JAX reference these functions agree at fp32 tolerance, with
+ADC rounding ties handled by :mod:`repro_torch.testing`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.analog.adc import adc_quantize
+from repro_torch.analog.wbs import quantize_signed
+
+BK = 128                 # K tile depth of the kernels (wbs_common.cuh)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 tanh: evaluated in float64, rounded
+    once. The scan kernel computes the same value."""
+    return torch.tanh(x.double()).float()
+
+
+def plane_product(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
+                  gains: torch.Tensor) -> torch.Tensor:
+    """acc (M, N) = Σ_tiles Σ_b gains[b]·Σ_{k∈tile} plane_b[m,k]·sign[m,k]
+    ·w[k,n], in the order of ``wbs_common.cuh :: plane_tile``. The plane
+    products are exact, so only the two running sums round."""
+    n_bits = gains.shape[0]
+    M, K = sign.shape
+    shifts = torch.arange(n_bits - 1, -1, -1, device=code.device)
+    planes = ((code.to(torch.int32)[None] >> shifts[:, None, None]) & 1
+              ).to(torch.float32) * sign.to(torch.float32)[None]  # (nb, M, K)
+    w = w.to(torch.float32)
+    g = gains.to(torch.float32)
+    acc = torch.zeros((M, w.shape[1]), dtype=torch.float32, device=w.device)
+    for k0 in range(0, K, BK):
+        dots = torch.zeros((n_bits,) + acc.shape, dtype=torch.float32,
+                           device=w.device)
+        for k in range(k0, min(k0 + BK, K)):
+            dots = dots + planes[:, :, k, None] * w[k]
+        for b in range(n_bits):
+            acc = acc + g[b] * dots[b]
+    return acc
+
+
+def wbs_matmul_ref(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
+                   gains: torch.Tensor, adc_bits: Optional[int] = None,
+                   adc_range: float = 4.0) -> torch.Tensor:
+    """Weighted-bit-streaming VMM: sign (M, K) int8 ∈ {-1, 0, +1}, code
+    (M, K) uint8, w (K, N), gains (n_bits,) MSB first. y = Σ_b gains[b]·
+    (plane_b ⊙ sign) @ w, rescaled by 2^nb/(2^nb − 1), then the optional
+    ADC."""
+    n_bits = gains.shape[0]
+    y = plane_product(sign, code, w, gains)
+    y = y * (2.0 ** n_bits / (2.0 ** n_bits - 1.0))
+    if adc_bits is not None:
+        y = adc_quantize(y, adc_bits, adc_range)
+    return y
+
+
+def wbs_miru_scan_ref(drive: torch.Tensor, u_h: torch.Tensor,
+                      h0: torch.Tensor, b_h: torch.Tensor, beta: float,
+                      lam: float, n_bits: int, adc_bits: Optional[int] = None,
+                      adc_range: float = 4.0, w_scale: float = 1.0,
+                      gains: Optional[torch.Tensor] = None,
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device-true fused MiRU recurrence.
+
+    drive (B, T, H) = the hoisted WBS input projection (no bias); u_h
+    (H, H) recurrent weights *already divided* by the logical weight
+    scale; ``w_scale`` re-applies it after the normalized read. b_h (1, H)
+    or (H,). ``gains`` is (T, n_bits) per-step plane gains, or None for
+    the ideal ratios 2^-1..2^-nb.
+
+    Returns (h_all, h_prev, pre), each (B, T, H) f32.
+    """
+    B, T, H = drive.shape
+    norm = 2.0 ** n_bits / (2.0 ** n_bits - 1.0)
+    if gains is None:
+        k = torch.arange(1, n_bits + 1, dtype=torch.float32,
+                         device=drive.device)
+        gains = torch.pow(2.0, -k).expand(T, n_bits)
+    b = b_h.reshape(H).to(torch.float32)
+    h = h0.to(torch.float32)
+    h_all, h_prev, pre_all = [], [], []
+    for t in range(T):
+        sign, code = quantize_signed(beta * h, n_bits)
+        y = plane_product(sign, code, u_h, gains[t])
+        y = y * norm * w_scale
+        pre = (drive[:, t].to(torch.float32) + y) + b
+        if adc_bits is not None:
+            pre = adc_quantize(pre, adc_bits, adc_range)
+        h_new = lam * h + (1.0 - lam) * tanh_f32(pre)
+        h_all.append(h_new)
+        h_prev.append(h)
+        pre_all.append(pre)
+        h = h_new
+    return (torch.stack(h_all, 1), torch.stack(h_prev, 1),
+            torch.stack(pre_all, 1))

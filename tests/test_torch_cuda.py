@@ -1,0 +1,109 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without a CUDA device every test here skips (the
+decision is made in the ``cuda`` fixture, at run time, so every pytest
+worker collects the same tests). Run them on a GPU machine with
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py``.
+
+The plain versions repeat the kernels' arithmetic (summation order,
+float64 tanh), so the kernels must match them bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.analog.wbs import ideal_gains, quantize_signed
+from repro_torch.backends import get_backend
+from repro_torch.core.miru import MiRUConfig, init_miru_params
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import wbs_matmul as kmatmul
+from repro_torch.kernels import wbs_miru_scan as kscan
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("adc_bits", [8, None])
+@pytest.mark.parametrize("m,k,n", [(896, 28, 100), (64, 100, 100),
+                                   (5, 37, 13), (16, 300, 40), (8, 256, 256)])
+def test_wbs_matmul_kernel_equals_plain(cuda, m, k, n, adc_bits):
+    rng = np.random.default_rng(m + k + n)
+    x, w = _on(cuda, rng.uniform(-1, 1, (m, k)).astype(np.float32),
+               rng.normal(0, 0.3, (k, n)).astype(np.float32))
+    sign, code = quantize_signed(x, 8)
+    g = ideal_gains(8, device=cuda)
+    before = kmatmul.launches
+    got = ops.wbs_matmul(sign, code, w, g, adc_bits)
+    want = ref.wbs_matmul_ref(sign, code, w, g, adc_bits)
+    torch.cuda.synchronize()
+    assert kmatmul.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("adc_bits", [8, None])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,t,h", [(64, 14, 100), (64, 14, 256), (3, 5, 37),
+                                   (9, 3, 128), (8, 2, 1024)])
+def test_wbs_miru_scan_kernel_equals_plain(cuda, b, t, h, with_h0, adc_bits):
+    rng = np.random.default_rng(b * t + h)
+    drive, u, b_h, h0 = _on(
+        cuda, rng.normal(0, 0.6, (b, t, h)).astype(np.float32),
+        rng.uniform(-1, 1, (h, h)).astype(np.float32) * np.float32(
+            np.sqrt(3.0 / h)),
+        rng.normal(0, 0.1, (h,)).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (b, h)).astype(np.float32))
+    kw = dict(beta=0.8, lam=0.5, n_bits=8, adc_bits=adc_bits, adc_range=4.0)
+    before = kscan.launches
+    got = ops.wbs_miru_scan(drive, u, b_h, h0 if with_h0 else None,
+                            weight_scale=1.5, **kw)
+    want = ref.wbs_miru_scan_ref(
+        drive, u / 1.5, h0 if with_h0 else torch.zeros_like(h0), b_h,
+        w_scale=1.5, **kw)
+    torch.cuda.synchronize()
+    assert kscan.launches == before + 1
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_fused_equals_per_step_on_the_card(cuda):
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    params = init_miru_params(torch.Generator().manual_seed(0), cfg, cuda)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand((64, 14, 28), generator=g) * 2 - 1).to(cuda)
+    h0 = (torch.rand((64, 100), generator=g) - 0.5).to(cuda)
+    backend = get_backend("wbs")
+    fused = backend.device_recurrence(params, cfg, x, fused=True, h0=h0)
+    step = backend.device_recurrence(params, cfg, x, fused=False, h0=h0)
+    cpu = backend.device_recurrence({k: v.cpu() for k, v in params.items()},
+                                    cfg, x.cpu(), fused=True, h0=h0.cpu())
+    for a, c, d in zip(fused, step, cpu):
+        assert torch.equal(a, c)
+        assert torch.equal(a.cpu(), d)
+
+
+def test_wrappers_check_their_inputs(cuda):
+    sign = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
+    code = torch.zeros((8, 4), dtype=torch.uint8, device=cuda)
+    w = torch.zeros((4, 32), device=cuda)
+    g = ideal_gains(8, device=cuda)
+    with pytest.raises(TypeError):
+        kmatmul.wbs_matmul(sign.float(), code, w, g)
+    with pytest.raises(ValueError, match="multiple"):
+        kmatmul.wbs_matmul(sign[:5], code[:5], w, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        kmatmul.wbs_matmul(sign, code, torch.zeros((32, 4), device=cuda).t(),
+                           g)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kmatmul.wbs_matmul(sign, code, w.cpu(), g)
