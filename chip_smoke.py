@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MiRU serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's MiRU serving and training paths on one NVIDIA
+GPU and check them.
 
 Run from the repository root with no arguments:
 
@@ -9,11 +10,11 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: both CUDA kernels compiled by nvcc for sm_90a from
-   ``src/repro_torch/kernels/csrc/``;
+2. build: the four CUDA kernels compiled by nvcc for sm_90a from
+   ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serve path's shapes, with ``repro_torch.testing``'s tie-aware
-   comparison (rtol = atol = 2e-5);
+   the main paths' shapes: bitwise for the recurrences and the readout,
+   tie-aware (rtol = atol = 2e-5) for the WBS product;
 4. serve: the paper's 28×100×10 network (``configs/m2ru_paper.py``) with
    seeded random weights, served through ``RecurrentServeEngine`` on the
    ``wbs`` substrate (64 slots, chunk 14) for a 256-request burst over 96
@@ -22,12 +23,23 @@ Phases, each printed as one JSON line:
    traffic served by the port on the CPU; a second, traced run of the
    burst gives the device's busy time and its share of the untraced
    run's wall time;
-5. contracts: fused equals per-step bit for bit; batch composition and
-   slot permutation are bitwise inert at a fixed slab shape; whether a
-   one-slot engine matches is printed, not asserted;
-6. times: CUDA-event timings of each kernel, its plain version and (for
-   the crossbar product) one torch.matmul, each over a CUDA graph of
-   repeated launches, beside the least time the card could take.
+5. contracts: fused equals per-step bit for bit; batch composition, slot
+   permutation and a one-slot engine serve the 64-slot engine's bits;
+6. train: (a) the software DFA step through the fused float recurrence
+   (``dfa_grads(use_fused=True)`` + ``sgd_kwta_update``, batch 64, 400
+   steps, as ``examples/quickstart.py``), held against the same 400
+   steps run by the port on the CPU (every loss, the final params and
+   the test accuracy); (b) the Fig. 4 protocol (``run_continual``, DFA,
+   reservoir replay of 512, 3 permuted tasks, 14 epochs a task, batch
+   32) on ``ideal`` and ``wbs``, held to the reference's accuracy bands
+   and to the port's own CPU run of the same protocol: the leading
+   steps' losses (``LOSS_AGREE_STEPS``) and the R matrix
+   (``R_TOLERANCE``: each R entry within 2 test examples and MA within
+   0.01 on ``ideal``; 4 and 0.01 on ``wbs``, measured);
+7. times: CUDA-event timings of each kernel, its plain version and,
+   where one exists, one PyTorch call computing the same function, each
+   over a CUDA graph of repeated launches, beside the least time the
+   card could take.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and the final
 ``{"ok": true, ...}`` line. Any failure exits non-zero before the final
@@ -40,6 +52,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -50,6 +63,41 @@ N_X, N_H, N_Y, BETA, LAM = 28, 100, 10, 0.8, 0.5
 SLOTS, CHUNK, FRAMES = 64, 14, 28
 N_REQUESTS, N_USERS = 256, 96
 N_BITS, ADC_BITS, ADC_RANGE, W_SCALE = 8, 8, 4.0, 1.5   # wbs default_spec
+T_SEQ = 28                     # rows of a 28×28 permuted image
+# Train (a), examples/quickstart.py: batch 64, 400 steps, 800/300 examples.
+SW_BATCH, SW_STEPS, SW_TRAIN, SW_TEST = 64, 400, 800, 300
+# Train (b), the DFA settings of tests/test_continual.py (Fig. 4).
+CL_TASKS, CL_TRAIN, CL_TEST, CL_EPOCHS, CL_BATCH, CL_CAPACITY = \
+    3, 500, 200, 14, 32, 512
+# Parity of the training paths with the port's own CPU run of the same
+# work. Both sides start from the same state and batches and run the same
+# kernel arithmetic (kernel == plain, bit for bit); only the products and
+# contractions left to cuBLAS and the CPU's BLAS sum in other orders. So
+# the losses agree to fp32 rounding, step by step, until a quantizer code
+# or a ζ selection flips on a last-bit difference, and from there the runs
+# drift apart like two seeds. Measured on an H100 with
+# tools/parity_reach.py, where faults planted on the card side show what
+# each check can see:
+#
+# - train (a): all 400 losses within 2.3e-7 relative, the final params
+#   within 2.4e-7 (a CPU run at 2 threads: 1.8e-6 and 5.9e-5); with h_t
+#   handed to DFA in place of h_{t-1}, 14 steps agree and the params end
+#   0.016 apart, at the same test accuracy;
+# - train (b) ``ideal``: 386 leading steps agree and R is equal;
+# - train (b) ``wbs``: 5 leading steps agree (the 8-bit input quantizer
+#   and ADC flip first there) and R lies 3 test examples (MA 0.0067) from
+#   the CPU's, the same in every run; the ADC skipped or a 7-bit input
+#   quantizer leave 0 steps agreeing yet R only 3 and 2 examples away,
+#   and lost writes to U leave 1 step agreeing and R 6 examples (MA
+#   0.018) away. On ``wbs`` the R check alone cannot tell these faults
+#   from a sound run; the leading losses can.
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
+# Leading steps of train (b) whose losses must agree (train (a): all).
+LOSS_AGREE_STEPS = {"ideal": 100, "wbs": 3}
+PARAMS_ATOL = 1e-3            # train (a)'s final params against the CPU's
+R_TOLERANCE = {"ideal": (2, 0.01), "wbs": (4, 0.01)}
+# The four kernels, each wrapper module's launch counter by name.
+KERNELS = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout")
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -64,6 +112,39 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def counters() -> dict:
+    import importlib
+    return {k: importlib.import_module(f"repro_torch.kernels.{k}")
+            for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for mod in counters().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: mod.launches for k, mod in counters().items()}
+
+
+def require_launches(path: str, launches: dict, names) -> None:
+    """Fail unless every kernel of ``path`` launched in its run."""
+    missing = [k for k in names if not launches[k]]
+    if missing:
+        raise AssertionError(f"{path}: kernel(s) {missing} never launched "
+                             f"(launches {launches})")
+
+
+def loss_agree_steps(losses, cpu_losses) -> int:
+    """How many leading steps' losses agree with the CPU run's at
+    LOSS_RTOL / LOSS_ATOL."""
+    import numpy as np
+    a = np.asarray(losses, np.float64)
+    b = np.asarray(cpu_losses, np.float64)
+    ok = np.isclose(a, b, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    return int(len(ok) if ok.all() else np.argmin(ok))
 
 
 def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -137,7 +218,7 @@ def check_kernels(dev) -> dict:
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(0)
-    err = {"wbs_matmul": 0.0, "wbs_miru_scan": 0.0}
+    err = {k: 0.0 for k in KERNELS}
     with torch.no_grad():
         for name, (M, K, N, xs) in {"drive": (SLOTS * CHUNK, N_X, N_H, 1.0),
                                     "u_h": (SLOTS, N_H, N_H, BETA)}.items():
@@ -179,6 +260,45 @@ def check_kernels(dev) -> dict:
                          bitwise=all(torch.equal(a, b)
                                      for a, b in zip(got, want)),
                          **rep.as_dict())
+        # The ideal scan at the training shapes: batch 64 and the 300-row
+        # test set at the paper's width, and batch 64 at H = 256.
+        for B, H in ((SW_BATCH, N_H), (SW_TEST, N_H), (SW_BATCH, 256)):
+            for with_h0 in (False, True):
+                inp = scan_inputs(rng, dev, B, T_SEQ, H, with_h0)
+                h0 = inp["h0"] if with_h0 else torch.zeros((B, H), device=dev)
+                got = ops.miru_scan(inp["drive"], inp["u_h"], h0, BETA, LAM)
+                want = ref.miru_scan_ref(inp["drive"], inp["u_h"], h0, BETA,
+                                         LAM)
+                torch.cuda.synchronize()
+                e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                err["miru_scan"] = max(err["miru_scan"], e)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+                emit("kernels", kernel="miru_scan", shape=[B, T_SEQ, H],
+                     h0=with_h0, bitwise=bitwise, max_abs_err=e)
+                if not bitwise:
+                    raise AssertionError(f"miru_scan != plain at "
+                                         f"{(B, T_SEQ, H)}, h0={with_h0}")
+        # The readout at the serve (896 rows), eval (200) and train (64)
+        # shapes; each row's bits must not depend on the number of rows.
+        w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
+            np.float32)).to(dev)
+        b_o = torch.from_numpy(rng.normal(0, 0.1, N_Y).astype(
+            np.float32)).to(dev)
+        h = torch.from_numpy(rng.uniform(-1, 1, (SLOTS * CHUNK, N_H)).astype(
+            np.float32)).to(dev)
+        full = ops.miru_readout(h, w_o, b_o)
+        for M in (SLOTS * CHUNK, CL_TEST, SW_BATCH, CHUNK, 1):
+            got = ops.miru_readout(h[:M].contiguous(), w_o, b_o)
+            want = ref.miru_readout_ref(h[:M], w_o, b_o)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            err["miru_readout"] = max(err["miru_readout"], e)
+            bitwise = torch.equal(got, want) and torch.equal(got, full[:M])
+            emit("kernels", kernel="miru_readout", shape=[M, N_H, N_Y],
+                 bitwise_and_row_exact=bitwise, max_abs_err=e)
+            if not bitwise:
+                raise AssertionError(f"miru_readout not bitwise or not "
+                                     f"row-exact at M={M}")
     return err
 
 
@@ -252,7 +372,6 @@ def serve_path(dev, device_name: str) -> dict:
     import numpy as np
     import torch
     from repro_torch import testing
-    from repro_torch.kernels import wbs_matmul, wbs_miru_scan
     from repro_torch.serve import replay
     cfg, params = paper_model(dev)
     arrivals = [(a.uid, f) for a, f in replay(burst_spec())]
@@ -261,15 +380,13 @@ def serve_path(dev, device_name: str) -> dict:
     serve(cfg, params, [(f"warm{i}", f) for i, (_, f) in
                         enumerate(arrivals[:SLOTS])], dev)
 
-    wbs_matmul.launches = wbs_miru_scan.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     eng, reqs = serve(cfg, params, arrivals, dev)
     wall = time.perf_counter() - t0
-    launches = {"wbs_matmul": wbs_matmul.launches,
-                "wbs_miru_scan": wbs_miru_scan.launches}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the serve path never launched: "
-                             f"{launches}")
+    launches = read_launches()
+    require_launches("serve", launches,
+                     ("wbs_matmul", "wbs_miru_scan", "miru_readout"))
     stats = eng.request_stats()
     if stats["requests"] != N_REQUESTS or \
             stats["frames_served"] != N_REQUESTS * FRAMES:
@@ -350,13 +467,255 @@ def contracts(dev, run: dict) -> None:
     if not solo_equal:
         raise AssertionError("batch composition or slot permutation changed "
                              "a served stream at the fixed slab shape")
+    if not one_slot_equal:
+        raise AssertionError("a one-slot engine served other bits than the "
+                             "64-slot engine")
     emit("contracts", fused_equals_per_step=True,
          batch_composition_and_slot_permutation_bitwise=True,
-         one_slot_engine_bitwise=bool(one_slot_equal))
+         one_slot_engine_bitwise=True)
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: times
+# Phase 6: the training paths
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def busy_share(fn, untraced_wall: float) -> dict:
+    """``fn`` traced once: its device busy time over ``untraced_wall``, the
+    wall time of the same work untraced."""
+    busy = device_busy(fn)
+    busy["busy_share_of_untraced_wall"] = busy["device_busy_s"] \
+        / untraced_wall
+    busy["untraced_wall_s"] = untraced_wall
+    return busy
+
+
+def software_run(dev, steps: Optional[int] = None,
+                 count: bool = False) -> dict:
+    """examples/quickstart.py through the fused float recurrence on
+    ``dev``: params from PRNGKey(0), Ψ from PRNGKey(1), ``steps`` DFA +
+    ζ-SGD steps on batches of 64 drawn by ``default_rng(0)``, then the
+    test accuracy. With ``count``, the launch counters are zeroed just
+    before the steps and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.dfa import dfa_grads, sgd_kwta_update
+    from repro_torch.core.miru import (MiRUConfig, init_dfa_feedback,
+                                       init_miru_params, miru_forward)
+    from repro_torch.data.synthetic import make_permuted_tasks
+    from repro_torch.utils import accuracy
+    steps = SW_STEPS if steps is None else steps
+    task = make_permuted_tasks(seed=0, n_tasks=1, n_train=SW_TRAIN,
+                               n_test=SW_TEST)[0]
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    params = init_miru_params(prng.PRNGKey(0), cfg, dev)
+    psi = init_dfa_feedback(prng.PRNGKey(1), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    idx = np.stack([rng.integers(0, SW_TRAIN, SW_BATCH)
+                    for _ in range(steps)])
+    xb = torch.from_numpy(task.x_train[idx]).to(dev)
+    yb = torch.from_numpy(task.y_train[idx]).to(dev)
+    with torch.no_grad():
+        _sync(dev)
+        if count:
+            reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for it in range(steps):
+            loss, g = dfa_grads(params, psi, cfg, xb[it], yb[it],
+                                use_fused=True)
+            params, _ = sgd_kwta_update(params, g, lr=0.2, keep_frac=0.57,
+                                        hidden_lr_scale=0.3)
+            losses.append(loss)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        logits, _ = miru_forward(params, cfg,
+                                 torch.from_numpy(task.x_test).to(dev),
+                                 use_fused=True)
+        acc = float(accuracy(logits, torch.from_numpy(task.y_test).to(dev)))
+    losses = torch.stack(losses).cpu().numpy()
+    return dict(acc=acc, wall_s=wall, launches=launches, losses=losses,
+                params=params,
+                finite=bool(np.isfinite(losses).all()
+                            and torch.isfinite(logits).all()))
+
+
+def train_software(dev) -> dict:
+    """Phase 6a. The launches of the counted run on the card, its time per
+    step and test accuracy, a traced run's busy share, and the same 400
+    steps on the CPU (the kernels' plain versions) as the check: every
+    loss, the final params and the test accuracy."""
+    import torch
+    software_run(dev, steps=3)                       # warm-up
+    run = software_run(dev, count=True)
+    require_launches("train (a)", run["launches"],
+                     ("miru_scan", "miru_readout"))
+    steps = 50
+    short = software_run(dev, steps=steps)
+    busy = busy_share(lambda: software_run(dev, steps=steps),
+                      short["wall_s"])
+    cpu = software_run(torch.device("cpu"))
+    if not (run["finite"] and cpu["finite"]):
+        raise AssertionError("train (a): loss or logits not finite")
+    if run["acc"] < 0.9 or abs(run["acc"] - cpu["acc"]) > 2 / SW_TEST + 1e-9:
+        raise AssertionError(f"train (a): test accuracy {run['acc']} on the "
+                             f"card, {cpu['acc']} on the CPU")
+    agree = loss_agree_steps(run["losses"], cpu["losses"])
+    if agree < len(cpu["losses"]):
+        raise AssertionError(f"train (a): the losses leave the CPU run's at "
+                             f"step {agree}")
+    d_params = max(float((run["params"][k].cpu() - cpu["params"][k]).abs()
+                         .max()) for k in cpu["params"])
+    if d_params > PARAMS_ATOL:
+        raise AssertionError(f"train (a): final params {d_params} from the "
+                             f"CPU run's")
+    emit("train_software", steps=SW_STEPS, batch=SW_BATCH,
+         ms_per_step=1e3 * run["wall_s"] / SW_STEPS,
+         launches=run["launches"],
+         launches_per_step={k: v / SW_STEPS
+                            for k, v in run["launches"].items()},
+         test_acc=run["acc"], cpu_test_acc=cpu["acc"],
+         cpu_ms_per_step=1e3 * cpu["wall_s"] / SW_STEPS,
+         loss_agree_steps=agree, max_abs_d_params=d_params,
+         first_last_loss=[float(run["losses"][0]),
+                          float(run["losses"][-1])],
+         traced_run=dict(busy, steps=steps))
+    return run
+
+
+def protocol_run(dev, backend: str, n_tasks: Optional[int] = None,
+                 count: bool = False) -> dict:
+    """The Fig. 4 protocol on ``dev``: ``run_continual`` with DFA and
+    reservoir replay on ``backend`` over ``n_tasks`` permuted tasks."""
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            run_continual)
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.data.synthetic import make_permuted_tasks
+    n_tasks = CL_TASKS if n_tasks is None else n_tasks
+    tasks = make_permuted_tasks(0, n_tasks=n_tasks, n_train=CL_TRAIN,
+                                n_test=CL_TEST)
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    trainer = TrainerSpec(algo="dfa", epochs_per_task=CL_EPOCHS,
+                          batch_size=CL_BATCH)
+    _sync(dev)
+    if count:
+        reset_launches()
+    t0 = time.perf_counter()
+    out = run_continual(cfg, trainer, tasks,
+                        replay=ReplaySpec(capacity=CL_CAPACITY),
+                        device=backend, torch_device=dev)
+    _sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    return out
+
+
+def train_step_ms(dev, backend: str, steps: int = 100) -> float:
+    """Milliseconds per DFA train step of the protocol on the card: the
+    first ``steps`` batches of task 0's schedule through the trainer's own
+    step, after a warm-up, ending in a synchronize."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            _init_run, _make_raw_steps,
+                                            build_batch_schedule)
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.data.synthetic import make_permuted_tasks
+    tasks = make_permuted_tasks(0, n_tasks=1, n_train=CL_TRAIN,
+                                n_test=CL_TEST)
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    trainer = TrainerSpec(epochs_per_task=CL_EPOCHS, batch_size=CL_BATCH)
+    be = get_backend(backend)
+    sched = build_batch_schedule(trainer, ReplaySpec(capacity=CL_CAPACITY),
+                                 tasks)
+    step, _ = _make_raw_steps(cfg, trainer, be)
+    key, params, psi, st = _init_run(cfg, trainer, be, dev)
+    xs = torch.from_numpy(sched.x[0][:steps]).to(dev)
+    ys = torch.from_numpy(sched.y[0][:steps]).to(dev)
+    opt = {"psi": psi}
+    with torch.no_grad():
+        for s in range(3):
+            step(params, opt, prng.PRNGKey(s), xs[s], ys[s], st)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for s in range(steps):
+            key, k = prng.split(key)
+            params, opt, _, _, st = step(params, opt, k, xs[s], ys[s], st)
+        _sync(dev)
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def r_within(backend: str, run: dict, cpu: dict) -> bool:
+    """Whether a protocol run's R and MA lie within
+    :data:`R_TOLERANCE` of the CPU run's."""
+    import numpy as np
+    n_examples, ma_tol = R_TOLERANCE[backend]
+    dR = float(np.abs(np.asarray(run["R"]) - np.asarray(cpu["R"])).max())
+    return (dR <= n_examples / CL_TEST + 1e-9
+            and abs(run["MA"] - cpu["MA"]) <= ma_tol + 1e-9)
+
+
+def train_protocol(dev) -> dict:
+    """Phase 6b, on ``ideal`` and ``wbs``: the counted run on the card
+    with the reference's accuracy bands (task 0 > 0.75 after task 0,
+    R[-1, 0] > 0.25), its leading losses and R against the port's CPU run
+    of the same protocol (:data:`LOSS_AGREE_STEPS`, :data:`R_TOLERANCE`),
+    ms per train step, and the busy share of one traced task."""
+    import numpy as np
+    import torch
+    paths = {"ideal": ("miru_readout",),
+             "wbs": ("wbs_matmul", "wbs_miru_scan", "miru_readout")}
+    out = {}
+    for backend, kernels in paths.items():
+        protocol_run(dev, backend, n_tasks=1)        # warm-up
+        run = protocol_run(dev, backend, count=True)
+        require_launches(f"train (b) {backend}", run["launches"], kernels)
+        R = np.asarray(run["R"])
+        if not (R[0, 0] > 0.75 and R[-1, 0] > 0.25
+                and np.isfinite(run["losses"]).all()):
+            raise AssertionError(f"train (b) {backend}: R {R.tolist()} "
+                                 f"outside the reference's bands")
+        cpu = protocol_run(torch.device("cpu"), backend)
+        agree = loss_agree_steps(run["losses"], cpu["losses"])
+        if agree < min(LOSS_AGREE_STEPS[backend], len(cpu["losses"])):
+            raise AssertionError(f"train (b) {backend}: the losses leave the "
+                                 f"CPU run's at step {agree}")
+        dR = float(np.abs(R - np.asarray(cpu["R"])).max())
+        dMA = abs(run["MA"] - cpu["MA"])
+        n_examples, ma_tol = R_TOLERANCE[backend]
+        if not r_within(backend, run, cpu):
+            raise AssertionError(
+                f"train (b) {backend}: R {R.tolist()} on the card vs "
+                f"{np.asarray(cpu['R']).tolist()} on the CPU")
+        one = protocol_run(dev, backend, n_tasks=1)
+        busy = busy_share(lambda: protocol_run(dev, backend, n_tasks=1),
+                          one["wall_s"])
+        n_steps = len(run["losses"])
+        emit("train_protocol", backend=backend, R=R.tolist(), MA=run["MA"],
+             cpu_R=np.asarray(cpu["R"]).tolist(), cpu_MA=cpu["MA"],
+             loss_agree_steps=agree, max_abs_dR=dR, abs_dMA=dMA,
+             tolerance={"test_examples": n_examples, "MA": ma_tol},
+             steps=n_steps,
+             wall_s=run["wall_s"], cpu_wall_s=cpu["wall_s"],
+             launches=run["launches"],
+             launches_per_step={k: v / n_steps
+                                for k, v in run["launches"].items()},
+             ms_per_train_step=train_step_ms(dev, backend),
+             traced_task=busy)
+        out[backend] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: times
 # ---------------------------------------------------------------------------
 
 def times(dev) -> dict:
@@ -364,7 +723,8 @@ def times(dev) -> dict:
     serve path hands them over, so ``ms`` is the launch alone."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops, ref, wbs_matmul, wbs_miru_scan
+    from repro_torch.kernels import (miru_readout, miru_scan, ops, ref,
+                                     wbs_matmul, wbs_miru_scan)
     rng = np.random.default_rng(1)
     out = {}
     with torch.no_grad():
@@ -405,6 +765,42 @@ def times(dev) -> dict:
                 inp["drive"], u_scaled, inp["h0"], inp["b_h"], BETA, LAM,
                 N_BITS, ADC_BITS, ADC_RANGE, W_SCALE), reps=2, rounds=3),
             library_ms=None, bound_ms=b, bound_by=by)
+        # The ideal scan at train (a)'s shape. One (B, H)×(H, H) product
+        # per step; xw in, h_all and pre out, U and h0 once. No single
+        # PyTorch call computes the recurrence.
+        B, T, H = SW_BATCH, T_SEQ, N_H
+        inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
+        flops = 2.0 * B * T * H * H
+        n_bytes = 4 * (3 * B * T * H + H * H + B * H)
+        b, by = bound_ms(flops, n_bytes)
+        out["miru_scan"] = dict(
+            shape=[B, T, H],
+            ms=time_graph(lambda: miru_scan.miru_scan(
+                inp["drive"], inp["u_h"], inp["h0"], beta=BETA, lam=LAM)),
+            plain_ms=time_graph(lambda: ref.miru_scan_ref(
+                inp["drive"], inp["u_h"], inp["h0"], BETA, LAM),
+                reps=2, rounds=3),
+            library_ms=None, bound_ms=b, bound_by=by)
+        # The readout at the serve shape (the kernels line) and the eval
+        # shape, beside torch.addmm of the same operands.
+        w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
+            np.float32)).to(dev)
+        b_o = torch.from_numpy(rng.normal(0, 0.1, N_Y).astype(
+            np.float32)).to(dev)
+        for key, M in (("miru_readout", SLOTS * CHUNK),
+                       ("miru_readout@eval", CL_TEST)):
+            h = torch.from_numpy(rng.uniform(-1, 1, (M, N_H)).astype(
+                np.float32)).to(dev)
+            b, by = bound_ms(2.0 * M * N_H * N_Y + M * N_Y,
+                             4 * (M * N_H + N_H * N_Y + N_Y + M * N_Y))
+            out[key] = dict(
+                shape=[M, N_H, N_Y],
+                ms=time_graph(lambda: miru_readout.miru_readout(h, w_o,
+                                                                b_o)),
+                plain_ms=time_graph(lambda: ref.miru_readout_ref(h, w_o,
+                                                                 b_o)),
+                library_ms=time_graph(lambda: torch.addmm(b_o, h, w_o)),
+                bound_ms=b, bound_by=by)
     for name, t in out.items():
         emit("times", kernel=name, **t)
     return out
@@ -436,17 +832,31 @@ def main() -> int:
     err = check_kernels(dev)
     run = serve_path(dev, name)
     contracts(dev, run)
+    sw = train_software(dev)
+    cl = train_protocol(dev)
     t = times(dev)
 
+    # launches: each kernel's count in the run of the path it was ported
+    # for (serve for the WBS kernels and the readout, train (a) for the
+    # ideal scan); launches_by_path has every path's count.
+    by_path = {"serve": run["launches"], "train_software": sw["launches"],
+               "train_protocol_ideal": cl["ideal"]["launches"],
+               "train_protocol_wbs": cl["wbs"]["launches"]}
+    own = {"wbs_matmul": "serve", "wbs_miru_scan": "serve",
+           "miru_scan": "train_software", "miru_readout": "serve"}
     src = "src/repro_torch/kernels/csrc/"
     replaces = {"wbs_matmul": "src/repro/kernels/wbs_matmul.py:99",
-                "wbs_miru_scan": "src/repro/kernels/wbs_miru_scan.py:105"}
+                "wbs_miru_scan": "src/repro/kernels/wbs_miru_scan.py:105",
+                "miru_scan": "src/repro/kernels/miru_scan.py:47",
+                "miru_readout": "h @ w_o in src/repro/core/miru.py:133 (not "
+                                "a TPU kernel; repair of queue C)"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src + k + ".cu",
-         "replaces": replaces[k], "launches": run["launches"][k],
+         "replaces": replaces[k], "launches": by_path[own[k]][k],
+         "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
-         "library_ms": t[k]["library_ms"]} for k in replaces]}), flush=True)
+         "library_ms": t[k]["library_ms"]} for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,11 +4,15 @@ The JAX package ``repro`` stays the reference. This package grows beside
 it slice by slice, keeping ``repro``'s module layout so every module has
 an obvious counterpart:
 
+  prng        threefry keys and draws, bit for bit as ``jax.random``
   analog/     sign-magnitude WBS quantizer, bit planes, mid-rise ADC
-  core/       MiRU cell/forward/readout, k-WTA mask, chip-step meter
+  core/       MiRU cell/forward/readout, ζ (k-WTA), DFA gradients, the
+              replay buffer, the continual-learning trainer
   kernels/    hand-written CUDA kernels (``csrc/``), their plain PyTorch
               versions (``ref.py``) and the padded wrappers (``ops.py``)
   backends/   the DeviceBackend protocol, ``ideal`` and ``wbs``
+  replay/     host replay policies and their registry
+  data/       the synthetic task streams
   telemetry/  eager activity counters
   obs/        the latency histogram
   serve/      state slab, traffic generator, continuous-batching engine

@@ -4,8 +4,8 @@ Counterpart of ``repro/analog/wbs.py``. Digital inputs are decomposed
 sign-magnitude into n_b bit planes; plane k is weighted by the
 memristor-ratio gain 2^{-k} and the integrator sums the gain-weighted
 plane products, which equals the fixed-point product when the ratios are
-ideal. Only ideal ratios are ported: drawing the per-plane gain noise
-bit for bit needs the threefry port (ROADMAP queue A1).
+ideal. The per-plane ratio noise is drawn from a :mod:`repro_torch.prng`
+key, as the reference draws it from a ``jax.random`` key.
 """
 from __future__ import annotations
 
@@ -46,18 +46,21 @@ def ideal_gains(n_bits: int, device=None) -> torch.Tensor:
     return torch.pow(2.0, -k)
 
 
-def wbs_vmm(x: torch.Tensor, w: torch.Tensor, spec: WBSSpec) -> torch.Tensor:
-    """WBS crossbar VMM with ideal plane gains: y = Σ_k g_k (B_k ⊙ s) @ W,
-    rescaled by 2^nb/(2^nb − 1), then the fused ADC. x (..., n_in) in
-    [-1, 1], w (n_in, n_out)."""
-    if spec.gain_sigma > 0:
-        raise NotImplementedError(
-            "gain_sigma > 0 draws per-plane gain noise from jax.random; "
-            "it waits for the threefry port (ROADMAP queue A1)")
+def wbs_vmm(x: torch.Tensor, w: torch.Tensor, spec: WBSSpec,
+            key=None) -> torch.Tensor:
+    """WBS crossbar VMM: y = Σ_k g_k (B_k ⊙ s) @ W, rescaled by
+    2^nb/(2^nb − 1), then the fused ADC. x (..., n_in) in [-1, 1], w
+    (n_in, n_out); ``key`` (a :mod:`repro_torch.prng` key) draws the
+    per-plane gain noise when ``spec.gain_sigma > 0``."""
     sign, code = quantize_signed(x, spec.n_bits)
     planes = bit_planes(code, spec.n_bits)                 # (nb, ..., n_in)
     signed_planes = planes * sign.to(torch.float32)[None]
-    gains = ideal_gains(spec.n_bits, device=x.device)
+    gains = ideal_gains(spec.n_bits)
+    if key is not None and spec.gain_sigma > 0:
+        from repro_torch import prng
+        gains = gains * (1.0 + spec.gain_sigma
+                         * prng.normal(key, gains.shape))
+    gains = gains.to(x.device)
     y = torch.einsum("k,k...i,io->...o", gains, signed_planes, w)
     y = y * (2.0 ** spec.n_bits / (2.0 ** spec.n_bits - 1.0))
     if spec.adc_bits is not None:

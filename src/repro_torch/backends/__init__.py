@@ -2,12 +2,12 @@
 
 - base:     the DeviceBackend protocol and the DeviceSpec record.
 - registry: name-keyed factory registry (register_backend / get_backend).
-- ideal:    full-precision software substrate.
+- ideal:    full-precision software substrate, exact writes.
 - wbs:      WBS-quantized digital path — input quantization + ADC, fused
-            one-kernel recurrence.
+            one-kernel recurrence, plane-gain noise, clipped writes.
 
-The ``analog``, ``analog_state`` and ``cmos`` substrates, fault
-injection and the write path arrive with later slices (ROADMAP queue A).
+The ``analog``, ``analog_state`` and ``cmos`` substrates and fault
+injection arrive with later slices (ROADMAP queue A).
 """
 from repro_torch.backends.base import DeviceBackend, DeviceSpec
 from repro_torch.backends.registry import (available_backends, get_backend,

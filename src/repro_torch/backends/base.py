@@ -1,21 +1,26 @@
 """Device-backend protocol — the seam between algorithm and substrate.
 
-Counterpart of ``repro/backends/base.py``, forward path only:
+Counterpart of ``repro/backends/base.py``:
 
-  vmm(drive, weights)      forward matrix–vector product — where input
-                           quantization and bit-streaming live.
-  quantize_readout(pre)    the fused output ADC, applied after the bias
-                           add (identity for digital paths).
-  prepare_weights(params)  per-forward weight preparation, hoisted out of
-                           the per-step loop.
-  device_recurrence(...)   the whole MiRU recurrence on this substrate.
+  vmm(drive, weights, key)  forward matrix–vector product — where input
+                            quantization, bit-streaming and plane-gain
+                            noise live.
+  quantize_readout(pre)     the fused output ADC, applied after the bias
+                            add (identity for digital paths).
+  prepare_weights(params)   per-forward weight preparation, hoisted out
+                            of the per-step loop.
+  device_recurrence(...)    the whole MiRU recurrence on this substrate.
+  apply_update(params, dw)  the weight write (exact, or clipped to the
+                            substrate's dynamic range).
+  record_endurance(applied) host-side write counting into telemetry.
 
 Every backend carries a :class:`~repro_torch.telemetry.Telemetry`
 accumulator (disabled by default) that the ``device_*`` wrappers meter.
 
-Ported substrates are deterministic, so the reference's PRNG keys have
-no counterpart here. Device state and fault injection (``FaultSpec``)
-are not ported yet: a spec with ``faults`` set raises.
+Stochastic substrates draw from :mod:`repro_torch.prng` keys, on the
+reference's key chains. Device state and fault injection (``FaultSpec``),
+the endurance tracker and the analog write physics are not ported yet:
+a spec that asks for them raises.
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ import abc
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.ref import tanh_f32
 from repro_torch.telemetry.meters import Telemetry
 
@@ -40,6 +47,7 @@ class DeviceSpec:
       adc_range    symmetric ADC full scale, logical units.
       gain_sigma   WBS per-plane memristor-ratio variability (§V-A).
       weight_clip  logical dynamic range of a stored weight (None = ∞).
+      track_endurance  attach an endurance tracker; only False is ported.
       faults       a fault model; only None is ported.
     """
     input_bits: Optional[int] = None
@@ -47,6 +55,7 @@ class DeviceSpec:
     adc_range: float = 4.0
     gain_sigma: float = 0.0
     weight_clip: Optional[float] = None
+    track_endurance: bool = False
     faults: Optional[Any] = None
 
 
@@ -59,8 +68,13 @@ class DeviceBackend(abc.ABC):
         self.spec = spec if spec is not None else self.default_spec()
         if self.spec.faults is not None:
             raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP queue A8); "
-                "use faults=None")
+                "fault injection is not ported yet (ROADMAP queue A, "
+                "faults/); use faults=None")
+        if self.spec.track_endurance:
+            raise NotImplementedError(
+                "the endurance tracker is not ported yet (ROADMAP queue A, "
+                "analog substrates and telemetry); write pulses are "
+                "metered through telemetry")
         self.telemetry = Telemetry(enabled=False)
 
     @classmethod
@@ -68,10 +82,51 @@ class DeviceBackend(abc.ABC):
         return DeviceSpec()
 
     @abc.abstractmethod
-    def vmm(self, drive: torch.Tensor, weights: torch.Tensor
-            ) -> torch.Tensor:
+    def vmm(self, drive: torch.Tensor, weights: torch.Tensor,
+            key: Optional[np.ndarray] = None) -> torch.Tensor:
         """y = drive @ weights on this substrate. drive (..., n_in),
-        weights (n_in, n_out)."""
+        weights (n_in, n_out). ``key`` feeds per-access noise; a backend
+        is deterministic when it is None."""
+
+    @property
+    def draws_noise(self) -> bool:
+        """Whether the forward consumes its PRNG keys. When it does not,
+        the per-step key chain is not derived: no result depends on it."""
+        return False
+
+    @abc.abstractmethod
+    def apply_update(self, params: Params, updates: Params,
+                     key: Optional[np.ndarray] = None
+                     ) -> tuple[Params, Params]:
+        """Write ``updates`` (already lr-scaled and sparsified) into
+        ``params``. Returns (new_params, applied), ``applied`` being the
+        deltas that actually landed (after clipping)."""
+
+    def record_endurance(self, applied: Params) -> None:
+        """Host-side write counting into telemetry (write pulses: only
+        nonzero applied updates cost one); a no-op while telemetry is
+        off."""
+        if not self.telemetry.enabled:
+            return
+        self.telemetry.meter_writes({k: v != 0 for k, v in applied.items()
+                                     if v.ndim >= 2})
+
+    def init_device_state(self, params: Params,
+                          key: Optional[np.ndarray] = None) -> None:
+        """The substrate's physical state for ``params``. The ported
+        substrates are stateless and fault-free: None."""
+        del params, key
+        return None
+
+    def device_apply_update(self, params: Params, updates: Params,
+                            key: Optional[np.ndarray] = None,
+                            state: Optional[Any] = None
+                            ) -> tuple[Params, Params, Optional[Any]]:
+        """``apply_update`` that also advances the device state (None on
+        the ported substrates). Write pulses are metered afterwards, in
+        :meth:`record_endurance`."""
+        new_params, applied = self.apply_update(params, updates, key)
+        return new_params, applied, state
 
     def quantize_readout(self, pre: torch.Tensor) -> torch.Tensor:
         """Fused output ADC, applied after the bias add. Identity by
@@ -86,19 +141,19 @@ class DeviceBackend(abc.ABC):
         del params
         return None
 
-    def device_vmm(self, drive: torch.Tensor, weights: torch.Tensor, *,
-                   tag: str = "",
+    def device_vmm(self, drive: torch.Tensor, weights: torch.Tensor,
+                   key: Optional[np.ndarray] = None, *, tag: str = "",
                    prepared: Optional[dict[str, Any]] = None
                    ) -> torch.Tensor:
         """``vmm`` + activity metering. ``tag`` names the crossbar tile;
         ``prepared`` is a :meth:`prepare_weights` result for the same
         params."""
-        y = self._vmm_impl(drive, weights, tag, prepared)
+        y = self._vmm_impl(drive, weights, key, tag, prepared)
         self.telemetry.meter_vmm(drive, weights, self.spec.input_bits, tag)
         return y
 
-    def _vmm_impl(self, drive, weights, tag, prepared) -> torch.Tensor:
-        return self.vmm(drive, weights)
+    def _vmm_impl(self, drive, weights, key, tag, prepared) -> torch.Tensor:
+        return self.vmm(drive, weights, key)
 
     def device_readout(self, pre: torch.Tensor,
                        tag: str = "hidden") -> torch.Tensor:
@@ -108,16 +163,31 @@ class DeviceBackend(abc.ABC):
             self.telemetry.meter_adc(pre, tag)
         return q
 
-    def device_recurrence(self, params: Params, cfg, x_seq: torch.Tensor, *,
+    def step_keys(self, key: Optional[np.ndarray], T: int
+                  ) -> list[tuple[Optional[np.ndarray], ...]]:
+        """The per-step keys (k1, k2) of the reference's per-step scan,
+        which splits its carried key three ways every step; all None when
+        no key is given or the forward draws no noise."""
+        if key is None or not self.draws_noise:
+            return [(None, None)] * T
+        out = []
+        for _ in range(T):
+            key, k1, k2 = prng.split(key, 3)
+            out.append((k1, k2))
+        return out
+
+    def device_recurrence(self, params: Params, cfg, x_seq: torch.Tensor,
+                          key: Optional[np.ndarray] = None, *,
                           fused: Optional[bool] = None,
                           h0: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
         """Run the MiRU hidden recurrence (eqs. 1-2) over x_seq
-        (B, T, n_x). ``cfg`` carries beta, lam, n_h and dtype. ``h0``
-        (B, n_h) resumes from a carried hidden state (the serve engine's
-        slab); None starts from zeros. Returns (h_all, h_prev, pre), each
-        (B, T, n_h).
+        (B, T, n_x). ``cfg`` carries beta, lam, n_h and dtype. ``key``
+        feeds the per-step noise (the reference's chain: a 3-way split per
+        step, one subkey per tile). ``h0`` (B, n_h) resumes from a carried
+        hidden state (the serve engine's slab); None starts from zeros.
+        Returns (h_all, h_prev, pre), each (B, T, n_h).
 
         The default is the per-step loop: two ``device_vmm`` calls and
         one ``device_readout`` per step. Substrates with a fused path
@@ -128,14 +198,16 @@ class DeviceBackend(abc.ABC):
         del fused
         B, T, _ = x_seq.shape
         prepared = self.prepare_weights(params)
+        keys = self.step_keys(key, T)
         h = h0 if h0 is not None else torch.zeros(
             (B, cfg.n_h), dtype=cfg.dtype, device=x_seq.device)
         h_all, h_prev, pre_all = [], [], []
         for t in range(T):
-            pre = self.device_vmm(x_seq[:, t], params["w_h"], tag="w_h",
+            k1, k2 = keys[t]
+            pre = self.device_vmm(x_seq[:, t], params["w_h"], k1, tag="w_h",
                                   prepared=prepared) \
-                + self.device_vmm(cfg.beta * h, params["u_h"], tag="u_h",
-                                  prepared=prepared) \
+                + self.device_vmm(cfg.beta * h, params["u_h"], k2,
+                                  tag="u_h", prepared=prepared) \
                 + params["b_h"]
             pre = self.device_readout(pre)
             h_new = cfg.lam * h + (1.0 - cfg.lam) * tanh_f32(pre)

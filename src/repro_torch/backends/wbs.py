@@ -11,16 +11,21 @@ recurrence is one ``wbs_matmul`` for the hoisted input drive plus one
 ``wbs_miru_scan``; the per-step path is one ``wbs_matmul`` per tile per
 step. The two are bitwise equal wherever the ADC is on.
 
-Not ported: ``gain_sigma > 0`` (its per-plane noise comes from
-jax.random; ROADMAP queue A1) and fault masks.
+``gain_sigma > 0`` draws each tile's plane gains from the step's
+:mod:`repro_torch.prng` key, on the reference's per-step chain; the fused
+path replays that chain up front and hands the scan its (T, n_bits)
+gains. Not ported: fault masks.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.analog.adc import adc_quantize
+from repro_torch.analog.wbs import ideal_gains
 from repro_torch.backends.base import DeviceBackend, DeviceSpec, Params
 from repro_torch.backends.registry import register_backend
 from repro_torch.kernels import ops as kops
@@ -30,13 +35,6 @@ from repro_torch.kernels import ops as kops
 class WBSBackend(DeviceBackend):
     name = "wbs"
 
-    def __init__(self, spec: Optional[DeviceSpec] = None):
-        super().__init__(spec)
-        if self.spec.gain_sigma > 0:
-            raise NotImplementedError(
-                "gain_sigma > 0 needs bit-exact jax.random replay, which "
-                "waits for the threefry port (ROADMAP queue A1)")
-
     @classmethod
     def default_spec(cls) -> DeviceSpec:
         return DeviceSpec(input_bits=8, adc_bits=8, adc_range=4.0,
@@ -44,6 +42,22 @@ class WBSBackend(DeviceBackend):
 
     def _weight_scale(self) -> float:
         return self.spec.weight_clip if self.spec.weight_clip else 1.0
+
+    @property
+    def draws_noise(self) -> bool:
+        return self.spec.gain_sigma > 0
+
+    def _sample_gains(self, key: Optional[np.ndarray], device
+                      ) -> Optional[torch.Tensor]:
+        """Plane gains ideal·(1 + σ·N(0, 1)) drawn from ``key`` —
+        (n_bits,) for one key, (T, n_bits) for a (T, 2) stack — or None
+        (the ideal ratios) without noise."""
+        if key is None or self.spec.gain_sigma <= 0:
+            return None
+        n_bits = self.spec.input_bits or 8
+        noise = prng.normal(key, (n_bits,))
+        g = ideal_gains(n_bits) * (1.0 + self.spec.gain_sigma * noise)
+        return g.to(device)
 
     def prepare_weights(self, params: Params) -> Optional[dict]:
         """Hoist the once-per-forward logical-scale division of every ≥2-D
@@ -54,19 +68,22 @@ class WBSBackend(DeviceBackend):
                     if p.ndim >= 2}
         return prepared or None
 
-    def _vmm_impl(self, drive, weights, tag, prepared):
+    def _vmm_impl(self, drive, weights, key, tag, prepared):
         w = prepared.get(tag) if prepared else None
-        return self.vmm(drive, weights, prepared=w)
+        return self.vmm(drive, weights, key, prepared=w)
 
     def vmm(self, drive: torch.Tensor, weights: torch.Tensor,
+            key: Optional[np.ndarray] = None,
             prepared: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """WBS crossbar product. ``prepared`` is this tile's
+        """WBS crossbar product. ``key`` draws the plane gains when
+        ``gain_sigma > 0``; ``prepared`` is this tile's
         :meth:`prepare_weights` entry."""
         n_bits = self.spec.input_bits or 8
         scale = self._weight_scale()
         w = prepared if prepared is not None else weights / scale
         y = kops.wbs_dense(drive, w.to(torch.float32), n_bits=n_bits,
-                           adc_bits=None)
+                           adc_bits=None,
+                           gains=self._sample_gains(key, drive.device))
         return y * scale
 
     def _fused_recurrence_ok(self) -> bool:
@@ -76,23 +93,32 @@ class WBSBackend(DeviceBackend):
         return (self.spec.input_bits is not None
                 and self.spec.adc_bits is not None)
 
-    def device_recurrence(self, params, cfg, x_seq, *, fused=None, h0=None):
+    def device_recurrence(self, params, cfg, x_seq, key=None, *, fused=None,
+                          h0=None):
         """Fused WBS×MiRU recurrence: ONE batched crossbar product for the
         input projection (no sequential dependency) and one kernel for
-        the sequential part. Falls back to the per-step loop where the
-        gate refuses or the caller asks (``fused=False``)."""
+        the sequential part; under ``gain_sigma > 0`` the per-step path's
+        key chain is replayed up front, so both consume the same gains.
+        Falls back to the per-step loop where the gate refuses or the
+        caller asks (``fused=False``)."""
         if fused is False or not self._fused_recurrence_ok():
-            return super().device_recurrence(params, cfg, x_seq,
+            return super().device_recurrence(params, cfg, x_seq, key,
                                              fused=fused, h0=h0)
         T = x_seq.shape[1]
         n_bits = self.spec.input_bits
         scale = self._weight_scale()
+        gains_w = gains_u = None
+        if key is not None and self.draws_noise:
+            k1s, k2s = (np.stack(ks) for ks in zip(*self.step_keys(key, T)))
+            gains_w = self._sample_gains(k1s, x_seq.device)
+            gains_u = self._sample_gains(k2s, x_seq.device)
         drive = kops.wbs_input_drive(x_seq, params["w_h"], n_bits,
-                                     weight_scale=scale)
+                                     weight_scale=scale, gains=gains_w)
         h_all, h_prev, pre = kops.wbs_miru_scan(
             drive, params["u_h"], params["b_h"], h0, beta=cfg.beta,
             lam=cfg.lam, n_bits=n_bits, adc_bits=self.spec.adc_bits,
-            adc_range=self.spec.adc_range, weight_scale=scale)
+            adc_range=self.spec.adc_range, weight_scale=scale,
+            gains=gains_u)
         # Same counter keys and totals as the per-step path: the hoisted
         # drive is one (B·T)-row access of w_h; the scan is T per-step
         # accesses of u_h plus T ADC readouts.
@@ -107,3 +133,18 @@ class WBSBackend(DeviceBackend):
         if self.spec.adc_bits is None:
             return pre
         return adc_quantize(pre, self.spec.adc_bits, self.spec.adc_range)
+
+    def apply_update(self, params: Params, updates: Params,
+                     key: Optional[np.ndarray] = None
+                     ) -> tuple[Params, Params]:
+        """Exact digital write, clipped to the logical dynamic range;
+        ``applied`` is what landed after the clip."""
+        clip = self.spec.weight_clip
+        new_params, applied = {}, {}
+        for name, p in params.items():
+            w = p + updates[name]
+            if clip is not None:
+                w = torch.clamp(w, -clip, clip)
+            new_params[name] = w
+            applied[name] = w - p
+        return new_params, applied

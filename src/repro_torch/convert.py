@@ -1,4 +1,4 @@
-"""Move parameters between the packages as numpy arrays."""
+"""Move parameters and run state between the packages as numpy arrays."""
 from __future__ import annotations
 
 from typing import Union
@@ -18,3 +18,17 @@ def params_from_numpy(params: dict[str, np.ndarray],
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
             for k, v in params.items()}
+
+
+def run_state_from_numpy(key: np.ndarray, params: dict[str, np.ndarray],
+                         psi: np.ndarray,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> tuple[np.ndarray, dict[str, torch.Tensor],
+                                    torch.Tensor]:
+    """A training run's initial state — (key, params, Ψ), e.g. the
+    reference's ``_init_run`` output as numpy — as the port's
+    ``run_continual(init=...)`` takes it: the key as a uint32 pair, the
+    params and Ψ as tensors on ``device`` with the same bits."""
+    dev = resolve_device(device)
+    return (np.asarray(key, np.uint32).copy(), params_from_numpy(params, dev),
+            torch.from_numpy(np.array(psi, copy=True)).to(dev))

@@ -36,6 +36,7 @@
 
 #include <cstdint>
 
+#include "smem_optin.cuh"
 #include "wbs_common.cuh"
 
 namespace {
@@ -128,19 +129,16 @@ extern "C" int wbs_miru_scan_launch(
     void* stream) {
   if (B % kBM != 0 || n_bits < 1 || n_bits > wbs::kMaxBits || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  static smem_optin::SmemOptin optin;
   int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = smem_optin::device_limit(optin, &dev, &max_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool u_in_smem = smem_bytes(H, true) <= static_cast<size_t>(max_smem);
   const size_t smem = smem_bytes(H, u_in_smem);
   if (smem > static_cast<size_t>(max_smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(wbs_miru_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = smem_optin::grant(optin, reinterpret_cast<const void*>(wbs_miru_scan_kernel),
+                          dev, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float top = static_cast<float>((1 << n_bits) - 1);
   const dim3 block(kThreadsX, kBM);

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the WBS kernels — the correctness contract.
+"""Plain PyTorch versions of the kernels — the correctness contract.
 
 Counterparts of ``repro/kernels/ref.py``'s ``wbs_matmul_ref`` and
-``wbs_miru_scan_ref``, with the same inputs, outputs, integer/bit
+``wbs_miru_scan_ref`` (and of the Pallas ``miru_scan`` and the readout
+``h @ w_o + b_o``), with the same inputs, outputs, integer/bit
 semantics and fp order of the epilogue, ``(drive + y) + b_h`` and
 ``acc·norm·w_scale``. Two choices go further than the reference, so that
 the plain versions repeat the CUDA kernels bit for bit on any device:
@@ -115,3 +116,41 @@ def wbs_miru_scan_ref(drive: torch.Tensor, u_h: torch.Tensor,
         h = h_new
     return (torch.stack(h_all, 1), torch.stack(h_prev, 1),
             torch.stack(pre_all, 1))
+
+
+def miru_scan_ref(xw: torch.Tensor, u_h: torch.Tensor, h0: torch.Tensor,
+                  beta: float, lam: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ideal float MiRU recurrence over a precomputed drive, in the order
+    of ``csrc/miru_scan.cu``: pre_t = xw_t + Σ_k (β·h)_k·U[k] with k
+    ascending, each product and sum rounded to fp32, and h_t = λ·h +
+    (1−λ)·tanh(pre_t) with the float64 tanh. xw (B, T, H), u_h (H, H),
+    h0 (B, H) → (h_all, pre), each (B, T, H) f32."""
+    T, H = xw.shape[1], xw.shape[2]
+    u = u_h.to(torch.float32)
+    h = h0.to(torch.float32)
+    h_all, pre_all = [], []
+    for t in range(T):
+        bh = beta * h
+        acc = torch.zeros_like(h)
+        for k in range(H):
+            acc = acc + bh[:, k, None] * u[k]
+        pre = xw[:, t].to(torch.float32) + acc
+        h = lam * h + (1.0 - lam) * tanh_f32(pre)
+        h_all.append(h)
+        pre_all.append(pre)
+    return torch.stack(h_all, 1), torch.stack(pre_all, 1)
+
+
+def miru_readout_ref(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
+                     ) -> torch.Tensor:
+    """logits = (h @ w_o) + b_o in the order of ``csrc/miru_readout.cu``:
+    k ascending, each product and sum rounded to fp32, the bias last.
+    Every row's bits depend on that row alone, whatever the number of
+    rows. h (M, K), w_o (K, N), b_o (N,) → (M, N) f32."""
+    w = w_o.to(torch.float32)
+    acc = torch.zeros((h.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=h.device)
+    for k in range(h.shape[1]):
+        acc = acc + h[:, k, None].to(torch.float32) * w[k]
+    return acc + b_o.to(torch.float32)

@@ -25,6 +25,14 @@ ADC_CONVERSIONS = "adc_conversions"  # per-channel ADC conversions
 INTERP = "interp"                    # λ-interpolated candidate states
 SAMPLE_STEPS = "sample_steps"        # (sample × time-step) recurrence rows
 SEQUENCES = "sequences"              # sequences fully processed
+WRITE_PULSES = "write_pulses"        # nonzero programmed synapses
+WRITE_EVENTS = "write_events"        # weight-update rounds
+# Replay-buffer DRAM traffic (§IV-A: the rehearsal store lives in
+# off-chip DRAM): rows moved and bytes (quantized codes + int32 label).
+REPLAY_READS = "replay_reads"                # rehearsal rows fetched
+REPLAY_WRITES = "replay_writes"              # rows programmed into DRAM
+REPLAY_READ_BYTES = "replay_read_bytes"
+REPLAY_WRITE_BYTES = "replay_write_bytes"
 
 
 class Telemetry:
@@ -94,6 +102,16 @@ class Telemetry:
             return
         sfx = f"/{tag}" if tag else ""
         self.record({f"{ADC_CONVERSIONS}{sfx}": int(np.prod(x.shape))})
+
+    def meter_writes(self, masks: Mapping[str, "torch.Tensor"]) -> None:
+        """Write pulses from concrete nonzero-update masks (only written
+        devices cost a pulse — §VI-B), plus one write event."""
+        if not self.enabled:
+            return
+        deltas = {f"{WRITE_PULSES}/{k}": int(m.sum()) for k, m in
+                  masks.items()}
+        deltas[WRITE_EVENTS] = 1
+        self.record(deltas)
 
     def __repr__(self) -> str:
         state = "enabled" if self.enabled else "disabled"

@@ -148,8 +148,8 @@ def test_prepared_weights_are_the_per_call_ones():
 
 
 def test_unported_substrate_options_raise():
-    with pytest.raises(NotImplementedError, match="A1"):
-        get_backend("wbs", spec_overrides=dict(gain_sigma=0.1))
+    with pytest.raises(NotImplementedError, match="endurance tracker"):
+        get_backend("wbs", spec_overrides=dict(track_endurance=True))
     with pytest.raises(NotImplementedError, match="fault"):
         get_backend("ideal", spec=DeviceSpec(faults=object()))
 
@@ -175,3 +175,30 @@ def test_registry():
     finally:
         unregister_backend("_test_double")
     assert "_test_double" not in available_backends()
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_gain_noise_fused_equals_per_step_and_reference(with_h0):
+    """``gain_sigma > 0``: the fused path replays the per-step key chain,
+    so it equals the per-step path bit for bit, and both follow the
+    reference's draws (fp32 tolerance: the gains' normal draw is within
+    3 ulp of jax's)."""
+    from repro_torch import prng
+    jcfg, cfg, jp, p = _setup()
+    x, h0 = _xs(5, 6, 6, 12, 4, with_h0)
+    spec = dict(gain_sigma=0.05)
+    backend = get_backend("wbs", spec_overrides=spec)
+    fused = backend.device_recurrence(p, cfg, _t(x), prng.PRNGKey(3),
+                                      fused=True, h0=_t(h0))
+    step = backend.device_recurrence(p, cfg, _t(x), prng.PRNGKey(3),
+                                     fused=False, h0=_t(h0))
+    for a, c in zip(fused, step):
+        assert torch.equal(a, c)
+    ideal = backend.device_recurrence(p, cfg, _t(x), fused=True, h0=_t(h0))
+    assert not torch.equal(ideal[2], fused[2])
+    want = jget_backend("wbs", spec_overrides=spec).device_recurrence(
+        jp, jcfg, jnp.asarray(x), jax.random.PRNGKey(3), fused=True,
+        h0=_j(h0))
+    for g, w in zip(fused, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)

@@ -18,6 +18,8 @@ from repro_torch.core.miru import MiRUConfig, init_miru_params
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import wbs_matmul as kmatmul
 from repro_torch.kernels import wbs_miru_scan as kscan
+from repro_torch.kernels import miru_readout as kreadout
+from repro_torch.kernels import miru_scan as kmiru
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +109,83 @@ def test_wrappers_check_their_inputs(cuda):
                            g)
     with pytest.raises(ValueError, match="one CUDA device"):
         kmatmul.wbs_matmul(sign, code, w.cpu(), g)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,t,h", [(64, 28, 100), (300, 28, 100),
+                                   (64, 28, 256), (3, 5, 37), (9, 3, 128),
+                                   (8, 2, 1024)])
+def test_miru_scan_kernel_equals_plain(cuda, b, t, h, with_h0):
+    rng = np.random.default_rng(b * t + h + 1)
+    xw, u, h0 = _on(
+        cuda, rng.normal(0, 0.6, (b, t, h)).astype(np.float32),
+        rng.uniform(-1, 1, (h, h)).astype(np.float32) * np.float32(
+            np.sqrt(3.0 / h)),
+        rng.uniform(-0.5, 0.5, (b, h)).astype(np.float32))
+    if not with_h0:
+        h0 = torch.zeros_like(h0)
+    before = kmiru.launches
+    got = ops.miru_scan(xw, u, h0, 0.8, 0.5)
+    want = ref.miru_scan_ref(xw, u, h0, 0.8, 0.5)
+    torch.cuda.synchronize()
+    assert kmiru.launches == before + 1
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_readout_kernel_equals_plain_and_is_row_exact(cuda):
+    rng = np.random.default_rng(5)
+    h, w, b = _on(cuda, rng.uniform(-1, 1, (896, 100)).astype(np.float32),
+                  rng.normal(0, 0.3, (100, 10)).astype(np.float32),
+                  rng.normal(0, 0.1, (10,)).astype(np.float32))
+    before = kreadout.launches
+    full = ops.miru_readout(h, w, b)
+    torch.cuda.synchronize()
+    assert kreadout.launches == before + 1
+    assert torch.equal(full, ref.miru_readout_ref(h, w, b))
+    for m in (1, 14, 200, 896):
+        assert torch.equal(ops.miru_readout(h[:m].contiguous(), w, b),
+                           full[:m])
+
+
+def test_miru_forward_fused_launches_the_scan_on_the_card(cuda):
+    from repro_torch.core.miru import miru_forward
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    params = init_miru_params(torch.Generator().manual_seed(2), cfg, cuda)
+    x = torch.rand((64, 28, 28), generator=torch.Generator().manual_seed(3))
+    before = (kmiru.launches, kreadout.launches)
+    logits, inter = miru_forward(params, cfg, x.to(cuda), use_fused=True)
+    torch.cuda.synchronize()
+    assert (kmiru.launches, kreadout.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    cpu, cinter = miru_forward({k: v.cpu() for k, v in params.items()}, cfg,
+                               x, use_fused=True)
+    np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(),
+                               rtol=2e-5, atol=1e-6)
+
+
+def test_one_slot_engine_serves_the_64_slot_bits(cuda):
+    from repro_torch.serve import (RecurrentServeConfig,
+                                   RecurrentServeEngine, TrafficSpec, replay)
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    params = init_miru_params(torch.Generator().manual_seed(0), cfg, cuda)
+    arrivals = [(a.uid, f) for a, f in replay(TrafficSpec(
+        n_requests=24, rate_hz=None, n_users=6, frames_min=28,
+        frames_max=28, n_x=28, seed=0))]
+
+    def serve(slots, traffic):
+        eng = RecurrentServeEngine(
+            cfg, RecurrentServeConfig(device="wbs", fresh_meter=True,
+                                      batch_slots=slots, chunk=14),
+            params, torch_device=cuda)
+        reqs = [eng.submit(f, uid=u) for u, f in traffic]
+        eng.run_until_drained()
+        return reqs
+
+    full = serve(64, arrivals)
+    for uid in sorted({u for u, _ in arrivals})[:3]:
+        mine = [(u, f) for u, f in arrivals if u == uid]
+        alone = serve(1, mine)
+        want = [r.logits for (u, _), r in zip(arrivals, full) if u == uid]
+        for a, w in zip(alone, want):
+            assert np.array_equal(a.logits, w)

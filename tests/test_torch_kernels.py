@@ -24,6 +24,9 @@ from repro_torch.analog.wbs import ideal_gains, quantize_signed  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import wbs_matmul as kmatmul  # noqa: E402
 from repro_torch.kernels import wbs_miru_scan as kscan  # noqa: E402
+from repro_torch.kernels import miru_readout as kreadout  # noqa: E402
+from repro_torch.kernels import miru_scan as kmiru  # noqa: E402
+from repro.kernels.miru_scan import miru_scan_pallas  # noqa: E402
 
 SCAN_KW = dict(beta=0.8, lam=0.5, n_bits=8, adc_range=4.0)
 
@@ -193,7 +196,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
 def test_build_names_each_source_by_digest(monkeypatch):
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.NAMES)
     paths = {n: _build.library_path(n) for n in _build.NAMES}
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == len(_build.NAMES)
     assert all(p.parent == _build.BUILD_DIR for p in paths.values())
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
@@ -212,3 +215,93 @@ def test_pallas_matmul_interpret_direct():
     got = ops.wbs_matmul(sign, code, w, g, 8)
     testing.compare_matmul(got, want, sign=sign, code=code, w=w, gains=g,
                            adc_bits=8).check()
+
+
+# ---------------------------------------------------------------------------
+# The ideal MiRU scan and the readout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_miru_scan_ref_vs_pallas_interpret_direct(with_h0):
+    """The plain version against the Pallas kernel at block multiples (B
+    a multiple of 8, H of 128), no wrapper in between; fp32 tolerance
+    (rtol 2e-5, atol 1e-6: XLA's dot sums in its own order)."""
+    rng = np.random.default_rng(11)
+    xw = rng.normal(0, 0.6, (8, 5, 128)).astype(np.float32)
+    u = (rng.uniform(-1, 1, (128, 128)) * 0.15).astype(np.float32)
+    h0 = (rng.uniform(-0.5, 0.5, (8, 128)) if with_h0
+          else np.zeros((8, 128))).astype(np.float32)
+    got = ref.miru_scan_ref(*(torch.from_numpy(a) for a in (xw, u, h0)),
+                            0.8, 0.5)
+    want = miru_scan_pallas(jnp.asarray(xw), jnp.asarray(u),
+                            jnp.asarray(h0), beta=0.8, lam=0.5,
+                            interpret=True)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=2e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 100, 10), (14, 100, 10), (9, 7, 3)])
+def test_miru_readout_ref_order_and_reference(m, k, n):
+    """k ascending, products and sums rounded to fp32, the bias last: the
+    plain readout equals the hand-written loop bit for bit, and the
+    reference's ``h @ w_o + b_o`` at fp32 tolerance."""
+    rng = np.random.default_rng(m + k)
+    h, w, b = (torch.from_numpy(rng.normal(0, 0.5, s).astype(np.float32))
+               for s in ((m, k), (k, n), (n,)))
+    got = ref.miru_readout_ref(h, w, b)
+    acc = torch.zeros(m, n)
+    for i in range(k):
+        acc = acc + h[:, i:i + 1] * w[i]
+    assert torch.equal(got, acc + b)
+    want = jnp.asarray(h.numpy()) @ jnp.asarray(w.numpy()) \
+        + jnp.asarray(b.numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=1e-6)
+
+
+def test_ops_readout_and_scan_dispatch_cpu_to_plain(monkeypatch):
+    """On CPU tensors the ops run the plain versions and never touch a
+    kernel wrapper."""
+    def boom(*a, **k):
+        raise AssertionError("a CUDA kernel wrapper was called on the CPU")
+    monkeypatch.setattr(kreadout, "miru_readout", boom)
+    monkeypatch.setattr(kmiru, "miru_scan", boom)
+    rng = np.random.default_rng(2)
+    h, w, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((3, 4, 6), (6, 5), (5,)))
+    got = ops.miru_readout(h, w, b)
+    assert got.shape == (3, 4, 5)
+    assert torch.equal(got.reshape(12, 5),
+                       ref.miru_readout_ref(h.reshape(12, 6), w, b))
+    u, h0 = torch.zeros(6, 6), torch.zeros(3, 6)
+    assert all(torch.equal(a, c) for a, c in zip(
+        ops.miru_scan(h, u, h0, 0.8, 0.5),
+        ref.miru_scan_ref(h, u, h0, 0.8, 0.5)))
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
+    with pytest.raises(ValueError, match="CUDA"):
+        kmiru.miru_scan(torch.zeros(2, 3, 4), torch.zeros(4, 4),
+                        torch.zeros(2, 4), beta=0.8, lam=0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kreadout.miru_readout(torch.zeros(2, 4), torch.zeros(4, 3),
+                              torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="B2"):
+        ops.wbs_matmul(*_matmul_inputs(8, 4, 3, 0), ideal_gains(8),
+                       read_sigma=0.1)
+
+
+def test_wbs_input_drive_per_step_gains_are_the_per_step_products():
+    """With per-step gains, each step's drive is that step's own
+    crossbar product, row for row."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(-1, 1, (3, 4, 7)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.3, (7, 5)).astype(np.float32))
+    gains = ideal_gains(8) * (1 + 0.05 * torch.from_numpy(
+        rng.normal(size=(4, 8)).astype(np.float32)))
+    got = ops.wbs_input_drive(x, w, 8, weight_scale=1.5, gains=gains)
+    for t in range(4):
+        step = ops.wbs_dense(x[:, t], w / 1.5, 8, adc_bits=None,
+                             gains=gains[t]) * 1.5
+        assert torch.equal(got[:, t], step)

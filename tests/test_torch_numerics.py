@@ -92,9 +92,23 @@ def test_wbs_vmm_matches_reference(shape, adc_bits):
 
 
 def test_wbs_vmm_gain_noise_not_ported():
-    with pytest.raises(NotImplementedError, match="threefry"):
-        wbs.wbs_vmm(torch.zeros(2, 3), torch.zeros(3, 4),
-                    wbs.WBSSpec(gain_sigma=0.1))
+    """Plane-gain noise used to raise until the threefry port; it now
+    draws from the same key as the reference and agrees at rtol = atol =
+    2e-5 (the gains' normal draw is within 3 ulp, not bit-exact)."""
+    from repro_torch import prng
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (5, 11)).astype(np.float32)
+    w = rng.normal(0, 0.3, (11, 9)).astype(np.float32)
+    spec = dict(n_bits=8, adc_bits=None, gain_sigma=0.1)
+    got = wbs.wbs_vmm(torch.from_numpy(x), torch.from_numpy(w),
+                      wbs.WBSSpec(**spec), key=prng.PRNGKey(3)).numpy()
+    want = np.asarray(jwbs.wbs_vmm(jnp.asarray(x), jnp.asarray(w),
+                                   jwbs.WBSSpec(**spec),
+                                   key=jax.random.PRNGKey(3)))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    ideal = wbs.wbs_vmm(torch.from_numpy(x), torch.from_numpy(w),
+                        wbs.WBSSpec(**spec)).numpy()
+    assert not np.allclose(got, ideal, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("by_magnitude", [True, False])
@@ -143,9 +157,20 @@ def test_miru_forward_matches_reference(with_h0):
 
 
 def test_miru_fused_not_ported():
-    _, cfg, _, p = _miru_setup()
-    with pytest.raises(NotImplementedError, match="B3"):
-        miru.miru_forward(p, cfg, torch.zeros(2, 3, 5), use_fused=True)
+    """``use_fused=True`` used to raise until the miru_scan kernel was
+    ported; it now runs the fused scan (its plain version on the CPU) and
+    matches the reference's fused forward at fp32 tolerance."""
+    jcfg, cfg, jp, p = _miru_setup()
+    x = np.random.default_rng(4).uniform(-1, 1, (2, 3, 5)).astype(np.float32)
+    logits, inter = miru.miru_forward(p, cfg, torch.from_numpy(x),
+                                      use_fused=True)
+    jlogits, jinter = jmiru.miru_forward(jp, jcfg, jnp.asarray(x),
+                                         use_fused=True)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=RTOL, atol=ATOL)
+    for k in ("h_all", "h_prev", "pre"):
+        np.testing.assert_allclose(inter[k].numpy(), np.asarray(jinter[k]),
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("readout_k", [None, 3])

@@ -398,3 +398,40 @@ def test_slab_invariants_under_random_ops(n_slots, seed):
     for u, row in shadow.items():
         if slab.is_resident(u) or u in slab.spilled:
             assert np.array_equal(slab.read(u), row), u
+
+
+# ---------------------------------------------------------------------------
+# The row-exact readout (the one-slot vs 64-slot fault on the card)
+# ---------------------------------------------------------------------------
+
+def test_readout_plain_version_is_row_exact_across_m(params):
+    """Each row's logits depend on that row alone: the same 14 rows give
+    the same bits alone, in a 64-row batch and in an 896-row batch (the
+    serve shapes), where a library GEMM on the card picks another
+    kernel."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(3)
+    big = torch.from_numpy(rng.uniform(-1, 1, (896, N_H)).astype(np.float32))
+    rows = big[100:114]
+    want = ref.miru_readout_ref(rows, params["w_o"], params["b_o"])
+    for m in (1, 14, 64, 896):
+        batch = big[100:100 + m] if m >= 14 else rows[:m]
+        got = ref.miru_readout_ref(batch, params["w_o"], params["b_o"])
+        assert torch.equal(got[:min(m, 14)], want[:min(m, 14)])
+
+
+def test_miru_apply_readout_dispatches_to_the_readout(params, monkeypatch):
+    from repro_torch.kernels import ops, ref
+    calls = []
+    real = ops.miru_readout
+
+    def spy(h, w_o, b_o):
+        calls.append(tuple(h.shape))
+        return real(h, w_o, b_o)
+    monkeypatch.setattr(ops, "miru_readout", spy)
+    h = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (5, N_H)).astype(np.float32))
+    got = miru_apply_readout(params, CFG, h)
+    assert calls == [(5, N_H)]
+    assert torch.equal(got, ref.miru_readout_ref(h, params["w_o"],
+                                                 params["b_o"]))
