@@ -18,9 +18,14 @@ Every backend carries a :class:`~repro_torch.telemetry.Telemetry`
 accumulator (disabled by default) that the ``device_*`` wrappers meter.
 
 Stochastic substrates draw from :mod:`repro_torch.prng` keys, on the
-reference's key chains. Device state and fault injection (``FaultSpec``),
-the endurance tracker and the analog write physics are not ported yet:
-a spec that asks for them raises.
+reference's key chains. Substrates whose physical state is not the
+logical weight matrix (the conductance-domain ``analog_state``) thread an
+opaque dict through the train loop: ``init_device_state`` creates it,
+``device_vmm`` reads through it, ``device_apply_update`` advances it;
+stateless substrates return and ignore None. ``track_endurance``
+attaches an :class:`~repro_torch.analog.endurance.EnduranceTracker`.
+Fault injection (``FaultSpec``) is not ported yet: a spec that asks for
+it raises.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.analog.crossbar import CrossbarSpec
+from repro_torch.analog.endurance import EnduranceTracker
 from repro_torch.kernels.ref import tanh_f32
 from repro_torch.telemetry.meters import Telemetry
 
@@ -47,7 +54,9 @@ class DeviceSpec:
       adc_range    symmetric ADC full scale, logical units.
       gain_sigma   WBS per-plane memristor-ratio variability (§V-A).
       weight_clip  logical dynamic range of a stored weight (None = ∞).
-      track_endurance  attach an endurance tracker; only False is ported.
+      crossbar     device physics (read/write/programming noise, levels,
+                   drift) of the analog substrates.
+      track_endurance  attach an :class:`EnduranceTracker`.
       faults       a fault model; only None is ported.
     """
     input_bits: Optional[int] = None
@@ -55,6 +64,7 @@ class DeviceSpec:
     adc_range: float = 4.0
     gain_sigma: float = 0.0
     weight_clip: Optional[float] = None
+    crossbar: Optional[CrossbarSpec] = None
     track_endurance: bool = False
     faults: Optional[Any] = None
 
@@ -70,11 +80,8 @@ class DeviceBackend(abc.ABC):
             raise NotImplementedError(
                 "fault injection is not ported yet (ROADMAP queue A, "
                 "faults/); use faults=None")
-        if self.spec.track_endurance:
-            raise NotImplementedError(
-                "the endurance tracker is not ported yet (ROADMAP queue A, "
-                "analog substrates and telemetry); write pulses are "
-                "metered through telemetry")
+        self.tracker: Optional[EnduranceTracker] = \
+            EnduranceTracker() if self.spec.track_endurance else None
         self.telemetry = Telemetry(enabled=False)
 
     @classmethod
@@ -103,18 +110,21 @@ class DeviceBackend(abc.ABC):
         deltas that actually landed (after clipping)."""
 
     def record_endurance(self, applied: Params) -> None:
-        """Host-side write counting into telemetry (write pulses: only
-        nonzero applied updates cost one); a no-op while telemetry is
-        off."""
-        if not self.telemetry.enabled:
+        """Write counting into the endurance tracker and the telemetry's
+        write pulses (only nonzero applied updates cost one); a no-op
+        unless either is on. The masks stay on their device: neither
+        reads them back here."""
+        if self.tracker is None and not self.telemetry.enabled:
             return
-        self.telemetry.meter_writes({k: v != 0 for k, v in applied.items()
-                                     if v.ndim >= 2})
+        masks = {k: v != 0 for k, v in applied.items() if v.ndim >= 2}
+        self.telemetry.meter_writes(masks)
+        if self.tracker is not None:
+            self.tracker.record_update(masks)
 
     def init_device_state(self, params: Params,
-                          key: Optional[np.ndarray] = None) -> None:
-        """The substrate's physical state for ``params``. The ported
-        substrates are stateless and fault-free: None."""
+                          key: Optional[np.ndarray] = None) -> Any:
+        """The substrate's physical state for ``params``; None for the
+        stateless substrates."""
         del params, key
         return None
 
@@ -122,9 +132,9 @@ class DeviceBackend(abc.ABC):
                             key: Optional[np.ndarray] = None,
                             state: Optional[Any] = None
                             ) -> tuple[Params, Params, Optional[Any]]:
-        """``apply_update`` that also advances the device state (None on
-        the ported substrates). Write pulses are metered afterwards, in
-        :meth:`record_endurance`."""
+        """``apply_update`` that also advances the device state (the
+        stateless substrates carry it through). Write pulses are metered
+        afterwards, in :meth:`record_endurance`."""
         new_params, applied = self.apply_update(params, updates, key)
         return new_params, applied, state
 
@@ -133,26 +143,29 @@ class DeviceBackend(abc.ABC):
         default."""
         return pre
 
-    def prepare_weights(self, params: Params) -> Optional[dict[str, Any]]:
+    def prepare_weights(self, params: Params, *, state: Optional[Any] = None
+                        ) -> Optional[dict[str, Any]]:
         """Per-forward weight preparation keyed by crossbar tag
         (``w_h``/``u_h``/``w_o``), computed once before the per-step loop
         and passed to every :meth:`device_vmm`. None (the default) means
         each call derives what it needs, with the same bits."""
-        del params
+        del params, state
         return None
 
     def device_vmm(self, drive: torch.Tensor, weights: torch.Tensor,
-                   key: Optional[np.ndarray] = None, *, tag: str = "",
+                   key: Optional[np.ndarray] = None, *,
+                   state: Optional[Any] = None, tag: str = "",
                    prepared: Optional[dict[str, Any]] = None
                    ) -> torch.Tensor:
-        """``vmm`` + activity metering. ``tag`` names the crossbar tile;
-        ``prepared`` is a :meth:`prepare_weights` result for the same
-        params."""
-        y = self._vmm_impl(drive, weights, key, tag, prepared)
+        """``vmm`` + activity metering + the device-state read. ``tag``
+        names the crossbar tile; ``prepared`` is a
+        :meth:`prepare_weights` result for the same params and state."""
+        y = self._vmm_impl(drive, weights, key, state, tag, prepared)
         self.telemetry.meter_vmm(drive, weights, self.spec.input_bits, tag)
         return y
 
-    def _vmm_impl(self, drive, weights, key, tag, prepared) -> torch.Tensor:
+    def _vmm_impl(self, drive, weights, key, state, tag,
+                  prepared) -> torch.Tensor:
         return self.vmm(drive, weights, key)
 
     def device_readout(self, pre: torch.Tensor,
@@ -178,6 +191,7 @@ class DeviceBackend(abc.ABC):
 
     def device_recurrence(self, params: Params, cfg, x_seq: torch.Tensor,
                           key: Optional[np.ndarray] = None, *,
+                          state: Optional[Any] = None,
                           fused: Optional[bool] = None,
                           h0: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
@@ -185,7 +199,8 @@ class DeviceBackend(abc.ABC):
         """Run the MiRU hidden recurrence (eqs. 1-2) over x_seq
         (B, T, n_x). ``cfg`` carries beta, lam, n_h and dtype. ``key``
         feeds the per-step noise (the reference's chain: a 3-way split per
-        step, one subkey per tile). ``h0`` (B, n_h) resumes from a carried
+        step, one subkey per tile); ``state`` is the device state the
+        reads go through. ``h0`` (B, n_h) resumes from a carried
         hidden state (the serve engine's slab); None starts from zeros.
         Returns (h_all, h_prev, pre), each (B, T, n_h).
 
@@ -197,17 +212,19 @@ class DeviceBackend(abc.ABC):
         reaches the same totals."""
         del fused
         B, T, _ = x_seq.shape
-        prepared = self.prepare_weights(params)
+        prepared = self.prepare_weights(params, state=state)
         keys = self.step_keys(key, T)
         h = h0 if h0 is not None else torch.zeros(
             (B, cfg.n_h), dtype=cfg.dtype, device=x_seq.device)
         h_all, h_prev, pre_all = [], [], []
         for t in range(T):
             k1, k2 = keys[t]
-            pre = self.device_vmm(x_seq[:, t], params["w_h"], k1, tag="w_h",
+            pre = self.device_vmm(x_seq[:, t], params["w_h"], k1,
+                                  state=state, tag="w_h",
                                   prepared=prepared) \
                 + self.device_vmm(cfg.beta * h, params["u_h"], k2,
-                                  tag="u_h", prepared=prepared) \
+                                  state=state, tag="u_h",
+                                  prepared=prepared) \
                 + params["b_h"]
             pre = self.device_readout(pre)
             h_new = cfg.lam * h + (1.0 - cfg.lam) * tanh_f32(pre)

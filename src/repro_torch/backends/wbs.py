@@ -14,7 +14,8 @@ step. The two are bitwise equal wherever the ADC is on.
 ``gain_sigma > 0`` draws each tile's plane gains from the step's
 :mod:`repro_torch.prng` key, on the reference's per-step chain; the fused
 path replays that chain up front and hands the scan its (T, n_bits)
-gains. Not ported: fault masks.
+gains. ``vmm(read_sigma=, read_key=)`` carries the analog substrate's
+per-access read noise into the kernel. Not ported: fault masks.
 """
 from __future__ import annotations
 
@@ -59,51 +60,60 @@ class WBSBackend(DeviceBackend):
         g = ideal_gains(n_bits) * (1.0 + self.spec.gain_sigma * noise)
         return g.to(device)
 
-    def prepare_weights(self, params: Params) -> Optional[dict]:
+    def prepare_weights(self, params: Params, *, state=None
+                        ) -> Optional[dict]:
         """Hoist the once-per-forward logical-scale division of every ≥2-D
         weight out of the per-step loop. Each entry has the bits of the
         per-call division."""
+        del state
         scale = self._weight_scale()
         prepared = {name: p / scale for name, p in params.items()
                     if p.ndim >= 2}
         return prepared or None
 
-    def _vmm_impl(self, drive, weights, key, tag, prepared):
+    def _vmm_impl(self, drive, weights, key, state, tag, prepared):
         w = prepared.get(tag) if prepared else None
         return self.vmm(drive, weights, key, prepared=w)
 
     def vmm(self, drive: torch.Tensor, weights: torch.Tensor,
-            key: Optional[np.ndarray] = None,
+            key: Optional[np.ndarray] = None, read_sigma: float = 0.0,
+            read_key: Optional[np.ndarray] = None,
             prepared: Optional[torch.Tensor] = None) -> torch.Tensor:
         """WBS crossbar product. ``key`` draws the plane gains when
-        ``gain_sigma > 0``; ``prepared`` is this tile's
+        ``gain_sigma > 0``; ``read_sigma``/``read_key`` carry per-access
+        conductance read noise (the analog backend's
+        ``crossbar.read_sigma``), drawn inside the kernel on the weight
+        matrix over its logical scale — one draw per weight element per
+        call (``kops.wbs_matmul``); ``prepared`` is this tile's
         :meth:`prepare_weights` entry."""
         n_bits = self.spec.input_bits or 8
         scale = self._weight_scale()
         w = prepared if prepared is not None else weights / scale
         y = kops.wbs_dense(drive, w.to(torch.float32), n_bits=n_bits,
                            adc_bits=None,
-                           gains=self._sample_gains(key, drive.device))
+                           gains=self._sample_gains(key, drive.device),
+                           read_sigma=read_sigma, read_key=read_key)
         return y * scale
 
-    def _fused_recurrence_ok(self) -> bool:
+    def _fused_recurrence_ok(self, state=None) -> bool:
         """The fused scan needs a WBS drive and the output ADC: the ADC
         re-quantizes the integrator every step, which is what makes the
-        fused kernel bitwise equal to the per-step loop."""
-        return (self.spec.input_bits is not None
+        fused kernel bitwise equal to the per-step loop. It reads the
+        logical weights, so a device state rules it out."""
+        return (state is None and self.spec.input_bits is not None
                 and self.spec.adc_bits is not None)
 
-    def device_recurrence(self, params, cfg, x_seq, key=None, *, fused=None,
-                          h0=None):
+    def device_recurrence(self, params, cfg, x_seq, key=None, *, state=None,
+                          fused=None, h0=None):
         """Fused WBS×MiRU recurrence: ONE batched crossbar product for the
         input projection (no sequential dependency) and one kernel for
         the sequential part; under ``gain_sigma > 0`` the per-step path's
         key chain is replayed up front, so both consume the same gains.
         Falls back to the per-step loop where the gate refuses or the
         caller asks (``fused=False``)."""
-        if fused is False or not self._fused_recurrence_ok():
+        if fused is False or not self._fused_recurrence_ok(state):
             return super().device_recurrence(params, cfg, x_seq, key,
-                                             fused=fused, h0=h0)
+                                             state=state, fused=fused, h0=h0)
         T = x_seq.shape[1]
         n_bits = self.spec.input_bits
         scale = self._weight_scale()

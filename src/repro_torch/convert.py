@@ -1,4 +1,5 @@
-"""Move parameters and run state between the packages as numpy arrays."""
+"""Move parameters, run state and device state between the packages as
+numpy arrays."""
 from __future__ import annotations
 
 from typing import Union
@@ -32,3 +33,17 @@ def run_state_from_numpy(key: np.ndarray, params: dict[str, np.ndarray],
     dev = resolve_device(device)
     return (np.asarray(key, np.uint32).copy(), params_from_numpy(params, dev),
             torch.from_numpy(np.array(psi, copy=True)).to(dev))
+
+
+def device_state_from_numpy(state, device: Union[str, torch.device] = "cuda"):
+    """A device state as numpy — nested dicts of arrays, e.g. the
+    reference ``analog_state``'s ``{"w_h": {"g_pos", "g_neg"}, ...,
+    "_ticks"}`` — as tensors on ``device`` with the same bits and dtypes
+    (None stays None), for ``run_continual(init=(key, params, Ψ,
+    state))``."""
+    if state is None:
+        return None
+    dev = resolve_device(device)
+    if isinstance(state, dict):
+        return {k: device_state_from_numpy(v, dev) for k, v in state.items()}
+    return torch.from_numpy(np.array(state, copy=True)).to(dev)

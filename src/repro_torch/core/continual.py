@@ -27,6 +27,7 @@ MA = mean of the final row (eq. 20).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -113,17 +114,19 @@ def _meter_chip_step(backend, cfg, B: int) -> None:
 
 def miru_forward_device(params: dict[str, torch.Tensor], cfg: MiRUConfig,
                         x_seq: torch.Tensor, key: Optional[np.ndarray],
-                        backend: DeviceBackend
+                        backend: DeviceBackend, state: Optional[Any] = None
                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """MiRU forward with the hidden recurrence routed through a device
     backend (``device_recurrence``: per-step VMMs, or the fused scan on
     substrates that have one), then the digital readout from the last
-    step. ``key`` feeds the substrate's noise. Meters the streamed
+    step. ``key`` feeds the substrate's noise, ``state`` is its device
+    state (the G⁺/G⁻ pairs of ``analog_state``). Meters the streamed
     per-step readout and the interpolator when the backend's telemetry is
     on."""
     B, T, _ = x_seq.shape
     tele = backend.telemetry
-    h_all, h_prev, pre = backend.device_recurrence(params, cfg, x_seq, key)
+    h_all, h_prev, pre = backend.device_recurrence(params, cfg, x_seq, key,
+                                                   state=state)
     with tele.scaled(T):
         _meter_chip_step(backend, cfg, B)
     tele.record({meters.SEQUENCES: B})
@@ -148,7 +151,7 @@ def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
     if trainer.algo == "adam":
         raise NotImplementedError(
             "algo='adam' (BPTT + Adam, the software baseline) is the next "
-            "slice of the port (ROADMAP queue A, slice 3)")
+            "slice of the port (ROADMAP queue A, slice 4)")
     if trainer.algo != "dfa":
         raise ValueError(f"unknown trainer algo {trainer.algo!r}; "
                          f"expected 'adam' or 'dfa'")
@@ -157,8 +160,8 @@ def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
         k_fwd, k_wr = prng.split(key)
         loss, grads = dfa_mod.dfa_grads(
             params, opt_state["psi"], cfg, x, y,
-            forward_fn=lambda p, c, xs: miru_forward_device(p, c, xs, k_fwd,
-                                                            backend))
+            forward_fn=lambda p, c, xs: miru_forward_device(
+                p, c, xs, k_fwd, backend, dev_state))
         updates = dfa_mod.scaled_sparse_updates(
             grads, trainer.lr, trainer.kwta_keep_frac,
             trainer.hidden_lr_scale)
@@ -167,11 +170,19 @@ def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
         return params, opt_state, loss, applied, dev_state
 
     def evaluate(params, key, x, y, dev_state):
-        del dev_state
-        logits, _ = miru_forward_device(params, cfg, x, key, backend)
+        logits, _ = miru_forward_device(params, cfg, x, key, backend,
+                                        dev_state)
         return accuracy(logits, y)
 
     return train_step, evaluate
+
+
+def _to_device(state: Any, dev: torch.device) -> Any:
+    """A device state (nested dicts of tensors, or None) moved to
+    ``dev``."""
+    if isinstance(state, dict):
+        return {k: _to_device(v, dev) for k, v in state.items()}
+    return state.to(dev) if isinstance(state, torch.Tensor) else state
 
 
 def _init_run(cfg: MiRUConfig, trainer: TrainerSpec,
@@ -308,13 +319,20 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
                   init: Optional[tuple] = None) -> dict[str, Any]:
     """Train through the task sequence on ``torch_device``; return the R
     matrix, MA, the mean accuracy after each task, the per-step losses
-    and the final params (plus ``telemetry`` when the backend's is on).
+    and the final params, plus ``device_state`` (a stateful substrate's,
+    e.g. ``analog_state``'s G⁺/G⁻ pairs), ``endurance`` (the backend's
+    tracker, under ``track_endurance``) and ``telemetry`` (when the
+    backend's is on).
 
     ``device`` is a registered backend name or instance (default
     ``"ideal"``). ``init`` replaces the seeded initial state with
-    (key, params, Ψ) — e.g. the reference's, carried across with
-    :func:`repro_torch.convert.run_state_from_numpy` — so two runs start
-    from identical weights whatever the last bit of ``normal`` does.
+    (key, params, Ψ) or (key, params, Ψ, device state) — e.g. the
+    reference's, carried across with
+    :func:`repro_torch.convert.run_state_from_numpy` and
+    :func:`~repro_torch.convert.device_state_from_numpy` — so two runs
+    start from identical weights (and conductances) whatever the last bit
+    of ``normal`` does; without a device state the backend programs one
+    from the key.
 
     The loop runs under ``torch.no_grad()``; each task's batches move to
     the card once, and losses are read back once, at the end."""
@@ -327,15 +345,23 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
     dev = resolve_device(torch_device)
     rspec = replay if replay is not None else ReplaySpec()
     backend = get_backend(device if device is not None else "ideal")
+    if backend.tracker is not None and backend.tracker.updates_applied:
+        warnings.warn(
+            "device backend carries endurance statistics from a previous "
+            "run; write counts will accumulate across runs — pass a fresh "
+            "backend for per-run statistics", stacklevel=2)
 
     if init is None:
         key, params, psi, dev_state = _init_run(cfg, spec, backend, dev)
     else:
-        key, params, psi = init
+        key, params, psi = init[:3]
         params = {k: v.to(dev) for k, v in params.items()}
         psi = psi.to(dev)
-        dev_state = backend.init_device_state(params,
-                                              prng.fold_in(key, 0x0DE5))
+        if len(init) > 3:
+            dev_state = _to_device(init[3], dev)
+        else:
+            dev_state = backend.init_device_state(params,
+                                                  prng.fold_in(key, 0x0DE5))
     schedule = build_batch_schedule(spec, rspec, tasks, pad=pad)
     train_step, evaluate = _make_raw_steps(cfg, spec, backend)
     opt_state = {"psi": psi}
@@ -367,6 +393,10 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
         "losses": (torch.stack(losses).cpu().tolist() if losses else []),
         "params": params,
     }
+    if dev_state is not None:
+        out["device_state"] = dev_state
+    if backend.tracker is not None:
+        out["endurance"] = backend.tracker
     if backend.telemetry.enabled:
         out["telemetry"] = backend.telemetry
     return out

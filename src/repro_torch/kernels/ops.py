@@ -1,6 +1,6 @@
 """Padded, dispatched wrappers around the kernels — counterpart of
-``repro/kernels/ops.py`` (the WBS product and recurrence, the ideal MiRU
-scan) plus the row-exact readout.
+``repro/kernels/ops.py`` (the WBS product with and without read noise,
+the WBS recurrence, the ideal MiRU scan) plus the row-exact readout.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the CUDA
 kernel (padded here to the shapes it takes), a CPU tensor to the plain
@@ -15,9 +15,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.analog.wbs import ideal_gains, quantize_signed
 from repro_torch.kernels import miru_readout as _readout_kernel
 from repro_torch.kernels import miru_scan as _miru_kernel
@@ -33,7 +35,7 @@ def _forward_only(*tensors: Optional[torch.Tensor]) -> None:
         raise NotImplementedError(
             "the scan kernels compute forward values only; the straight-"
             "through backward waits for the BPTT slice (ROADMAP queue A, "
-            "slice 3) — call under torch.no_grad()")
+            "slice 4) — call under torch.no_grad()")
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -52,38 +54,64 @@ def pad_wbs_weights(w: torch.Tensor) -> torch.Tensor:
     return F.pad(w, (0, round_up(N, _matmul_kernel.TN) - N)).contiguous()
 
 
+def read_key_words(read_key: np.ndarray) -> tuple[int, int]:
+    """The read-noise kernel's Philox key: two 32-bit words drawn from a
+    :mod:`repro_torch.prng` key."""
+    k0, k1 = prng.bits(read_key, (2,))
+    return int(k0), int(k1)
+
+
 def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
                gains: torch.Tensor, adc_bits: Optional[int] = None,
-               adc_range: float = 4.0, read_sigma: float = 0.0
-               ) -> torch.Tensor:
-    """WBS crossbar product, (M, K) × (K, N) → (M, N) f32."""
-    if read_sigma > 0:
-        raise NotImplementedError(
-            "read_sigma > 0 (the in-kernel read noise of the analog "
-            "backend) is not ported yet (ROADMAP queue B2)")
+               adc_range: float = 4.0, read_sigma: float = 0.0,
+               read_key: Optional[np.ndarray] = None) -> torch.Tensor:
+    """WBS crossbar product, (M, K) × (K, N) → (M, N) f32.
+
+    ``read_sigma``/``read_key`` model per-access conductance read noise:
+    every weight is read as w·(1 + σ·z), with one normal z per weight
+    element per call, shared by all rows, drawn from ``read_key`` inside
+    the kernel (:func:`read_key_words`; ``ref.read_noise``). The draw
+    depends on the key alone, so the CPU and the card read the same
+    noise."""
     _forward_only(w)
-    if not sign.is_cuda:
+    if read_sigma > 0:
+        if read_key is None:
+            raise ValueError("read_sigma > 0 requires read_key")
+        words = read_key_words(read_key)
+        if not sign.is_cuda:
+            return ref.wbs_matmul_read_noise_ref(
+                sign, code, w, gains, read_sigma, words, adc_bits, adc_range)
+    elif not sign.is_cuda:
         return ref.wbs_matmul_ref(sign, code, w, gains, adc_bits, adc_range)
     M, N = sign.shape[0], w.shape[1]
     Mp = round_up(M, _matmul_kernel.TM)
-    y = _matmul_kernel.wbs_matmul(
-        _pad_rows(sign, Mp), _pad_rows(code, Mp),
-        pad_wbs_weights(w.to(torch.float32)),
-        gains.to(torch.float32).contiguous(), adc_bits, adc_range)
+    args = (_pad_rows(sign, Mp), _pad_rows(code, Mp),
+            pad_wbs_weights(w.to(torch.float32)),
+            gains.to(torch.float32).contiguous())
+    if read_sigma > 0:
+        y = _matmul_kernel.wbs_matmul_read_noise(
+            *args, read_sigma, words, n_cols=N, adc_bits=adc_bits,
+            adc_range=adc_range)
+    else:
+        y = _matmul_kernel.wbs_matmul(*args, adc_bits, adc_range)
     return y[:M, :N]
 
 
 def wbs_dense(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
               adc_bits: Optional[int] = 8, adc_range: float = 4.0,
-              gains: Optional[torch.Tensor] = None) -> torch.Tensor:
+              gains: Optional[torch.Tensor] = None,
+              read_sigma: float = 0.0,
+              read_key: Optional[np.ndarray] = None) -> torch.Tensor:
     """WBS linear layer: float activations → sign-magnitude codes →
     bit-plane crossbar product. x (..., K) @ w (K, N); ``gains``
-    (n_bits,) plane gains, None for the ideal ratios."""
+    (n_bits,) plane gains, None for the ideal ratios; ``read_sigma`` /
+    ``read_key`` as in :func:`wbs_matmul`."""
     lead = x.shape[:-1]
     if gains is None:
         gains = ideal_gains(n_bits, device=x.device)
     sign, code = quantize_signed(x.reshape(-1, x.shape[-1]), n_bits)
-    y = wbs_matmul(sign, code, w, gains, adc_bits, adc_range)
+    y = wbs_matmul(sign, code, w, gains, adc_bits, adc_range,
+                   read_sigma=read_sigma, read_key=read_key)
     return y.reshape(*lead, w.shape[-1])
 
 

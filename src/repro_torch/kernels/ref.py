@@ -18,11 +18,17 @@ the plain versions repeat the CUDA kernels bit for bit on any device:
   rounded float tanh), as the scan kernel does: PyTorch's CPU tanh and
   CUDA's ``tanhf`` differ in the last bit on some inputs.
 
+The read-noise variant draws its noise with a counter-based generator,
+Philox4x32-10 (:func:`philox4x32_10`), which the reference does not use
+(it reseeds the TPU's PRNG per grid cell, or draws threefry normals on
+the CPU): against JAX the read noise agrees in distribution only.
+
 Against the JAX reference these functions agree at fp32 tolerance, with
 ADC rounding ties handled by :mod:`repro_torch.testing`.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -75,6 +81,67 @@ def wbs_matmul_ref(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
     if adc_bits is not None:
         y = adc_quantize(y, adc_bits, adc_range)
     return y
+
+
+# Philox4x32-10 (Salmon et al., SC'11; Random123's constants).
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a·b for a 32-bit constant ``a`` and int64
+    ``b`` in [0, 2^32), in int64 arithmetic: b splits in 16-bit halves so
+    no partial product reaches 2^63."""
+    p_lo = a * (b & 0xFFFF)                 # < 2^48
+    mid = a * (b >> 16) + (p_lo >> 16)      # a·b = mid·2^16 + (p_lo & 0xFFFF)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32_10(counter: tuple[torch.Tensor, ...], key: tuple[int, int]
+                  ) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 over four int64 tensors of 32-bit counter words,
+    keyed by two 32-bit ints: the four output words, as int64 tensors.
+    The kernel's ``philox4x32_10`` computes the same words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key[0] & _U32, key[1] & _U32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def read_noise(key_words: tuple[int, int], shape: tuple[int, int],
+               device=None) -> torch.Tensor:
+    """The read-noise normals z (K, N) f32 of the kernel: element (k, n)
+    is Box–Muller over the first two Philox words of counter
+    (k·N + n, 0, 0, 0) — u = (bits >> 8)·2^-24 clamped below at 2^-24,
+    z = √(−2 ln u1)·cos(2π u2), in float64, rounded once."""
+    K, N = shape
+    idx = torch.arange(K * N, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(idx)
+    b1, b2, _, _ = philox4x32_10((idx, zero, zero, zero), key_words)
+    u1 = torch.clamp((b1 >> 8).double() * 2.0 ** -24, min=2.0 ** -24)
+    u2 = torch.clamp((b2 >> 8).double() * 2.0 ** -24, min=2.0 ** -24)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return z.float().reshape(K, N)
+
+
+def wbs_matmul_read_noise_ref(sign: torch.Tensor, code: torch.Tensor,
+                              w: torch.Tensor, gains: torch.Tensor,
+                              read_sigma: float, key_words: tuple[int, int],
+                              adc_bits: Optional[int] = None,
+                              adc_range: float = 4.0) -> torch.Tensor:
+    """:func:`wbs_matmul_ref` over the read-noise weights w·(1 + σ·z),
+    z = :func:`read_noise` of the weight's shape, rounded as the kernel
+    rounds: σ·z, then 1 + that, then w times that (σ in float32)."""
+    z = read_noise(key_words, tuple(w.shape), w.device)
+    sigma = float(torch.tensor(read_sigma, dtype=torch.float32))
+    w_noisy = w.to(torch.float32) * (1.0 + sigma * z)
+    return wbs_matmul_ref(sign, code, w_noisy, gains, adc_bits, adc_range)
 
 
 def wbs_miru_scan_ref(drive: torch.Tensor, u_h: torch.Tensor,

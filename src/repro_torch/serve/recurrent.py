@@ -36,6 +36,7 @@ from typing import Any, Callable, Hashable, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.backends import DeviceBackend, get_backend
 from repro_torch.core.continual import _meter_chip_step
 from repro_torch.core.miru import MiRUConfig, miru_apply_readout
@@ -88,6 +89,9 @@ class RecurrentServeConfig:
     #: slab through the host-spill path and the streams retry from their
     #: pre-dispatch cursors — the outputs stay bitwise identical.
     fail_at_steps: tuple = ()
+    #: Seed of the per-dispatch key chain that feeds a noisy substrate
+    #: (``analog``'s plane gains and read noise), as the reference's.
+    seed: int = 0
     #: Injectable wall clock (seconds).
     clock: Callable[[], float] = time.perf_counter
 
@@ -111,6 +115,11 @@ class StreamRequest:
     @property
     def n_frames(self) -> int:
         return int(self.frames.shape[0])
+
+    @property
+    def steps(self) -> int:
+        """Frames served — the pJ/request allocation unit."""
+        return self.emitted
 
     @property
     def logits(self) -> np.ndarray:
@@ -155,6 +164,7 @@ class RecurrentServeEngine:
         self.chip_failures = 0
         self.retried = 0
         self._dispatch_attempts = 0
+        self._rng = prng.PRNGKey(scfg.seed)
 
         self.latency = Histogram()       # submit → done, ms
         self.queue_wait = Histogram()    # submit → admit, ms
@@ -173,11 +183,12 @@ class RecurrentServeEngine:
 
     @torch.no_grad()
     def _step_fn(self, h_slab: torch.Tensor, x_chunk: torch.Tensor,
-                 n_steps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 n_steps: torch.Tensor, key: Optional[np.ndarray]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         S, C, _ = x_chunk.shape
         h_all, _, _ = self.backend.device_recurrence(
-            self.params, cfg, x_chunk, fused=self.scfg.fused, h0=h_slab)
+            self.params, cfg, x_chunk, key, fused=self.scfg.fused, h0=h_slab)
         # State writeback: slot i advances by its own n_steps[i] frames;
         # idle lanes (n_steps == 0) keep their state bit-exactly.
         idx = (n_steps - 1).clamp(min=0)
@@ -291,9 +302,14 @@ class RecurrentServeEngine:
             if attempt in self.scfg.fail_at_steps:
                 self._chip_failure(entries)
                 return len(entries)
+            # The reference splits its key chain once a dispatch; only a
+            # substrate that draws noise consumes the subkey.
+            sub = None
+            if self.backend.draws_noise:
+                self._rng, sub = prng.split(self._rng)
             self.slab.h, logits = self._step_fn(
                 self.slab.h, torch.from_numpy(x).to(self.device),
-                torch.from_numpy(n_steps).to(self.device))
+                torch.from_numpy(n_steps).to(self.device), sub)
             self._inflight.append((logits, entries))
             self.steps_run += 1
         # Retire: with pipelining keep one dispatch in flight so the host
@@ -361,11 +377,17 @@ class RecurrentServeEngine:
         raise RuntimeError(f"not drained after {max_steps} engine steps")
 
     # ------------------------------------------------------------------
-    def request_stats(self) -> dict[str, Any]:
+    def request_stats(self, model: Optional[Any] = None) -> dict[str, Any]:
         """Serving figures over the finished requests: end-to-end /
         queue-wait / decode latency percentiles (ms), sequences/s,
-        frames/s and slab spill counters. The metered energy figures of
-        the reference arrive with the telemetry slice."""
+        frames/s and slab spill counters — and, on a metered substrate,
+        the metered power (mW) plus a pJ/request distribution (each
+        request charged its frame share of the metered energy), under
+        ``energy``. ``model`` defaults to an
+        :class:`~repro_torch.analog.costmodel.M2RUCostModel` of this
+        engine's network geometry; ``cmos`` is charged the digital
+        baseline's energy, every other substrate the mixed-signal
+        chip's."""
         out: dict[str, Any] = {
             "requests": len(self._finished),
             "rejected": self.rejected,
@@ -386,4 +408,25 @@ class RecurrentServeEngine:
             out["frames_per_s"] = n_frames / span if span > 0 \
                 else float("inf")
             out["frames_served"] = n_frames
+        tele = self.telemetry
+        if tele.enabled and self._finished:
+            from repro_torch.analog.costmodel import M2RUCostModel
+            from repro_torch.telemetry.energy import MeteredEnergy
+            if model is None:
+                model = M2RUCostModel(n_x=self.cfg.n_x, n_h=self.cfg.n_h,
+                                      n_y=self.cfg.n_y)
+            kind = "cmos" if self.backend.name == "cmos" else "analog"
+            rep = MeteredEnergy(model).report(tele.snapshot(), kind=kind)
+            total_steps = sum(r.steps for r in self._finished)
+            pj = Histogram()
+            if rep.energy_j > 0 and total_steps > 0:
+                for r in self._finished:
+                    pj.add(rep.energy_j * r.steps / total_steps * 1e12)
+            out["energy"] = {
+                "total_j": rep.energy_j,
+                "power_mw": rep.power_w * 1e3,
+                "gops_per_w": rep.gops_per_w,
+                "pj_per_op": rep.pj_per_op,
+                "pj_per_request": pj.summary(),
+            }
         return out

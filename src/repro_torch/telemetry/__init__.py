@@ -1,5 +1,22 @@
-"""Device activity counters (the energy, report and lifetime modules
-arrive with the telemetry slice)."""
-from repro_torch.telemetry.meters import Telemetry
+"""Measured device telemetry — counters → energy/latency → paper claims.
+Counterpart of ``repro/telemetry``:
 
-__all__ = ["Telemetry"]
+- meters:   the Telemetry accumulator (ADC-conversion, bit-pulse,
+            crossbar-read/write, MAC counters), eager.
+- energy:   counters → joules / seconds / GOPS via HardwareConstants.
+- lifetime: EnduranceTracker write maps → lifetime projection (§VI-B).
+- report:   GOPS/W and 29×-vs-CMOS summaries.
+"""
+from repro_torch.telemetry.meters import Telemetry
+from repro_torch.telemetry.energy import EnergyReport, MeteredEnergy
+from repro_torch.telemetry.lifetime import (LifetimeProjection,
+                                            project_lifetime)
+from repro_torch.telemetry.report import (cmos_comparison, format_report,
+                                          telemetry_report)
+
+__all__ = [
+    "Telemetry",
+    "EnergyReport", "MeteredEnergy",
+    "LifetimeProjection", "project_lifetime",
+    "telemetry_report", "cmos_comparison", "format_report",
+]

@@ -7,6 +7,12 @@ reference's pending-delta buffer and ``io_callback`` flush exist only
 because a jitted body runs once at trace time, and are not ported. A
 per-step loop meters once per step; a fused path that stands for T steps
 meters once inside ``scaled(T)``, so both give the same totals.
+
+Write pulses are data-dependent: they are counted from the write masks
+on the masks' device, into int64 tensors that stay there, and folded
+into the integer counters when a caller reads them (:meth:`snapshot`,
+:meth:`total`). A training loop on the card therefore meters every
+update without a host sync, and the totals are exact.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from collections import Counter
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 # Canonical meter names (the energy model keys off these).
 MACS = "macs"                        # multiply-accumulates per tile
@@ -27,6 +34,7 @@ SAMPLE_STEPS = "sample_steps"        # (sample × time-step) recurrence rows
 SEQUENCES = "sequences"              # sequences fully processed
 WRITE_PULSES = "write_pulses"        # nonzero programmed synapses
 WRITE_EVENTS = "write_events"        # weight-update rounds
+DRIFT_TICKS = "drift_ticks"          # retention-drift relaxation ticks
 # Replay-buffer DRAM traffic (§IV-A: the rehearsal store lives in
 # off-chip DRAM): rows moved and bytes (quantized codes + int32 label).
 REPLAY_READS = "replay_reads"                # rehearsal rows fetched
@@ -42,6 +50,9 @@ class Telemetry:
         self.enabled = enabled
         self.counters: Counter = Counter()
         self._scale = 1
+        # Write-pulse counts not read back yet: int64 tensors on the
+        # masks' device.
+        self._pending: dict[str, "torch.Tensor"] = {}
 
     def enable(self) -> "Telemetry":
         self.enabled = True
@@ -53,12 +64,21 @@ class Telemetry:
 
     def reset(self) -> None:
         self.counters.clear()
+        self._pending.clear()
+
+    def _fold(self) -> None:
+        """Read the pending device counts back into the counters."""
+        for k, v in self._pending.items():
+            self.counters[k] += int(v)
+        self._pending.clear()
 
     def snapshot(self) -> dict[str, int]:
+        self._fold()
         return dict(self.counters)
 
     def total(self, meter: str) -> int:
         """Sum of one meter across all tags."""
+        self._fold()
         prefix = meter + "/"
         return sum(v for k, v in self.counters.items()
                    if k == meter or k.startswith(prefix))
@@ -103,15 +123,24 @@ class Telemetry:
         sfx = f"/{tag}" if tag else ""
         self.record({f"{ADC_CONVERSIONS}{sfx}": int(np.prod(x.shape))})
 
-    def meter_writes(self, masks: Mapping[str, "torch.Tensor"]) -> None:
-        """Write pulses from concrete nonzero-update masks (only written
-        devices cost a pulse — §VI-B), plus one write event."""
+    def meter_write_counts(self, counts: Mapping[str, "torch.Tensor"],
+                           events: int) -> None:
+        """Write pulses from per-device write-count maps (or masks, a
+        map of one update) accumulated over ``events`` weight-update
+        rounds. The sums stay on the maps' device until read."""
         if not self.enabled:
             return
-        deltas = {f"{WRITE_PULSES}/{k}": int(m.sum()) for k, m in
-                  masks.items()}
-        deltas[WRITE_EVENTS] = 1
-        self.record(deltas)
+        for k, c in counts.items():
+            name = f"{WRITE_PULSES}/{k}"
+            s = torch.as_tensor(c).sum(dtype=torch.int64)
+            self._pending[name] = s if name not in self._pending \
+                else self._pending[name] + s
+        self.counters[WRITE_EVENTS] += int(events)
+
+    def meter_writes(self, masks: Mapping[str, "torch.Tensor"]) -> None:
+        """Write pulses from the nonzero-update masks of one update (only
+        written devices cost a pulse — §VI-B), plus one write event."""
+        self.meter_write_counts(masks, 1)
 
     def __repr__(self) -> str:
         state = "enabled" if self.enabled else "disabled"

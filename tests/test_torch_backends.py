@@ -18,7 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.backends import get_backend as jget_backend  # noqa: E402
 from repro.core.miru import MiRUConfig as JMiRUConfig  # noqa: E402
 from repro.core.miru import init_miru_params as jinit  # noqa: E402
-from repro_torch import testing  # noqa: E402
+from repro_torch import prng, testing  # noqa: E402
 from repro_torch.backends import (DeviceSpec, WBSBackend, available_backends,
                                   get_backend, register_backend,
                                   unregister_backend)
@@ -148,10 +148,16 @@ def test_prepared_weights_are_the_per_call_ones():
 
 
 def test_unported_substrate_options_raise():
-    with pytest.raises(NotImplementedError, match="endurance tracker"):
-        get_backend("wbs", spec_overrides=dict(track_endurance=True))
+    # The endurance tracker is ported now: the option attaches one.
+    assert get_backend("wbs", spec_overrides=dict(
+        track_endurance=True)).tracker is not None
+    assert get_backend("wbs").tracker is None
     with pytest.raises(NotImplementedError, match="fault"):
         get_backend("ideal", spec=DeviceSpec(faults=object()))
+    with pytest.raises(NotImplementedError, match="het"):
+        get_backend("analog_state").init_device_state(
+            {"w": torch.zeros(2, 2)}, prng.PRNGKey(0),
+            het={"prog_sigma": 0.1})
 
 
 def test_registry():
@@ -183,7 +189,6 @@ def test_gain_noise_fused_equals_per_step_and_reference(with_h0):
     so it equals the per-step path bit for bit, and both follow the
     reference's draws (fp32 tolerance: the gains' normal draw is within
     3 ulp of jax's)."""
-    from repro_torch import prng
     jcfg, cfg, jp, p = _setup()
     x, h0 = _xs(5, 6, 6, 12, 4, with_h0)
     spec = dict(gain_sigma=0.05)

@@ -189,3 +189,66 @@ def test_one_slot_engine_serves_the_64_slot_bits(cuda):
         want = [r.logits for (u, _), r in zip(arrivals, full) if u == uid]
         for a, w in zip(alone, want):
             assert np.array_equal(a.logits, w)
+
+
+# ---------------------------------------------------------------------------
+# The read-noise variant of the WBS product (read_sigma > 0)
+# ---------------------------------------------------------------------------
+
+def _read_noise_inputs(dev, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x, w = _on(dev, rng.uniform(-1, 1, (m, k)).astype(np.float32),
+               rng.normal(0, 0.3, (k, n)).astype(np.float32))
+    sign, code = quantize_signed(x, 8)
+    return sign, code, w, ideal_gains(8, device=dev)
+
+
+@pytest.mark.parametrize("adc_bits", [8, None])
+@pytest.mark.parametrize("m,k,n", [(32, 28, 100), (32, 100, 100),
+                                   (896, 28, 100), (5, 37, 13),
+                                   (16, 300, 40)])
+def test_read_noise_kernel_equals_plain(cuda, m, k, n, adc_bits):
+    """Bitwise, and the same bits as the plain version on the CPU: the
+    noise depends on the key alone."""
+    from repro_torch import prng
+    sign, code, w, g = _read_noise_inputs(cuda, m, k, n, m + k + n)
+    key = prng.PRNGKey(m * k + n)
+    words = ops.read_key_words(key)
+    before = (kmatmul.launches, kmatmul.read_noise_launches)
+    got = ops.wbs_matmul(sign, code, w, g, adc_bits, read_sigma=0.1,
+                         read_key=key)
+    want = ref.wbs_matmul_read_noise_ref(sign, code, w, g, 0.1, words,
+                                         adc_bits)
+    torch.cuda.synchronize()
+    assert (kmatmul.launches, kmatmul.read_noise_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, want)
+    cpu = ops.wbs_matmul(sign.cpu(), code.cpu(), w.cpu(), g.cpu(), adc_bits,
+                         read_sigma=0.1, read_key=key)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_read_noise_kernel_at_zero_sigma_is_the_plain_kernel(cuda):
+    for m, k, n in ((32, 28, 100), (32, 100, 100), (896, 28, 100)):
+        sign, code, w, g = _read_noise_inputs(cuda, m, k, n, 7)
+        w_p = ops.pad_wbs_weights(w)
+        for adc_bits in (8, None):
+            a = kmatmul.wbs_matmul_read_noise(sign, code, w_p, g, 0.0,
+                                              (1, 2), n_cols=n,
+                                              adc_bits=adc_bits)
+            b = kmatmul.wbs_matmul(sign, code, w_p, g, adc_bits)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+
+
+def test_read_noise_is_shared_by_all_rows_of_a_call(cuda):
+    """One draw per weight element per call, for any M: identical rows,
+    even 128 or more rows apart, give identical outputs."""
+    from repro_torch import prng
+    sign, code, w, g = _read_noise_inputs(cuda, 300, 100, 100, 3)
+    sign[200], code[200] = sign[3], code[3]
+    y = ops.wbs_matmul(sign, code, w, g, None, read_sigma=0.1,
+                       read_key=prng.PRNGKey(1))
+    torch.cuda.synchronize()
+    assert torch.equal(y[3], y[200])
+    assert not torch.equal(y, ops.wbs_matmul(sign, code, w, g, None))

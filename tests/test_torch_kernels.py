@@ -287,7 +287,8 @@ def test_new_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         kreadout.miru_readout(torch.zeros(2, 4), torch.zeros(4, 3),
                               torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="B2"):
+    # Read noise is ported (queue B2): it needs a key.
+    with pytest.raises(ValueError, match="read_key"):
         ops.wbs_matmul(*_matmul_inputs(8, 4, 3, 0), ideal_gains(8),
                        read_sigma=0.1)
 

@@ -120,6 +120,52 @@ def test_serves_like_the_reference(params, jparams, fused):
         assert st[k] == jst[k]
 
 
+@pytest.mark.parametrize("device", ["analog", "cmos"])
+def test_metered_energy_equals_the_reference_figures(params, jparams,
+                                                     device):
+    """``request_stats()["energy"]`` on a metered substrate: the same
+    counters as the reference engine serving the same trace, and from
+    them the reference's figures (MeteredEnergy over an M2RUCostModel of
+    the engine's geometry; pJ per request by frame share), exactly."""
+    from repro.analog.costmodel import M2RUCostModel as JModel
+    from repro.obs import Histogram as JHistogram
+    from repro.telemetry.energy import MeteredEnergy as JEnergy
+    spec = TrafficSpec(n_requests=5, n_users=3, frames_min=3, frames_max=8,
+                       n_x=6, seed=1)
+    eng, reqs = _serve(params, spec, device=device, meter=True,
+                       batch_slots=2, chunk=4)
+    jeng = JServeEngine(JMiRUConfig(n_x=6, n_h=12, n_y=4),
+                        JServeConfig(batch_slots=2, chunk=4, device=device,
+                                     fresh_meter=True, meter=True), jparams)
+    jreqs = [jeng.submit(f, uid=a.uid) for a, f in
+             jloadgen.replay(jloadgen.TrafficSpec(**vars(spec)))]
+    jeng.run_until_drained()
+    # The same served streams: on ``analog`` the plane gains come from the
+    # reference's per-dispatch key chain (normal within 3 ulp).
+    uids = sorted({a.uid for a in make_arrivals(spec)})
+
+    def streams(rs):
+        return [np.concatenate([r.logits for r in rs if r.uid == u])
+                for u in uids]
+    testing.compare_streams(
+        streams(reqs), streams(jreqs),
+        flip_bound=testing.one_level_logit_bound(params["w_o"], CFG.lam, 8)
+    ).check()
+    snap = eng.telemetry.snapshot()
+    assert snap == jeng.telemetry.snapshot()
+    en = eng.request_stats()["energy"]
+    kind = "cmos" if device == "cmos" else "analog"
+    rep = JEnergy(JModel(n_x=6, n_h=12, n_y=4)).report(snap, kind=kind)
+    pj = JHistogram()
+    total = sum(r.emitted for r in reqs)
+    for r in reqs:
+        pj.add(rep.energy_j * r.emitted / total * 1e12)
+    assert en == {"total_j": rep.energy_j, "power_mw": rep.power_w * 1e3,
+                  "gops_per_w": rep.gops_per_w, "pj_per_op": rep.pj_per_op,
+                  "pj_per_request": pj.summary()}
+    assert en["pj_per_request"]["count"] == 5 and en["total_j"] > 0
+
+
 # ---------------------------------------------------------------------------
 # The determinism contract, inside the port
 # ---------------------------------------------------------------------------

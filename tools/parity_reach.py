@@ -30,7 +30,16 @@ each made in this process without touching the package's files:
 - train (b) on ``wbs``: ``clip_off`` (no weight clip: ``weight_clip``
   None), ``adc_off`` (the ADC skipped: ``adc_bits`` None), ``input_7bit``
   (the drive quantized to 7 bits instead of 8), ``u_writes_lost`` (the
-  recurrent matrix's writes never land).
+  recurrent matrix's writes never land);
+- train (c) on ``analog``: ``write_noise_off`` (``write_sigma`` 0),
+  ``gain_noise_off`` (``gain_sigma`` 0), ``adc_off``,
+  ``u_writes_lost``;
+- train (d), ``analog`` with read noise (held, as in ``chip_smoke.py``,
+  against a CPU run of its first epoch): ``read_noise_off`` (σ = 0) and
+  ``read_sigma_0.05`` (half the noise).
+
+``--paths`` picks some of ``software ideal wbs analog read_noise`` (all
+by default).
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 _OUT = None
+PATHS = ("software", "ideal", "wbs", "analog", "read_noise")
 
 
 def emit(**row) -> None:
@@ -84,11 +94,11 @@ def stale_h_prev():
         dfa.miru_forward = orig
 
 
-def lost_u_writes():
-    """A ``wbs`` backend whose writes to u_h never land."""
+def lost_u_writes(name: str = "wbs"):
+    """A ``name`` backend whose writes to u_h never land."""
     import torch
     from repro_torch.backends import get_backend
-    be = get_backend("wbs")
+    be = get_backend(name)
     orig = be.apply_update
 
     def apply_update(params, updates, key=None):
@@ -123,24 +133,61 @@ def software(dev, cpu) -> None:
         row("card_stale_h_prev", cs.software_run(dev))
 
 
-def protocol(dev) -> None:
+def analog_spec(**crossbar):
+    """``analog``'s default spec with some crossbar fields replaced."""
+    import dataclasses
+    from repro_torch.backends.analog import AnalogBackend
+    spec = AnalogBackend.default_spec()
+    return {"crossbar": dataclasses.replace(spec.crossbar, **crossbar)}
+
+
+def read_noise(dev) -> None:
+    """Train (d): the card's read-noise run against the CPU's first
+    epoch, beside planted faults."""
+    import torch
+    from repro_torch.backends import get_backend
+    cpu = cs.protocol_run(torch.device("cpu"), cs.read_noise_backend(),
+                          n_tasks=1, epochs=cs.RN_CPU_EPOCHS)
+    sigma = lambda s: get_backend("analog", spec_overrides=analog_spec(
+        read_sigma=s, w_clip=cs.W_SCALE))
+    runs = {"card": lambda: cs.protocol_run(dev, cs.read_noise_backend(),
+                                            n_tasks=1),
+            "card_read_noise_off": lambda: cs.protocol_run(
+                dev, sigma(0.0), n_tasks=1),
+            "card_read_sigma_0.05": lambda: cs.protocol_run(
+                dev, sigma(0.05), n_tasks=1)}
+    for name, fn in runs.items():
+        run = fn()
+        n = len(cpu["losses"])
+        emit(path="train_read_noise", run=name,
+             loss_agree_steps=cs.loss_agree_steps(run["losses"][:n],
+                                                  cpu["losses"]),
+             steps=n, acc=float(run["R"][0][0]))
+
+
+def protocol(dev, backends) -> None:
     import numpy as np
     import torch
     from repro_torch.backends import get_backend
-    for backend in ("ideal", "wbs"):
+    faults = {
+        "wbs": {"clip_off": {"weight_clip": None},
+                "adc_off": {"adc_bits": None},
+                "input_7bit": {"input_bits": 7}},
+        "analog": {"write_noise_off": analog_spec(write_sigma=0.0),
+                   "gain_noise_off": {"gain_sigma": 0.0},
+                   "adc_off": {"adc_bits": None}}}
+    for backend in backends:
         cpu = cs.protocol_run(torch.device("cpu"), backend)
         runs = {"card": lambda: cs.protocol_run(dev, backend)}
         runs["cpu_2_threads"] = lambda: cs.protocol_run(
             torch.device("cpu"), backend)
-        if backend == "wbs":
-            for name, over in (("clip_off", {"weight_clip": None}),
-                               ("adc_off", {"adc_bits": None}),
-                               ("input_7bit", {"input_bits": 7})):
-                runs[f"card_{name}"] = (
-                    lambda over=over: cs.protocol_run(
-                        dev, get_backend("wbs", spec_overrides=over)))
+        for name, over in faults.get(backend, {}).items():
+            runs[f"card_{name}"] = (
+                lambda over=over: cs.protocol_run(
+                    dev, get_backend(backend, spec_overrides=over)))
+        if backend in faults:
             runs["card_u_writes_lost"] = lambda: cs.protocol_run(
-                dev, lost_u_writes())
+                dev, lost_u_writes(backend))
         for name, fn in runs.items():
             if name == "cpu_2_threads":
                 with threads(2):
@@ -165,8 +212,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
+    ap.add_argument("--paths", nargs="+", default=list(PATHS),
+                    choices=PATHS)
     args = ap.parse_args()
     _OUT = args.out
+    paths = args.paths
     if not torch.cuda.is_available():
         print("parity_reach: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -174,9 +224,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     _build.build()
     dev = torch.device("cuda", 0)
-    cpu = cs.software_run(torch.device("cpu"))
-    software(dev, cpu)
-    protocol(dev)
+    if "software" in paths:
+        software(dev, cs.software_run(torch.device("cpu")))
+    protocol(dev, [p for p in ("ideal", "wbs", "analog") if p in paths])
+    if "read_noise" in paths:
+        read_noise(dev)
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
     return 0
 
