@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
-substrates and the Table I metering on one NVIDIA GPU, and check them.
+substrates, the Table I metering and the LM zoo's dense serving path on
+one NVIDIA GPU, and check them.
 
 Run from the repository root with no arguments:
 
@@ -10,14 +11,18 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the four CUDA libraries compiled by nvcc for sm_90a from
+2. build: the six CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes: bitwise for the recurrences, the readout and
-   the read-noise WBS product, tie-aware (rtol = atol = 2e-5) for the WBS
-   product; the read-noise variant also at σ = 0 against the plain
-   kernel (bitwise), on two identical rows of one call (identical
-   outputs), and in its moments over 512 keys;
+   the main paths' shapes: bitwise for the recurrences, the readout, the
+   read-noise WBS product and k-WTA, tie-aware (rtol = atol = 2e-5) for
+   the WBS product; the read-noise variant also at σ = 0 against the
+   plain kernel (bitwise), on two identical rows of one call (identical
+   outputs), and in its moments over 512 keys; the flash-attention
+   forward at the qwen2-0.5B prefill's shape and four others (fp32
+   ``out`` at rtol 2e-5 / atol 2e-6, ``lse`` at atol 1e-5, bf16 ``out``
+   within one bf16 ulp plus that fp32 tolerance), and with keys padded
+   past ``sk_true`` bit for bit as without;
 4. serve: the paper's 28×100×10 network (``configs/m2ru_paper.py``) with
    seeded random weights, served through ``RecurrentServeEngine`` on the
    ``wbs`` substrate (64 slots, chunk 14) for a 256-request burst over 96
@@ -51,10 +56,22 @@ Phases, each printed as one JSON line:
    metered figures within 5 % of the analytical model, and the
    shape-determined counters equal to the port's CPU run of the same
    work;
+lm. the LM zoo's dense serving path, qwen2-0.5B at full width in bf16
+   with seeded random weights: (i) ``lm.prefill`` of 2 × 2,048 tokens,
+   one flash launch a layer, finite logits, its device busy share; (ii)
+   the same config in fp32 cut to 2 layers, on a 1,100-token prompt,
+   against the port's CPU run of the same weights (``LM_PREFILL_ATOL``);
+   (iii) ``ServeEngine`` (8 slots, max_len 256) draining a burst of 32
+   seeded requests of 8-64 prompt tokens, 32 new tokens each: latency,
+   tokens/s, steps, decode calls, busy share; (iv) four of them served
+   alone decode the burst's tokens; (v) those four, 8 tokens each, on
+   the 2-layer fp32 model against the CPU's run (tokens tie-aware,
+   logits within ``LM_SERVE_ATOL``); then ``ops.kwta`` once at
+   (64, 1024), k 580;
 8. times: CUDA-event timings of each kernel, its plain version and,
-   where one exists, one PyTorch call computing the same function, each
-   over a CUDA graph of repeated launches, beside the least time the
-   card could take.
+   where one exists, one PyTorch call computing the same function (for
+   k-WTA the exact top-k, a different function), each over a CUDA graph
+   of repeated launches, beside the least time the card could take.
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -133,23 +150,61 @@ T1_TASKS, T1_TRAIN, T1_TEST, T1_EPOCHS, T1_CAPACITY = 2, 320, 32, 2, 64
 # a key were fully correlated), |mean r² − 1| < 0.05 (over 512 keys × 100
 # independent columns its sd is 0.006).
 RN_KEYS, RN_MEAN_SD, RN_VAR_TOL = 512, 5.0, 0.05
+# The LM slice: qwen2-0.5B (configs/qwen2_0_5b.py CONFIG: 24 layers, d 896,
+# 14 query heads over 2 KV heads, vocab 151,936) at full width in bf16,
+# with seeded random weights (the repository holds no checkpoint).
+LM = "qwen2-0.5b"
+LM_PREFILL_B, LM_PREFILL_S = 2, 2048
+# Serving: 8 slots, max_len 256; a burst of 32 requests with seeded
+# prompts of 8-64 tokens, 32 new tokens each, no EOS, greedy.
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 8, 256, 32, 32
+LM_PROMPT_MIN, LM_PROMPT_MAX = 8, 64
+LM_CONTRACT = (0, 9, 18, 27)   # burst requests also served alone
+# The CPU twins: the same config at full width in fp32, depth cut to 2
+# layers, the same weights on both sides. The prefill twin's prompt is
+# 1,100 tokens (the flash branch, KV padded to the 1,024 chunk: 2,048,
+# sk_true 1,100); the serve twin serves LM_CONTRACT's prompts, 8 tokens.
+LM_TWIN_LAYERS, LM_TWIN_S, LM_TWIN_MAX_NEW = 2, 1100, 8
+LM_TWIN_ROWS = tuple(range(0, LM_TWIN_S, 10)) + (LM_TWIN_S - 1,)
+# Card-vs-CPU logit tolerances of the twins (max |Δ logit|, logits up to
+# about 3), measured on an H100 with tools/parity_reach.py --paths lm:
+# - prefill: the card 6.8e-6 from the CPU, the CPU at 2 threads 3.6e-6;
+#   the causal mask dropped 4.0, the GQA head map shifted by one 4.3;
+#   sk_true ignored 6.8e-6, as sound: under the causal mask every padded
+#   key lies past every query, so that fault cannot change this path's
+#   output (phase 3 catches it, non-causal);
+# - serve: the card's logits 3.2e-4 from the CPU's (the bf16 cache rounds
+#   K/V that differ in the last fp32 bit), the CPU at 2 threads 3.2e-4;
+#   the reference's every-row cache write 3.6, with other tokens.
+LM_PREFILL_ATOL = 1e-4
+LM_SERVE_ATOL = 1e-3
 # The kernels: each one's wrapper module and launch counter.
 KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "wbs_matmul_read_noise": ("wbs_matmul", "read_noise_launches"),
            "wbs_miru_scan": ("wbs_miru_scan", "launches"),
            "miru_scan": ("miru_scan", "launches"),
-           "miru_readout": ("miru_readout", "launches")}
+           "miru_readout": ("miru_readout", "launches"),
+           "flash_attention_fwd": ("flash_attention", "launches"),
+           "kwta": ("kwta", "launches")}
 # CPU twins run beside the card's phases, one thread each.
 TWIN_WORKERS = 4
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 and fp64 on CUDA
 # cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 34e12
+PEAK_BF16_TENSOR_FLOPS = 989e12    # dense, tensor cores
 PEAK_BYTES = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and the seconds since the
+    script started (``t_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -220,12 +275,13 @@ def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
     return start.elapsed_time(end) / (reps * rounds)
 
 
-def bound_ms(flops: float, n_bytes: float, flops64: float = 0.0
-             ) -> tuple[float, str]:
+def bound_ms(flops: float, n_bytes: float, flops64: float = 0.0,
+             flops_bf16_tc: float = 0.0) -> tuple[float, str]:
     """The least time for the work: fp32 FLOPs at the fp32 peak plus fp64
-    FLOPs at the fp64 peak, or bytes at the memory rate, whichever is
-    larger."""
-    t_ops = flops / PEAK_FP32_FLOPS + flops64 / PEAK_FP64_FLOPS
+    FLOPs at the fp64 peak plus bf16 tensor-core FLOPs at their peak, or
+    bytes at the memory rate, whichever is larger."""
+    t_ops = flops / PEAK_FP32_FLOPS + flops64 / PEAK_FP64_FLOPS \
+        + flops_bf16_tc / PEAK_BF16_TENSOR_FLOPS
     t_bytes = n_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -349,6 +405,117 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(f"miru_readout not bitwise or not "
                                      f"row-exact at M={M}")
         err["wbs_matmul_read_noise"] = check_read_noise(dev, rng)
+        err.update(check_lm_kernels(dev, rng))
+    return err
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance between two bf16 tensors in units in the last
+    place (bit patterns mapped onto a monotonic integer scale)."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dtype):
+    import numpy as np
+    import torch
+    return [torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(
+        dev, dtype) for s in ((B, Sq, H, dh), (B, Sk, Kh, dh),
+                              (B, Sk, Kh, dh))]
+
+
+def check_lm_kernels(dev, rng) -> dict:
+    """The flash forward and k-WTA kernels against their plain versions on
+    the card: flash at fp32 rtol 2e-5 / atol 2e-6 on ``out`` and atol 1e-5
+    on ``lse``, bf16 ``out`` within one bf16 ulp of the plain version's
+    fp32 value plus that fp32 tolerance; k-WTA bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    err = {"flash_attention_fwd": 0.0, "kwta": 0.0}
+    # (B, Sq, Sk, H, Kh, dh, causal): the qwen2-0.5B prefill (GQA rep 7)
+    # at the main path's batch (the second sequence's heads read KV heads
+    # 2-3) and at one sequence, kernel_bench's shape, Sk off the tile (and
+    # the KV padded past sk_true, as the prefill twin does), Sq != Sk
+    # without the causal mask, rep 1.
+    cases = [((LM_PREFILL_B, LM_PREFILL_S, LM_PREFILL_S, 14, 2, 64, True),
+              (torch.bfloat16,)),
+             ((1, 2048, 2048, 14, 2, 64, True), (torch.bfloat16,)),
+             ((2, 256, 256, 4, 2, 64, True), (torch.float32, torch.bfloat16)),
+             ((1, 1100, 1100, 14, 2, 64, True), (torch.float32,)),
+             ((2, 100, 333, 4, 2, 64, False), (torch.float32,
+                                              torch.bfloat16)),
+             ((1, 130, 130, 4, 4, 64, True), (torch.float32,))]
+    for (B, Sq, Sk, H, Kh, dh, causal), dtypes in cases:
+        for dt in dtypes:
+            q, k, v = flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dt)
+            out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+            qt = q.transpose(1, 2).reshape(B * H, Sq, dh)
+            kt = k.transpose(1, 2).reshape(B * Kh, Sk, dh)
+            vt = v.transpose(1, 2).reshape(B * Kh, Sk, dh)
+            want, want_lse = ref.flash_attention_fwd_ref(
+                qt.float(), kt.float(), vt.float(), causal, Sk, H, Kh)
+            want = want.reshape(B, H, Sq, dh).transpose(1, 2)
+            torch.cuda.synchronize()
+            e = float((out.float() - want).abs().max())
+            e_lse = float((lse.reshape(B * H, Sq) - want_lse).abs().max())
+            if dt == torch.float32:
+                ok = bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6))
+                err["flash_attention_fwd"] = max(err["flash_attention_fwd"],
+                                                 e)
+                extra = {}
+            else:
+                # One bf16 ulp of rounding plus the fp32 tolerance of the
+                # two summation orders (testing.bf16_within); the ulps
+                # against the plain version rounded to bf16 are reported.
+                ok = testing.bf16_within(out, want)[0]
+                extra = {"bf16_ulps_vs_plain_rounded": bf16_ulps(
+                    out, want.to(torch.bfloat16))}
+            ok = ok and e_lse <= 1e-5
+            emit("kernels", kernel="flash_attention_fwd",
+                 shape=[B, Sq, Sk, H, Kh, dh], causal=causal, dtype=str(dt),
+                 max_abs_err=e, lse_max_abs_err=e_lse, ok=ok, **extra)
+            if not ok:
+                raise AssertionError(f"flash_attention_fwd != plain at "
+                                     f"{(B, Sq, Sk, H, Kh, dh)}, {dt}")
+    # Keys padded past sk_true read as the unpadded call, bit for bit.
+    q, k, v = flash_inputs(rng, dev, 1, 1100, 1100, 14, 2, 64, torch.float32)
+    pad = lambda t: torch.cat([t, torch.full_like(t[:, :948], 3.0)], 1)
+    for causal in (True, False):
+        a = ops.flash_attention_fwd(q, k, v, causal=causal)
+        b = ops.flash_attention_fwd(q, pad(k), pad(v), causal=causal,
+                                    sk_true=1100)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        emit("kernels", kernel="flash_attention_fwd", case="sk_true padding",
+             causal=causal, bitwise_equal_to_unpadded=same)
+        if not same:
+            raise AssertionError("padding past sk_true changed the output")
+    # k-WTA: kernel_bench's (64, 1024) at k 580, 3 and 11 rows (the
+    # reference pads 11 to 16), and long rows; f32 and bf16.
+    for R, N, kk in ((64, 1024, 580), (3, 1024, 100), (11, 4096, 300),
+                     (8, 65536, 6000)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
+                np.float32)).to(dev, dt)
+            got = ops.kwta(x, kk)
+            want = ref.kwta_bisect_ref(x, kk)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            err["kwta"] = max(err["kwta"], float(
+                (got.float() - want.float()).abs().max()))
+            kept = (got != 0).sum(-1)
+            emit("kernels", kernel="kwta", shape=[R, N], k=kk, dtype=str(dt),
+                 bitwise=same, kept_min=int(kept.min()),
+                 kept_max=int(kept.max()))
+            if not same:
+                raise AssertionError(f"kwta != plain at {(R, N)}, k {kk}, "
+                                     f"{dt}")
     return err
 
 
@@ -821,7 +988,8 @@ def cpu_twin(kind: str) -> dict:
     """One CPU run that a card phase is held against, in a worker process
     of one thread: ``software`` (train (a)), ``protocol:<backend>``
     (train (b), (c)), ``read_noise`` (train (d)'s first epoch),
-    ``table1:<backend>``. Returns what the checks read, as plain
+    ``table1:<backend>``, ``lm_prefill`` and ``lm_serve`` (the LM
+    phase's 2-layer fp32 twins). Returns what the checks read, as plain
     values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -834,6 +1002,15 @@ def cpu_twin(kind: str) -> dict:
         backend, res = table1_run(cpu, kind.split(":")[1])
         return {"snapshot": backend.telemetry.snapshot(), "R": res["R"],
                 "wall_s": res["wall_s"]}
+    if kind == "lm_prefill":
+        cfg, params = lm_twin_model(cpu)
+        return {"logits": lm_prefill_twin_logits(cfg, params, cpu)}
+    if kind == "lm_serve":
+        cfg, params = lm_twin_model(cpu)
+        _, reqs = lm_serve(cfg, params, lm_twin_prompts(cfg.vocab), cpu,
+                           LM_TWIN_MAX_NEW, keep_logits=True)
+        return {"tokens": [r.tokens for r in reqs],
+                "logits": [torch.stack(r.logits) for r in reqs]}
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -844,7 +1021,8 @@ def cpu_twin(kind: str) -> dict:
 
 #: Every twin, longest first (measured on the CPU of the card's host).
 TWINS = ("protocol:analog", "protocol:wbs", "software", "table1:analog_state",
-         "protocol:ideal", "table1:cmos", "read_noise")
+         "protocol:ideal", "table1:cmos", "read_noise", "lm_serve",
+         "lm_prefill")
 
 
 def start_twins():
@@ -1069,6 +1247,208 @@ def analog_contract(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase lm: the LM zoo's dense serving path (qwen2-0.5B)
+# ---------------------------------------------------------------------------
+
+def lm_config(n_layers: Optional[int] = None, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(LM)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               dtype=dtype or cfg.dtype)
+
+
+def lm_full_model(dev):
+    """Full qwen2-0.5B in bf16, weights drawn on the card from seed 0."""
+    import torch
+    from repro_torch.models import lm
+    cfg = lm_config()
+    return cfg, lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+
+
+def lm_twin_model(dev):
+    """The twins' model: full width, fp32, 2 layers, its weights drawn on
+    the CPU from seed 1 and moved to ``dev`` (the card and the CPU twin
+    hold the same bits)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg = lm_config(LM_TWIN_LAYERS, torch.float32)
+    params = lm.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    return cfg, tree_to(params, dev)
+
+
+def lm_prompts(vocab: int) -> list:
+    """The burst's 32 seeded prompts of 8-64 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_MIN, LM_PROMPT_MAX + 1, LM_REQUESTS)
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def lm_twin_prompts(vocab: int) -> list:
+    prompts = lm_prompts(vocab)
+    return [prompts[i] for i in LM_CONTRACT]
+
+
+def lm_prefill_twin_logits(cfg, params, dev):
+    """The twin prefill's logits (f32, on the CPU) at LM_TWIN_ROWS."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, LM_TWIN_S)))
+    logits = lm.prefill(params, cfg, {"tokens": toks})
+    return logits[0, list(LM_TWIN_ROWS)].to(torch.float32).cpu()
+
+
+def lm_serve(cfg, params, prompts, dev, max_new: int = LM_MAX_NEW,
+             keep_logits: bool = False):
+    """``prompts`` through a fresh 8-slot ``ServeEngine`` on ``dev``, all
+    submitted at once; returns (engine, requests)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, ServeConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
+        torch_device=dev, keep_logits=keep_logits), params)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run_until_drained()
+    _sync(dev)
+    return eng, reqs
+
+
+def lm_path(dev, twins: dict) -> dict:
+    """(i) the full model's prefill through the flash kernel, (ii) its
+    2-layer fp32 twin against the CPU's, (iii) the serve burst, (iv) the
+    batch-composition contract, (v) the serve twin."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.models import lm
+    cfg, params = lm_full_model(dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_PREFILL_B, LM_PREFILL_S)))
+
+    def prefill():
+        out = lm.prefill(params, cfg, {"tokens": toks})
+        _sync(dev)
+        return out
+    prefill()                                          # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill()
+    prefill_s = time.perf_counter() - t0
+    pre_launches = read_launches()
+    require_launches("lm_prefill", pre_launches, ("flash_attention_fwd",))
+    if pre_launches["flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"lm_prefill: {pre_launches} flash launches, "
+                             f"want {cfg.n_layers} (one a layer)")
+    if logits.shape != (LM_PREFILL_B, LM_PREFILL_S, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits not finite or wrong shape")
+    del logits
+    emit("lm", part="prefill", config=LM, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), tokens=[LM_PREFILL_B, LM_PREFILL_S],
+         launches=pre_launches, wall_ms=prefill_s * 1e3,
+         tokens_per_s=LM_PREFILL_B * LM_PREFILL_S / prefill_s,
+         traced_run=busy_share(prefill, prefill_s))
+
+    tcfg, tparams = lm_twin_model(dev)
+    reset_launches()
+    got = lm_prefill_twin_logits(tcfg, tparams, dev)
+    twin_launches = read_launches()["flash_attention_fwd"]
+    cpu = twins["lm_prefill"].result()["logits"]
+    d = float((got - cpu).abs().max())
+    emit("lm", part="prefill_twin", layers=LM_TWIN_LAYERS, tokens=LM_TWIN_S,
+         rows_compared=len(LM_TWIN_ROWS), flash_launches=twin_launches,
+         max_abs_d_logits=d, max_abs_logit=float(cpu.abs().max()),
+         atol=LM_PREFILL_ATOL)
+    if twin_launches != LM_TWIN_LAYERS or d > LM_PREFILL_ATOL:
+        raise AssertionError(f"prefill twin: logits {d:.3g} from the CPU's "
+                             f"(atol {LM_PREFILL_ATOL}), {twin_launches} "
+                             "flash launches")
+
+    prompts = lm_prompts(cfg.vocab)
+    lm_serve(cfg, params, prompts[:2], dev, max_new=4)  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, reqs = lm_serve(cfg, params, prompts, dev)
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_launches()
+    stats = eng.request_stats()
+    if stats["requests"] != LM_REQUESTS or \
+            any(len(r.tokens) != LM_MAX_NEW for r in reqs):
+        raise AssertionError(f"served {stats['requests']} requests")
+    # The busy share over a window that fills all 8 slots, served
+    # untraced and then traced: the burst's first 8 prompts cut to 8
+    # tokens, 8 new tokens each — 56 one-slot prefill calls and 8 decode
+    # calls of all 8 slots, as the burst mixes one-slot prefills with
+    # grouped decodes. The profiler spends about a second a call
+    # collecting the events of its about 3,100 PyTorch ops, so the whole
+    # burst would take over half an hour.
+    wave = [p[:LM_PROMPT_MIN] for p in prompts[:LM_SLOTS]]
+    t0 = time.perf_counter()
+    weng, _ = lm_serve(cfg, params, wave, dev, LM_TWIN_MAX_NEW)
+    busy = busy_share(lambda: lm_serve(cfg, params, wave, dev,
+                                       LM_TWIN_MAX_NEW),
+                      time.perf_counter() - t0)
+    busy["window"] = (f"{len(wave)} requests of {LM_PROMPT_MIN} prompt "
+                      f"tokens, {LM_TWIN_MAX_NEW} new each, "
+                      f"{LM_SLOTS} slots, {weng.decode_calls} decode "
+                      "calls")
+    emit("lm", part="serve", slots=LM_SLOTS, max_len=LM_MAX_LEN,
+         requests=stats["requests"], max_new=LM_MAX_NEW,
+         prompt_tokens=sum(len(p) for p in prompts), wall_s=serve_s,
+         launches=serve_launches, traced_run=busy,
+         **{k: stats[k] for k in ("steps_run", "decode_calls", "latency_ms",
+                                  "queue_wait_ms", "decode_ms",
+                                  "tokens_per_s", "sequences_per_s",
+                                  "tokens_generated")})
+
+    alone = {i: lm_serve(cfg, params, [prompts[i]], dev)[1][0].tokens
+             for i in LM_CONTRACT}
+    same = {i: alone[i] == reqs[i].tokens for i in LM_CONTRACT}
+    emit("lm", part="contract", requests=list(LM_CONTRACT),
+         alone_equals_burst=same)
+    if not all(same.values()):
+        raise AssertionError(f"batch composition changed tokens: {same}")
+
+    _, treqs = lm_serve(tcfg, tparams, lm_twin_prompts(cfg.vocab), dev,
+                        LM_TWIN_MAX_NEW, keep_logits=True)
+    cpu = twins["lm_serve"].result()
+    first = max(float((r.logits[0] - c[0]).abs().max())
+                for r, c in zip(treqs, cpu["logits"]))
+    rep = testing.compare_tokens([r.tokens for r in treqs], cpu["tokens"],
+                                 [r.logits for r in treqs], cpu["logits"],
+                                 atol=LM_SERVE_ATOL)
+    emit("lm", part="serve_twin", layers=LM_TWIN_LAYERS,
+         requests=len(treqs), max_new=LM_TWIN_MAX_NEW,
+         first_logits_max_abs_d=first, atol=LM_SERVE_ATOL,
+         tokens_equal=[r.tokens for r in treqs] == cpu["tokens"],
+         **rep.as_dict())
+    if first > LM_SERVE_ATOL:
+        raise AssertionError(f"serve twin: first logits {first:.3g} apart")
+    return {"lm_prefill": pre_launches, "lm_serve": serve_launches}
+
+
+def kwta_path(dev) -> dict:
+    """``ops.kwta`` once at kernel_bench's (64, 1024), k 580: its launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (64, 1024)).astype(np.float32)).to(dev)
+    reset_launches()
+    out = ops.kwta(g, 580)
+    _sync(dev)
+    launches = read_launches()
+    require_launches("ops_kwta", launches, ("kwta",))
+    emit("kwta", shape=[64, 1024], k=580, launches=launches,
+         kept=int((out != 0).sum(-1).max()))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: times
 # ---------------------------------------------------------------------------
 
@@ -1097,6 +1477,7 @@ def times(dev) -> dict:
                 inp["sign"], inp["code"], w_p, inp["gains"])),
             plain_ms=time_graph(lambda: ref.wbs_matmul_ref(**inp)),
             library_ms=time_graph(lambda: torch.matmul(deq, inp["w"])),
+            library="torch.matmul of the dequantized drive",
             bound_ms=b, bound_by=by)
         # The read-noise variant at the per-step shape of train (d): the
         # product as above plus, per weight element, one Box–Muller normal
@@ -1119,7 +1500,7 @@ def times(dev) -> dict:
             plain_ms=time_graph(lambda: ref.wbs_matmul_read_noise_ref(
                 **inp, read_sigma=READ_SIGMA, key_words=words),
                 reps=2, rounds=3),
-            library_ms=None, bound_ms=b, bound_by=by)
+            library_ms=None, library=None, bound_ms=b, bound_by=by)
         B, T, H = SLOTS, CHUNK, N_H
         inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
         u_scaled = inp["u_h"] / W_SCALE
@@ -1140,7 +1521,7 @@ def times(dev) -> dict:
             plain_ms=time_graph(lambda: ref.wbs_miru_scan_ref(
                 inp["drive"], u_scaled, inp["h0"], inp["b_h"], BETA, LAM,
                 N_BITS, ADC_BITS, ADC_RANGE, W_SCALE), reps=2, rounds=3),
-            library_ms=None, bound_ms=b, bound_by=by)
+            library_ms=None, library=None, bound_ms=b, bound_by=by)
         # The ideal scan at train (a)'s shape. One (B, H)×(H, H) product
         # per step; xw in, h_all and pre out, U and h0 once. No single
         # PyTorch call computes the recurrence.
@@ -1156,7 +1537,7 @@ def times(dev) -> dict:
             plain_ms=time_graph(lambda: ref.miru_scan_ref(
                 inp["drive"], inp["u_h"], inp["h0"], BETA, LAM),
                 reps=2, rounds=3),
-            library_ms=None, bound_ms=b, bound_by=by)
+            library_ms=None, library=None, bound_ms=b, bound_by=by)
         # The readout at the serve shape (the kernels line) and the eval
         # shape, beside torch.addmm of the same operands.
         w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
@@ -1176,9 +1557,69 @@ def times(dev) -> dict:
                 plain_ms=time_graph(lambda: ref.miru_readout_ref(h, w_o,
                                                                  b_o)),
                 library_ms=time_graph(lambda: torch.addmm(b_o, h, w_o)),
+                library="torch.addmm",
                 bound_ms=b, bound_by=by)
+        out.update(lm_times(dev, rng))
     for name, t in out.items():
         emit("times", kernel=name, **t)
+    return out
+
+
+def lm_times(dev, rng) -> dict:
+    """The flash forward at the qwen2-0.5B prefill's shape and the k-WTA
+    bisection at kernel_bench's, each beside its plain version and a
+    PyTorch yardstick (timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, kwta, ref
+    out = {}
+    B, S, H, Kh, dh = LM_PREFILL_B, LM_PREFILL_S, 14, 2, 64
+    q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, torch.bfloat16)
+    qt = q.transpose(1, 2).reshape(B * H, S, dh).contiguous()
+    kt = k.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
+    vt = v.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
+    # Causal: half the score matrix. bf16 operands, so the bound is the
+    # bf16 tensor-core peak against q, k, v read once and out, lse
+    # written once.
+    flops = 4.0 * B * H * S * S * dh / 2
+    n_bytes = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 4 * B * H * S
+    b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=flops)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                       enable_gqa=True)
+        yard = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+        yard_name = "F.scaled_dot_product_attention(enable_gqa=True)"
+    except TypeError:              # a PyTorch without enable_gqa
+        kr, vr = (x.repeat_interleave(H // Kh, 1) for x in (kh, vh))
+        yard = lambda: F.scaled_dot_product_attention(qh, kr, vr,
+                                                      is_causal=True)
+        yard_name = "F.scaled_dot_product_attention, K/V repeated"
+    out["flash_attention_fwd"] = dict(
+        shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
+        ms=time_graph(lambda: flash_attention.flash_attention_fwd(
+            qt, kt, vt, causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
+            scale=dh ** -0.5)),
+        plain_ms=time_graph(lambda: ref.flash_attention_fwd_ref(
+            qt, kt, vt, True, S, H, Kh), reps=2, rounds=3),
+        library_ms=time_graph(yard), library=yard_name,
+        bound_ms=b, bound_by=by)
+    # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
+    # and writes out once and makes |x| and iters + 2 comparisons an
+    # element. The yardstick is the exact top-k k-WTA (torch.topk), a
+    # different function (exact, not bisected).
+    R, N, kk, iters = 64, 1024, 580, 32
+    x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype("float32")).to(dev)
+    b, by = bound_ms(R * N * (iters + 3.0), 2 * 4 * R * N)
+    out["kwta"] = dict(
+        shape=[R, N], k=kk, dtype="float32",
+        ms=time_graph(lambda: kwta.kwta(x, kk, iters)),
+        plain_ms=time_graph(lambda: ref.kwta_bisect_ref(x, kk, iters),
+                            reps=2, rounds=3),
+        library_ms=time_graph(lambda: ref.kwta_ref(x, kk)),
+        library="exact top-k k-WTA (torch.topk), a different function",
+        bound_ms=b, bound_by=by)
     return out
 
 
@@ -1215,40 +1656,49 @@ def main() -> int:
         cl = train_protocol(dev, twins)
         rn = train_read_noise(dev, twins)
         t1 = table1(dev, twins)
+        lmr = lm_path(dev, twins)
+        kw = kwta_path(dev)
         t = times(dev)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
     # launches: each kernel's count in the run of the path it was ported
     # for (serve for the WBS kernels and the readout, train (a) for the
-    # ideal scan, train (d) for the read-noise product); launches_by_path
-    # has every path's count.
+    # ideal scan, train (d) for the read-noise product, the LM prefill for
+    # the flash forward, ops.kwta at the bench shape for k-WTA);
+    # launches_by_path has every path's count.
     by_path = {"serve": run["launches"], "train_software": sw["launches"],
                "train_protocol_ideal": cl["ideal"]["launches"],
                "train_protocol_wbs": cl["wbs"]["launches"],
                "train_protocol_analog": cl["analog"]["launches"],
                "train_read_noise": rn["launches"],
                "table1_analog_state": t1["analog_state"],
-               "table1_cmos": t1["cmos"]}
+               "table1_cmos": t1["cmos"], **lmr, "ops_kwta": kw}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
-           "miru_readout": "serve"}
+           "miru_readout": "serve", "flash_attention_fwd": "lm_prefill",
+           "kwta": "ops_kwta"}
     src = "src/repro_torch/kernels/csrc/"
-    source = {k: src + KERNELS[k][0] + ".cu" for k in KERNELS}
+    lib = {"flash_attention_fwd": "flash_attention_fwd"}   # else the module
+    source = {k: src + lib.get(k, KERNELS[k][0]) + ".cu" for k in KERNELS}
     replaces = {"wbs_matmul": "src/repro/kernels/wbs_matmul.py:99",
                 "wbs_matmul_read_noise": "src/repro/kernels/wbs_matmul.py:99 "
                                          "(read_sigma > 0: :36-45, :65-73)",
                 "wbs_miru_scan": "src/repro/kernels/wbs_miru_scan.py:105",
                 "miru_scan": "src/repro/kernels/miru_scan.py:47",
                 "miru_readout": "h @ w_o in src/repro/core/miru.py:133 (not "
-                                "a TPU kernel; repair of queue C)"}
+                                "a TPU kernel; repair of queue C)",
+                "flash_attention_fwd": "src/repro/kernels/flash_attention.py"
+                                       ":227 (pallas_call :270)",
+                "kwta": "src/repro/kernels/kwta.py:47 (pallas_call :53)"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k], "launches": by_path[own[k]][k],
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
-         "library_ms": t[k]["library_ms"]} for k in KERNELS]}), flush=True)
+         "library_ms": t[k]["library_ms"], "library": t[k]["library"]}
+        for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,6 +11,9 @@ an obvious counterpart:
               replay buffer, the continual-learning trainer
   kernels/    hand-written CUDA kernels (``csrc/``), their plain PyTorch
               versions (``ref.py``) and the padded wrappers (``ops.py``)
+  configs/    the model configs (``ModelConfig``, one module each)
+  models/     the LM zoo's dense family: layers, GQA attention and the
+              KV cache, the layer stacks, the top-level model
   backends/   the DeviceBackend protocol, ``ideal``, ``wbs``, ``analog``,
               ``analog_state`` and ``cmos``
   replay/     host replay policies and their registry
@@ -18,6 +21,7 @@ an obvious counterpart:
   telemetry/  eager activity counters, metered energy, lifetime, Table I
   obs/        the latency histogram
   serve/      state slab, traffic generator, continuous-batching engine
+              for MiRU streams; the slot-based LM decode engine
 
 It imports torch and numpy only — never jax and never ``repro``. Entry
 points run on ``cuda`` unless the caller asks for the CPU; on a CPU

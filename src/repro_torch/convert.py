@@ -47,3 +47,24 @@ def device_state_from_numpy(state, device: Union[str, torch.device] = "cuda"):
     if isinstance(state, dict):
         return {k: device_state_from_numpy(v, dev) for k, v in state.items()}
     return torch.from_numpy(np.array(state, copy=True)).to(dev)
+
+
+def _tensor(a) -> torch.Tensor:
+    """One array as a CPU tensor with the same bits. numpy has no
+    bfloat16: the reference's bf16 arrays arrive as ``ml_dtypes.bfloat16``,
+    which ``torch.from_numpy`` refuses, so they travel as their uint16 bit
+    patterns and are viewed back as ``torch.bfloat16``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_numpy(params, device: Union[str, torch.device] = "cuda"):
+    """An LM parameter tree as numpy — nested dicts of arrays, e.g.
+    ``jax.tree.map(np.asarray, jax_params)`` — as tensors on ``device``
+    with the same bits, dtypes (bf16 included) and tree."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, dev) for k, v in params.items()}
+    return _tensor(params).to(dev)

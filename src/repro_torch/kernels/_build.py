@@ -21,7 +21,8 @@ from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout")
+NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
+         "flash_attention_fwd", "kwta")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,15 +1,18 @@
 """Padded, dispatched wrappers around the kernels — counterpart of
 ``repro/kernels/ops.py`` (the WBS product with and without read noise,
-the WBS recurrence, the ideal MiRU scan) plus the row-exact readout.
+the WBS recurrence, the ideal MiRU scan, the flash-attention forward and
+the k-WTA bisection) plus the row-exact readout.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the CUDA
-kernel (padded here to the shapes it takes), a CPU tensor to the plain
+kernel (padded here where it needs padded shapes), a CPU tensor to the plain
 version in :mod:`repro_torch.kernels.ref`. There is no fallback from one
 to the other. The scan kernels compute forward values only: the
 straight-through backward of the WBS scan (``_wbs_miru_scan_bwd`` in the
 reference) waits for the BPTT slice, and the reference cannot
 differentiate its fused float scan either, so an input that requires
-grad raises. The readout backpropagates as the linear product it is.
+grad raises. The readout backpropagates as the linear product it is. The
+flash forward raises on inputs that require grad too: its backward
+kernels come with LM training (ROADMAP queue A, slice 5).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.analog.wbs import ideal_gains, quantize_signed
+from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.kernels import kwta as _kwta_kernel
 from repro_torch.kernels import miru_readout as _readout_kernel
 from repro_torch.kernels import miru_scan as _miru_kernel
 from repro_torch.kernels import ref
@@ -218,3 +223,80 @@ def miru_readout(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
                            w_o.to(torch.float32).contiguous(),
                            b_o.to(torch.float32).contiguous())
     return y.reshape(*lead, w_o.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward)
+# ---------------------------------------------------------------------------
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, sk_true: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, Sq, H, dh) layout wrapper around the flash-attention forward.
+
+    Masks the keys at or past ``sk_true`` (default: the given Sk). The
+    reference pads Sq and Sk to its Pallas blocks (``bq``, ``bk``); the
+    kernel here tiles by itself and takes any Sq and Sk, and so does the
+    plain version, so nothing is padded. GQA KV heads are not repeated:
+    q (B, Sq, H, dh) against k/v (B, Sk, Kh, ·) goes to the kernel as
+    (B·H, Sq, ·) and (B·Kh, Sk, ·), the kernel mapping each query head to
+    its KV head. On the card the head dim is zero-padded to the kernel's
+    64 or 128 (exact: zero terms add nothing to q·k, and padded value
+    columns are sliced away; the scale stays dh^-0.5). Returns
+    (out (B, Sq, H, dv), lse (B, H, Sq))."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash-attention kernel computes the forward only; its "
+            "backward comes with LM training (ROADMAP queue A, slice 5) — "
+            "call under torch.no_grad()")
+    B, Sq, H, dh = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    sk_true = Sk if sk_true is None else sk_true
+    qt = q.transpose(1, 2).reshape(B * H, Sq, dh)
+    kt = k.transpose(1, 2).reshape(B * Kh, Sk, dh)
+    vt = v.transpose(1, 2).reshape(B * Kh, Sk, dv)
+    if not q.is_cuda:
+        out, lse = ref.flash_attention_fwd_ref(qt, kt, vt, causal, sk_true,
+                                               H, Kh)
+    else:
+        D = next((d for d in _flash_kernel.HEAD_DIMS if d >= max(dh, dv)),
+                 None)
+        if D is None:
+            raise ValueError(f"head dims {dh}/{dv} exceed the kernel's "
+                             f"{_flash_kernel.HEAD_DIMS[-1]}")
+        out, lse = _flash_kernel.flash_attention_fwd(
+            F.pad(qt, (0, D - dh)).contiguous(),
+            F.pad(kt, (0, D - dh)).contiguous(),
+            F.pad(vt, (0, D - dv)).contiguous(), causal=causal,
+            sk_true=sk_true, q_heads=H, kv_heads=Kh,
+            scale=float(dh) ** -0.5)
+        out = out[..., :dv]
+    out = out.reshape(B, H, Sq, dv).transpose(1, 2)
+    return out, lse.reshape(B, H, Sq)
+
+
+# ---------------------------------------------------------------------------
+# k-WTA
+# ---------------------------------------------------------------------------
+
+KWTA_ROW_LIMIT = 1 << 20   # longer rows take the exact top-k, as in the reference
+
+
+def kwta(x: torch.Tensor, k: int, iters: int = 32) -> torch.Tensor:
+    """Per-row approximate k-WTA by magnitude (threshold bisection). 1-D
+    input is one row; ``k >= N`` returns ``x``; rows longer than
+    :data:`KWTA_ROW_LIMIT` take the exact top-k (``ref.kwta_ref``) on any
+    device, as the reference's ``ops.kwta`` does."""
+    squeeze = x.ndim == 1
+    x2 = x[None, :] if squeeze else x
+    N = x2.shape[1]
+    if k >= N:
+        return x
+    if N > KWTA_ROW_LIMIT:
+        out = ref.kwta_ref(x2, k)
+    elif not x2.is_cuda:
+        out = ref.kwta_bisect_ref(x2, k, iters)
+    else:
+        out = _kwta_kernel.kwta(x2.contiguous(), k, iters)
+    return out[0] if squeeze else out

@@ -5,7 +5,8 @@ Counterparts of ``repro/kernels/ref.py``'s ``wbs_matmul_ref`` and
 ``h @ w_o + b_o``), with the same inputs, outputs, integer/bit
 semantics and fp order of the epilogue, ``(drive + y) + b_h`` and
 ``acc·norm·w_scale``. Two choices go further than the reference, so that
-the plain versions repeat the CUDA kernels bit for bit on any device:
+the plain versions of these four repeat the CUDA kernels bit for bit on
+any device:
 
 * The contraction is written out in the kernels' order — K tiles of
   :data:`BK`, inside a tile plane by plane (MSB first), k ascending, fp32
@@ -25,6 +26,14 @@ the CPU): against JAX the read noise agrees in distribution only.
 
 Against the JAX reference these functions agree at fp32 tolerance, with
 ADC rounding ties handled by :mod:`repro_torch.testing`.
+
+The flash-attention forward's plain version (:func:`flash_attention_fwd_ref`)
+repeats the Pallas kernel's semantics, not its order: one tile over all
+keys, the products left to ``torch.matmul``; the kernel agrees with it at
+fp32 tolerance. The k-WTA bisection (:func:`kwta_bisect_ref`) is all
+integer counts and exactly rounded midpoints, so it is bitwise equal to
+the kernel and to the reference's; :func:`kwta_ref` is the exact top-k
+that the reference falls back to for rows longer than 1 << 20.
 """
 from __future__ import annotations
 
@@ -221,3 +230,72 @@ def miru_readout_ref(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
     for k in range(h.shape[1]):
         acc = acc + h[:, k, None].to(torch.float32) * w[k]
     return acc + b_o.to(torch.float32)
+
+
+NEG_INF = -1e30          # the masked score of the flash kernels
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            sk_true: Optional[int] = None,
+                            q_heads: Optional[int] = None,
+                            kv_heads: Optional[int] = None,
+                            scale: Optional[float] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What ``flash_attention_fwd_pallas`` computes, in its layout: q
+    (B·H, Sq, dh), k/v (B·Kh, Sk, dh|dv), query head b reading KV head
+    (b // H)·Kh + (b % H) // rep. s = (q·k)·scale (scale dh^-0.5 unless
+    given), −1e30 where key ≥ ``sk_true`` or, causal, key > query; then
+    m = max s, l = Σ exp(s − m), out = (exp(s − m) @ v) / max(l, 1e-30) in
+    q's dtype and lse = m + log(max(l, 1e-30)) in f32. Returns (out
+    (B·H, Sq, dv), lse (B·H, Sq))."""
+    BH, Sq, dh = q.shape
+    Sk = k.shape[1]
+    sk_true = Sk if sk_true is None else sk_true
+    scale = dh ** -0.5 if scale is None else scale
+    if q_heads is not None and kv_heads is not None and q_heads != kv_heads:
+        b = torch.arange(BH, device=q.device)
+        kvb = (b // q_heads) * kv_heads + (b % q_heads) // (q_heads
+                                                              // kv_heads)
+        k, v = k[kvb], v[kvb]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    valid = ki < sk_true
+    if causal:
+        valid = valid & (ki <= torch.arange(Sq, device=q.device)[:, None])
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    out = (torch.matmul(p, v.float()) / l).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def kwta_bisect_ref(x: torch.Tensor, k: int, iters: int = 32
+                    ) -> torch.Tensor:
+    """Per-row approximate k-WTA by magnitude, step for step as
+    ``_kwta_kernel`` and ``csrc/kwta.cu``: bisect θ on count(|x| > θ)
+    between 0 and max|x| + 1 for ``iters`` rounds, take the upper bound
+    if it keeps at least k, and keep x where |x| > θ. x (R, N) f32 or
+    bf16 → (R, N) in x's dtype."""
+    x32 = x.to(torch.float32)
+    mag = x32.abs()
+    lo = torch.zeros((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    hi = mag.amax(-1, keepdim=True) + 1.0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        gt = (mag > mid).sum(-1, keepdim=True) > k
+        lo = torch.where(gt, mid, lo)
+        hi = torch.where(gt, hi, mid)
+    theta = torch.where((mag > hi).sum(-1, keepdim=True) >= k, hi, lo)
+    return torch.where(mag > theta, x32, 0.0).to(x.dtype)
+
+
+def kwta_ref(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact per-row k-WTA by magnitude (rows = leading dim): keep every
+    entry at least as large as the k-th largest magnitude."""
+    if k >= x.shape[-1]:
+        return x
+    mag = x.abs()
+    kth = torch.topk(mag, k, dim=-1).values[..., -1:]
+    return torch.where(mag >= kth, x, torch.zeros_like(x))

@@ -1,0 +1,284 @@
+"""Attention, the GQA half: full, chunked and flash attention, the GQA
+block with qk-norm and biases, and the bf16 KV cache — counterpart of
+``repro/models/attention.py``.
+
+The flash branch (KV longer than ``cfg.attn_chunk``) runs the
+hand-written flash-attention forward kernel through
+``kernels.ops.flash_attention_fwd``, which folds the GQA head map into
+the kernel instead of repeating K/V. It computes what the reference's
+Pallas ``flash_attention_fwd_pallas`` computes; the reference's model
+runs the same schedule in pure JAX (``_flash``), which in bf16 rounds
+the scores and probabilities to bf16 where the kernels keep fp32, so the
+port is held to the reference in fp32. The backward (the Pallas dq and
+dk/dv kernels) comes with LM training: an input that requires grad
+raises.
+
+Not ported with this half: MLA (``init_mla_params`` …), the int8
+stochastic-rounding cache and the Ulysses/sharding-context branches of
+``gqa_attention`` (the port has no distributed context yet; the
+reference's ``act_constraint`` is the identity here).
+
+JAX promotes mixed bf16/fp32 einsums implicitly (an fp32 model's queries
+against the bf16 cache); every einsum here casts both operands to their
+promoted dtype, which is the same dtype.
+
+The decode path writes the cache in place: :func:`cache_insert` updates
+the cache tensors it is given and returns the same dict. ``write_rows``
+picks the batch rows it writes; None writes every row, as the reference
+does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.layers import apply_rope, dense, rms_norm
+from repro_torch.utils import Seed, split_seed, truncated_normal_init as tn
+
+
+def _common(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands cast to their promoted dtype (JAX's implicit
+    promotion, made explicit)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+# ---------------------------------------------------------------------------
+# Core softmax attention (full and chunked)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, q_offset: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Sq,H,dh), k/v (B,Sk,Kh,dh). Returns (B,Sq,H,dv) in q's dtype.
+
+    GQA as grouped einsums (q reshaped to (…,Kh,G,dh)), never repeating
+    K/V."""
+    B, Sq, H, dh = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Kh, H // Kh, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", *_common(qg, k)
+                          ).to(torch.float32) * dh ** -0.5
+    si = torch.arange(Sk, device=q.device)
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        scores = torch.where(si[None, :] <= qi, scores, NEG_INF)
+    if kv_len is not None:
+        mask = si[None, :] < kv_len.to(q.device)[:, None]       # (B, Sk)
+        scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", *_common(probs, v))
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the flash schedule in
+    plain PyTorch, as the reference's ``lax.scan``)."""
+    B, Sq, H, dh = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    if Sk % chunk:
+        pad = chunk - Sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    k = _repeat_kv(k, H // Kh)
+    v = _repeat_kv(v, H // Kh)
+    dv = v.shape[-1]
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    acc = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for j in range(k.shape[1] // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        scores = torch.einsum("bqhd,bkhd->bhqk", *_common(q, kj)
+                              ).to(torch.float32) * dh ** -0.5
+        ki = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = ki < Sk
+        if causal:
+            valid = valid & (ki <= qi)
+        scores = torch.where(valid[None, None], scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", *_common(p.to(q.dtype), vj)).to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                    # (B,Sq,H,dv)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, chunk: int = 1024) -> torch.Tensor:
+    """(B,Sq,H,dh) layout, through the flash kernel
+    (``ops.flash_attention_fwd``, GQA folded, K/V not repeated).
+
+    KV is padded to a chunk multiple and the padding masked by the true
+    length (``sk_true``), as the reference's schedule does. The kernel
+    needs no padding (it takes any Sk, and skips the tiles past
+    ``sk_true``, so the output is the unpadded call's): the padding stays
+    only so that a prompt off the chunk (the 1,100-token prefill twin)
+    drives the kernel's ``sk_true`` mask as the reference's path does. A
+    prompt on a chunk multiple, such as the 2,048-token prefill, pads
+    nothing. Forward only: an input that requires grad raises."""
+    Sk = k.shape[1]
+    if Sk % chunk:
+        pad = chunk - Sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    out, _ = ops.flash_attention_fwd(q, k, v, causal=causal, sk_true=Sk)
+    return out
+
+
+def sdpa(q, k, v, causal: bool, chunk: int, q_offset: int = 0,
+         kv_len=None) -> torch.Tensor:
+    """Dispatch: the flash kernel for long KV, full attention otherwise."""
+    if k.shape[1] > chunk and kv_len is None and q_offset == 0:
+        return flash_attention(q, k, v, causal, chunk)
+    return full_attention(q, k, v, causal, q_offset, kv_len)
+
+
+# ---------------------------------------------------------------------------
+# GQA block-level attention with projections
+# ---------------------------------------------------------------------------
+
+def init_gqa_params(key: Seed, cfg: ModelConfig,
+                    device: Union[str, torch.device] = "cuda") -> dict:
+    hd, D = cfg.hd(), cfg.d_model
+    ks = split_seed(key, 6)
+    std = D ** -0.5
+    p = {
+        "wq": tn(ks[0], (D, cfg.n_heads * hd), std, cfg.dtype, device),
+        "wk": tn(ks[1], (D, cfg.n_kv_heads * hd), std, cfg.dtype, device),
+        "wv": tn(ks[2], (D, cfg.n_kv_heads * hd), std, cfg.dtype, device),
+        "wo": tn(ks[3], (cfg.n_heads * hd, D), std, cfg.dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                        ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((n * hd,), dtype=cfg.dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=cfg.dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=cfg.dtype, device=device)
+    return p
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, src: torch.Tensor):
+    """Projected q (B,S,H,hd), k and v (B,S_src,Kh,hd), qk-normed."""
+    B, S, _ = x.shape
+    hd = cfg.hd()
+    q = dense(x, p["wq"], p.get("bq"), cfg.quant_mode).reshape(
+        B, S, cfg.n_heads, hd)
+    k = dense(src, p["wk"], p.get("bk"), cfg.quant_mode).reshape(
+        B, src.shape[1], cfg.n_kv_heads, hd)
+    v = dense(src, p["wv"], p.get("bv"), cfg.quant_mode).reshape(
+        B, src.shape[1], cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rmsnorm_eps)
+    return q, k, v
+
+
+def gqa_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, causal: bool = True,
+                  kv: Optional[tuple] = None,
+                  kv_positions: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Self-attention (kv=None) or cross-attention (kv=(keys_src,)).
+    x (B,S,D); positions (B,S) or (S,)."""
+    B, S, _ = x.shape
+    src = x if kv is None else kv[0]
+    q, k, v = _qkv(p, cfg, x, src)
+    if kv is None:                       # rope only for self-attention
+        q = apply_rope(q, torch.broadcast_to(positions, (B, S)),
+                       cfg.rope_theta)
+        k = apply_rope(k, torch.broadcast_to(positions, (B, S)),
+                       cfg.rope_theta)
+    out = sdpa(q, k, v, causal=causal and kv is None, chunk=cfg.attn_chunk)
+    return dense(out.reshape(B, S, cfg.n_heads * cfg.hd()), p["wo"],
+                 quant_mode=cfg.quant_mode)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode path)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    batch: int
+    max_len: int
+    dtype: str = "bf16"     # bf16 (int8 is not ported yet)
+
+
+def init_kv_cache(cfg: ModelConfig, spec: CacheSpec,
+                  device: Union[str, torch.device] = "cuda") -> dict:
+    """Zeroed (batch, max_len, Kh·hd) K and V, bf16 whatever the model's
+    dtype (as the reference: an fp32 model's decode reads K/V rounded to
+    bf16)."""
+    if spec.dtype != "bf16":
+        raise NotImplementedError(
+            f"KV cache dtype {spec.dtype!r}: the int8 stochastic-rounding "
+            "cache is not ported yet (ROADMAP queue A, LM zoo); use 'bf16'")
+    shape = (spec.batch, spec.max_len, cfg.n_kv_heads * cfg.hd())
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: int, write_rows: Optional[torch.Tensor] = None
+                 ) -> dict:
+    """Write one token's k/v (B, 1, kvd) at position ``pos``, in place, in
+    the rows ``write_rows`` (indices or a bool mask over B; None: every
+    row, as the reference). Returns ``cache``."""
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name]
+        new = new[:, 0].to(buf.dtype)
+        if write_rows is None:
+            buf[:, pos] = new
+        else:
+            buf[write_rows, pos] = new[write_rows]
+    return cache
+
+
+def cache_read(cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    return cache["k"], cache["v"]
+
+
+def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               pos: int, angles: tuple[torch.Tensor, torch.Tensor],
+               write_rows: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token decode: x (B,1,D) at position ``pos``, cache over
+    max_len (written in place at ``pos`` in ``write_rows``). ``angles``:
+    the rope (cos, sin) of ``pos`` (``layers.rope_angles``), computed once
+    by the caller for every layer. Returns (out, cache)."""
+    B, S, _ = x.shape
+    hd = cfg.hd()
+    q, k, v = _qkv(p, cfg, x, x)
+    q = apply_rope(q, None, angles=angles)
+    k = apply_rope(k, None, angles=angles)
+    cache = cache_insert(cache, k.reshape(B, S, -1), v.reshape(B, S, -1),
+                         pos, write_rows)
+    k_all, v_all = cache_read(cache)
+    L = k_all.shape[1]
+    out = full_attention(q, k_all.reshape(B, L, cfg.n_kv_heads, hd),
+                         v_all.reshape(B, L, cfg.n_kv_heads, hd),
+                         causal=False, kv_len=torch.full(
+                             (B,), int(pos) + 1, device=x.device))
+    return dense(out.reshape(B, S, cfg.n_heads * hd), p["wo"],
+                 quant_mode=cfg.quant_mode), cache

@@ -1,0 +1,113 @@
+"""Primitive layers shared by every architecture — counterpart of
+``repro/models/layers.py``.
+
+``dense`` runs at ``quant_mode="none"`` only: a projection on a device
+substrate (the reference resolves any other mode through its backend
+registry) waits for the LM-on-substrate item (ROADMAP queue A) and
+raises here.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.utils import Seed, truncated_normal_init
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·scale, in fp32, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)
+            ).to(x.dtype)
+
+
+def require_unquantized(quant_mode: str) -> None:
+    if quant_mode != "none":
+        raise NotImplementedError(
+            f"quant_mode={quant_mode!r}: LM projections on a device "
+            "substrate are not ported yet (ROADMAP queue A, LM on a "
+            "substrate); use quant_mode='none'")
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+          quant_mode: str = "none") -> torch.Tensor:
+    """Linear layer x @ w (+ b) in x's dtype."""
+    require_unquantized(quant_mode)
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def init_dense(key: Seed, d_in: int, d_out: int, dtype: torch.dtype,
+               bias: bool = False, stddev: Optional[float] = None,
+               device: Union[str, torch.device] = "cuda") -> dict:
+    if stddev is None:
+        stddev = d_in ** -0.5
+    p = {"w": truncated_normal_init(key, (d_in, d_out), stddev, dtype,
+                                    device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """θ^(-2i/hd), fp32; cached per (head_dim, θ, device) — the decode
+    path asks for it in every layer of every step. Do not modify."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 1e4
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of positions × :func:`rope_freqs`, fp32, (..., S, hd/2)."""
+    ang = positions.to(torch.float32)[..., None] * rope_freqs(
+        head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor],
+               theta: float = 1e4,
+               angles: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """x (..., S, H, hd) or (..., S, hd); positions (..., S), or their
+    :func:`rope_angles` given as ``angles`` (computed once for every layer
+    that shares them). The rotation is fp32; the result is cast back."""
+    cos, sin = angles if angles is not None else rope_angles(
+        positions, x.shape[-1], theta)
+    if x.ndim == cos.ndim + 1:                               # (..., S, H, hd)
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, quant_mode: str = "none") -> torch.Tensor:
+    h = F.silu(dense(x, w_gate, quant_mode=quant_mode)) \
+        * dense(x, w_up, quant_mode=quant_mode)
+    return dense(h, w_down, quant_mode=quant_mode)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+             b_up=None, b_down=None, quant_mode: str = "none"
+             ) -> torch.Tensor:
+    """jax.nn.gelu's default is the tanh approximation; so is this."""
+    h = F.gelu(dense(x, w_up, b_up, quant_mode=quant_mode),
+               approximate="tanh")
+    return dense(h, w_down, b_down, quant_mode=quant_mode)

@@ -1,5 +1,7 @@
-"""Continuous-batching serving of recurrent (MiRU) streams: the state
-slab, the deterministic traffic generator and the engine."""
+"""Serving: continuous batching of recurrent (MiRU) streams (the state
+slab, the deterministic traffic generator and the engine) and of LM
+requests (the slot-based decode engine)."""
+from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 from repro_torch.serve.loadgen import (Arrival, TrafficSpec, make_arrivals,
                                        replay, request_frames)
 from repro_torch.serve.recurrent import (RecurrentServeConfig,
@@ -11,4 +13,5 @@ __all__ = [
     "RecurrentServeEngine", "RecurrentServeConfig", "StreamRequest",
     "serve_backend", "StateSlab", "SlabFullError",
     "TrafficSpec", "Arrival", "make_arrivals", "request_frames", "replay",
+    "ServeEngine", "ServeConfig", "Request",
 ]

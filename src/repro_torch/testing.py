@@ -19,6 +19,10 @@ compare row by row (a row is one batch row across its frames):
   are counted: :meth:`TieReport.check` allows at most 1 % of the rows.
 
 Anything else raises ``AssertionError``.
+
+Served LM tokens are compared the same way by :func:`compare_tokens`: a
+stream's tokens agree until one side's greedy pick flips on a near-tie
+of the logits, and the stream is not compared after that.
 """
 from __future__ import annotations
 
@@ -238,3 +242,56 @@ def one_level_logit_bound(w_o, lam: float, adc_bits: int,
     by that times the largest readout weight."""
     step = 2.0 * adc_range / 2 ** adc_bits
     return (1.0 - lam) * step * float(np.abs(_np(w_o)).max())
+
+
+def compare_tokens(got: Sequence, want: Sequence, got_logits: Sequence,
+                   want_logits: Sequence, *, atol: float) -> TieReport:
+    """Compare greedy LM streams token by token. ``got[i]``/``want[i]`` are
+    one request's generated tokens, ``*_logits[i]`` the (V,) logits each
+    token was picked from. Before a stream's first differing token the
+    logits agree within ``atol``; at that token the logits still agree and
+    each side's pick is a near-tie on both sides (the two tokens' logits
+    within 2·``atol``, the most two logits that agree within ``atol`` can
+    swap order by), and the stream is not compared further."""
+    report = TieReport(rows=len(got))
+    for i, (a, b, la, lb) in enumerate(zip(got, want, got_logits,
+                                           want_logits)):
+        if len(a) != len(b):
+            raise AssertionError(f"stream {i}: {len(a)} tokens != {len(b)}")
+        for t, (ta, tb) in enumerate(zip(a, b)):
+            xa = _np(la[t]).astype(np.float64)
+            xb = _np(lb[t]).astype(np.float64)
+            d = float(np.abs(xa - xb).max())
+            if d > atol:
+                raise AssertionError(f"stream {i}, token {t}: logits "
+                                     f"{d:.3g} apart, more than {atol:.3g}")
+            report.max_abs_err = max(report.max_abs_err, d)
+            if ta == tb:
+                continue
+            gaps = [abs(x[ta] - x[tb]) for x in (xa, xb)]
+            if max(gaps) > 2 * atol:
+                raise AssertionError(
+                    f"stream {i}, token {t}: picks {ta} != {tb} with logit "
+                    f"gaps {gaps}, not a tie within {2 * atol:.3g}")
+            report.flipped_rows += 1
+            report.flips.append((i, t, 1))
+            break
+    return report
+
+
+def bf16_within(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL,
+                atol: float = 2e-6) -> tuple[bool, float]:
+    """A bf16 result against the fp32 value it rounds: the kernel's fp32
+    value and ``want`` (the plain version's, summed in another order)
+    agree within ``atol + rtol·|want|``, and rounding to bf16 moves a value
+    by at most half a bf16 ulp, so ``|got - want|`` stays within one bf16
+    ulp of ``want`` plus that fp32 tolerance. (Near zero, where outputs
+    come from cancellation, the fp32 tolerance is larger than a bf16 ulp
+    and governs.) Returns (within, max |got - want|)."""
+    w = want.to(torch.float32)
+    d = (got.to(torch.float32) - w).abs()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    ok = bool((d <= ulp + atol + rtol * w.abs()).all())
+    return ok, float(d.max())

@@ -3,7 +3,7 @@ and device resolution."""
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -42,6 +42,49 @@ def normal_init(key: np.ndarray, shape: tuple[int, ...], stddev: float,
     return (float(np.float32(stddev)) * prng.normal(key, shape)).to(dtype)
 
 
+_SQRT2 = np.float32(np.sqrt(2.0))
+# erf(∓2/√2) rounded to float32: the truncated normal's uniform bounds.
+_TN_LO = np.float32(math.erf(float(np.float32(-2.0) / _SQRT2)))
+_TN_HI = np.float32(math.erf(float(np.float32(2.0) / _SQRT2)))
+
+
+def truncated_normal_init(key: Optional[Seed], shape: tuple[int, ...],
+                          stddev: float, dtype: torch.dtype = torch.float32,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> torch.Tensor:
+    """stddev · N(0, 1) truncated to (-2, 2), as the reference's
+    ``truncated_normal_init``: √2·erfinv(u), u uniform between erf(∓√2),
+    clipped inside the bounds. From a :mod:`repro_torch.prng` key: the
+    reference's float32 draw to within a few ulp (the uniform bits are
+    exact, the erfinv is XLA's polynomial), computed on the CPU, then
+    moved to ``device`` (a bf16 result is the float32 draw rounded, not
+    the reference's bf16 draw). From a ``torch.Generator``: drawn on the
+    generator's device, then moved. On the ``meta`` device: shape and
+    dtype only."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    lo = np.nextafter(np.float32(-2.0), np.float32(np.inf))
+    hi = np.nextafter(np.float32(2.0), np.float32(-np.inf))
+    if isinstance(key, torch.Generator):
+        u = torch.empty(shape, dtype=torch.float32, device=key.device)
+        u.uniform_(float(_TN_LO), float(_TN_HI), generator=key)
+        z = torch.clamp(float(_SQRT2) * torch.erfinv(u), float(lo), float(hi))
+    else:
+        u = prng.uniform_np(key, shape, _TN_LO, _TN_HI)
+        z = torch.from_numpy(np.clip(_SQRT2 * prng.erfinv_np(u), lo, hi))
+    return (float(np.float32(stddev)) * z).to(device=dev, dtype=dtype)
+
+
+def split_seed(seed: Optional[Seed], num: int) -> list:
+    """``num`` independent seeds from one: :func:`prng.split` of a key, or
+    the same ``torch.Generator`` ``num`` times (its stream advances with
+    each draw); None (shapes only, on the ``meta`` device) stays None."""
+    if seed is None or isinstance(seed, torch.Generator):
+        return [seed] * num
+    return list(prng.split(seed, num))
+
+
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """``torch.device(device)``, refusing CUDA where no card is present:
     a CUDA entry point never falls back to the CPU on its own."""
@@ -53,12 +96,30 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def tree_to(tree, device: Union[str, torch.device]):
+    """A nested dict of tensors with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                           ) -> torch.Tensor:
     """Mean cross-entropy; ``labels`` are integer class ids (B,)."""
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - ll)
+
+
+def softmax_cross_entropy_masked(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: torch.Tensor) -> torch.Tensor:
+    """Token-masked mean cross-entropy (LM training). logits (..., V);
+    labels (...,) int; mask (...,) {0, 1}."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    mask = mask.to(logits.dtype)
+    return torch.sum((logz - ll) * mask) / torch.clamp_min(torch.sum(mask),
+                                                           1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

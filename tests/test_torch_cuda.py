@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import testing
 from repro_torch.analog.wbs import ideal_gains, quantize_signed
 from repro_torch.backends import get_backend
 from repro_torch.core.miru import MiRUConfig, init_miru_params
@@ -252,3 +253,138 @@ def test_read_noise_is_shared_by_all_rows_of_a_call(cuda):
     torch.cuda.synchronize()
     assert torch.equal(y[3], y[200])
     assert not torch.equal(y, ops.wbs_matmul(sign, code, w, g, None))
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention forward and the k-WTA bisection (the LM slice)
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(dev, B, Sq, Sk, H, Kh, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+               for s in ((B, Sq, H, dh), (B, Sk, Kh, dh), (B, Sk, Kh, dh)))
+    return [t.to(dev, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal", [
+    (1, 2048, 2048, 14, 2, 64, True),    # the qwen2-0.5B prefill, rep 7
+    (2, 2048, 2048, 14, 2, 64, True),    # ... at the main path's batch
+    (2, 256, 256, 4, 2, 64, True),       # kernel_bench's shape
+    (1, 300, 300, 14, 2, 64, True),      # Sk not a tile multiple
+    (2, 100, 333, 4, 2, 64, False),      # Sq != Sk, not causal
+    (1, 130, 130, 4, 4, 64, True),       # rep 1
+    (1, 96, 96, 4, 2, 128, True),        # head dim 128
+    (2, 40, 40, 4, 2, 8, False),         # head dim 8, zero-padded to 64
+])
+def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
+                                   dtype):
+    from repro_torch.kernels import flash_attention as kflash
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + H)
+    before = kflash.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kflash.launches == before + 1
+    # The plain version on the same inputs, through the same wrapper.
+    want_o, want_l = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
+                                             causal=causal)
+    assert out.dtype == dt and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), want_l.numpy(), rtol=0,
+                               atol=1e-5)
+    if dt == torch.float32:
+        np.testing.assert_allclose(out.cpu().numpy(), want_o.numpy(),
+                                   rtol=2e-5, atol=2e-6)
+    else:
+        # Against the plain version's fp32 value: one bf16 ulp of rounding
+        # plus the fp32 tolerance of the two summation orders.
+        want32, _ = ops.flash_attention_fwd(q.cpu().float(),
+                                            k.cpu().float(),
+                                            v.cpu().float(), causal=causal)
+        assert testing.bf16_within(out.cpu(), want32)[0]
+
+
+def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(cuda):
+    """Keys at or past sk_true, and under the causal mask keys past each
+    row, leave the output's bits unchanged whatever they hold: the kernel
+    skips their tiles or weighs them by exactly 0."""
+    q, k, v = _flash_inputs(cuda, 1, 200, 200, 14, 2, 64, torch.float32, 9)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 150:], v2[:, 150:] = 7.0, -3.0
+    out2, lse2 = ops.flash_attention_fwd(q, k2, v2, causal=True)
+    assert torch.equal(out[:, :150], out2[:, :150])
+    assert torch.equal(lse[..., :150], lse2[..., :150])
+    # Padded keys past sk_true: the same bits as without the padding.
+    kp = torch.cat([k, torch.full_like(k[:, :56], 5.0)], 1)
+    vp = torch.cat([v, torch.full_like(v[:, :56], -5.0)], 1)
+    for causal in (True, False):
+        a, la = ops.flash_attention_fwd(q, k, v, causal=causal)
+        b, lb = ops.flash_attention_fwd(q, kp, vp, causal=causal, sk_true=200)
+        assert torch.equal(a, b) and torch.equal(la, lb)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,N,k", [(64, 1024, 580), (3, 100, 10),
+                                   (11, 257, 30), (8, 65536, 6000)])
+def test_kwta_kernel_equals_plain(cuda, R, N, k, dtype):
+    from repro_torch.kernels import kwta as kkwta
+    rng = np.random.default_rng(R + N)
+    x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(np.float32)).to(
+        cuda, getattr(torch, dtype))
+    before = kkwta.launches
+    got = ops.kwta(x, k)
+    torch.cuda.synchronize()
+    assert kkwta.launches == before + 1
+    assert torch.equal(got, ref.kwta_bisect_ref(x, k))
+    assert torch.equal(got.cpu(), ops.kwta(x.cpu(), k))
+
+
+def _lm(dev, name="qwen2-0.5b", **kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config(name), **kw)
+    return cfg, lm.init_params(torch.Generator().manual_seed(0), cfg, dev)
+
+
+def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg, params = _lm(cuda, attn_chunk=16)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    before = kflash.launches
+    logits = lm.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kflash.launches == before + cfg.n_layers
+    cpu = lm.prefill(tree_to(params, "cpu"), cfg, {"tokens": toks})
+    np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    before = kflash.launches
+    lm.prefill(params, cfg, {"tokens": toks[:, :16]})   # S <= chunk: full
+    assert kflash.launches == before
+
+
+def test_lm_engine_batch_composition_on_the_card(cuda):
+    """Each request decodes the same tokens alone as in a burst, in any
+    slot, on the card."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg, params = _lm(cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, rng.integers(2, 12)).tolist()
+               for _ in range(10)]
+
+    def serve(traffic):
+        eng = ServeEngine(cfg, ServeConfig(batch_slots=4, max_len=32,
+                                           eos_token=-1, torch_device=cuda),
+                          params)
+        reqs = [eng.submit(p, max_new=8) for p in traffic]
+        eng.run_until_drained()
+        return [r.tokens for r in reqs]
+
+    burst = serve(prompts)
+    assert all(len(t) == 8 for t in burst)
+    for i in (0, 5, 9):
+        assert serve([prompts[i]]) == [burst[i]]

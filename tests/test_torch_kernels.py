@@ -306,3 +306,62 @@ def test_wbs_input_drive_per_step_gains_are_the_per_step_products():
         step = ops.wbs_dense(x[:, t], w / 1.5, 8, adc_bits=None,
                              gains=gains[t]) * 1.5
         assert torch.equal(got[:, t], step)
+
+
+# ---------------------------------------------------------------------------
+# k-WTA by threshold bisection (ops.kwta)
+# ---------------------------------------------------------------------------
+
+def _kwta_rows(R, N, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (R, N)).astype(np.float32)
+    if ties:                        # repeated magnitudes, both signs
+        x = np.round(x * 4) / 4
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,N,k,ties", [
+    (64, 1024, 580, False),         # benchmarks/kernel_bench.py's shape
+    (3, 100, 10, False),            # fewer rows than the reference's block
+    (11, 257, 30, False),           # rows the reference pads to 16
+    (8, 64, 20, True),              # ties at the threshold
+])
+def test_kwta_bitwise_equal_to_reference(R, N, k, ties, dtype):
+    x = _kwta_rows(R, N, R + N, ties)
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jops.kwta(jx, k).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = ops.kwta(tx, k)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    assert np.array_equal(got.float().numpy(), want)
+    assert torch.equal(ref.kwta_bisect_ref(tx, k), got)
+
+
+def test_kwta_one_row_and_k_at_least_n():
+    x = _kwta_rows(1, 300, 4)[0]
+    want = np.asarray(jops.kwta(jnp.asarray(x), 25))
+    got = ops.kwta(torch.from_numpy(x), 25)
+    assert got.shape == (300,) and np.array_equal(got.numpy(), want)
+    assert int((got != 0).sum()) == 25
+    t = torch.from_numpy(x)
+    assert ops.kwta(t, 300) is t
+    t2 = t[None]
+    assert ops.kwta(t2, 400) is t2
+
+
+def test_kwta_long_rows_take_the_exact_top_k(monkeypatch):
+    """Rows longer than the limit go to the exact top-k (the reference's
+    fallback), on any device; shrink the limit to reach it."""
+    assert ops.KWTA_ROW_LIMIT == jops._KWTA_VMEM_LIMIT
+    x = _kwta_rows(2, 64, 5, ties=True)
+    monkeypatch.setattr(ops, "KWTA_ROW_LIMIT", 32)
+    got = ops.kwta(torch.from_numpy(x), 10)
+    want = np.asarray(jref.kwta_ref(jnp.asarray(x), 10))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_kwta_wrapper_refuses_cpu_tensors_and_bad_inputs():
+    from repro_torch.kernels import kwta as kkwta
+    with pytest.raises(ValueError, match="CUDA"):
+        kkwta.kwta(torch.zeros(2, 8), 3)

@@ -36,10 +36,17 @@ each made in this process without touching the package's files:
   ``u_writes_lost``;
 - train (d), ``analog`` with read noise (held, as in ``chip_smoke.py``,
   against a CPU run of its first epoch): ``read_noise_off`` (σ = 0) and
-  ``read_sigma_0.05`` (half the noise).
+  ``read_sigma_0.05`` (half the noise);
+- ``lm``, the LM phase's 2-layer fp32 twins of qwen2-0.5B: the prefill
+  twin's largest logit difference for the card, the CPU at 2 threads and
+  the card with the flash call's ``causal_off``, ``gqa_shift`` (each
+  query head reading the next KV head) or ``sk_true_ignored`` (the
+  padded keys unmasked), beside ``LM_PREFILL_ATOL``; the serve twin's
+  first logits and tokens for the card, the CPU at 2 threads and the
+  card with ``cache_writes_all_rows`` (the reference's cache write).
 
-``--paths`` picks some of ``software ideal wbs analog read_noise`` (all
-by default).
+``--paths`` picks some of ``software ideal wbs analog read_noise lm``
+(all by default).
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 _OUT = None
-PATHS = ("software", "ideal", "wbs", "analog", "read_noise")
+PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm")
 
 
 def emit(**row) -> None:
@@ -206,6 +213,92 @@ def protocol(dev, backends) -> None:
                  passes_R_tolerance=cs.r_within(backend, run, cpu))
 
 
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(original)`` for the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def flash_fault(kind: str):
+    """A planted fault in the flash call of the model's prefill."""
+    from repro_torch.kernels import ops
+
+    def wrap(orig):
+        def call(q, k, v, causal=True, sk_true=None):
+            if kind == "causal_off":
+                causal = False
+            elif kind == "gqa_shift":
+                k, v = k.roll(-1, 2), v.roll(-1, 2)
+            elif kind == "sk_true_ignored":
+                sk_true = k.shape[1]
+            return orig(q, k, v, causal, sk_true)
+        return call
+    return patched(ops, "flash_attention_fwd", wrap)
+
+
+def lm(dev) -> None:
+    """The LM twins: sound runs beside planted faults."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.models import lm as lm_mod
+    cpu_dev = torch.device("cpu")
+    ccfg, cparams = cs.lm_twin_model(cpu_dev)
+    cpu = cs.lm_prefill_twin_logits(ccfg, cparams, cpu_dev)
+    cfg, params = cs.lm_twin_model(dev)
+    runs = {"card": (dev, contextlib.nullcontext)}
+    runs["cpu_2_threads"] = (cpu_dev, lambda: threads(2))
+    for kind in ("causal_off", "gqa_shift", "sk_true_ignored"):
+        runs[f"card_{kind}"] = (dev, lambda kind=kind: flash_fault(kind))
+    for name, (d, ctx) in runs.items():
+        with ctx():
+            got = cs.lm_prefill_twin_logits(
+                ccfg if d.type == "cpu" else cfg,
+                cparams if d.type == "cpu" else params, d)
+        diff = float((got - cpu).abs().max())
+        emit(path="lm_prefill", run=name, max_abs_d_logits=diff,
+             max_abs_logit=float(cpu.abs().max()),
+             within_atol=diff <= cs.LM_PREFILL_ATOL,
+             atol=cs.LM_PREFILL_ATOL)
+
+    prompts = cs.lm_twin_prompts(ccfg.vocab)
+    _, creqs = cs.lm_serve(ccfg, cparams, prompts, cpu_dev,
+                           cs.LM_TWIN_MAX_NEW, keep_logits=True)
+
+    def all_rows(orig):
+        return lambda *a, write_rows=None, **kw: orig(*a, **kw)
+    runs = {"card": (dev, contextlib.nullcontext),
+            "cpu_2_threads": (cpu_dev, lambda: threads(2)),
+            "card_cache_writes_all_rows": (
+                dev, lambda: patched(lm_mod, "decode_step", all_rows))}
+    for name, (d, ctx) in runs.items():
+        with ctx():
+            _, reqs = cs.lm_serve(ccfg if d.type == "cpu" else cfg,
+                                  cparams if d.type == "cpu" else params,
+                                  prompts, d, cs.LM_TWIN_MAX_NEW,
+                                  keep_logits=True)
+        first = max(float((r.logits[0] - c.logits[0]).abs().max())
+                    for r, c in zip(reqs, creqs))
+        every = max(float((torch.stack(r.logits) - torch.stack(c.logits))
+                          .abs().max()) for r, c in zip(reqs, creqs))
+        try:
+            rep = testing.compare_tokens(
+                [r.tokens for r in reqs], [c.tokens for c in creqs],
+                [r.logits for r in reqs], [c.logits for c in creqs],
+                atol=cs.LM_SERVE_ATOL).as_dict()
+        except AssertionError as e:
+            rep = {"fails": str(e)[:200]}
+        emit(path="lm_serve", run=name, first_logits_max_abs_d=first,
+             all_logits_max_abs_d=every,
+             tokens_equal=[r.tokens for r in reqs] ==
+             [c.tokens for c in creqs], atol=cs.LM_SERVE_ATOL,
+             compare_tokens=rep)
+
+
 def main() -> int:
     global _OUT
     import torch
@@ -229,6 +322,8 @@ def main() -> int:
     protocol(dev, [p for p in ("ideal", "wbs", "analog") if p in paths])
     if "read_noise" in paths:
         read_noise(dev)
+    if "lm" in paths:
+        lm(dev)
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
     return 0
 
