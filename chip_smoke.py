@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
-substrates, the Table I metering and the LM zoo's dense serving path on
-one NVIDIA GPU, and check them.
+substrates, the Table I metering and the LM zoo's dense serving and
+training paths on one NVIDIA GPU, and check them.
 
 Run from the repository root with no arguments:
 
@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the six CUDA libraries compiled by nvcc for sm_90a from
+2. build: the seven CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
@@ -22,7 +22,13 @@ Phases, each printed as one JSON line:
    forward at the qwen2-0.5B prefill's shape and four others (fp32
    ``out`` at rtol 2e-5 / atol 2e-6, ``lse`` at atol 1e-5, bf16 ``out``
    within one bf16 ulp plus that fp32 tolerance), and with keys padded
-   past ``sk_true`` bit for bit as without;
+   past ``sk_true`` bit for bit as without; the flash backward's dq and
+   dk/dv kernels at the training shape (bf16 and fp32), the training
+   twin's, with keys past ``sk_true`` and Sq != Sk, rep 1 and a head dim
+   padded from 80 to 128 (fp32 at rtol 1e-4 with a floor of 1e-5 of the
+   largest gradient, bf16 within one ulp plus that), and the gradients
+   through the autograd Function against torch.autograd through
+   ``full_attention``;
 4. serve: the paper's 28×100×10 network (``configs/m2ru_paper.py``) with
    seeded random weights, served through ``RecurrentServeEngine`` on the
    ``wbs`` substrate (64 slots, chunk 14) for a 256-request burst over 96
@@ -66,12 +72,25 @@ lm. the LM zoo's dense serving path, qwen2-0.5B at full width in bf16
    tokens/s, steps, decode calls, busy share; (iv) four of them served
    alone decode the burst's tokens; (v) those four, 8 tokens each, on
    the 2-layer fp32 model against the CPU's run (tokens tie-aware,
-   logits within ``LM_SERVE_ATOL``); then ``ops.kwta`` once at
-   (64, 1024), k 580;
+   logits within ``LM_SERVE_ATOL``);
+lm_train. the LM training path: (i) the same full model (bf16, remat
+   on) through ``train.Trainer`` with AdamW at ``TrainConfig``'s
+   defaults, ``ShardedBatcher`` over 2 × 2,048-token batches, 30 counted
+   steps after 3 of warm-up: ms a step, tokens/s, every loss and grad
+   norm finite, peak memory, exactly 48 flash forward launches (24 and
+   their 24 recomputes), 24 dq and 24 dk/dv launches a step, and the
+   busy share of a traced 3-step window; (ii) the 2-layer fp32 training
+   twin, 3 steps on 1,100 tokens (KV padded to 2,048, ``sk_true``
+   1,100), against the port's CPU run of the same steps: every loss
+   (``LM_TRAIN_LOSS_RTOL``), grad norm (``LM_TRAIN_GNORM_RTOL``) and the
+   final params (their distance over the CPU update's norm,
+   ``LM_TRAIN_PARAMS_REL``); then ``ops.kwta`` once at (64, 1024), k 580;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
-   k-WTA the exact top-k, a different function), each over a CUDA graph
-   of repeated launches, beside the least time the card could take.
+   k-WTA the exact top-k, a different function; for the flash backward
+   the backward of ``scaled_dot_product_attention``), each over a CUDA
+   graph of repeated launches, beside the least time the card could
+   take.
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -178,6 +197,31 @@ LM_TWIN_ROWS = tuple(range(0, LM_TWIN_S, 10)) + (LM_TWIN_S - 1,)
 #   the reference's every-row cache write 3.6, with other tokens.
 LM_PREFILL_ATOL = 1e-4
 LM_SERVE_ATOL = 1e-3
+# LM training: the same full model (bf16, remat on) through
+# train/trainer.Trainer at TrainConfig's defaults (AdamW, lr 3e-4, warmup
+# 10, weight decay 0.1, clip 1.0), 2 × 2,048 tokens a step from
+# lm_token_batch (KV > attn_chunk: the flash branch); LM_TRAIN_WARMUP
+# steps first, then LM_TRAIN_STEPS counted and timed, then a traced
+# window of LM_TRAIN_TRACE_STEPS. Each step launches the flash forward
+# twice a layer (the forward and its recompute under remat) and the dq
+# and dk/dv kernels once a layer.
+LM_TRAIN_B, LM_TRAIN_S = 2, 2048
+LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_TRACE_STEPS = 3, 30, 3
+# The training twin: the 2-layer fp32 model of the LM twins on one
+# 1,100-token sequence a step (the flash branch, KV padded to 2,048,
+# sk_true 1,100), warmup 0 (lr 3e-4 from the first step), 3 Trainer
+# steps, against the port's CPU run of the same steps. Measured on an
+# H100 with tools/parity_reach.py --paths lm_train: the card's losses
+# 7.9e-8 relative from the CPU's, its grad norms 6.6e-7, its final
+# params' distance 2.6e-5 of the CPU update's norm (the CPU at 2 threads:
+# 0, 9.4e-8, 1.2e-5); with dq's scale dropped, the backward's causal mask
+# off, delta omitted or dk/dv shifted to the next KV head, the losses
+# 1.2e-4 to 4.4e-4 apart, the grad norms 0.037 to 2,760 and the params
+# 0.16 to 0.99 of the update. Each tolerance below separates them.
+LM_TRAIN_TWIN_STEPS = 3
+LM_TRAIN_LOSS_RTOL = 1e-5
+LM_TRAIN_GNORM_RTOL = 1e-4
+LM_TRAIN_PARAMS_REL = 1e-2
 # The kernels: each one's wrapper module and launch counter.
 KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "wbs_matmul_read_noise": ("wbs_matmul", "read_noise_launches"),
@@ -185,6 +229,8 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "miru_scan": ("miru_scan", "launches"),
            "miru_readout": ("miru_readout", "launches"),
            "flash_attention_fwd": ("flash_attention", "launches"),
+           "flash_attention_bwd_dq": ("flash_attention", "dq_launches"),
+           "flash_attention_bwd_dkv": ("flash_attention", "dkv_launches"),
            "kwta": ("kwta", "launches")}
 # CPU twins run beside the card's phases, one thread each.
 TWIN_WORKERS = 4
@@ -273,6 +319,24 @@ def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * rounds)
+
+
+def time_events(fn, reps: int = 20) -> float:
+    """Milliseconds per call of ``fn`` between CUDA events around ``reps``
+    back-to-back calls after a warm-up, without a graph (host launch
+    gaps, if any, count)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(flops: float, n_bytes: float, flops64: float = 0.0,
@@ -406,6 +470,7 @@ def check_kernels(dev) -> dict:
                                      f"row-exact at M={M}")
         err["wbs_matmul_read_noise"] = check_read_noise(dev, rng)
         err.update(check_lm_kernels(dev, rng))
+    err.update(check_flash_bwd(dev, rng))
     return err
 
 
@@ -516,6 +581,76 @@ def check_lm_kernels(dev, rng) -> dict:
             if not same:
                 raise AssertionError(f"kwta != plain at {(R, N)}, k {kk}, "
                                      f"{dt}")
+    return err
+
+
+def check_flash_bwd(dev, rng) -> dict:
+    """The flash backward's dq and dk/dv kernels against their plain
+    version on the card: the training shape (B 2, S
+    2,048, 14/2 heads, dh 64, causal) in bf16 and fp32, the training
+    twin's (1,100 queries against keys padded to 2,048, sk_true 1,100),
+    Sq != Sk without the causal mask and with keys past sk_true, rep 1,
+    and a head dim of 80 zero-padded to 128; then the gradients through
+    the autograd Function against torch.autograd through the plain
+    ``full_attention``, fp32 (``testing.grads_close``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.testing import flash_bwd_plain, grads_close
+    err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_S, 14, 2, 64, True, None),
+              (bf16, f32)),
+             ((1, LM_TWIN_S, 2048, 14, 2, 64, True, LM_TWIN_S), (f32,)),
+             ((1, 100, 333, 4, 2, 64, False, 250), (f32, bf16)),
+             ((2, 130, 130, 4, 4, 64, True, None), (f32,)),
+             ((1, 96, 200, 4, 1, 80, False, 150), (f32, bf16))]
+    with torch.no_grad():
+        for (B, Sq, Sk, H, Kh, dh, causal, skt), dtypes in cases:
+            for dt in dtypes:
+                q, k, v = flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dt)
+                dout = flash_inputs(rng, dev, B, Sq, Sq, H, H, dh, dt)[0]
+                out, lse = ops.flash_attention_fwd(q, k, v, causal, skt)
+                got = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              causal, skt)
+                want = flash_bwd_plain(q, k, v, out, lse, dout, causal, skt)
+                torch.cuda.synchronize()
+                e = {n: float((g.float() - w).abs().max())
+                     for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+                ok = all(grads_close(g, w) for g, w in zip(got, want))
+                if skt is not None:       # keys past sk_true: no gradient
+                    ok = ok and not (got[1][:, skt:].any()
+                                     or got[2][:, skt:].any())
+                err["flash_attention_bwd_dq"] = max(
+                    err["flash_attention_bwd_dq"], e["dq"])
+                err["flash_attention_bwd_dkv"] = max(
+                    err["flash_attention_bwd_dkv"], e["dk"], e["dv"])
+                emit("kernels", kernel="flash_attention_bwd",
+                     shape=[B, Sq, Sk, H, Kh, dh], causal=causal,
+                     sk_true=skt, dtype=str(dt), max_abs_err=e,
+                     max_abs_grad={n: float(w.abs().max()) for n, w in
+                                   zip(("dq", "dk", "dv"), want)}, ok=ok)
+                if not ok:
+                    raise AssertionError(f"flash backward != plain at "
+                                         f"{(B, Sq, Sk, H, Kh, dh)}, {dt}")
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        rng, dev, 2, 300, 300, 14, 2, 64, f32))
+    g = flash_inputs(rng, dev, 2, 300, 300, 14, 14, 64, f32)[0]
+    got = torch.autograd.grad(ops.flash_attention_fwd(q, k, v, True)[0],
+                              (q, k, v), g)
+    want = torch.autograd.grad(attn.full_attention(q, k, v, True),
+                               (q, k, v), g)
+    torch.cuda.synchronize()
+    ok = all(grads_close(a, b) for a, b in zip(got, want))
+    emit("kernels", kernel="flash_attention_bwd",
+         case="autograd Function vs torch.autograd of full_attention",
+         shape=[2, 300, 300, 14, 2, 64], dtype="torch.float32",
+         max_abs_err={n: float((a - b).abs().max())
+                      for n, a, b in zip(("dq", "dk", "dv"), got, want)},
+         ok=ok)
+    if not ok:
+        raise AssertionError("flash gradients differ from torch.autograd "
+                             "through full_attention")
     return err
 
 
@@ -989,8 +1124,8 @@ def cpu_twin(kind: str) -> dict:
     of one thread: ``software`` (train (a)), ``protocol:<backend>``
     (train (b), (c)), ``read_noise`` (train (d)'s first epoch),
     ``table1:<backend>``, ``lm_prefill`` and ``lm_serve`` (the LM
-    phase's 2-layer fp32 twins). Returns what the checks read, as plain
-    values and CPU tensors."""
+    phase's 2-layer fp32 twins), ``lm_train`` (the training twin).
+    Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
     cpu = torch.device("cpu")
@@ -1011,6 +1146,8 @@ def cpu_twin(kind: str) -> dict:
                            LM_TWIN_MAX_NEW, keep_logits=True)
         return {"tokens": [r.tokens for r in reqs],
                 "logits": [torch.stack(r.logits) for r in reqs]}
+    if kind == "lm_train":
+        return lm_train_twin_run(cpu)
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -1020,9 +1157,9 @@ def cpu_twin(kind: str) -> dict:
 
 
 #: Every twin, longest first (measured on the CPU of the card's host).
-TWINS = ("protocol:analog", "protocol:wbs", "software", "table1:analog_state",
-         "protocol:ideal", "table1:cmos", "read_noise", "lm_serve",
-         "lm_prefill")
+TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
+         "table1:analog_state", "protocol:ideal", "table1:cmos",
+         "read_noise", "lm_serve", "lm_prefill")
 
 
 def start_twins():
@@ -1430,6 +1567,144 @@ def lm_path(dev, twins: dict) -> dict:
     return {"lm_prefill": pre_launches, "lm_serve": serve_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_train: the LM training path (qwen2-0.5B)
+# ---------------------------------------------------------------------------
+
+def lm_train_batcher(cfg, B: int, S: int, seed: int = 0):
+    """``ShardedBatcher`` over ``lm_token_batch(rng, B, S, vocab)``; the
+    ``Trainer`` moves each batch to its device."""
+    from repro_torch.data.pipeline import ShardedBatcher
+    from repro_torch.data.synthetic import lm_token_batch
+    return ShardedBatcher(lambda rng, step: lm_token_batch(rng, B, S,
+                                                           cfg.vocab),
+                          seed=seed)
+
+
+def lm_train_twin_run(dev) -> dict:
+    """The training twin on ``dev``: the LM twins' 2-layer fp32 model,
+    LM_TRAIN_TWIN_STEPS Trainer steps on 1 × LM_TWIN_S tokens, warmup 0.
+    Returns its losses, grad norms and final params (on the CPU), and
+    each kernel's launches in the run."""
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.utils import tree_to
+    cfg, params = lm_twin_model(dev)
+    tr = Trainer(cfg, TrainConfig(warmup_steps=0),
+                 lm_train_batcher(cfg, 1, LM_TWIN_S, seed=2),
+                 params=params, device=dev)
+    reset_launches()
+    hist = tr.run(steps=LM_TRAIN_TWIN_STEPS)
+    _sync(dev)
+    launches = read_launches()
+    return {"losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "params": tree_to(tr.params, "cpu"), "launches": launches}
+
+
+def train_twin_distances(run: dict, cpu: dict, init: dict) -> dict:
+    """How far a training twin run lies from the CPU's: the largest
+    relative loss and grad-norm differences over the steps, and the
+    final params' largest difference and its L2 norm over that of the
+    CPU run's update (params minus the initial ones)."""
+    import numpy as np
+    import torch
+    from repro_torch.utils import flatten_dict
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))
+                                    / np.abs(b)))
+    got, want, p0 = (flatten_dict(t) for t in (run["params"],
+                                                cpu["params"], init))
+    d2 = u2 = 0.0
+    dmax = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double())
+        d2 += float(torch.sum(d * d))
+        u = w.double() - p0[k].double()
+        u2 += float(torch.sum(u * u))
+        dmax = max(dmax, float(d.abs().max()))
+    return {"loss_max_rel_d": rel(run["losses"], cpu["losses"]),
+            "grad_norm_max_rel_d": rel(run["grad_norms"],
+                                       cpu["grad_norms"]),
+            "params_max_abs_d": dmax,
+            "params_d_over_update": (d2 / u2) ** 0.5}
+
+
+def lm_train(dev, twins: dict) -> dict:
+    """(i) the full model's training steps through the flash forward and
+    backward kernels: ms a step, tokens/s, losses and grad norms, peak
+    memory, launches a step, the busy share of a traced window; (ii) the
+    2-layer fp32 training twin against the CPU's run of the same steps."""
+    import numpy as np
+    import torch
+    from repro_torch.train import TrainConfig, Trainer
+    cfg, params = lm_full_model(dev)
+    tr = Trainer(cfg, TrainConfig(),
+                 lm_train_batcher(cfg, LM_TRAIN_B, LM_TRAIN_S),
+                 params=params, device=dev)
+    del params
+    tr.run(steps=LM_TRAIN_WARMUP)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.run(steps=LM_TRAIN_STEPS)[-LM_TRAIN_STEPS:]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_attention_fwd": 2 * cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers}
+    exact = all(launches[k] == n * LM_TRAIN_STEPS for k, n in want.items()) \
+        and all(c == 0 for k, c in launches.items() if k not in want)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    finite = bool(np.isfinite(losses).all() and np.isfinite(gnorms).all())
+    step_ms = float(np.median([h["sec"] for h in hist])) * 1e3
+    t0 = time.perf_counter()
+    tr.run(steps=LM_TRAIN_TRACE_STEPS)
+    _sync(dev)
+    busy = busy_share(lambda: tr.run(steps=LM_TRAIN_TRACE_STEPS),
+                      time.perf_counter() - t0)
+    busy["window"] = f"{LM_TRAIN_TRACE_STEPS} train steps"
+    emit("lm_train", part="train", config=LM, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), remat=cfg.remat,
+         tokens_per_step=[LM_TRAIN_B, LM_TRAIN_S], steps=LM_TRAIN_STEPS,
+         n_params=tr.n_params, step_ms_median=step_ms,
+         step_ms=[h["sec"] * 1e3 for h in hist], wall_s=wall,
+         tokens_per_s=LM_TRAIN_STEPS * LM_TRAIN_B * LM_TRAIN_S / wall,
+         losses=losses, grad_norms=gnorms,
+         max_memory_allocated_gb=peak / 1e9, launches=launches,
+         launches_per_step={k: v / LM_TRAIN_STEPS
+                            for k, v in launches.items()},
+         launches_exact=exact, finite=finite, traced_run=busy)
+    if not (finite and exact):
+        raise AssertionError(f"lm_train: finite {finite}, launches "
+                             f"{launches} (want {want} a step)")
+    del tr
+
+    run = lm_train_twin_run(dev)
+    cpu = twins["lm_train"].result()
+    d = train_twin_distances(run, cpu, lm_twin_model(torch.device("cpu"))[1])
+    twin_want = {k: n // cfg.n_layers * LM_TWIN_LAYERS * LM_TRAIN_TWIN_STEPS
+                 for k, n in want.items()}
+    twin_exact = all(run["launches"][k] == n for k, n in twin_want.items())
+    ok = (twin_exact and d["loss_max_rel_d"] <= LM_TRAIN_LOSS_RTOL
+          and d["grad_norm_max_rel_d"] <= LM_TRAIN_GNORM_RTOL
+          and d["params_d_over_update"] <= LM_TRAIN_PARAMS_REL)
+    emit("lm_train", part="twin", layers=LM_TWIN_LAYERS, tokens=LM_TWIN_S,
+         steps=LM_TRAIN_TWIN_STEPS, losses=run["losses"],
+         cpu_losses=cpu["losses"], grad_norms=run["grad_norms"],
+         cpu_grad_norms=cpu["grad_norms"], launches=run["launches"],
+         tolerances={"loss_rtol": LM_TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": LM_TRAIN_GNORM_RTOL,
+                     "params_d_over_update": LM_TRAIN_PARAMS_REL},
+         ok=ok, **d)
+    if not ok:
+        raise AssertionError(f"lm_train twin: {d}, launches "
+                             f"{run['launches']} (want {twin_want})")
+    return {"lm_train": launches, "lm_train_twin": run["launches"]}
+
+
 def kwta_path(dev) -> dict:
     """``ops.kwta`` once at kernel_bench's (64, 1024), k 580: its launch
     counts."""
@@ -1605,6 +1880,7 @@ def lm_times(dev, rng) -> dict:
             qt, kt, vt, True, S, H, Kh), reps=2, rounds=3),
         library_ms=time_graph(yard), library=yard_name,
         bound_ms=b, bound_by=by)
+    out.update(flash_bwd_times(dev, rng))
     # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
     # and writes out once and makes |x| and iters + 2 comparisons an
     # element. The yardstick is the exact top-k k-WTA (torch.topk), a
@@ -1620,6 +1896,81 @@ def lm_times(dev, rng) -> dict:
         library_ms=time_graph(lambda: ref.kwta_ref(x, kk)),
         library="exact top-k k-WTA (torch.topk), a different function",
         bound_ms=b, bound_by=by)
+    return out
+
+
+def flash_bwd_times(dev, rng) -> dict:
+    """The flash backward's two kernels at the training shape (B 2, S
+    2,048, 14/2 heads, dh 64, bf16, causal), each beside the plain
+    version and the backward of ``scaled_dot_product_attention`` over a
+    saved forward (both compute dq, dk and dv together: the same figure
+    stands beside each kernel), and the whole backward as the port runs
+    it (delta's torch reduction and both kernels)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    B, S, H, Kh, dh = LM_TRAIN_B, LM_TRAIN_S, 14, 2, 64
+    q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, torch.bfloat16)
+    do = flash_inputs(rng, dev, B, S, S, H, H, dh, torch.bfloat16)[0]
+    heads = lambda t: t.transpose(1, 2).reshape(-1, S, dh).contiguous()
+    qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(do)
+    kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
+              scale=dh ** -0.5)
+    ot, lse = flash_attention.flash_attention_fwd(qt, kt, vt, **kw)
+    delta = torch.sum(dot.float() * ot.float(), -1)
+    args = (qt, kt, vt, dot, lse, delta)
+    # Causal halves each of the 2·S·S·dh products a head: dq takes three
+    # (s, dO·vᵀ, ds·k), dk/dv four (s, dO·vᵀ, pᵀ·dO, dsᵀ·q); bf16
+    # operands, so the bound is the bf16 tensor-core peak against q, k,
+    # v, dO (bf16), lse and delta (f32) read once and the outputs written
+    # once.
+    prod = 2.0 * B * H * S * S * dh / 2
+    reads = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 2 * 4 * B * H * S
+    bounds = {"flash_attention_bwd_dq": bound_ms(
+                  0.0, reads + 2 * B * H * S * dh, flops_bf16_tc=3 * prod),
+              "flash_attention_bwd_dkv": bound_ms(
+                  0.0, reads + 2 * 2 * B * Kh * S * dh,
+                  flops_bf16_tc=4 * prod)}
+    plain = time_graph(lambda: ref.flash_attention_bwd_ref(
+        qt, kt, vt, ot, lse, dot, True, S, H, Kh), reps=2, rounds=3)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                           enable_gqa=True)
+    g = do.transpose(1, 2).contiguous()
+    # CUDA events around back-to-back calls, not a graph: autograd runs
+    # each backward op on its forward's stream, which a capture on another
+    # stream cannot record.
+    lib = time_events(lambda: torch.autograd.grad(o, (qh, kh, vh), g,
+                                                  retain_graph=True))
+    lib_name = ("backward of F.scaled_dot_product_attention(is_causal, "
+                "enable_gqa) over a saved forward, dq, dk and dv together "
+                "(CUDA events over 20 calls, no graph)")
+    fns = {"flash_attention_bwd_dq": lambda: flash_attention
+           .flash_attention_bwd_dq(*args, **kw),
+           "flash_attention_bwd_dkv": lambda: flash_attention
+           .flash_attention_bwd_dkv(*args, **kw)}
+    out = {n: dict(shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
+                   ms=time_graph(fn), plain_ms=plain,
+                   plain="ref.flash_attention_bwd_ref: dq, dk and dv "
+                         "together", library_ms=lib, library=lib_name,
+                   bound_ms=bounds[n][0], bound_by=bounds[n][1])
+           for n, fn in fns.items()}
+
+    def whole():
+        d = torch.sum(dot.float() * ot.float(), -1)
+        flash_attention.flash_attention_bwd_dq(qt, kt, vt, dot, lse, d, **kw)
+        flash_attention.flash_attention_bwd_dkv(qt, kt, vt, dot, lse, d,
+                                                **kw)
+    b, by = bound_ms(0.0, reads + 2 * B * H * S * dh
+                     + 2 * 2 * B * Kh * S * dh + 2 * B * H * S * dh,
+                     flops_bf16_tc=7 * prod)
+    out["flash_attention_bwd@whole"] = dict(
+        shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
+        ms=time_graph(whole), plain_ms=plain, library_ms=lib,
+        library=lib_name, bound_ms=b, bound_by=by,
+        note="delta's torch reduction, the dq and the dk/dv kernels")
     return out
 
 
@@ -1657,6 +2008,7 @@ def main() -> int:
         rn = train_read_noise(dev, twins)
         t1 = table1(dev, twins)
         lmr = lm_path(dev, twins)
+        lmt = lm_train(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -1665,21 +2017,25 @@ def main() -> int:
     # launches: each kernel's count in the run of the path it was ported
     # for (serve for the WBS kernels and the readout, train (a) for the
     # ideal scan, train (d) for the read-noise product, the LM prefill for
-    # the flash forward, ops.kwta at the bench shape for k-WTA);
-    # launches_by_path has every path's count.
+    # the flash forward, LM training for the flash backward's two kernels,
+    # ops.kwta at the bench shape for k-WTA); launches_by_path has every
+    # path's count.
     by_path = {"serve": run["launches"], "train_software": sw["launches"],
                "train_protocol_ideal": cl["ideal"]["launches"],
                "train_protocol_wbs": cl["wbs"]["launches"],
                "train_protocol_analog": cl["analog"]["launches"],
                "train_read_noise": rn["launches"],
                "table1_analog_state": t1["analog_state"],
-               "table1_cmos": t1["cmos"], **lmr, "ops_kwta": kw}
+               "table1_cmos": t1["cmos"], **lmr, **lmt, "ops_kwta": kw}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve", "flash_attention_fwd": "lm_prefill",
-           "kwta": "ops_kwta"}
+           "flash_attention_bwd_dq": "lm_train",
+           "flash_attention_bwd_dkv": "lm_train", "kwta": "ops_kwta"}
     src = "src/repro_torch/kernels/csrc/"
-    lib = {"flash_attention_fwd": "flash_attention_fwd"}   # else the module
+    lib = {"flash_attention_fwd": "flash_attention_fwd",   # else the module
+           "flash_attention_bwd_dq": "flash_attention_bwd",
+           "flash_attention_bwd_dkv": "flash_attention_bwd"}
     source = {k: src + lib.get(k, KERNELS[k][0]) + ".cu" for k in KERNELS}
     replaces = {"wbs_matmul": "src/repro/kernels/wbs_matmul.py:99",
                 "wbs_matmul_read_noise": "src/repro/kernels/wbs_matmul.py:99 "
@@ -1690,6 +2046,12 @@ def main() -> int:
                                 "a TPU kernel; repair of queue C)",
                 "flash_attention_fwd": "src/repro/kernels/flash_attention.py"
                                        ":227 (pallas_call :270)",
+                "flash_attention_bwd_dq": "src/repro/kernels/"
+                                          "flash_attention.py:161 "
+                                          "(pallas_call :185)",
+                "flash_attention_bwd_dkv": "src/repro/kernels/"
+                                           "flash_attention.py:161 "
+                                           "(pallas_call :205)",
                 "kwta": "src/repro/kernels/kwta.py:47 (pallas_call :53)"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],

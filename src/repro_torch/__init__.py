@@ -14,10 +14,13 @@ an obvious counterpart:
   configs/    the model configs (``ModelConfig``, one module each)
   models/     the LM zoo's dense family: layers, GQA attention and the
               KV cache, the layer stacks, the top-level model
+  optim/      the optax-style optimizers (AdamW), ζ sparsification and
+              top-k compression
+  train/      the LM trainer, checkpoint/restart, fault tolerance
   backends/   the DeviceBackend protocol, ``ideal``, ``wbs``, ``analog``,
               ``analog_state`` and ``cmos``
   replay/     host replay policies and their registry
-  data/       the synthetic task streams
+  data/       the synthetic task streams, the deterministic batcher
   telemetry/  eager activity counters, metered energy, lifetime, Table I
   obs/        the latency histogram
   serve/      state slab, traffic generator, continuous-batching engine

@@ -1,5 +1,7 @@
-"""Task streams — counterpart of ``repro/data`` (the synthetic
-generators; ``pipeline``, ``ragged`` and ``real`` are not ported yet)."""
+"""Task streams — counterpart of ``repro/data``: the synthetic
+generators and ``pipeline`` (the deterministic batcher; its
+``shard_tasks`` waits for ``fleet/``); ``ragged`` and ``real`` are not
+ported yet."""
 from repro_torch.data.synthetic import (TaskData, lm_token_batch,
                                         make_class_incremental_tasks,
                                         make_drift_tasks,

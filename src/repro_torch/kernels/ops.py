@@ -1,18 +1,19 @@
 """Padded, dispatched wrappers around the kernels — counterpart of
 ``repro/kernels/ops.py`` (the WBS product with and without read noise,
 the WBS recurrence, the ideal MiRU scan, the flash-attention forward and
-the k-WTA bisection) plus the row-exact readout.
+backward, and the k-WTA bisection) plus the row-exact readout.
 
 Dispatch is by device and nothing else: a CUDA tensor goes to the CUDA
 kernel (padded here where it needs padded shapes), a CPU tensor to the plain
 version in :mod:`repro_torch.kernels.ref`. There is no fallback from one
 to the other. The scan kernels compute forward values only: the
 straight-through backward of the WBS scan (``_wbs_miru_scan_bwd`` in the
-reference) waits for the BPTT slice, and the reference cannot
+reference) waits for the MiRU's BPTT slice, and the reference cannot
 differentiate its fused float scan either, so an input that requires
-grad raises. The readout backpropagates as the linear product it is. The
-flash forward raises on inputs that require grad too: its backward
-kernels come with LM training (ROADMAP queue A, slice 5).
+grad raises. The readout backpropagates as the linear product it is.
+The flash forward is differentiable: on inputs that require grad it runs
+inside a ``torch.autograd.Function`` whose backward is the dq and dk/dv
+kernels (:func:`flash_attention_bwd`).
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ def _forward_only(*tensors: Optional[torch.Tensor]) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             "the scan kernels compute forward values only; the straight-"
-            "through backward waits for the BPTT slice (ROADMAP queue A, "
-            "slice 4) — call under torch.no_grad()")
+            "through backward waits for the MiRU's BPTT slice (ROADMAP "
+            "queue A, slice 6) — call under torch.no_grad()")
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -226,8 +227,68 @@ def miru_readout(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (forward)
+# Flash attention (forward and backward)
 # ---------------------------------------------------------------------------
+
+def _head_dim(dh: int, dv: int) -> int:
+    """The kernels' head dim that ``dh`` and ``dv`` are zero-padded to."""
+    D = next((d for d in _flash_kernel.HEAD_DIMS if d >= max(dh, dv)), None)
+    if D is None:
+        raise ValueError(f"head dims {dh}/{dv} exceed the kernel's "
+                         f"{_flash_kernel.HEAD_DIMS[-1]}")
+    return D
+
+
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, d) → (B·H, S, d), the Pallas kernels' layout."""
+    B, S, H, d = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, d)
+
+
+def _heads_back(t: torch.Tensor, B: int) -> torch.Tensor:
+    """(B·H, S, d) → (B, S, H, d)."""
+    return t.reshape(B, -1, *t.shape[1:]).transpose(1, 2)
+
+
+def _flash_fwd(q, k, v, causal: bool, sk_true: int):
+    B, Sq, H, dh = q.shape
+    Kh, dv = k.shape[2], v.shape[-1]
+    qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
+    if not q.is_cuda:
+        out, lse = ref.flash_attention_fwd_ref(qt, kt, vt, causal, sk_true,
+                                               H, Kh)
+    else:
+        D = _head_dim(dh, dv)
+        out, lse = _flash_kernel.flash_attention_fwd(
+            F.pad(qt, (0, D - dh)).contiguous(),
+            F.pad(kt, (0, D - dh)).contiguous(),
+            F.pad(vt, (0, D - dv)).contiguous(), causal=causal,
+            sk_true=sk_true, q_heads=H, kv_heads=Kh,
+            scale=float(dh) ** -0.5)
+        out = out[..., :dv]
+    return _heads_back(out, B), lse.reshape(B, H, Sq)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward with the flash backward as its gradient. Saves
+    (q, k, v, out, lse), the residuals of the reference's ``_flash``
+    custom VJP; lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sk_true):
+        out, lse = _flash_fwd(q, k, v, causal, sk_true)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sk_true = causal, sk_true
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.sk_true)
+        return dq, dk, dv, None, None
+
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, sk_true: Optional[int] = None
@@ -242,38 +303,51 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B·H, Sq, ·) and (B·Kh, Sk, ·), the kernel mapping each query head to
     its KV head. On the card the head dim is zero-padded to the kernel's
     64 or 128 (exact: zero terms add nothing to q·k, and padded value
-    columns are sliced away; the scale stays dh^-0.5). Returns
-    (out (B, Sq, H, dv), lse (B, H, Sq))."""
+    columns are sliced away; the scale stays dh^-0.5). On inputs that
+    require grad the call is differentiable in q, k and v, through
+    :func:`flash_attention_bwd`. Returns (out (B, Sq, H, dv), lse
+    (B, H, Sq))."""
+    sk_true = k.shape[1] if sk_true is None else sk_true
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention kernel computes the forward only; its "
-            "backward comes with LM training (ROADMAP queue A, slice 5) — "
-            "call under torch.no_grad()")
+        return _FlashAttention.apply(q, k, v, causal, sk_true)
+    return _flash_fwd(q, k, v, causal, sk_true)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        sk_true: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, Sq, H, dh) layout wrapper around the flash-attention backward:
+    q, out, dout (B, Sq, H, ·), k/v (B, Sk, Kh, ·), lse (B, H, Sq) from
+    :func:`flash_attention_fwd` → (dq, dk, dv) in q's, k's and v's
+    layouts and dtypes. dk/dv are each KV head's gradient summed over the
+    query heads that read it (the GQA fold, in the kernel). On the card
+    delta = Σ dout·out is a torch reduction (the reference computes it
+    outside its kernels too), the head dims are zero-padded to 64 or 128
+    as in the forward and the gradients sliced back; the dq kernel and
+    the dk/dv kernel launch once each."""
     B, Sq, H, dh = q.shape
-    Sk, Kh = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
+    Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true
-    qt = q.transpose(1, 2).reshape(B * H, Sq, dh)
-    kt = k.transpose(1, 2).reshape(B * Kh, Sk, dh)
-    vt = v.transpose(1, 2).reshape(B * Kh, Sk, dv)
+    qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
+    ot, dot = _heads_first(out), _heads_first(dout)
+    lse = lse.reshape(B * H, Sq)
     if not q.is_cuda:
-        out, lse = ref.flash_attention_fwd_ref(qt, kt, vt, causal, sk_true,
-                                               H, Kh)
+        dq, dk, dvv = ref.flash_attention_bwd_ref(
+            qt, kt, vt, ot, lse, dot, causal, sk_true, H, Kh)
     else:
-        D = next((d for d in _flash_kernel.HEAD_DIMS if d >= max(dh, dv)),
-                 None)
-        if D is None:
-            raise ValueError(f"head dims {dh}/{dv} exceed the kernel's "
-                             f"{_flash_kernel.HEAD_DIMS[-1]}")
-        out, lse = _flash_kernel.flash_attention_fwd(
-            F.pad(qt, (0, D - dh)).contiguous(),
-            F.pad(kt, (0, D - dh)).contiguous(),
-            F.pad(vt, (0, D - dv)).contiguous(), causal=causal,
-            sk_true=sk_true, q_heads=H, kv_heads=Kh,
-            scale=float(dh) ** -0.5)
-        out = out[..., :dv]
-    out = out.reshape(B, H, Sq, dv).transpose(1, 2)
-    return out, lse.reshape(B, H, Sq)
+        delta = torch.sum(dot.to(torch.float32) * ot.to(torch.float32), -1)
+        D = _head_dim(dh, dv)
+        pad = lambda t, d: F.pad(t, (0, D - d)).contiguous()
+        kw = dict(causal=causal, sk_true=sk_true, q_heads=H, kv_heads=Kh,
+                  scale=float(dh) ** -0.5)
+        args = (pad(qt, dh), pad(kt, dh), pad(vt, dv), pad(dot, dv),
+                lse.contiguous(), delta)
+        dq = _flash_kernel.flash_attention_bwd_dq(*args, **kw)[..., :dh]
+        dk, dvv = _flash_kernel.flash_attention_bwd_dkv(*args, **kw)
+        dk, dvv = dk[..., :dh], dvv[..., :dv]
+    return _heads_back(dq, B), _heads_back(dk, B), _heads_back(dvv, B)
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,12 @@ the CPU): against JAX the read noise agrees in distribution only.
 Against the JAX reference these functions agree at fp32 tolerance, with
 ADC rounding ties handled by :mod:`repro_torch.testing`.
 
-The flash-attention forward's plain version (:func:`flash_attention_fwd_ref`)
-repeats the Pallas kernel's semantics, not its order: one tile over all
-keys, the products left to ``torch.matmul``; the kernel agrees with it at
-fp32 tolerance. The k-WTA bisection (:func:`kwta_bisect_ref`) is all
+The flash-attention forward's and backward's plain versions
+(:func:`flash_attention_fwd_ref`, :func:`flash_attention_bwd_ref`) repeat
+the Pallas kernels' semantics, not their order: one tile over all keys,
+the products left to ``torch.matmul``; the kernels agree with them at fp32
+tolerance. They compute in fp32 (float64 inputs in float64, for
+``gradcheck``). The k-WTA bisection (:func:`kwta_bisect_ref`) is all
 integer counts and exactly rounded midpoints, so it is bitwise equal to
 the kernel and to the reference's; :func:`kwta_ref` is the exact top-k
 that the reference falls back to for rows longer than 1 << 20.
@@ -249,26 +251,76 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
     m = max s, l = Σ exp(s − m), out = (exp(s − m) @ v) / max(l, 1e-30) in
     q's dtype and lse = m + log(max(l, 1e-30)) in f32. Returns (out
     (B·H, Sq, dv), lse (B·H, Sq))."""
-    BH, Sq, dh = q.shape
+    k, v = _kv_for_queries(k, v, q.shape[0], q_heads, kv_heads)
+    s, _ = _scores(q, k, causal, sk_true, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    out = (torch.matmul(p, _acc(v)) / l).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The flash plain versions' compute dtype: fp32, float64 kept."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _kv_for_queries(k, v, BH, q_heads, kv_heads):
+    """K/V repeated to the query heads: query head b reads KV head
+    (b // H)·Kh + (b % H) // rep."""
+    if q_heads is None or kv_heads is None or q_heads == kv_heads:
+        return k, v
+    b = torch.arange(BH, device=k.device)
+    kvb = (b // q_heads) * kv_heads + (b % q_heads) // (q_heads // kv_heads)
+    return k[kvb], v[kvb]
+
+
+def _scores(q, k, causal, sk_true, scale):
+    """(s (B·H, Sq, Sk) with −1e30 where masked, scale)."""
+    Sq, dh = q.shape[1:]
     Sk = k.shape[1]
     sk_true = Sk if sk_true is None else sk_true
     scale = dh ** -0.5 if scale is None else scale
-    if q_heads is not None and kv_heads is not None and q_heads != kv_heads:
-        b = torch.arange(BH, device=q.device)
-        kvb = (b // q_heads) * kv_heads + (b % q_heads) // (q_heads
-                                                              // kv_heads)
-        k, v = k[kvb], v[kvb]
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    s = torch.matmul(_acc(q), _acc(k).transpose(1, 2)) * scale
     ki = torch.arange(Sk, device=q.device)[None, :]
     valid = ki < sk_true
     if causal:
         valid = valid & (ki <= torch.arange(Sq, device=q.device)[:, None])
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
-    out = (torch.matmul(p, v.float()) / l).to(q.dtype)
-    return out, (m + torch.log(l))[..., 0]
+    return torch.where(valid, s, NEG_INF), scale
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True,
+                            sk_true: Optional[int] = None,
+                            q_heads: Optional[int] = None,
+                            kv_heads: Optional[int] = None,
+                            scale: Optional[float] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """What ``flash_attention_bwd_pallas`` computes, in its layout, with
+    the GQA fold: q, out, dout (B·H, Sq, ·), k/v (B·Kh, Sk, ·), lse
+    (B·H, Sq). p = exp(s − lse) with the masks of the forward, delta =
+    Σ dout·out, ds = p·(dout·vᵀ − delta); dq = scale·ds·k, dv = pᵀ·dout,
+    dk = scale·dsᵀ·q. K/V are repeated to the query heads and their
+    gradients summed over the rep query heads of each KV head (the
+    kernel loops over them instead). Returns (dq, dk, dv) in q's, k's
+    and v's dtypes."""
+    BH = q.shape[0]
+    kr, vr = _kv_for_queries(k, v, BH, q_heads, kv_heads)
+    s, scale = _scores(q, kr, causal, sk_true, scale)
+    p = torch.exp(s - _acc(lse)[..., None])
+    do = _acc(dout)
+    delta = torch.sum(do * _acc(out), -1)
+    ds = p * (torch.matmul(do, _acc(vr).transpose(1, 2)) - delta[..., None])
+    dq = torch.matmul(ds, _acc(kr)) * scale
+    dk = torch.matmul(ds.transpose(1, 2), _acc(q)) * scale
+    dv = torch.matmul(p.transpose(1, 2), do)
+    rep = BH // k.shape[0]
+    dk = dk.reshape(k.shape[0], rep, *dk.shape[1:]).sum(1)
+    dv = dv.reshape(v.shape[0], rep, *dv.shape[1:]).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kwta_bisect_ref(x: torch.Tensor, k: int, iters: int = 32

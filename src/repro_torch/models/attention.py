@@ -9,9 +9,12 @@ the kernel instead of repeating K/V. It computes what the reference's
 Pallas ``flash_attention_fwd_pallas`` computes; the reference's model
 runs the same schedule in pure JAX (``_flash``), which in bf16 rounds
 the scores and probabilities to bf16 where the kernels keep fp32, so the
-port is held to the reference in fp32. The backward (the Pallas dq and
-dk/dv kernels) comes with LM training: an input that requires grad
-raises.
+port is held to the reference in fp32. The branch is differentiable: its
+gradient is the hand-written flash backward (the dq and dk/dv kernels of
+the Pallas ``flash_attention_bwd_pallas``, the GQA fold in the kernel)
+behind a ``torch.autograd.Function``, where the reference's model
+differentiates its ``_flash`` custom VJP (which, in bf16, also rounds p
+and ds to bf16).
 
 Not ported with this half: MLA (``init_mla_params`` …), the int8
 stochastic-rounding cache and the Ulysses/sharding-context branches of
@@ -135,7 +138,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     only so that a prompt off the chunk (the 1,100-token prefill twin)
     drives the kernel's ``sk_true`` mask as the reference's path does. A
     prompt on a chunk multiple, such as the 2,048-token prefill, pads
-    nothing. Forward only: an input that requires grad raises."""
+    nothing. Differentiable in q, k and v through the flash backward
+    kernels (``ops.flash_attention_fwd``'s autograd Function); the
+    padded keys get zero gradients, sliced away with the padding."""
     Sk = k.shape[1]
     if Sk % chunk:
         pad = chunk - Sk % chunk

@@ -4,7 +4,11 @@
 Layer = pre-norm GQA attention + pre-norm SwiGLU FFN. The layers' tensors
 are stacked along a leading L axis, so the parameter tree is the
 reference's; where the reference scans over that axis, the port loops
-over it in Python (eager PyTorch has no scan to compile).
+over it in Python (eager PyTorch has no scan to compile). With
+``cfg.remat`` (the default) a layer run under autograd saves only its
+input and recomputes its forward in the backward
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` around the scan body).
 
 Not ported yet, each raising with its ROADMAP item (queue A, LM zoo):
 MoE FFNs, MLA, SSM (mamba2) and hybrid (jamba) layers, cross-attention
@@ -15,11 +19,13 @@ from __future__ import annotations
 from typing import Any, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import rms_norm, rope_angles, swiglu
-from repro_torch.utils import Seed, split_seed, truncated_normal_init as tn
+from repro_torch.utils import (Seed, split_seed, tree_leaves,
+                               truncated_normal_init as tn)
 
 PyTree = Any
 
@@ -131,8 +137,14 @@ def stack_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
                   is_moe: bool = False, causal: bool = True, memory=None,
                   memory_positions=None) -> torch.Tensor:
     for i in range(n_stacked(stacked)):
-        x = layer_forward(layer_slice(stacked, i), cfg, x, positions,
-                          is_ssm, is_moe, causal, memory, memory_positions)
+        lp = layer_slice(stacked, i)
+        args = (lp, cfg, x, positions, is_ssm, is_moe, causal, memory,
+                memory_positions)
+        if cfg.remat and torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in tree_leaves(lp))):
+            x = checkpoint(layer_forward, *args, use_reentrant=False)
+        else:
+            x = layer_forward(*args)
     return x
 
 

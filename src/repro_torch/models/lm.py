@@ -11,9 +11,10 @@ encoder-decoder, modality frontends, the ``miru`` mixer) and
 
 Parameters are a dict of tensors with the reference's tree (layers
 stacked along a leading L axis); ``convert.lm_params_from_numpy`` brings
-the reference's across. Everything here computes values only: no
-gradient flows through the flash kernel yet (LM training is the next
-slice).
+the reference's across. :func:`loss_fn` differentiates (``train/trainer``
+takes its gradients), through the flash kernels on the flash branch and
+with each layer recomputed in the backward when ``cfg.remat`` is set;
+prefill and decode run without autograd.
 """
 from __future__ import annotations
 
@@ -89,8 +90,8 @@ def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def loss_fn(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token-masked cross-entropy (value only: the flash kernel has no
-    backward yet). batch adds "labels" (B, S) and "mask" (B, S)."""
+    """Token-masked cross-entropy, differentiable in ``p``. batch adds
+    "labels" (B, S) and "mask" (B, S)."""
     logits = forward(p, cfg, batch)
     return softmax_cross_entropy_masked(
         logits.to(torch.float32), batch["labels"].to(logits.device),

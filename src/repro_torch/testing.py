@@ -23,6 +23,9 @@ Anything else raises ``AssertionError``.
 Served LM tokens are compared the same way by :func:`compare_tokens`: a
 stream's tokens agree until one side's greedy pick flips on a near-tie
 of the logits, and the stream is not compared after that.
+
+The flash backward's kernels are held to its plain version
+(:func:`flash_bwd_plain`) by :func:`grads_close`.
 """
 from __future__ import annotations
 
@@ -295,3 +298,29 @@ def bf16_within(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL,
                       torch.ldexp(torch.ones_like(w), e - 8))
     ok = bool((d <= ulp + atol + rtol * w.abs()).all())
     return ok, float(d.max())
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool,
+                    sk_true: Optional[int] = None) -> list:
+    """The flash backward's plain version on the inputs' device, in fp32,
+    in the (B, S, H, d) layout of ``ops.flash_attention_bwd``: (dq, dk,
+    dv)."""
+    from repro_torch.kernels import ref
+    B, Sq, H, _ = q.shape
+    f = lambda t: t.float().transpose(1, 2).reshape(-1, t.shape[1],
+                                                    t.shape[3])
+    grads = ref.flash_attention_bwd_ref(
+        f(q), f(k), f(v), f(out), lse.reshape(B * H, Sq), f(dout), causal,
+        sk_true, H, k.shape[2])
+    return [g.reshape(B, -1, *g.shape[1:]).transpose(1, 2) for g in grads]
+
+
+def grads_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """A kernel gradient against the plain version's fp32 value: fp32 at
+    rtol 1e-4 with an absolute floor of 1e-5 of the largest gradient (the
+    sums run over up to 2,048 keys, or rep × 2,048 queries, in other
+    orders); bf16 within one bf16 ulp plus that."""
+    atol = 1e-5 * float(want.abs().max())
+    if got.dtype == torch.float32:
+        return bool(torch.allclose(got, want, rtol=1e-4, atol=atol))
+    return bf16_within(got, want, rtol=1e-4, atol=atol)[0]

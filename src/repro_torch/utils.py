@@ -1,9 +1,9 @@
 """Small shared helpers: integer tiling arithmetic, the initializers,
-and device resolution."""
+device resolution and the parameter-tree helpers."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -97,10 +97,69 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def tree_to(tree, device: Union[str, torch.device]):
-    """A nested dict of tensors with every tensor moved to ``device``."""
+    """``tree`` with every tensor leaf moved to ``device``."""
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching parts of the
+    trees in ``rest``: dicts, tuples, lists and NamedTuples are nodes,
+    anything else (a tensor, None) a leaf. The structure is ``tree``'s: a
+    leaf of ``tree`` hands ``fn`` whatever ``rest`` holds there. The
+    result has ``tree``'s structure."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):                  # a NamedTuple
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves``' order (dict keys sorted), None
+    leaves dropped."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_size(tree) -> int:
+    """Total number of elements across the leaves of a nested dict (or
+    tuple) of tensors."""
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def flatten_dict(d: Mapping[str, Any], prefix: str = "",
+                 sep: str = "/") -> dict[str, Any]:
+    """Flatten a nested dict-of-dicts of arrays into {path: array}."""
+    out: dict[str, Any] = {}
+    for k, v in d.items():
+        path = f"{prefix}{sep}{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_dict(v, path, sep))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten_dict(flat: Mapping[str, Any], sep: str = "/"
+                   ) -> dict[str, Any]:
+    """Inverse of :func:`flatten_dict`."""
+    out: dict[str, Any] = {}
+    for path, v in flat.items():
+        keys = path.split(sep)
+        cur = out
+        for k in keys[:-1]:
+            cur = cur.setdefault(k, {})
+        cur[keys[-1]] = v
+    return out
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

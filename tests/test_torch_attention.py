@@ -1,13 +1,19 @@
 """The torch port's attention against the JAX reference: the flash
-forward (``ops.flash_attention_fwd``: its plain version on the CPU, the
-reference's Pallas kernel in interpret mode), full, chunked and flash
-attention and the ``sdpa`` dispatch, the KV cache and the GQA decode.
+forward and backward (``ops.flash_attention_fwd``/``_bwd``: their plain
+versions on the CPU, the reference's Pallas kernels in interpret mode),
+full, chunked and flash attention and the ``sdpa`` dispatch, their
+gradients, the KV cache and the GQA decode.
 
 Inputs are made from a seed with numpy and handed to both packages. The
 comparisons are in fp32 at rtol 2e-5 / atol 2e-6 (the flash ``out`` and
 ``lse``) or at the port's fp32 tolerance: the two sides sum in other
 orders (XLA's dots and the Pallas kernel's tiles against one
-``torch.matmul`` over all keys).
+``torch.matmul`` over all keys). Gradients agree at rtol 1e-5 with an
+absolute floor of 1e-6 of the largest gradient (they sum up to 128 keys,
+or rep × 64 queries). bf16 gradients are held to the reference run in
+fp32 on the same bf16 inputs, within one bf16 ulp plus that tolerance:
+the Pallas kernel rounds each repeated head's dk/dv to bf16 before the
+group sum, where the port sums in fp32 and rounds once.
 """
 import numpy as np
 import pytest
@@ -18,9 +24,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels.flash_attention import \
-    flash_attention_fwd_pallas  # noqa: E402
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_pallas, flash_attention_fwd_pallas)
 from repro.models import attention as jattn  # noqa: E402
+from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -110,16 +117,137 @@ def test_flash_fwd_bf16_out_is_the_f32_result_rounded():
 
 
 def test_flash_refuses_gradients_and_cpu_tensors_in_the_kernel_wrapper():
+    """Gradients now flow through ``ops.flash_attention_fwd`` (its
+    autograd Function, the backward's plain version on the CPU) and match
+    torch.autograd through ``full_attention``, with and without autograd
+    the same values; the kernel wrappers still refuse CPU tensors."""
     q, k, v = _t(*_qkv(1, 1, 8, 8, 2, 1, 8))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ops.flash_attention_fwd(q.requires_grad_(), k, v)
+    q.requires_grad_()
+    out, lse = ops.flash_attention_fwd(q, k, v)
+    assert out.requires_grad and not lse.requires_grad
+    (dq,) = torch.autograd.grad(out.square().sum(), q)
+    (want,) = torch.autograd.grad(
+        attn.full_attention(q, k, v, True).square().sum(), q)
+    np.testing.assert_allclose(dq.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
     with torch.no_grad():
-        ops.flash_attention_fwd(q, k, v)
-    with pytest.raises(ValueError, match="CUDA"):
-        kflash.flash_attention_fwd(
-            torch.zeros(2, 8, 64), torch.zeros(1, 8, 64),
-            torch.zeros(1, 8, 64), causal=True, sk_true=8, q_heads=2,
-            kv_heads=1, scale=0.125)
+        assert torch.equal(ops.flash_attention_fwd(q, k, v)[0], out)
+    for fn, extra in ((kflash.flash_attention_fwd, ()),
+                      (kflash.flash_attention_bwd_dq, (torch.zeros(2, 8, 64),
+                                                       torch.zeros(2, 8),
+                                                       torch.zeros(2, 8))),
+                      (kflash.flash_attention_bwd_dkv, (
+                          torch.zeros(2, 8, 64), torch.zeros(2, 8),
+                          torch.zeros(2, 8)))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.zeros(2, 8, 64), torch.zeros(1, 8, 64),
+               torch.zeros(1, 8, 64), *extra, causal=True, sk_true=8,
+               q_heads=2, kv_heads=1, scale=0.125)
+
+
+GRAD_RTOL = 1e-5
+
+
+def _grads_close(got, want, rtol=GRAD_RTOL):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("causal,Sq,Sk,sk_true,H,Kh,dtype", [
+    (True, 32, 32, None, 4, 4, "float32"),
+    (False, 32, 32, None, 4, 4, "float32"),
+    (True, 64, 128, None, 4, 2, "float32"),     # GQA, Sq != Sk
+    (False, 64, 128, 100, 4, 2, "float32"),     # keys past sk_true
+    (True, 32, 64, 40, 6, 2, "float32"),        # rep 3 and sk_true
+    (True, 32, 32, None, 4, 2, "bfloat16"),
+    (False, 64, 128, 100, 4, 4, "bfloat16"),
+])
+def test_flash_bwd_matches_pallas_kernel(causal, Sq, Sk, sk_true, H, Kh,
+                                         dtype):
+    """``ops.flash_attention_bwd`` (the plain version on the CPU) against
+    ``flash_attention_bwd_pallas`` in interpret mode, on the same q, k, v,
+    out, lse and dO. The Pallas kernels have no GQA fold: the reference
+    gets K/V repeated to the query heads, and its dk/dv are summed over
+    each KV head's group."""
+    B, dh = 2, 8
+    rng = np.random.default_rng(Sq + Sk + H)
+    q, k, v = _qkv(rng.integers(1 << 16), B, Sq, Sk, H, Kh, dh)
+    dout = rng.normal(0, 1, (B, Sq, H, dh)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (t.to(tdt) for t in _t(q, k, v, dout))
+    out, lse = ops.flash_attention_fwd(tq, tk, tv, causal, sk_true)
+    got = ops.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal, sk_true)
+
+    f32 = lambda t: t.float().numpy()
+    heads = lambda a: jnp.asarray(a).swapaxes(1, 2).reshape(
+        -1, a.shape[1], a.shape[3])
+    rep = lambda t: np.repeat(f32(t), H // Kh, axis=2)
+    want = flash_attention_bwd_pallas(
+        heads(f32(tq)), heads(rep(tk)), heads(rep(tv)), heads(f32(out)),
+        jnp.asarray(f32(lse).reshape(-1, Sq)), heads(f32(tdo)),
+        causal=causal, bq=16, bk=16, sk_true=sk_true, interpret=True)
+    want = [np.asarray(w).reshape(B, H, -1, dh).swapaxes(1, 2)
+            for w in want]
+    for i in (1, 2):                      # sum each KV head's group
+        want[i] = want[i].reshape(B, Sk, Kh, H // Kh, dh).sum(3)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        if dtype == "float32":
+            _grads_close(f32(g), w)
+        else:
+            assert testing.bf16_within(
+                g, torch.tensor(w), rtol=GRAD_RTOL,
+                atol=1e-6 * float(np.abs(w).max()))[0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradients_match_full_attention_and_gradcheck(causal):
+    """Through the autograd Function against torch.autograd through
+    ``full_attention`` (fp32, GQA rep 7, keys padded past ``sk_true``
+    get no gradient), and ``gradcheck`` in float64."""
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(8, 2, 20, 20, 14, 2,
+                                                    8)))
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 1, (2, 20, 14, 8)).astype(np.float32))
+    got = torch.autograd.grad(ops.flash_attention_fwd(q, k, v, causal)[0],
+                              (q, k, v), g)
+    want = torch.autograd.grad(attn.full_attention(q, k, v, causal),
+                               (q, k, v), g)
+    for a, b in zip(got, want):
+        _grads_close(a.numpy(), b.numpy())
+    kp, vp = (torch.cat([t.detach(), torch.full_like(t[:, :5], 3.0)], 1)
+              .requires_grad_() for t in (k, v))
+    padded = torch.autograd.grad(
+        ops.flash_attention_fwd(q, kp, vp, causal, sk_true=20)[0],
+        (q, kp, vp), g)
+    for a, b in zip(padded, got):
+        _grads_close(a[:, :20].numpy(), b.numpy())
+    assert not padded[1][:, 20:].any() and not padded[2][:, 20:].any()
+    q64 = q.detach()[:1, :4, :2, :4].double().requires_grad_()
+    k64, v64 = (t.detach()[:1, :6, :1, :4].double().requires_grad_()
+                for t in (k, v))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ops.flash_attention_fwd(a, b, c, causal, 5)[0],
+        (q64, k64, v64))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_match_reference(causal):
+    """``attention.flash_attention`` (KV padded to the chunk, the kernels'
+    plain versions) against ``jax.vjp`` of the reference's pure-JAX
+    ``_flash`` custom VJP, fp32, GQA rep 2."""
+    q, k, v = _qkv(21, 2, 40, 40, 4, 2, 8)
+    g = np.random.default_rng(22).normal(0, 1, q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.flash_attention(a, b, c, causal,
+                                                           16),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    got = torch.autograd.grad(attn.flash_attention(tq, tk, tv, causal, 16),
+                              (tq, tk, tv), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        _grads_close(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("kv_len", [None, [5, 9]])

@@ -325,6 +325,52 @@ def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", [
+    (2, 2048, 2048, 14, 2, 64, True, None),   # the qwen2-0.5B train step
+    (1, 100, 333, 4, 2, 64, False, 250),      # Sq != Sk, padded keys
+    (1, 300, 300, 14, 2, 64, True, None),     # rep 7, Sk off the tiles
+    (2, 130, 130, 4, 4, 64, True, None),      # rep 1
+    (1, 96, 200, 4, 1, 80, False, 150),       # head dim 80, padded to 128
+    (1, 70, 70, 4, 2, 128, True, None),       # head dim 128
+])
+def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
+                                       sk_true, dtype):
+    from repro_torch.kernels import flash_attention as kflash
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + dh)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                       sk_true=sk_true)
+    dout = _flash_inputs(cuda, B, Sq, Sq, H, H, dh, dt, 1)[0]
+    before = (kflash.dq_launches, kflash.dkv_launches)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, sk_true)
+    torch.cuda.synchronize()
+    assert (kflash.dq_launches, kflash.dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal, sk_true)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dt
+        assert testing.grads_close(g, w), float((g.float() - w).abs().max())
+    if sk_true is not None:          # keys past sk_true get no gradient
+        assert not got[1][:, sk_true:].any() and \
+            not got[2][:, sk_true:].any()
+
+
+def test_flash_gradients_through_the_function_match_full_attention(cuda):
+    """The autograd Function on the card (forward and backward kernels)
+    against torch.autograd through ``full_attention``, fp32."""
+    from repro_torch.models import attention as attn
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(
+        cuda, 2, 300, 300, 14, 2, 64, torch.float32, 4))
+    g = _flash_inputs(cuda, 2, 300, 300, 14, 14, 64, torch.float32, 5)[0]
+    got = torch.autograd.grad(
+        ops.flash_attention_fwd(q, k, v, causal=True)[0], (q, k, v), g)
+    want = torch.autograd.grad(attn.full_attention(q, k, v, True),
+                               (q, k, v), g)
+    for a, b in zip(got, want):
+        assert testing.grads_close(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("R,N,k", [(64, 1024, 580), (3, 100, 10),
                                    (11, 257, 30), (8, 65536, 6000)])
 def test_kwta_kernel_equals_plain(cuda, R, N, k, dtype):
@@ -365,6 +411,46 @@ def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     before = kflash.launches
     lm.prefill(params, cfg, {"tokens": toks[:, :16]})   # S <= chunk: full
     assert kflash.launches == before
+
+
+def test_trainer_on_the_card_follows_the_cpu(cuda):
+    """Three Trainer steps of a small fp32 config (flash branch on every
+    step: 40 tokens against ``attn_chunk`` 16) on the card and on the CPU
+    from the same params and batches: the losses and grad norms agree at
+    rtol 1e-5 and the final params' distance is within 1e-3 of the CPU
+    update's norm (Adam's normalised steps can turn a last-bit difference
+    in a near-zero gradient into a whole step, so no elementwise bound);
+    each step launches the flash forward twice a layer (remat), the dq
+    and dk/dv kernels once a layer."""
+    from repro_torch.data.pipeline import ShardedBatcher
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.utils import tree_leaves, tree_to
+    cfg, params = _lm("cpu", attn_chunk=16)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        tr = Trainer(cfg, TrainConfig(warmup_steps=0, log_every=1000),
+                     ShardedBatcher(lambda rng, s: lm_token_batch(
+                         rng, 2, 40, cfg.vocab)),
+                     params=tree_to(params, dev), device=dev)
+        before = (kflash.launches, kflash.dq_launches, kflash.dkv_launches)
+        hist = tr.run(steps=3)
+        torch.cuda.synchronize()
+        after = (kflash.launches, kflash.dq_launches, kflash.dkv_launches)
+        runs[dev.type] = (hist, tree_to(tr.params, "cpu"),
+                          [a - b for a, b in zip(after, before)])
+    (hc, pc, lc), (hh, ph, lh) = runs["cuda"], runs["cpu"]
+    L = cfg.n_layers
+    assert lc == [2 * L * 3, L * 3, L * 3] and lh == [0, 0, 0]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in hc],
+                                   [h[key] for h in hh], rtol=1e-5)
+    d2 = sum(float(((a - b).double() ** 2).sum())
+             for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    u2 = sum(float(((b - p0).double() ** 2).sum())
+             for b, p0 in zip(tree_leaves(ph), tree_leaves(params)))
+    assert (d2 / u2) ** 0.5 <= 1e-3, (d2 / u2) ** 0.5
 
 
 def test_lm_engine_batch_composition_on_the_card(cuda):

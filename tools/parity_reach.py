@@ -43,10 +43,20 @@ each made in this process without touching the package's files:
   query head reading the next KV head) or ``sk_true_ignored`` (the
   padded keys unmasked), beside ``LM_PREFILL_ATOL``; the serve twin's
   first logits and tokens for the card, the CPU at 2 threads and the
-  card with ``cache_writes_all_rows`` (the reference's cache write).
+  card with ``cache_writes_all_rows`` (the reference's cache write);
+- ``lm_train``, the LM phase's training twin (3 Trainer steps of the
+  2-layer fp32 model on 1,100 tokens): the largest relative loss and
+  grad-norm differences and the final params' distance over the CPU
+  update's norm, for the card, the CPU at 2 threads and the card with a
+  fault in the flash backward's call: ``dq_scale_dropped`` (dq not
+  multiplied by dh^-0.5), ``causal_off`` (the backward without the
+  causal mask), ``delta_omitted`` (delta = 0: out handed over as zeros)
+  or ``dkv_head_shift`` (dk/dv landing on the next KV head), beside
+  ``LM_TRAIN_LOSS_RTOL``, ``LM_TRAIN_GNORM_RTOL`` and
+  ``LM_TRAIN_PARAMS_REL``.
 
-``--paths`` picks some of ``software ideal wbs analog read_noise lm``
-(all by default).
+``--paths`` picks some of ``software ideal wbs analog read_noise lm
+lm_train`` (all by default).
 """
 from __future__ import annotations
 
@@ -63,7 +73,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 _OUT = None
-PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm")
+PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm",
+         "lm_train")
 
 
 def emit(**row) -> None:
@@ -299,6 +310,52 @@ def lm(dev) -> None:
              compare_tokens=rep)
 
 
+def flash_bwd_fault(kind: str):
+    """A planted fault in the flash backward's call (the autograd
+    Function's gradient)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def wrap(orig):
+        def call(q, k, v, out, lse, dout, causal=True, sk_true=None):
+            if kind == "causal_off":
+                causal = False
+            elif kind == "delta_omitted":
+                out = torch.zeros_like(out)
+            dq, dk, dv = orig(q, k, v, out, lse, dout, causal, sk_true)
+            if kind == "dq_scale_dropped":
+                dq = dq * q.shape[-1] ** 0.5
+            elif kind == "dkv_head_shift":
+                dk, dv = dk.roll(1, 2), dv.roll(1, 2)
+            return dq, dk, dv
+        return call
+    return patched(ops, "flash_attention_bwd", wrap)
+
+
+def lm_train(dev) -> None:
+    """The training twin: sound runs beside planted faults."""
+    import torch
+    cpu_dev = torch.device("cpu")
+    cpu = cs.lm_train_twin_run(cpu_dev)
+    init = cs.lm_twin_model(cpu_dev)[1]
+    runs = {"card": (dev, contextlib.nullcontext),
+            "cpu_2_threads": (cpu_dev, lambda: threads(2))}
+    for kind in ("dq_scale_dropped", "causal_off", "delta_omitted",
+                 "dkv_head_shift"):
+        runs[f"card_{kind}"] = (dev, lambda kind=kind: flash_bwd_fault(kind))
+    for name, (d, ctx) in runs.items():
+        with ctx():
+            run = cs.lm_train_twin_run(d)
+        dist = cs.train_twin_distances(run, cpu, init)
+        emit(path="lm_train", run=name, losses=run["losses"],
+             grad_norms=run["grad_norms"], **dist,
+             within=(dist["loss_max_rel_d"] <= cs.LM_TRAIN_LOSS_RTOL
+                     and dist["grad_norm_max_rel_d"]
+                     <= cs.LM_TRAIN_GNORM_RTOL
+                     and dist["params_d_over_update"]
+                     <= cs.LM_TRAIN_PARAMS_REL))
+
+
 def main() -> int:
     global _OUT
     import torch
@@ -324,6 +381,8 @@ def main() -> int:
         read_noise(dev)
     if "lm" in paths:
         lm(dev)
+    if "lm_train" in paths:
+        lm_train(dev)
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
     return 0
 
