@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the seven CUDA libraries compiled by nvcc for sm_90a from
+2. build: the nine CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
@@ -19,16 +19,19 @@ Phases, each printed as one JSON line:
    the WBS product; the read-noise variant also at σ = 0 against the
    plain kernel (bitwise), on two identical rows of one call (identical
    outputs), and in its moments over 512 keys; the flash-attention
-   forward at the qwen2-0.5B prefill's shape and four others (fp32
+   forward at the qwen2-0.5B prefill's shape and five others (fp32
    ``out`` at rtol 2e-5 / atol 2e-6, ``lse`` at atol 1e-5, bf16 ``out``
-   within one bf16 ulp plus that fp32 tolerance), and with keys padded
-   past ``sk_true`` bit for bit as without; the flash backward's dq and
-   dk/dv kernels at the training shape (bf16 and fp32), the training
-   twin's, with keys past ``sk_true`` and Sq != Sk, rep 1 and a head dim
-   padded from 80 to 128 (fp32 at rtol 1e-4 with a floor of 1e-5 of the
-   largest gradient, bf16 within one ulp plus that), and the gradients
-   through the autograd Function against torch.autograd through
-   ``full_attention``;
+   within one bf16 ulp plus that fp32 tolerance; bf16 through the
+   tensor-core kernel, fp32 through the fp32 one, each call launching
+   its dtype's kernel once), and with keys padded past ``sk_true`` bit
+   for bit as without, and the same call twice bit for bit; the flash
+   backward's dq and dk/dv kernels (bf16: the tensor-core dk/dv and its
+   fold) at the training shape (bf16 and fp32; bf16 also twice, bit for
+   bit), the training twin's, with keys past ``sk_true`` and Sq != Sk,
+   rep 1, a head dim padded from 80 to 128 and one of 128 (fp32 at rtol
+   1e-4 with a floor of 1e-5 of the largest gradient, bf16 within one
+   ulp plus that), and the gradients through the autograd Function
+   against torch.autograd through ``full_attention``;
 4. serve: the paper's 28×100×10 network (``configs/m2ru_paper.py``) with
    seeded random weights, served through ``RecurrentServeEngine`` on the
    ``wbs`` substrate (64 slots, chunk 14) for a 256-request burst over 96
@@ -64,9 +67,10 @@ Phases, each printed as one JSON line:
    work;
 lm. the LM zoo's dense serving path, qwen2-0.5B at full width in bf16
    with seeded random weights: (i) ``lm.prefill`` of 2 × 2,048 tokens,
-   one flash launch a layer, finite logits, its device busy share; (ii)
-   the same config in fp32 cut to 2 layers, on a 1,100-token prompt,
-   against the port's CPU run of the same weights (``LM_PREFILL_ATOL``);
+   one launch of the bf16 tensor-core flash forward a layer, finite
+   logits, its device busy share; (ii) the same config in fp32 cut to 2
+   layers, on a 1,100-token prompt (the fp32 flash forward), against the
+   port's CPU run of the same weights (``LM_PREFILL_ATOL``);
    (iii) ``ServeEngine`` (8 slots, max_len 256) draining a burst of 32
    seeded requests of 8-64 prompt tokens, 32 new tokens each: latency,
    tokens/s, steps, decode calls, busy share; (iv) four of them served
@@ -77,11 +81,12 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    on) through ``train.Trainer`` with AdamW at ``TrainConfig``'s
    defaults, ``ShardedBatcher`` over 2 × 2,048-token batches, 30 counted
    steps after 3 of warm-up: ms a step, tokens/s, every loss and grad
-   norm finite, peak memory, exactly 48 flash forward launches (24 and
-   their 24 recomputes), 24 dq and 24 dk/dv launches a step, and the
-   busy share of a traced 3-step window; (ii) the 2-layer fp32 training
-   twin, 3 steps on 1,100 tokens (KV padded to 2,048, ``sk_true``
-   1,100), against the port's CPU run of the same steps: every loss
+   norm finite, peak memory, exactly 48 launches of the bf16 tensor-core
+   flash forward (24 and their 24 recomputes), 24 dq and 24 of the
+   tensor-core dk/dv a step, and the busy share of a traced 3-step
+   window; (ii) the 2-layer fp32 training twin, 3 steps on 1,100 tokens
+   (KV padded to 2,048, ``sk_true`` 1,100; the fp32 forward and dk/dv
+   kernels), against the port's CPU run of the same steps: every loss
    (``LM_TRAIN_LOSS_RTOL``), grad norm (``LM_TRAIN_GNORM_RTOL``) and the
    final params (their distance over the CPU update's norm,
    ``LM_TRAIN_PARAMS_REL``); then ``ops.kwta`` once at (64, 1024), k 580;
@@ -90,7 +95,10 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    k-WTA the exact top-k, a different function; for the flash backward
    the backward of ``scaled_dot_product_attention``), each over a CUDA
    graph of repeated launches, beside the least time the card could
-   take.
+   take (for the tensor-core flash kernels also that bound with their
+   bf16 split's extra products, ``bound_split_ms``); the fp32 route's
+   flash forward and dk/dv are timed on the same bf16 inputs as the
+   tensor-core ones.
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -103,6 +111,7 @@ line; without a CUDA device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -231,7 +240,17 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "flash_attention_fwd": ("flash_attention", "launches"),
            "flash_attention_bwd_dq": ("flash_attention", "dq_launches"),
            "flash_attention_bwd_dkv": ("flash_attention", "dkv_launches"),
-           "kwta": ("kwta", "launches")}
+           "kwta": ("kwta", "launches"),
+           "flash_attention_fwd_sm90": ("flash_attention",
+                                        "fwd_sm90_launches"),
+           "flash_attention_bwd_dkv_sm90": ("flash_attention",
+                                            "dkv_sm90_launches")}
+# The flash kernels each dtype takes (kernels/ops.py's fixed rule): bf16
+# the tensor-core forward and dk/dv, fp32 the fp32 ones; dq is one kernel.
+FLASH_FWD = {"torch.bfloat16": "flash_attention_fwd_sm90",
+             "torch.float32": "flash_attention_fwd"}
+FLASH_DKV = {"torch.bfloat16": "flash_attention_bwd_dkv_sm90",
+             "torch.float32": "flash_attention_bwd_dkv"}
 # CPU twins run beside the card's phases, one thread each.
 TWIN_WORKERS = 4
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 and fp64 on CUDA
@@ -493,16 +512,26 @@ def flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dtype):
                               (B, Sk, Kh, dh))]
 
 
+def launched_once(names, before: dict) -> bool:
+    """Whether, since ``before``, each flash kernel in ``names`` launched
+    exactly once and no other flash kernel launched."""
+    now = read_launches()
+    return all(now[k] - before[k] == (k in names) for k in now
+               if k.startswith("flash_attention"))
+
+
 def check_lm_kernels(dev, rng) -> dict:
     """The flash forward and k-WTA kernels against their plain versions on
     the card: flash at fp32 rtol 2e-5 / atol 2e-6 on ``out`` and atol 1e-5
     on ``lse``, bf16 ``out`` within one bf16 ulp of the plain version's
-    fp32 value plus that fp32 tolerance; k-WTA bit for bit."""
+    fp32 value plus that fp32 tolerance; each call launching the kernel
+    of its dtype (bf16 the tensor-core forward) once; k-WTA bit for bit."""
     import numpy as np
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
-    err = {"flash_attention_fwd": 0.0, "kwta": 0.0}
+    err = {"flash_attention_fwd": 0.0, "flash_attention_fwd_sm90": 0.0,
+           "kwta": 0.0}
     # (B, Sq, Sk, H, Kh, dh, causal): the qwen2-0.5B prefill (GQA rep 7)
     # at the main path's batch (the second sequence's heads read KV heads
     # 2-3) and at one sequence, kernel_bench's shape, Sk off the tile (and
@@ -515,11 +544,16 @@ def check_lm_kernels(dev, rng) -> dict:
              ((1, 1100, 1100, 14, 2, 64, True), (torch.float32,)),
              ((2, 100, 333, 4, 2, 64, False), (torch.float32,
                                               torch.bfloat16)),
-             ((1, 130, 130, 4, 4, 64, True), (torch.float32,))]
+             ((1, 130, 130, 4, 4, 64, True), (torch.float32,
+                                              torch.bfloat16)),
+             ((1, 300, 300, 14, 2, 128, True), (torch.float32,
+                                               torch.bfloat16))]
     for (B, Sq, Sk, H, Kh, dh, causal), dtypes in cases:
         for dt in dtypes:
             q, k, v = flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dt)
+            before = read_launches()
             out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+            kernel = FLASH_FWD[str(dt)]
             qt = q.transpose(1, 2).reshape(B * H, Sq, dh)
             kt = k.transpose(1, 2).reshape(B * Kh, Sk, dh)
             vt = v.transpose(1, 2).reshape(B * Kh, Sk, dh)
@@ -529,10 +563,9 @@ def check_lm_kernels(dev, rng) -> dict:
             torch.cuda.synchronize()
             e = float((out.float() - want).abs().max())
             e_lse = float((lse.reshape(B * H, Sq) - want_lse).abs().max())
+            err[kernel] = max(err[kernel], e)
             if dt == torch.float32:
                 ok = bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6))
-                err["flash_attention_fwd"] = max(err["flash_attention_fwd"],
-                                                 e)
                 extra = {}
             else:
                 # One bf16 ulp of rounding plus the fp32 tolerance of the
@@ -541,26 +574,37 @@ def check_lm_kernels(dev, rng) -> dict:
                 ok = testing.bf16_within(out, want)[0]
                 extra = {"bf16_ulps_vs_plain_rounded": bf16_ulps(
                     out, want.to(torch.bfloat16))}
-            ok = ok and e_lse <= 1e-5
-            emit("kernels", kernel="flash_attention_fwd",
+            launched = launched_once((kernel,), before)
+            ok = ok and e_lse <= 1e-5 and launched
+            emit("kernels", kernel=kernel,
                  shape=[B, Sq, Sk, H, Kh, dh], causal=causal, dtype=str(dt),
-                 max_abs_err=e, lse_max_abs_err=e_lse, ok=ok, **extra)
+                 max_abs_err=e, lse_max_abs_err=e_lse,
+                 launched_once=launched, ok=ok, **extra)
             if not ok:
-                raise AssertionError(f"flash_attention_fwd != plain at "
-                                     f"{(B, Sq, Sk, H, Kh, dh)}, {dt}")
-    # Keys padded past sk_true read as the unpadded call, bit for bit.
-    q, k, v = flash_inputs(rng, dev, 1, 1100, 1100, 14, 2, 64, torch.float32)
+                raise AssertionError(f"{kernel} != plain at "
+                                     f"{(B, Sq, Sk, H, Kh, dh)}, {dt}, or "
+                                     f"not launched once ({launched})")
+    # Keys padded past sk_true read as the unpadded call, bit for bit; and
+    # the same call twice gives the same bits.
     pad = lambda t: torch.cat([t, torch.full_like(t[:, :948], 3.0)], 1)
-    for causal in (True, False):
-        a = ops.flash_attention_fwd(q, k, v, causal=causal)
-        b = ops.flash_attention_fwd(q, pad(k), pad(v), causal=causal,
-                                    sk_true=1100)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        emit("kernels", kernel="flash_attention_fwd", case="sk_true padding",
-             causal=causal, bitwise_equal_to_unpadded=same)
-        if not same:
-            raise AssertionError("padding past sk_true changed the output")
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(rng, dev, 1, 1100, 1100, 14, 2, 64, dt)
+        for causal in (True, False):
+            a = ops.flash_attention_fwd(q, k, v, causal=causal)
+            b = ops.flash_attention_fwd(q, pad(k), pad(v), causal=causal,
+                                        sk_true=1100)
+            c = ops.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            again = all(torch.equal(x, y) for x, y in zip(a, c))
+            emit("kernels", kernel=FLASH_FWD[str(dt)],
+                 case="sk_true padding", causal=causal, dtype=str(dt),
+                 bitwise_equal_to_unpadded=same,
+                 bitwise_equal_run_to_run=again)
+            if not (same and again):
+                raise AssertionError(f"padding past sk_true changed the "
+                                     f"output, or a second call differs "
+                                     f"({dt}, causal {causal})")
     # k-WTA: kernel_bench's (64, 1024) at k 580, 3 and 11 rows (the
     # reference pads 11 to 16), and long rows; f32 and bf16.
     for R, N, kk in ((64, 1024, 580), (3, 1024, 100), (11, 4096, 300),
@@ -590,49 +634,71 @@ def check_flash_bwd(dev, rng) -> dict:
     2,048, 14/2 heads, dh 64, causal) in bf16 and fp32, the training
     twin's (1,100 queries against keys padded to 2,048, sk_true 1,100),
     Sq != Sk without the causal mask and with keys past sk_true, rep 1,
-    and a head dim of 80 zero-padded to 128; then the gradients through
-    the autograd Function against torch.autograd through the plain
-    ``full_attention``, fp32 (``testing.grads_close``)."""
+    a head dim of 80 zero-padded to 128 and one of 128; each call
+    launching dq and the dk/dv kernel of its dtype (bf16 the tensor-core
+    kernel with its fold) once; at the training shape in bf16 the same
+    call again, bit for bit; then the gradients through the autograd
+    Function against torch.autograd through the plain ``full_attention``,
+    fp32 (``testing.grads_close``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
     from repro_torch.testing import flash_bwd_plain, grads_close
-    err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0,
+           "flash_attention_bwd_dkv_sm90": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [((LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_S, 14, 2, 64, True, None),
               (bf16, f32)),
-             ((1, LM_TWIN_S, 2048, 14, 2, 64, True, LM_TWIN_S), (f32,)),
+             ((1, LM_TWIN_S, 2048, 14, 2, 64, True, LM_TWIN_S), (f32,
+                                                                bf16)),
              ((1, 100, 333, 4, 2, 64, False, 250), (f32, bf16)),
-             ((2, 130, 130, 4, 4, 64, True, None), (f32,)),
-             ((1, 96, 200, 4, 1, 80, False, 150), (f32, bf16))]
+             ((2, 130, 130, 4, 4, 64, True, None), (f32, bf16)),
+             ((1, 96, 200, 4, 1, 80, False, 150), (f32, bf16)),
+             ((1, 300, 300, 14, 2, 128, True, None), (bf16,))]
     with torch.no_grad():
         for (B, Sq, Sk, H, Kh, dh, causal, skt), dtypes in cases:
             for dt in dtypes:
                 q, k, v = flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dt)
                 dout = flash_inputs(rng, dev, B, Sq, Sq, H, H, dh, dt)[0]
                 out, lse = ops.flash_attention_fwd(q, k, v, causal, skt)
+                dkv = FLASH_DKV[str(dt)]
+                before = read_launches()
                 got = ops.flash_attention_bwd(q, k, v, out, lse, dout,
                                               causal, skt)
+                launched = launched_once(("flash_attention_bwd_dq", dkv),
+                                         before)
                 want = flash_bwd_plain(q, k, v, out, lse, dout, causal, skt)
                 torch.cuda.synchronize()
                 e = {n: float((g.float() - w).abs().max())
                      for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-                ok = all(grads_close(g, w) for g, w in zip(got, want))
+                ok = launched and all(grads_close(g, w)
+                                      for g, w in zip(got, want))
                 if skt is not None:       # keys past sk_true: no gradient
                     ok = ok and not (got[1][:, skt:].any()
                                      or got[2][:, skt:].any())
+                extra = {}
+                if dt == bf16 and B == LM_TRAIN_B and Sq == LM_TRAIN_S:
+                    again = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    causal, skt)
+                    same = all(torch.equal(a, b)
+                               for a, b in zip(got, again))
+                    extra["bitwise_equal_run_to_run"] = same
+                    ok = ok and same
                 err["flash_attention_bwd_dq"] = max(
                     err["flash_attention_bwd_dq"], e["dq"])
-                err["flash_attention_bwd_dkv"] = max(
-                    err["flash_attention_bwd_dkv"], e["dk"], e["dv"])
-                emit("kernels", kernel="flash_attention_bwd",
+                err[dkv] = max(err[dkv], e["dk"], e["dv"])
+                emit("kernels", kernel=f"flash_attention_bwd_dq + {dkv}",
                      shape=[B, Sq, Sk, H, Kh, dh], causal=causal,
                      sk_true=skt, dtype=str(dt), max_abs_err=e,
                      max_abs_grad={n: float(w.abs().max()) for n, w in
-                                   zip(("dq", "dk", "dv"), want)}, ok=ok)
+                                   zip(("dq", "dk", "dv"), want)},
+                     launched_once=launched, ok=ok, **extra)
                 if not ok:
                     raise AssertionError(f"flash backward != plain at "
-                                         f"{(B, Sq, Sk, H, Kh, dh)}, {dt}")
+                                         f"{(B, Sq, Sk, H, Kh, dh)}, {dt}, "
+                                         f"or launches wrong ({launched}), "
+                                         f"or not bitwise run to run "
+                                         f"({extra})")
     q, k, v = (t.requires_grad_() for t in flash_inputs(
         rng, dev, 2, 300, 300, 14, 2, 64, f32))
     g = flash_inputs(rng, dev, 2, 300, 300, 14, 14, 64, f32)[0]
@@ -775,10 +841,14 @@ def streams(arrivals, reqs, uids):
                             if u == uid]) for uid in uids]
 
 
+# The port's kernels (csrc/*.cu) live in an anonymous namespace at the top.
+_PORT_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::")
+
+
 def device_busy(fn) -> dict:
     """Run ``fn`` once under torch.profiler: the device's busy time (the
-    summed durations of its kernels, copies and sets) and the kernels
-    that took most of it. The profiler's start-up and per-op cost stretch
+    summed durations of its kernels, copies and sets), the kernels that
+    took most of it, and every kernel of the port that ran. The profiler's start-up and per-op cost stretch
     the traced run's wall time by orders of magnitude, so the caller
     relates the busy time to an untraced run of the same work."""
     from torch.autograd import DeviceType
@@ -793,11 +863,14 @@ def device_busy(fn) -> dict:
         if e.device_type == DeviceType.CUDA:
             calls, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (calls + 1, us + e.self_device_time_total)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"device_busy_s": sum(us for _, us in by_name.values()) / 1e6,
             "traced_wall_s": traced_wall,
             "top_kernels": [{"name": n[:60], "calls": c, "device_ms": us / 1e3}
-                            for n, (c, us) in top]}
+                            for n, (c, us) in ranked[:6]],
+            "port_kernels": [{"name": n[:60], "calls": c,
+                              "device_ms": us / 1e3}
+                             for n, (c, us) in ranked if _PORT_KERNEL.match(n)]}
 
 
 def serve_path(dev, device_name: str) -> dict:
@@ -1475,10 +1548,13 @@ def lm_path(dev, twins: dict) -> dict:
     logits = prefill()
     prefill_s = time.perf_counter() - t0
     pre_launches = read_launches()
-    require_launches("lm_prefill", pre_launches, ("flash_attention_fwd",))
-    if pre_launches["flash_attention_fwd"] != cfg.n_layers:
+    require_launches("lm_prefill", pre_launches,
+                     ("flash_attention_fwd_sm90",))
+    if pre_launches["flash_attention_fwd_sm90"] != cfg.n_layers or \
+            pre_launches["flash_attention_fwd"]:
         raise AssertionError(f"lm_prefill: {pre_launches} flash launches, "
-                             f"want {cfg.n_layers} (one a layer)")
+                             f"want {cfg.n_layers} of the bf16 tensor-core "
+                             f"forward (one a layer) and no other")
     if logits.shape != (LM_PREFILL_B, LM_PREFILL_S, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite or wrong shape")
@@ -1492,17 +1568,20 @@ def lm_path(dev, twins: dict) -> dict:
     tcfg, tparams = lm_twin_model(dev)
     reset_launches()
     got = lm_prefill_twin_logits(tcfg, tparams, dev)
-    twin_launches = read_launches()["flash_attention_fwd"]
+    twin_all = read_launches()
+    twin_launches = twin_all["flash_attention_fwd"]
     cpu = twins["lm_prefill"].result()["logits"]
     d = float((got - cpu).abs().max())
     emit("lm", part="prefill_twin", layers=LM_TWIN_LAYERS, tokens=LM_TWIN_S,
          rows_compared=len(LM_TWIN_ROWS), flash_launches=twin_launches,
          max_abs_d_logits=d, max_abs_logit=float(cpu.abs().max()),
          atol=LM_PREFILL_ATOL)
-    if twin_launches != LM_TWIN_LAYERS or d > LM_PREFILL_ATOL:
+    if twin_launches != LM_TWIN_LAYERS or \
+            twin_all["flash_attention_fwd_sm90"] or d > LM_PREFILL_ATOL:
         raise AssertionError(f"prefill twin: logits {d:.3g} from the CPU's "
-                             f"(atol {LM_PREFILL_ATOL}), {twin_launches} "
-                             "flash launches")
+                             f"(atol {LM_PREFILL_ATOL}), launches "
+                             f"{twin_all} (want {LM_TWIN_LAYERS} of the "
+                             "fp32 forward)")
 
     prompts = lm_prompts(cfg.vocab)
     lm_serve(cfg, params, prompts[:2], dev, max_new=4)  # warm-up
@@ -1564,7 +1643,8 @@ def lm_path(dev, twins: dict) -> dict:
          **rep.as_dict())
     if first > LM_SERVE_ATOL:
         raise AssertionError(f"serve twin: first logits {first:.3g} apart")
-    return {"lm_prefill": pre_launches, "lm_serve": serve_launches}
+    return {"lm_prefill": pre_launches, "lm_prefill_twin": twin_all,
+            "lm_serve": serve_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1651,9 +1731,9 @@ def lm_train(dev, twins: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention_fwd": 2 * cfg.n_layers,
+    want = {"flash_attention_fwd_sm90": 2 * cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers}
+            "flash_attention_bwd_dkv_sm90": cfg.n_layers}
     exact = all(launches[k] == n * LM_TRAIN_STEPS for k, n in want.items()) \
         and all(c == 0 for k, c in launches.items() if k not in want)
     losses = [h["loss"] for h in hist]
@@ -1685,9 +1765,13 @@ def lm_train(dev, twins: dict) -> dict:
     run = lm_train_twin_run(dev)
     cpu = twins["lm_train"].result()
     d = train_twin_distances(run, cpu, lm_twin_model(torch.device("cpu"))[1])
-    twin_want = {k: n // cfg.n_layers * LM_TWIN_LAYERS * LM_TRAIN_TWIN_STEPS
-                 for k, n in want.items()}
-    twin_exact = all(run["launches"][k] == n for k, n in twin_want.items())
+    # The fp32 twin takes the fp32 forward and dk/dv kernels.
+    n = LM_TWIN_LAYERS * LM_TRAIN_TWIN_STEPS
+    twin_want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+                 "flash_attention_bwd_dkv": n}
+    twin_exact = all(run["launches"][k] == n for k, n in twin_want.items()) \
+        and all(c == 0 for k, c in run["launches"].items()
+                if k not in twin_want)
     ok = (twin_exact and d["loss_max_rel_d"] <= LM_TRAIN_LOSS_RTOL
           and d["grad_norm_max_rel_d"] <= LM_TRAIN_GNORM_RTOL
           and d["params_d_over_update"] <= LM_TRAIN_PARAMS_REL)
@@ -1841,9 +1925,11 @@ def times(dev) -> dict:
 
 
 def lm_times(dev, rng) -> dict:
-    """The flash forward at the qwen2-0.5B prefill's shape and the k-WTA
-    bisection at kernel_bench's, each beside its plain version and a
-    PyTorch yardstick (timed here only; the port never calls it)."""
+    """The flash forwards (the bf16 tensor-core kernel the prefill runs,
+    and the fp32 route's kernel on the same bf16 inputs)
+    at the qwen2-0.5B prefill's shape and the k-WTA bisection at
+    kernel_bench's, each beside its plain version and a PyTorch yardstick
+    (timed here only; the port never calls it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, kwta, ref
@@ -1855,10 +1941,12 @@ def lm_times(dev, rng) -> dict:
     vt = v.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
     # Causal: half the score matrix. bf16 operands, so the bound is the
     # bf16 tensor-core peak against q, k, v read once and out, lse
-    # written once.
+    # written once. The tensor-core kernel splits p into three bf16
+    # terms, three products for p.V: 2x the operations (bound_split_ms).
     flops = 4.0 * B * H * S * S * dh / 2
     n_bytes = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 4 * B * H * S
     b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=flops)
+    b_split = bound_ms(0.0, n_bytes, flops_bf16_tc=2 * flops)[0]
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     try:
         F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
@@ -1871,15 +1959,22 @@ def lm_times(dev, rng) -> dict:
         yard = lambda: F.scaled_dot_product_attention(qh, kr, vr,
                                                       is_causal=True)
         yard_name = "F.scaled_dot_product_attention, K/V repeated"
-    out["flash_attention_fwd"] = dict(
+    kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
+              scale=dh ** -0.5)
+    common = dict(
         shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
-        ms=time_graph(lambda: flash_attention.flash_attention_fwd(
-            qt, kt, vt, causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
-            scale=dh ** -0.5)),
         plain_ms=time_graph(lambda: ref.flash_attention_fwd_ref(
             qt, kt, vt, True, S, H, Kh), reps=2, rounds=3),
         library_ms=time_graph(yard), library=yard_name,
         bound_ms=b, bound_by=by)
+    out["flash_attention_fwd"] = dict(
+        ms=time_graph(lambda: flash_attention.flash_attention_fwd(
+            qt, kt, vt, **kw)), **common,
+        note="the fp32 route's kernel on the bf16 inputs (the prefill's "
+             "kernel before the tensor-core one)")
+    out["flash_attention_fwd_sm90"] = dict(
+        ms=time_graph(lambda: flash_attention.flash_attention_fwd_sm90(
+            qt, kt, vt, **kw)), **common, bound_split_ms=b_split)
     out.update(flash_bwd_times(dev, rng))
     # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
     # and writes out once and makes |x| and iters + 2 comparisons an
@@ -1900,12 +1995,14 @@ def lm_times(dev, rng) -> dict:
 
 
 def flash_bwd_times(dev, rng) -> dict:
-    """The flash backward's two kernels at the training shape (B 2, S
-    2,048, 14/2 heads, dh 64, bf16, causal), each beside the plain
-    version and the backward of ``scaled_dot_product_attention`` over a
-    saved forward (both compute dq, dk and dv together: the same figure
-    stands beside each kernel), and the whole backward as the port runs
-    it (delta's torch reduction and both kernels)."""
+    """The flash backward's kernels at the training shape (B 2, S 2,048,
+    14/2 heads, dh 64, bf16, causal): dq, the bf16 tensor-core dk/dv with
+    its fold, and the fp32 route's dk/dv on the same bf16 inputs, each
+    beside the plain version and the backward of
+    ``scaled_dot_product_attention`` over a saved forward (both compute
+    dq, dk and dv together: the same figure stands beside each kernel),
+    and the whole backward as the port runs it in bf16 (delta's torch
+    reduction, dq and the tensor-core dk/dv)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
@@ -1916,21 +2013,23 @@ def flash_bwd_times(dev, rng) -> dict:
     qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(do)
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
-    ot, lse = flash_attention.flash_attention_fwd(qt, kt, vt, **kw)
+    ot, lse = flash_attention.flash_attention_fwd_sm90(qt, kt, vt, **kw)
     delta = torch.sum(dot.float() * ot.float(), -1)
     args = (qt, kt, vt, dot, lse, delta)
     # Causal halves each of the 2·S·S·dh products a head: dq takes three
     # (s, dO·vᵀ, ds·k), dk/dv four (s, dO·vᵀ, pᵀ·dO, dsᵀ·q); bf16
     # operands, so the bound is the bf16 tensor-core peak against q, k,
     # v, dO (bf16), lse and delta (f32) read once and the outputs written
-    # once.
+    # once. The tensor-core dk/dv splits pᵀ and dsᵀ into bf16 hi and lo:
+    # six products instead of four (bound_split_ms).
     prod = 2.0 * B * H * S * S * dh / 2
     reads = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 2 * 4 * B * H * S
+    dkv_bytes = reads + 2 * 2 * B * Kh * S * dh
     bounds = {"flash_attention_bwd_dq": bound_ms(
                   0.0, reads + 2 * B * H * S * dh, flops_bf16_tc=3 * prod),
               "flash_attention_bwd_dkv": bound_ms(
-                  0.0, reads + 2 * 2 * B * Kh * S * dh,
-                  flops_bf16_tc=4 * prod)}
+                  0.0, dkv_bytes, flops_bf16_tc=4 * prod)}
+    bounds["flash_attention_bwd_dkv_sm90"] = bounds["flash_attention_bwd_dkv"]
     plain = time_graph(lambda: ref.flash_attention_bwd_ref(
         qt, kt, vt, ot, lse, dot, True, S, H, Kh), reps=2, rounds=3)
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -1950,19 +2049,27 @@ def flash_bwd_times(dev, rng) -> dict:
     fns = {"flash_attention_bwd_dq": lambda: flash_attention
            .flash_attention_bwd_dq(*args, **kw),
            "flash_attention_bwd_dkv": lambda: flash_attention
-           .flash_attention_bwd_dkv(*args, **kw)}
+           .flash_attention_bwd_dkv(*args, **kw),
+           "flash_attention_bwd_dkv_sm90": lambda: flash_attention
+           .flash_attention_bwd_dkv_sm90(*args, **kw)}
     out = {n: dict(shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
                    ms=time_graph(fn), plain_ms=plain,
                    plain="ref.flash_attention_bwd_ref: dq, dk and dv "
                          "together", library_ms=lib, library=lib_name,
                    bound_ms=bounds[n][0], bound_by=bounds[n][1])
            for n, fn in fns.items()}
+    out["flash_attention_bwd_dkv"]["note"] = (
+        "the fp32 route's kernel on the bf16 inputs (the train step's "
+        "dk/dv before the tensor-core one)")
+    out["flash_attention_bwd_dkv_sm90"].update(
+        bound_split_ms=bound_ms(0.0, dkv_bytes, flops_bf16_tc=6 * prod)[0],
+        note="the dk/dv kernel and the fold of the rep partials")
 
     def whole():
         d = torch.sum(dot.float() * ot.float(), -1)
         flash_attention.flash_attention_bwd_dq(qt, kt, vt, dot, lse, d, **kw)
-        flash_attention.flash_attention_bwd_dkv(qt, kt, vt, dot, lse, d,
-                                                **kw)
+        flash_attention.flash_attention_bwd_dkv_sm90(qt, kt, vt, dot, lse, d,
+                                                     **kw)
     b, by = bound_ms(0.0, reads + 2 * B * H * S * dh
                      + 2 * 2 * B * Kh * S * dh + 2 * B * H * S * dh,
                      flops_bf16_tc=7 * prod)
@@ -1970,8 +2077,23 @@ def flash_bwd_times(dev, rng) -> dict:
         shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
         ms=time_graph(whole), plain_ms=plain, library_ms=lib,
         library=lib_name, bound_ms=b, bound_by=by,
-        note="delta's torch reduction, the dq and the dk/dv kernels")
+        note="delta's torch reduction, dq and the tensor-core dk/dv")
     return out
+
+
+def require_no_local_memory(libs: dict) -> None:
+    """Fail if nvcc gave a tensor-core flash kernel a stack frame. wgmma
+    reads its register operands after the instruction issues; a value
+    the compiler keeps in local memory is loaded into a scratch register
+    that it may reuse while the tensor cores still read it, which makes
+    results change from run to run (seen on the card with a 128-byte
+    frame)."""
+    frames = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
+                  .splitlines() if "bytes stack frame" in ln
+                  and not ln.strip().startswith("0 bytes stack frame")]
+              for n, p in libs.items() if n.endswith("_sm90")}
+    if any(frames.values()):
+        raise AssertionError(f"sm90 flash kernels use local memory: {frames}")
 
 
 def main() -> int:
@@ -1996,6 +2118,7 @@ def main() -> int:
          ptxas={n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                     .splitlines() if "registers" in ln or "spill" in ln]
                 for n, p in libs.items() if p.with_suffix(".log").exists()})
+    require_no_local_memory(libs)
 
     pool, twins = start_twins()
     try:
@@ -2017,9 +2140,10 @@ def main() -> int:
     # launches: each kernel's count in the run of the path it was ported
     # for (serve for the WBS kernels and the readout, train (a) for the
     # ideal scan, train (d) for the read-noise product, the LM prefill for
-    # the flash forward, LM training for the flash backward's two kernels,
-    # ops.kwta at the bench shape for k-WTA); launches_by_path has every
-    # path's count.
+    # the bf16 tensor-core forward and its fp32 twin for the fp32 forward,
+    # LM training for dq and the tensor-core dk/dv and its fp32 twin for
+    # the fp32 dk/dv, ops.kwta at the bench shape for k-WTA);
+    # launches_by_path has every path's count.
     by_path = {"serve": run["launches"], "train_software": sw["launches"],
                "train_protocol_ideal": cl["ideal"]["launches"],
                "train_protocol_wbs": cl["wbs"]["launches"],
@@ -2029,13 +2153,17 @@ def main() -> int:
                "table1_cmos": t1["cmos"], **lmr, **lmt, "ops_kwta": kw}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
-           "miru_readout": "serve", "flash_attention_fwd": "lm_prefill",
+           "miru_readout": "serve", "flash_attention_fwd": "lm_prefill_twin",
            "flash_attention_bwd_dq": "lm_train",
-           "flash_attention_bwd_dkv": "lm_train", "kwta": "ops_kwta"}
+           "flash_attention_bwd_dkv": "lm_train_twin", "kwta": "ops_kwta",
+           "flash_attention_fwd_sm90": "lm_prefill",
+           "flash_attention_bwd_dkv_sm90": "lm_train"}
     src = "src/repro_torch/kernels/csrc/"
     lib = {"flash_attention_fwd": "flash_attention_fwd",   # else the module
            "flash_attention_bwd_dq": "flash_attention_bwd",
-           "flash_attention_bwd_dkv": "flash_attention_bwd"}
+           "flash_attention_bwd_dkv": "flash_attention_bwd",
+           "flash_attention_fwd_sm90": "flash_attention_fwd_sm90",
+           "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90"}
     source = {k: src + lib.get(k, KERNELS[k][0]) + ".cu" for k in KERNELS}
     replaces = {"wbs_matmul": "src/repro/kernels/wbs_matmul.py:99",
                 "wbs_matmul_read_noise": "src/repro/kernels/wbs_matmul.py:99 "
@@ -2052,14 +2180,21 @@ def main() -> int:
                 "flash_attention_bwd_dkv": "src/repro/kernels/"
                                            "flash_attention.py:161 "
                                            "(pallas_call :205)",
-                "kwta": "src/repro/kernels/kwta.py:47 (pallas_call :53)"}
+                "kwta": "src/repro/kernels/kwta.py:47 (pallas_call :53)",
+                "flash_attention_fwd_sm90": "src/repro/kernels/"
+                                            "flash_attention.py:227 "
+                                            "(pallas_call :270), bf16",
+                "flash_attention_bwd_dkv_sm90": "src/repro/kernels/"
+                                                "flash_attention.py:161 "
+                                                "(pallas_call :205), bf16"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k], "launches": by_path[own[k]][k],
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
-         "library_ms": t[k]["library_ms"], "library": t[k]["library"]}
+         "library_ms": t[k]["library_ms"], "library": t[k]["library"],
+         **{f: t[k][f] for f in ("bound_split_ms", "note") if f in t[k]}}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -151,7 +151,8 @@ def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
     if trainer.algo == "adam":
         raise NotImplementedError(
             "algo='adam' (BPTT + Adam, the software baseline) is the next "
-            "slice of the port (ROADMAP queue A, slice 4)")
+            "slice of the port (ROADMAP queue A, slice 6: the MiRU's BPTT "
+            "+ Adam baseline)")
     if trainer.algo != "dfa":
         raise ValueError(f"unknown trainer algo {trainer.algo!r}; "
                          f"expected 'adam' or 'dfa'")

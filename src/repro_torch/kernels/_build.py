@@ -6,6 +6,8 @@ no PyTorch headers, so a build takes seconds, not minutes). Libraries
 are cached under ``kernels/build/`` (listed in ``.gitignore``), named by
 a digest of the sources and flags, so an edited source is rebuilt.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
+Extra ``flags`` (a ``-D`` define, say) make a variant of a library under
+a name of its own; the package's wrappers load the plain build.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -22,11 +24,12 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
-         "flash_attention_fwd", "flash_attention_bwd", "kwta")
+         "flash_attention_fwd", "flash_attention_bwd", "kwta",
+         "flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -42,19 +45,20 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
+def library_path(name: str, flags: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(" ".join(FLAGS + tuple(flags)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = NAMES) -> dict[str, Path]:
+def build(names: Iterable[str] = NAMES,
+          flags: tuple[str, ...] = ()) -> dict[str, Path]:
     """Compile every named library that is not built yet, one ``nvcc``
     each, all started together. The compiler's report (``-Xptxas -v``:
     registers, shared memory, spills) lands beside each library as
     ``.log``. Raises if any build fails."""
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, flags) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -65,7 +69,7 @@ def build(names: Iterable[str] = NAMES) -> dict[str, Path]:
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
         log = open(p.with_suffix(".log"), "w")
         procs[n] = (subprocess.Popen(
-            [exe, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [exe, *FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for n, (proc, tmp, log) in procs.items():
@@ -81,9 +85,11 @@ def build(names: Iterable[str] = NAMES) -> dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _loaded.get(name)
+def load(name: str, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with the extra
+    ``flags``), built if needed."""
+    key = (name, tuple(flags))
+    lib = _loaded.get(key)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+        lib = _loaded[key] = ctypes.CDLL(str(build([name], flags)[name]))
     return lib

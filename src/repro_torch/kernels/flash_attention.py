@@ -1,14 +1,19 @@
 """Wrappers of the CUDA kernels ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu`` — the flash-attention forward and its
 backward (dq; dk and dv), replacing ``repro/kernels/flash_attention.py ::
-flash_attention_fwd_pallas`` and ``flash_attention_bwd_pallas``.
+flash_attention_fwd_pallas`` and ``flash_attention_bwd_pallas`` — and of
+their bf16 tensor-core versions for Hopper, ``csrc/flash_attention_fwd_sm90
+.cu`` and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (wgmma on 128-byte-
+swizzled bf16 tiles; ``csrc/flash_sm90.cuh``).
 
 The wrappers take CUDA tensors only, in the Pallas kernels' layout: q (and
 out, dO) (B·H, Sq, D), k and v (B·Kh, Sk, D) with D 64 or 128;
-``kernels/ops.py`` transposes, pads and dispatches, and the plain versions
-are ``kernels/ref.py :: flash_attention_fwd_ref`` and
-``flash_attention_bwd_ref``. :data:`launches`, :data:`dq_launches` and
-:data:`dkv_launches` count the launches of the three kernels.
+``kernels/ops.py`` transposes, pads and dispatches (bf16 to the ``_sm90``
+forward and dk/dv, fp32 to the others; dq has one kernel for both), and
+the plain versions are ``kernels/ref.py :: flash_attention_fwd_ref`` and
+``flash_attention_bwd_ref``. :data:`launches`, :data:`dq_launches`,
+:data:`dkv_launches`, :data:`fwd_sm90_launches` and
+:data:`dkv_sm90_launches` count the launches of the five kernels.
 """
 from __future__ import annotations
 
@@ -27,22 +32,19 @@ HEAD_DIMS = (64, 128)
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+#: Launches of the bf16 tensor-core forward and dk/dv (with its fold).
+fwd_sm90_launches = 0
+dkv_sm90_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _fn():
-    fn = _build.load("flash_attention_fwd").flash_attention_fwd_launch
+def _launcher(lib: str, name: str, n_ptrs: int, n_tail: int = 1):
+    """``lib``'s C function ``name``: n_ptrs pointers, 8 ints, the scale,
+    n_tail ints (the dtype flag), the stream."""
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_fn(name: str, n_ptrs: int):
-    fn = getattr(_build.load("flash_attention_bwd"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptrs + [_I] * 8 + [_F, _I, _P]
+        fn.argtypes = [_P] * n_ptrs + [_I] * 8 + [_F] + [_I] * n_tail + [_P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,11 +79,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1],
-                sk_true, D, int(causal), scale,
-                int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
+    err = _launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D,
+        int(causal), scale, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)})")
@@ -111,7 +113,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
     dq = torch.empty_like(q)
-    err = _bwd_fn("flash_attention_bwd_dq_launch", 7)(
+    err = _launcher("flash_attention_bwd", "flash_attention_bwd_dq_launch",
+                    7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, q_heads,
         kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
@@ -138,7 +141,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _bwd_fn("flash_attention_bwd_dkv_launch", 8)(
+    err = _launcher("flash_attention_bwd",
+                    "flash_attention_bwd_dkv_launch", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
         q_heads, kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
@@ -150,4 +154,77 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                            f"{tuple(k.shape)})")
     global dkv_launches
     dkv_launches += 1
+    return dk, dv
+
+
+def _check_sm90(*tensors) -> None:
+    """The tensor-core kernels take bf16 only, 16-byte aligned (their tile
+    loads copy 16 bytes at a time)."""
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"the sm90 flash kernels take bfloat16 only, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the sm90 flash kernels need 16-byte aligned "
+                         "tensors")
+
+
+def flash_attention_fwd_sm90(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool, sk_true: int,
+                             q_heads: int, kv_heads: int, scale: float
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 tensor-core forward, arguments and result as
+    :func:`flash_attention_fwd`: q (B·H, Sq, D), k/v (B·Kh, Sk, D), bf16 →
+    (out (B·H, Sq, D) bf16, lse (B·H, Sq) f32). Raises on any other dtype
+    (it never hands a call to the fp32 kernel)."""
+    dev = _check(q, k, v, q_heads, kv_heads, sk_true)
+    _check_sm90(q, k, v)
+    BH, Sq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
+    err = _launcher("flash_attention_fwd_sm90",
+                    "flash_attention_fwd_sm90_launch", 5, 0)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D,
+        int(causal), scale, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_fwd_sm90 launch failed: "
+                           f"cudaError {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    global fwd_sm90_launches
+    fwd_sm90_launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dkv_sm90(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor,
+                                 lse: torch.Tensor, delta: torch.Tensor, *,
+                                 causal: bool, sk_true: int, q_heads: int,
+                                 kv_heads: int, scale: float
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 tensor-core dk/dv, arguments and result as
+    :func:`flash_attention_bwd_dkv`, bf16 only. One launch runs the dk/dv
+    kernel, which writes each query head's fp32 partial into scratch
+    (2 × B·H·Sk·D floats, allocated here), and the fold that sums each KV
+    head's partials in a fixed order and rounds to bf16."""
+    dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
+    _check_sm90(q, k, v, dout)
+    _lse_delta(lse, delta, q)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    dk_part = torch.empty((BH, Sk, D), dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _launcher("flash_attention_bwd_dkv_sm90",
+                    "flash_attention_bwd_dkv_sm90_launch", 10, 0)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk_part.data_ptr(),
+        dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, q_heads,
+        kv_heads, Sq, Sk, sk_true, D, int(causal), scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dkv_sm90 launch failed: "
+                           f"cudaError {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    global dkv_sm90_launches
+    dkv_sm90_launches += 1
     return dk, dv

@@ -250,6 +250,23 @@ def _heads_back(t: torch.Tensor, B: int) -> torch.Tensor:
     return t.reshape(B, -1, *t.shape[1:]).transpose(1, 2)
 
 
+def _flash_fwd_kernel(dtype: torch.dtype):
+    """The forward kernel for a dtype, a fixed rule: bf16 takes the
+    tensor-core kernel (``flash_attention_fwd_sm90``), anything else the
+    fp32 kernel (which raises on a dtype other than fp32). The sm90 kernel
+    raises on what it cannot take; no call moves to the other kernel."""
+    return (_flash_kernel.flash_attention_fwd_sm90
+            if dtype == torch.bfloat16 else _flash_kernel.flash_attention_fwd)
+
+
+def _flash_dkv_kernel(dtype: torch.dtype):
+    """The dk/dv kernel for a dtype, by the rule of
+    :func:`_flash_fwd_kernel`; dq has one kernel for both dtypes."""
+    return (_flash_kernel.flash_attention_bwd_dkv_sm90
+            if dtype == torch.bfloat16
+            else _flash_kernel.flash_attention_bwd_dkv)
+
+
 def _flash_fwd(q, k, v, causal: bool, sk_true: int):
     B, Sq, H, dh = q.shape
     Kh, dv = k.shape[2], v.shape[-1]
@@ -259,7 +276,7 @@ def _flash_fwd(q, k, v, causal: bool, sk_true: int):
                                                H, Kh)
     else:
         D = _head_dim(dh, dv)
-        out, lse = _flash_kernel.flash_attention_fwd(
+        out, lse = _flash_fwd_kernel(q.dtype)(
             F.pad(qt, (0, D - dh)).contiguous(),
             F.pad(kt, (0, D - dh)).contiguous(),
             F.pad(vt, (0, D - dv)).contiguous(), causal=causal,
@@ -305,7 +322,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     64 or 128 (exact: zero terms add nothing to q·k, and padded value
     columns are sliced away; the scale stays dh^-0.5). On inputs that
     require grad the call is differentiable in q, k and v, through
-    :func:`flash_attention_bwd`. Returns (out (B, Sq, H, dv), lse
+    :func:`flash_attention_bwd`. On the card bf16 inputs take the
+    tensor-core kernel and fp32 inputs the fp32 one, a fixed rule by dtype
+    (:func:`_flash_fwd_kernel`). Returns (out (B, Sq, H, dv), lse
     (B, H, Sq))."""
     sk_true = k.shape[1] if sk_true is None else sk_true
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -326,7 +345,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = Σ dout·out is a torch reduction (the reference computes it
     outside its kernels too), the head dims are zero-padded to 64 or 128
     as in the forward and the gradients sliced back; the dq kernel and
-    the dk/dv kernel launch once each."""
+    the dk/dv kernel launch once each, the dk/dv kernel by dtype as the
+    forward (bf16 the tensor-core kernel with its fold, fp32 the fp32
+    kernel)."""
     B, Sq, H, dh = q.shape
     Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true
@@ -345,7 +366,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         args = (pad(qt, dh), pad(kt, dh), pad(vt, dv), pad(dot, dv),
                 lse.contiguous(), delta)
         dq = _flash_kernel.flash_attention_bwd_dq(*args, **kw)[..., :dh]
-        dk, dvv = _flash_kernel.flash_attention_bwd_dkv(*args, **kw)
+        dk, dvv = _flash_dkv_kernel(q.dtype)(*args, **kw)
         dk, dvv = dk[..., :dh], dvv[..., :dv]
     return _heads_back(dq, B), _heads_back(dk, B), _heads_back(dvv, B)
 

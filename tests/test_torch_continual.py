@@ -221,6 +221,19 @@ def test_unported_options_raise():
         continual.ContinualConfig(trainer="dfa")
 
 
+def test_adam_refusal_names_the_slice_that_brings_it():
+    """``algo="adam"`` is ROADMAP queue A's "slice 6" (the MiRU's BPTT +
+    Adam baseline), not slice 4 (the LM zoo, already ported)."""
+    cfg, _ = _cfgs()
+    tasks, _ = _tasks(1, 32)
+    with pytest.raises(NotImplementedError) as err:
+        continual.run_continual(cfg, continual.TrainerSpec(algo="adam"),
+                                tasks, torch_device="cpu")
+    assert "queue A, slice 6" in str(err.value)
+    assert "BPTT + Adam" in str(err.value)
+    assert "slice 4" not in str(err.value)
+
+
 def test_run_continual_refuses_cuda_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, _ = _cfgs()

@@ -266,6 +266,28 @@ def _flash_inputs(dev, B, Sq, Sk, H, Kh, dh, dtype, seed):
     return [t.to(dev, dtype) for t in (q, k, v)]
 
 
+# The launch counters of the flash kernels (kernels/flash_attention.py).
+# kernels/ops.py sends bf16 to the tensor-core forward and dk/dv, fp32 to
+# the fp32 ones; dq has one kernel for both.
+_FLASH_COUNTERS = ("launches", "fwd_sm90_launches", "dq_launches",
+                   "dkv_launches", "dkv_sm90_launches")
+_FWD_COUNTER = {"float32": "launches", "bfloat16": "fwd_sm90_launches"}
+_DKV_COUNTER = {"float32": "dkv_launches", "bfloat16": "dkv_sm90_launches"}
+
+
+def _flash_launches():
+    from repro_torch.kernels import flash_attention as kflash
+    return {n: getattr(kflash, n) for n in _FLASH_COUNTERS}
+
+
+def _launched(before, *names):
+    """The flash counters moved by exactly one for each of ``names`` and
+    not at all for the others."""
+    after = _flash_launches()
+    return {n: after[n] - before[n] for n in after} == \
+        {n: int(n in names) for n in after}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal", [
     (1, 2048, 2048, 14, 2, 64, True),    # the qwen2-0.5B prefill, rep 7
@@ -279,13 +301,14 @@ def _flash_inputs(dev, B, Sq, Sk, H, Kh, dh, dtype, seed):
 ])
 def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                    dtype):
-    from repro_torch.kernels import flash_attention as kflash
+    """fp32 through the fp32 kernel, bf16 through the tensor-core kernel
+    (``flash_attention_fwd_sm90``), each launched once."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + H)
-    before = kflash.launches
+    before = _flash_launches()
     out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kflash.launches == before + 1
+    assert _launched(before, _FWD_COUNTER[dtype])
     # The plain version on the same inputs, through the same wrapper.
     want_o, want_l = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
                                              causal=causal)
@@ -304,11 +327,14 @@ def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
         assert testing.bf16_within(out.cpu(), want32)[0]
 
 
-def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(
+        cuda, dtype):
     """Keys at or past sk_true, and under the causal mask keys past each
     row, leave the output's bits unchanged whatever they hold: the kernel
     skips their tiles or weighs them by exactly 0."""
-    q, k, v = _flash_inputs(cuda, 1, 200, 200, 14, 2, 64, torch.float32, 9)
+    q, k, v = _flash_inputs(cuda, 1, 200, 200, 14, 2, 64,
+                            getattr(torch, dtype), 9)
     out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
     k2, v2 = k.clone(), v.clone()
     k2[:, 150:], v2[:, 150:] = 7.0, -3.0
@@ -335,17 +361,17 @@ def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(cuda):
 ])
 def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                        sk_true, dtype):
-    from repro_torch.kernels import flash_attention as kflash
+    """dq, and the dk/dv kernel of the dtype (bf16: the tensor-core
+    ``flash_attention_bwd_dkv_sm90`` with its fold), each launched once."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + dh)
     out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
                                        sk_true=sk_true)
     dout = _flash_inputs(cuda, B, Sq, Sq, H, H, dh, dt, 1)[0]
-    before = (kflash.dq_launches, kflash.dkv_launches)
+    before = _flash_launches()
     got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, sk_true)
     torch.cuda.synchronize()
-    assert (kflash.dq_launches, kflash.dkv_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _launched(before, "dq_launches", _DKV_COUNTER[dtype])
     want = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal, sk_true)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.shape == t.shape and g.dtype == dt
@@ -353,6 +379,57 @@ def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
     if sk_true is not None:          # keys past sk_true get no gradient
         assert not got[1][:, sk_true:].any() and \
             not got[2][:, sk_true:].any()
+
+
+@pytest.mark.parametrize("B,S,H,Kh,dh,causal", [
+    (2, 2048, 14, 2, 64, True),          # the qwen2-0.5B train step
+    (1, 300, 7, 1, 128, False),          # rep 7, head dim 128
+])
+def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
+                                                   causal):
+    """The tensor-core forward and dk/dv (its rep partials folded in a
+    fixed order, no atomics) give the same bits on every call."""
+    q, k, v = _flash_inputs(cuda, B, S, S, H, Kh, dh, torch.bfloat16, 11)
+    dout = _flash_inputs(cuda, B, S, S, H, H, dh, torch.bfloat16, 12)[0]
+    runs = []
+    for _ in range(2):
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        runs.append((out, lse, *ops.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):
+    """A bf16 call the tensor-core kernels cannot take raises; it is never
+    handed to the fp32 kernels (no flash counter moves)."""
+    from repro_torch.kernels import flash_attention as kflash
+    bf = torch.bfloat16
+    q, k, v = (t.transpose(1, 2).reshape(-1, 64, 96).contiguous() for t in
+               _flash_inputs(cuda, 1, 64, 64, 4, 2, 96, bf, 13))
+    kw = dict(causal=True, sk_true=64, q_heads=4, kv_heads=2, scale=0.1)
+    lse = torch.zeros(4, 64, device=cuda)
+    before = _flash_launches()
+    with pytest.raises(ValueError, match="D must be one of"):
+        kflash.flash_attention_fwd_sm90(q, k, v, **kw)
+    with pytest.raises(ValueError, match="D must be one of"):
+        kflash.flash_attention_bwd_dkv_sm90(q, k, v, q, lse, lse, **kw)
+    q64, k64, v64 = (t[..., :64].contiguous() for t in (q, k, v))
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        kflash.flash_attention_fwd_sm90(q64.float(), k64.float(),
+                                        v64.float(), **kw)
+    flat = torch.zeros(q64.numel() + 1, dtype=bf, device=cuda)
+    q_odd = flat[1:].view(q64.shape)              # 2 bytes off alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kflash.flash_attention_fwd_sm90(q_odd, k64, v64, **kw)
+    with pytest.raises(ValueError, match="exceed"):  # dh 192 > 128
+        ops.flash_attention_fwd(*_flash_inputs(cuda, 1, 16, 16, 2, 1, 192,
+                                               bf, 14))
+    with pytest.raises(TypeError):
+        q, k, v = _flash_inputs(cuda, 1, 16, 16, 2, 1, 64, bf, 15)
+        ops.flash_attention_fwd(q, k.float(), v)
+    assert _flash_launches() == before
 
 
 def test_flash_gradients_through_the_function_match_full_attention(cuda):

@@ -53,7 +53,18 @@ each made in this process without touching the package's files:
   causal mask), ``delta_omitted`` (delta = 0: out handed over as zeros)
   or ``dkv_head_shift`` (dk/dv landing on the next KV head), beside
   ``LM_TRAIN_LOSS_RTOL``, ``LM_TRAIN_GNORM_RTOL`` and
-  ``LM_TRAIN_PARAMS_REL``.
+  ``LM_TRAIN_PARAMS_REL``; then the bf16 route (the tensor-core flash
+  forward and dk/dv, which the fp32 twin does not run): whether each of
+  ``chip_smoke.py``'s flash checks (``check_lm_kernels``,
+  ``check_flash_bwd``) passes, sound and with a fault planted in the
+  kernels at build time (``csrc/flash_sm90.cuh``'s ``FLASH_SM90_FAULT``,
+  variants of the two libraries under names of their own, which this
+  process loads in place of the package's builds):
+  ``split_first_term_only`` (p, pᵀ and dsᵀ rounded to bf16 alone),
+  ``fold_order_per_call`` (dk/dv's fold of the rep partials starting at
+  another query head on each call, as float atomics would) or
+  ``causal_start_late`` (dk/dv's causal query loop starting one tile
+  past the diagonal).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
 lm_train`` (all by default).
@@ -356,6 +367,53 @@ def lm_train(dev) -> None:
                      <= cs.LM_TRAIN_PARAMS_REL))
 
 
+BF16_FAULTS = {"split_first_term_only": 1, "fold_order_per_call": 2,
+               "causal_start_late": 4}
+SM90_LIBS = ("flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90")
+
+
+def fault_flags(fault: int) -> tuple[str, ...]:
+    return (f"-DFLASH_SM90_FAULT={fault}",) if fault else ()
+
+
+@contextlib.contextmanager
+def planted(fault: int):
+    """The tensor-core flash kernels run with ``fault`` planted: the
+    wrappers load the libraries built with ``-DFLASH_SM90_FAULT``."""
+    from repro_torch.kernels import _build
+    load = _build.load
+
+    def faulty(name, flags=()):
+        return load(name, flags + fault_flags(fault) if name in SM90_LIBS
+                    else flags)
+    _build.load = faulty
+    try:
+        yield
+    finally:
+        _build.load = load
+
+
+def flash_bf16(dev) -> None:
+    """The bf16 route's kernel checks: sound beside planted faults."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from repro_torch.kernels import _build
+    with ThreadPoolExecutor(len(BF16_FAULTS)) as pool:   # all nvcc at once
+        list(pool.map(lambda f: _build.build(SM90_LIBS, fault_flags(f)),
+                      BF16_FAULTS.values()))
+    for name, fault in {"card": 0, **BF16_FAULTS}.items():
+        with planted(fault):
+            for check in (cs.check_lm_kernels, cs.check_flash_bwd):
+                try:
+                    check(dev, np.random.default_rng(0))
+                    failed = None
+                except AssertionError as e:
+                    failed = str(e)[:300]
+                emit(path="flash_bf16", run=name, check=check.__name__,
+                     passes=failed is None, failure=failed)
+
+
 def main() -> int:
     global _OUT
     import torch
@@ -383,6 +441,7 @@ def main() -> int:
         lm(dev)
     if "lm_train" in paths:
         lm_train(dev)
+        flash_bf16(dev)
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
     return 0
 
