@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the nine CUDA libraries compiled by nvcc for sm_90a from
+2. build: the ten CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
@@ -25,9 +25,10 @@ Phases, each printed as one JSON line:
    tensor-core kernel, fp32 through the fp32 one, each call launching
    its dtype's kernel once), and with keys padded past ``sk_true`` bit
    for bit as without, and the same call twice bit for bit; the flash
-   backward's dq and dk/dv kernels (bf16: the tensor-core dk/dv and its
-   fold) at the training shape (bf16 and fp32; bf16 also twice, bit for
-   bit), the training twin's, with keys past ``sk_true`` and Sq != Sk,
+   backward's dq and dk/dv kernels (bf16: the tensor-core dq and dk/dv
+   with its fold) at the training shape (bf16 and fp32; bf16 also twice,
+   bit for bit), the training twin's, with keys past ``sk_true`` and
+   Sq != Sk,
    rep 1, a head dim padded from 80 to 128 and one of 128 (fp32 at rtol
    1e-4 with a floor of 1e-5 of the largest gradient, bf16 within one
    ulp plus that), and the gradients through the autograd Function
@@ -82,10 +83,11 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    defaults, ``ShardedBatcher`` over 2 × 2,048-token batches, 30 counted
    steps after 3 of warm-up: ms a step, tokens/s, every loss and grad
    norm finite, peak memory, exactly 48 launches of the bf16 tensor-core
-   flash forward (24 and their 24 recomputes), 24 dq and 24 of the
-   tensor-core dk/dv a step, and the busy share of a traced 3-step
+   flash forward (24 and their 24 recomputes), 24 of the tensor-core dq
+   and 24 of the tensor-core dk/dv a step, and the busy share of a traced
+   3-step
    window; (ii) the 2-layer fp32 training twin, 3 steps on 1,100 tokens
-   (KV padded to 2,048, ``sk_true`` 1,100; the fp32 forward and dk/dv
+   (KV padded to 2,048, ``sk_true`` 1,100; the fp32 forward, dq and dk/dv
    kernels), against the port's CPU run of the same steps: every loss
    (``LM_TRAIN_LOSS_RTOL``), grad norm (``LM_TRAIN_GNORM_RTOL``) and the
    final params (their distance over the CPU update's norm,
@@ -96,9 +98,11 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    the backward of ``scaled_dot_product_attention``), each over a CUDA
    graph of repeated launches, beside the least time the card could
    take (for the tensor-core flash kernels also that bound with their
-   bf16 split's extra products, ``bound_split_ms``); the fp32 route's
-   flash forward and dk/dv are timed on the same bf16 inputs as the
-   tensor-core ones.
+   bf16 split's extra products, ``bound_split_ms``); the WBS product at
+   both main-path shapes (the drive and the per-step product) beside
+   ``torch.matmul`` of the dequantized operand; the fp32 route's flash
+   forward, dq and dk/dv on fp32 inputs beside
+   ``scaled_dot_product_attention`` on the same fp32 inputs (TF32 off).
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -244,11 +248,15 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "flash_attention_fwd_sm90": ("flash_attention",
                                         "fwd_sm90_launches"),
            "flash_attention_bwd_dkv_sm90": ("flash_attention",
-                                            "dkv_sm90_launches")}
+                                            "dkv_sm90_launches"),
+           "flash_attention_bwd_dq_sm90": ("flash_attention",
+                                           "dq_sm90_launches")}
 # The flash kernels each dtype takes (kernels/ops.py's fixed rule): bf16
-# the tensor-core forward and dk/dv, fp32 the fp32 ones; dq is one kernel.
+# the tensor-core forward, dq and dk/dv, fp32 the fp32 ones.
 FLASH_FWD = {"torch.bfloat16": "flash_attention_fwd_sm90",
              "torch.float32": "flash_attention_fwd"}
+FLASH_DQ = {"torch.bfloat16": "flash_attention_bwd_dq_sm90",
+            "torch.float32": "flash_attention_bwd_dq"}
 FLASH_DKV = {"torch.bfloat16": "flash_attention_bwd_dkv_sm90",
              "torch.float32": "flash_attention_bwd_dkv"}
 # CPU twins run beside the card's phases, one thread each.
@@ -575,6 +583,20 @@ def check_lm_kernels(dev, rng) -> dict:
                 extra = {"bf16_ulps_vs_plain_rounded": bf16_ulps(
                     out, want.to(torch.bfloat16))}
             launched = launched_once((kernel,), before)
+            if not e_lse <= 1e-5:
+                # Keep the inputs and both lse (under the checkout's
+                # chiprun_out/, the git-ignored directory of a GPU run's
+                # results) and recompute each side once: the record says
+                # which side moved.
+                extra["lse_record"] = testing.record_lse_mismatch(
+                    ROOT / "chiprun_out" / "flash_lse"
+                    / f"mismatch_{B}_{Sq}_{Sk}_{H}_{Kh}_{dh}_{causal}.pt",
+                    dict(q=q, k=k, v=v), lse.reshape(B * H, Sq), want_lse,
+                    lambda: ops.flash_attention_fwd(
+                        q, k, v, causal=causal)[1].reshape(B * H, Sq),
+                    lambda: ref.flash_attention_fwd_ref(
+                        qt.float(), kt.float(), vt.float(), causal, Sk, H,
+                        Kh)[1])
             ok = ok and e_lse <= 1e-5 and launched
             emit("kernels", kernel=kernel,
                  shape=[B, Sq, Sk, H, Kh, dh], causal=causal, dtype=str(dt),
@@ -635,8 +657,8 @@ def check_flash_bwd(dev, rng) -> dict:
     twin's (1,100 queries against keys padded to 2,048, sk_true 1,100),
     Sq != Sk without the causal mask and with keys past sk_true, rep 1,
     a head dim of 80 zero-padded to 128 and one of 128; each call
-    launching dq and the dk/dv kernel of its dtype (bf16 the tensor-core
-    kernel with its fold) once; at the training shape in bf16 the same
+    launching the dq and dk/dv kernels of its dtype (bf16 the tensor-core
+    dq and dk/dv with its fold) once; at the training shape in bf16 the same
     call again, bit for bit; then the gradients through the autograd
     Function against torch.autograd through the plain ``full_attention``,
     fp32 (``testing.grads_close``)."""
@@ -645,6 +667,7 @@ def check_flash_bwd(dev, rng) -> dict:
     from repro_torch.models import attention as attn
     from repro_torch.testing import flash_bwd_plain, grads_close
     err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0,
+           "flash_attention_bwd_dq_sm90": 0.0,
            "flash_attention_bwd_dkv_sm90": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [((LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_S, 14, 2, 64, True, None),
@@ -661,12 +684,11 @@ def check_flash_bwd(dev, rng) -> dict:
                 q, k, v = flash_inputs(rng, dev, B, Sq, Sk, H, Kh, dh, dt)
                 dout = flash_inputs(rng, dev, B, Sq, Sq, H, H, dh, dt)[0]
                 out, lse = ops.flash_attention_fwd(q, k, v, causal, skt)
-                dkv = FLASH_DKV[str(dt)]
+                dq_k, dkv = FLASH_DQ[str(dt)], FLASH_DKV[str(dt)]
                 before = read_launches()
                 got = ops.flash_attention_bwd(q, k, v, out, lse, dout,
                                               causal, skt)
-                launched = launched_once(("flash_attention_bwd_dq", dkv),
-                                         before)
+                launched = launched_once((dq_k, dkv), before)
                 want = flash_bwd_plain(q, k, v, out, lse, dout, causal, skt)
                 torch.cuda.synchronize()
                 e = {n: float((g.float() - w).abs().max())
@@ -684,10 +706,9 @@ def check_flash_bwd(dev, rng) -> dict:
                                for a, b in zip(got, again))
                     extra["bitwise_equal_run_to_run"] = same
                     ok = ok and same
-                err["flash_attention_bwd_dq"] = max(
-                    err["flash_attention_bwd_dq"], e["dq"])
+                err[dq_k] = max(err[dq_k], e["dq"])
                 err[dkv] = max(err[dkv], e["dk"], e["dv"])
-                emit("kernels", kernel=f"flash_attention_bwd_dq + {dkv}",
+                emit("kernels", kernel=f"{dq_k} + {dkv}",
                      shape=[B, Sq, Sk, H, Kh, dh], causal=causal,
                      sk_true=skt, dtype=str(dt), max_abs_err=e,
                      max_abs_grad={n: float(w.abs().max()) for n, w in
@@ -745,11 +766,10 @@ def check_read_noise(dev, rng) -> float:
             want = ref.wbs_matmul_read_noise_ref(
                 **inp, read_sigma=READ_SIGMA, key_words=words, adc_bits=adc,
                 adc_range=ADC_RANGE)
-            w_p = ops.pad_wbs_weights(inp["w"])
             zero = kmm.wbs_matmul_read_noise(
-                inp["sign"], inp["code"], w_p, inp["gains"], 0.0, words,
-                n_cols=N, adc_bits=adc, adc_range=ADC_RANGE)
-            plain_kernel = kmm.wbs_matmul(inp["sign"], inp["code"], w_p,
+                inp["sign"], inp["code"], inp["w"], inp["gains"], 0.0, words,
+                adc_bits=adc, adc_range=ADC_RANGE)
+            plain_kernel = kmm.wbs_matmul(inp["sign"], inp["code"], inp["w"],
                                           inp["gains"], adc, ADC_RANGE)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
@@ -1732,7 +1752,7 @@ def lm_train(dev, twins: dict) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     want = {"flash_attention_fwd_sm90": 2 * cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dq_sm90": cfg.n_layers,
             "flash_attention_bwd_dkv_sm90": cfg.n_layers}
     exact = all(launches[k] == n * LM_TRAIN_STEPS for k, n in want.items()) \
         and all(c == 0 for k, c in launches.items() if k not in want)
@@ -1765,7 +1785,7 @@ def lm_train(dev, twins: dict) -> dict:
     run = lm_train_twin_run(dev)
     cpu = twins["lm_train"].result()
     d = train_twin_distances(run, cpu, lm_twin_model(torch.device("cpu"))[1])
-    # The fp32 twin takes the fp32 forward and dk/dv kernels.
+    # The fp32 twin takes the fp32 forward, dq and dk/dv kernels.
     n = LM_TWIN_LAYERS * LM_TRAIN_TWIN_STEPS
     twin_want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
                  "flash_attention_bwd_dkv": n}
@@ -1812,8 +1832,8 @@ def kwta_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def times(dev) -> dict:
-    """Each kernel's wrapper on inputs already padded and prepared as the
-    serve path hands them over, so ``ms`` is the launch alone."""
+    """Each kernel's wrapper on inputs prepared as the main path hands them
+    over, so ``ms`` is the launch alone."""
     import numpy as np
     import torch
     from repro_torch.kernels import (miru_readout, miru_scan, ops, ref,
@@ -1821,23 +1841,28 @@ def times(dev) -> dict:
     rng = np.random.default_rng(1)
     out = {}
     with torch.no_grad():
-        M, K, N = SLOTS * CHUNK, N_X, N_H
-        inp = matmul_inputs(rng, dev, M, K, N)
-        w_p = ops.pad_wbs_weights(inp["w"])
-        deq = (inp["sign"].float() * inp["code"].float()) * 2.0 ** -N_BITS
-        # By linearity Σ_b g_b·(plane_b⊙sign)@w = (sign⊙Σ_b g_b·plane_b)@w:
-        # the work is one product plus an n_bits-term decode per input.
-        flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS
-        n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
-        b, by = bound_ms(flops, n_bytes)
-        out["wbs_matmul"] = dict(
-            shape=[M, K, N],
-            ms=time_graph(lambda: wbs_matmul.wbs_matmul(
-                inp["sign"], inp["code"], w_p, inp["gains"])),
-            plain_ms=time_graph(lambda: ref.wbs_matmul_ref(**inp)),
-            library_ms=time_graph(lambda: torch.matmul(deq, inp["w"])),
-            library="torch.matmul of the dequantized drive",
-            bound_ms=b, bound_by=by)
+        # The hoisted drive (the kernels line) and the per-step recurrent
+        # product, each unpadded as ops.wbs_matmul hands it over.
+        for key, (M, K, N, xs) in {
+                "wbs_matmul": (SLOTS * CHUNK, N_X, N_H, 1.0),
+                "wbs_matmul@step": (SLOTS, N_H, N_H, BETA)}.items():
+            inp = matmul_inputs(rng, dev, M, K, N, xs)
+            deq = (inp["sign"].float() * inp["code"].float()) \
+                * 2.0 ** -N_BITS
+            # By linearity Σ_b g_b·(plane_b⊙sign)@w = (sign⊙Σ_b
+            # g_b·plane_b)@w: one product plus an n_bits-term decode per
+            # input.
+            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS
+            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
+            b, by = bound_ms(flops, n_bytes)
+            out[key] = dict(
+                shape=[M, K, N],
+                ms=time_graph(lambda: wbs_matmul.wbs_matmul(
+                    inp["sign"], inp["code"], inp["w"], inp["gains"])),
+                plain_ms=time_graph(lambda: ref.wbs_matmul_ref(**inp)),
+                library_ms=time_graph(lambda: torch.matmul(deq, inp["w"])),
+                library="torch.matmul of the dequantized operand",
+                bound_ms=b, bound_by=by)
         # The read-noise variant at the per-step shape of train (d): the
         # product as above plus, per weight element, one Box–Muller normal
         # (counted as 8 fp64 operations: two scalings, log, ×−2, sqrt,
@@ -1846,7 +1871,6 @@ def times(dev) -> dict:
         # operations. No single PyTorch call computes this function.
         M, K, N = CL_BATCH, N_H, N_H
         inp = matmul_inputs(rng, dev, M, K, N, BETA)
-        w_p = ops.pad_wbs_weights(inp["w"])
         words = ops.read_key_words(np.asarray([0, 42], np.uint32))
         flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS + 3.0 * K * N
         n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
@@ -1854,8 +1878,8 @@ def times(dev) -> dict:
         out["wbs_matmul_read_noise"] = dict(
             shape=[M, K, N], read_sigma=READ_SIGMA,
             ms=time_graph(lambda: wbs_matmul.wbs_matmul_read_noise(
-                inp["sign"], inp["code"], w_p, inp["gains"], READ_SIGMA,
-                words, n_cols=N)),
+                inp["sign"], inp["code"], inp["w"], inp["gains"], READ_SIGMA,
+                words)),
             plain_ms=time_graph(lambda: ref.wbs_matmul_read_noise_ref(
                 **inp, read_sigma=READ_SIGMA, key_words=words),
                 reps=2, rounds=3),
@@ -1924,57 +1948,75 @@ def times(dev) -> dict:
     return out
 
 
-def lm_times(dev, rng) -> dict:
-    """The flash forwards (the bf16 tensor-core kernel the prefill runs,
-    and the fp32 route's kernel on the same bf16 inputs)
-    at the qwen2-0.5B prefill's shape and the k-WTA bisection at
-    kernel_bench's, each beside its plain version and a PyTorch yardstick
-    (timed here only; the port never calls it)."""
-    import torch
+def sdpa_yardstick(q, k, v, H, Kh):
+    """``scaled_dot_product_attention`` on (B, S, heads, dh) q, k, v, causal
+    with GQA, as a zero-argument call and its name (timed here only; the
+    port never calls it)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, kwta, ref
-    out = {}
-    B, S, H, Kh, dh = LM_PREFILL_B, LM_PREFILL_S, 14, 2, 64
-    q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, torch.bfloat16)
-    qt = q.transpose(1, 2).reshape(B * H, S, dh).contiguous()
-    kt = k.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
-    vt = v.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
-    # Causal: half the score matrix. bf16 operands, so the bound is the
-    # bf16 tensor-core peak against q, k, v read once and out, lse
-    # written once. The tensor-core kernel splits p into three bf16
-    # terms, three products for p.V: 2x the operations (bound_split_ms).
-    flops = 4.0 * B * H * S * S * dh / 2
-    n_bytes = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 4 * B * H * S
-    b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=flops)
-    b_split = bound_ms(0.0, n_bytes, flops_bf16_tc=2 * flops)[0]
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     try:
         F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                        enable_gqa=True)
-        yard = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True)
-        yard_name = "F.scaled_dot_product_attention(enable_gqa=True)"
+        return (lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True),
+            "F.scaled_dot_product_attention(enable_gqa=True)")
     except TypeError:              # a PyTorch without enable_gqa
         kr, vr = (x.repeat_interleave(H // Kh, 1) for x in (kh, vh))
-        yard = lambda: F.scaled_dot_product_attention(qh, kr, vr,
-                                                      is_causal=True)
-        yard_name = "F.scaled_dot_product_attention, K/V repeated"
+        return (lambda: F.scaled_dot_product_attention(qh, kr, vr,
+                                                       is_causal=True),
+                "F.scaled_dot_product_attention, K/V repeated")
+
+
+def flash_bound(flops: float, n_bytes: float, dtype) -> tuple[float, str]:
+    """bf16 operands: the bf16 tensor-core peak; fp32 operands: the fp32
+    peak of the CUDA cores (the tensor cores' TF32 drops 13 bits of each
+    operand, so they compute another function)."""
+    import torch
+    if dtype == torch.bfloat16:
+        return bound_ms(0.0, n_bytes, flops_bf16_tc=flops)
+    return bound_ms(flops, n_bytes)
+
+
+def lm_times(dev, rng) -> dict:
+    """The flash forwards at the qwen2-0.5B prefill's shape (the bf16
+    tensor-core kernel the prefill runs on bf16 inputs, the fp32 route's
+    kernel on fp32 inputs), each beside its plain version and
+    ``scaled_dot_product_attention`` on the same inputs, then the
+    backward's kernels (:func:`flash_bwd_times`) and the k-WTA bisection
+    at kernel_bench's shape beside the exact top-k."""
+    import torch
+    from repro_torch.kernels import flash_attention, kwta, ref
+    out = {}
+    B, S, H, Kh, dh = LM_PREFILL_B, LM_PREFILL_S, 14, 2, 64
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
-    common = dict(
-        shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
-        plain_ms=time_graph(lambda: ref.flash_attention_fwd_ref(
-            qt, kt, vt, True, S, H, Kh), reps=2, rounds=3),
-        library_ms=time_graph(yard), library=yard_name,
-        bound_ms=b, bound_by=by)
-    out["flash_attention_fwd"] = dict(
-        ms=time_graph(lambda: flash_attention.flash_attention_fwd(
-            qt, kt, vt, **kw)), **common,
-        note="the fp32 route's kernel on the bf16 inputs (the prefill's "
-             "kernel before the tensor-core one)")
-    out["flash_attention_fwd_sm90"] = dict(
-        ms=time_graph(lambda: flash_attention.flash_attention_fwd_sm90(
-            qt, kt, vt, **kw)), **common, bound_split_ms=b_split)
+    for key, dt in (("flash_attention_fwd_sm90", torch.bfloat16),
+                    ("flash_attention_fwd", torch.float32)):
+        q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, dt)
+        qt = q.transpose(1, 2).reshape(B * H, S, dh).contiguous()
+        kt = k.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
+        vt = v.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
+        # Causal: half the score matrix, q, k, v read once and out, lse
+        # written once. The tensor-core kernel splits p into three bf16
+        # terms, three products for p.V: 2x the operations
+        # (bound_split_ms).
+        flops = 4.0 * B * H * S * S * dh / 2
+        size = qt.element_size()
+        n_bytes = size * (2 * B * H * S * dh + 2 * B * Kh * S * dh) \
+            + 4 * B * H * S
+        b, by = flash_bound(flops, n_bytes, dt)
+        yard, yard_name = sdpa_yardstick(q, k, v, H, Kh)
+        fn = getattr(flash_attention, key)
+        out[key] = dict(
+            shape=[B, S, H, Kh, dh], dtype=str(dt), causal=True,
+            ms=time_graph(lambda: fn(qt, kt, vt, **kw)),
+            plain_ms=time_graph(lambda: ref.flash_attention_fwd_ref(
+                qt, kt, vt, True, S, H, Kh), reps=2, rounds=3),
+            library_ms=time_graph(yard), library=f"{yard_name}, {dt}",
+            bound_ms=b, bound_by=by)
+        if dt == torch.bfloat16:
+            out[key]["bound_split_ms"] = flash_bound(2 * flops, n_bytes,
+                                                     dt)[0]
     out.update(flash_bwd_times(dev, rng))
     # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
     # and writes out once and makes |x| and iters + 2 comparisons an
@@ -1996,98 +2038,100 @@ def lm_times(dev, rng) -> dict:
 
 def flash_bwd_times(dev, rng) -> dict:
     """The flash backward's kernels at the training shape (B 2, S 2,048,
-    14/2 heads, dh 64, bf16, causal): dq, the bf16 tensor-core dk/dv with
-    its fold, and the fp32 route's dk/dv on the same bf16 inputs, each
-    beside the plain version and the backward of
-    ``scaled_dot_product_attention`` over a saved forward (both compute
-    dq, dk and dv together: the same figure stands beside each kernel),
-    and the whole backward as the port runs it in bf16 (delta's torch
-    reduction, dq and the tensor-core dk/dv)."""
+    14/2 heads, dh 64, causal): on bf16 inputs the tensor-core dq and
+    dk/dv (with its fold) the train step runs, on fp32 inputs the fp32
+    route's dq and dk/dv; each beside the plain version and the backward
+    of ``scaled_dot_product_attention`` over a saved forward on the same
+    inputs (both compute dq, dk and dv together: the same figure stands
+    beside each kernel of the dtype), and the whole bf16 backward as the
+    port runs it (delta's torch reduction, dq and dk/dv)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
     B, S, H, Kh, dh = LM_TRAIN_B, LM_TRAIN_S, 14, 2, 64
-    q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, torch.bfloat16)
-    do = flash_inputs(rng, dev, B, S, S, H, H, dh, torch.bfloat16)[0]
-    heads = lambda t: t.transpose(1, 2).reshape(-1, S, dh).contiguous()
-    qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(do)
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
-    ot, lse = flash_attention.flash_attention_fwd_sm90(qt, kt, vt, **kw)
-    delta = torch.sum(dot.float() * ot.float(), -1)
-    args = (qt, kt, vt, dot, lse, delta)
     # Causal halves each of the 2·S·S·dh products a head: dq takes three
-    # (s, dO·vᵀ, ds·k), dk/dv four (s, dO·vᵀ, pᵀ·dO, dsᵀ·q); bf16
-    # operands, so the bound is the bf16 tensor-core peak against q, k,
-    # v, dO (bf16), lse and delta (f32) read once and the outputs written
-    # once. The tensor-core dk/dv splits pᵀ and dsᵀ into bf16 hi and lo:
-    # six products instead of four (bound_split_ms).
+    # (s, dO·vᵀ, ds·k), dk/dv four (s, dO·vᵀ, pᵀ·dO, dsᵀ·q), against q,
+    # k, v, dO, lse and delta read once and the outputs written once. The
+    # tensor-core kernels split ds (dq) and pᵀ and dsᵀ (dk/dv) into bf16
+    # hi and lo: four products instead of three, six instead of four
+    # (bound_split_ms).
     prod = 2.0 * B * H * S * S * dh / 2
-    reads = 2 * (2 * B * H * S * dh + 2 * B * Kh * S * dh) + 2 * 4 * B * H * S
-    dkv_bytes = reads + 2 * 2 * B * Kh * S * dh
-    bounds = {"flash_attention_bwd_dq": bound_ms(
-                  0.0, reads + 2 * B * H * S * dh, flops_bf16_tc=3 * prod),
-              "flash_attention_bwd_dkv": bound_ms(
-                  0.0, dkv_bytes, flops_bf16_tc=4 * prod)}
-    bounds["flash_attention_bwd_dkv_sm90"] = bounds["flash_attention_bwd_dkv"]
-    plain = time_graph(lambda: ref.flash_attention_bwd_ref(
-        qt, kt, vt, ot, lse, dot, True, S, H, Kh), reps=2, rounds=3)
-    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    with torch.enable_grad():
-        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                           enable_gqa=True)
-    g = do.transpose(1, 2).contiguous()
-    # CUDA events around back-to-back calls, not a graph: autograd runs
-    # each backward op on its forward's stream, which a capture on another
-    # stream cannot record.
-    lib = time_events(lambda: torch.autograd.grad(o, (qh, kh, vh), g,
-                                                  retain_graph=True))
-    lib_name = ("backward of F.scaled_dot_product_attention(is_causal, "
-                "enable_gqa) over a saved forward, dq, dk and dv together "
-                "(CUDA events over 20 calls, no graph)")
-    fns = {"flash_attention_bwd_dq": lambda: flash_attention
-           .flash_attention_bwd_dq(*args, **kw),
-           "flash_attention_bwd_dkv": lambda: flash_attention
-           .flash_attention_bwd_dkv(*args, **kw),
-           "flash_attention_bwd_dkv_sm90": lambda: flash_attention
-           .flash_attention_bwd_dkv_sm90(*args, **kw)}
-    out = {n: dict(shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
-                   ms=time_graph(fn), plain_ms=plain,
-                   plain="ref.flash_attention_bwd_ref: dq, dk and dv "
-                         "together", library_ms=lib, library=lib_name,
-                   bound_ms=bounds[n][0], bound_by=bounds[n][1])
-           for n, fn in fns.items()}
-    out["flash_attention_bwd_dkv"]["note"] = (
-        "the fp32 route's kernel on the bf16 inputs (the train step's "
-        "dk/dv before the tensor-core one)")
-    out["flash_attention_bwd_dkv_sm90"].update(
-        bound_split_ms=bound_ms(0.0, dkv_bytes, flops_bf16_tc=6 * prod)[0],
-        note="the dk/dv kernel and the fold of the rep partials")
+    out = {}
+    for dt, dq_k, dkv_k in ((torch.bfloat16, "flash_attention_bwd_dq_sm90",
+                             "flash_attention_bwd_dkv_sm90"),
+                            (torch.float32, "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv")):
+        q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, dt)
+        do = flash_inputs(rng, dev, B, S, S, H, H, dh, dt)[0]
+        heads = lambda t: t.transpose(1, 2).reshape(-1, S, dh).contiguous()
+        qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(do)
+        fwd = (flash_attention.flash_attention_fwd_sm90
+               if dt == torch.bfloat16
+               else flash_attention.flash_attention_fwd)
+        ot, lse = fwd(qt, kt, vt, **kw)
+        delta = torch.sum(dot.float() * ot.float(), -1)
+        args = (qt, kt, vt, dot, lse, delta)
+        size = qt.element_size()
+        reads = size * (2 * B * H * S * dh + 2 * B * Kh * S * dh) \
+            + 2 * 4 * B * H * S
+        dq_bytes = reads + size * B * H * S * dh
+        dkv_bytes = reads + 2 * size * B * Kh * S * dh
+        plain = time_graph(lambda: ref.flash_attention_bwd_ref(
+            qt, kt, vt, ot, lse, dot, True, S, H, Kh), reps=2, rounds=3)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True)
+        g = do.transpose(1, 2).contiguous()
+        # CUDA events around back-to-back calls, not a graph: autograd
+        # runs each backward op on its forward's stream, which a capture
+        # on another stream cannot record.
+        lib = time_events(lambda: torch.autograd.grad(o, (qh, kh, vh), g,
+                                                      retain_graph=True))
+        lib_name = (f"backward of F.scaled_dot_product_attention(is_causal, "
+                    f"enable_gqa) over a saved forward, {dt}, dq, dk and dv "
+                    f"together (CUDA events over 20 calls, no graph)")
+        dq_fn = getattr(flash_attention, dq_k)
+        dkv_fn = getattr(flash_attention, dkv_k)
+        common = dict(shape=[B, S, H, Kh, dh], dtype=str(dt), causal=True,
+                      plain_ms=plain, plain="ref.flash_attention_bwd_ref: "
+                      "dq, dk and dv together", library_ms=lib,
+                      library=lib_name)
+        b, by = flash_bound(3 * prod, dq_bytes, dt)
+        out[dq_k] = dict(ms=time_graph(lambda: dq_fn(*args, **kw)),
+                         bound_ms=b, bound_by=by, **common)
+        b, by = flash_bound(4 * prod, dkv_bytes, dt)
+        out[dkv_k] = dict(ms=time_graph(lambda: dkv_fn(*args, **kw)),
+                          bound_ms=b, bound_by=by, **common)
+        if dt != torch.bfloat16:
+            continue
+        out[dq_k]["bound_split_ms"] = flash_bound(4 * prod, dq_bytes, dt)[0]
+        out[dkv_k].update(
+            bound_split_ms=flash_bound(6 * prod, dkv_bytes, dt)[0],
+            note="the dk/dv kernel and the fold of the rep partials")
 
-    def whole():
-        d = torch.sum(dot.float() * ot.float(), -1)
-        flash_attention.flash_attention_bwd_dq(qt, kt, vt, dot, lse, d, **kw)
-        flash_attention.flash_attention_bwd_dkv_sm90(qt, kt, vt, dot, lse, d,
-                                                     **kw)
-    b, by = bound_ms(0.0, reads + 2 * B * H * S * dh
-                     + 2 * 2 * B * Kh * S * dh + 2 * B * H * S * dh,
-                     flops_bf16_tc=7 * prod)
-    out["flash_attention_bwd@whole"] = dict(
-        shape=[B, S, H, Kh, dh], dtype="bfloat16", causal=True,
-        ms=time_graph(whole), plain_ms=plain, library_ms=lib,
-        library=lib_name, bound_ms=b, bound_by=by,
-        note="delta's torch reduction, dq and the tensor-core dk/dv")
+        def whole():
+            d = torch.sum(dot.float() * ot.float(), -1)
+            dq_fn(qt, kt, vt, dot, lse, d, **kw)
+            dkv_fn(qt, kt, vt, dot, lse, d, **kw)
+        b, by = flash_bound(7 * prod, reads + size * B * H * S * dh
+                            + 2 * size * B * Kh * S * dh, dt)
+        out["flash_attention_bwd@whole"] = dict(
+            ms=time_graph(whole), bound_ms=b, bound_by=by, **common,
+            note="delta's torch reduction, the tensor-core dq and dk/dv")
     return out
 
 
 def require_no_local_memory(libs: dict) -> None:
-    """Fail if nvcc gave a tensor-core flash kernel a stack frame. wgmma
-    reads its register operands after the instruction issues; a value
-    the compiler keeps in local memory is loaded into a scratch register
-    that it may reuse while the tensor cores still read it, which makes
-    results change from run to run (seen on the card with a 128-byte
-    frame)."""
+    """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
+    dk/dv: every library named ``*_sm90``) a stack frame. wgmma reads its
+    register operands after the instruction issues; a value the compiler
+    keeps in local memory is loaded into a scratch register that it may
+    reuse while the tensor cores still read it, which makes results change
+    from run to run (seen on the card with a 128-byte frame)."""
     frames = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                   .splitlines() if "bytes stack frame" in ln
                   and not ln.strip().startswith("0 bytes stack frame")]
@@ -2141,8 +2185,8 @@ def main() -> int:
     # for (serve for the WBS kernels and the readout, train (a) for the
     # ideal scan, train (d) for the read-noise product, the LM prefill for
     # the bf16 tensor-core forward and its fp32 twin for the fp32 forward,
-    # LM training for dq and the tensor-core dk/dv and its fp32 twin for
-    # the fp32 dk/dv, ops.kwta at the bench shape for k-WTA);
+    # LM training for the tensor-core dq and dk/dv and its fp32 twin for
+    # the fp32 dq and dk/dv, ops.kwta at the bench shape for k-WTA);
     # launches_by_path has every path's count.
     by_path = {"serve": run["launches"], "train_software": sw["launches"],
                "train_protocol_ideal": cl["ideal"]["launches"],
@@ -2154,16 +2198,18 @@ def main() -> int:
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve", "flash_attention_fwd": "lm_prefill_twin",
-           "flash_attention_bwd_dq": "lm_train",
+           "flash_attention_bwd_dq": "lm_train_twin",
            "flash_attention_bwd_dkv": "lm_train_twin", "kwta": "ops_kwta",
            "flash_attention_fwd_sm90": "lm_prefill",
-           "flash_attention_bwd_dkv_sm90": "lm_train"}
+           "flash_attention_bwd_dkv_sm90": "lm_train",
+           "flash_attention_bwd_dq_sm90": "lm_train"}
     src = "src/repro_torch/kernels/csrc/"
     lib = {"flash_attention_fwd": "flash_attention_fwd",   # else the module
            "flash_attention_bwd_dq": "flash_attention_bwd",
            "flash_attention_bwd_dkv": "flash_attention_bwd",
            "flash_attention_fwd_sm90": "flash_attention_fwd_sm90",
-           "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90"}
+           "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90",
+           "flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq_sm90"}
     source = {k: src + lib.get(k, KERNELS[k][0]) + ".cu" for k in KERNELS}
     replaces = {"wbs_matmul": "src/repro/kernels/wbs_matmul.py:99",
                 "wbs_matmul_read_noise": "src/repro/kernels/wbs_matmul.py:99 "
@@ -2186,7 +2232,10 @@ def main() -> int:
                                             "(pallas_call :270), bf16",
                 "flash_attention_bwd_dkv_sm90": "src/repro/kernels/"
                                                 "flash_attention.py:161 "
-                                                "(pallas_call :205), bf16"}
+                                                "(pallas_call :205), bf16",
+                "flash_attention_bwd_dq_sm90": "src/repro/kernels/"
+                                               "flash_attention.py:161 "
+                                               "(pallas_call :185), bf16"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k], "launches": by_path[own[k]][k],

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Iterable
 
@@ -25,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
          "flash_attention_fwd", "flash_attention_bwd", "kwta",
-         "flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90")
+         "flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
+         "flash_attention_bwd_dkv_sm90")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,7 +68,9 @@ def build(names: Iterable[str] = NAMES,
     exe = nvcc()
     procs = {}
     for n, p in todo.items():
-        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        # A name of this process and thread: two builds of one library,
+        # in two processes or two threads, each rename their own file.
+        tmp = p.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         log = open(p.with_suffix(".log"), "w")
         procs[n] = (subprocess.Popen(
             [exe, *FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{n}.cu")],

@@ -1,10 +1,12 @@
-// Flash-attention backward on Hopper (sm_90a): dq in one kernel, dk and dv
-// in a second, with the causal mask, the key-padding mask (sk_true) and the
-// GQA head fold.
+// Flash-attention backward on Hopper (sm_90a), fp32: dq in one kernel, dk
+// and dv in a second, with the causal mask, the key-padding mask (sk_true)
+// and the GQA head fold.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py ::
-// flash_attention_bwd_pallas (_flash_dq_kernel, pallas_call :185;
-// _flash_dkv_kernel, pallas_call :205). From the forward's residuals
+// Replaces, for fp32 inputs, the TPU kernel src/repro/kernels/
+// flash_attention.py :: flash_attention_bwd_pallas (_flash_dq_kernel,
+// pallas_call :185; _flash_dkv_kernel, pallas_call :205); bf16 inputs take
+// the tensor-core flash_attention_bwd_dq_sm90.cu and
+// flash_attention_bwd_dkv_sm90.cu. From the forward's residuals
 // (q, k, v, lse), the output gradient dO and delta_i = sum_d dO_id * out_id
 // (a torch reduction in the wrapper, as the reference computes it outside
 // its kernels), for each query row i of batch-head b and key j of its KV
@@ -17,7 +19,7 @@
 //   dq_i  = scale * sum_j ds_ij k_j
 //   dv_j  = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
 //
-// All math in fp32; dq, dk, dv are written in the inputs' dtype.
+// All math in fp32.
 //
 // GQA. Query head b reads KV head (b / H) * Kh + (b % H) / rep, rep = H / Kh,
 // as in the forward. The Pallas backward has no such fold (its K/V batch
@@ -43,14 +45,13 @@
 //    tile under the causal mask. Key tiles at or past sk_true write zeros.
 //
 // What bounds it on the H100. Seven products of 2*Sq*Sk*dh FLOPs a head
-// (halved when causal) against q, k, v, out, dO, lse read once and dq, dk,
-// dv written once: at the qwen2-0.5B training shape (B 2, H 14, Kh 2, S
-// 2048, dh 64, causal, bf16) about 52.6 GFLOP and 33 MB, so the tensor
-// cores' 989 TFLOP/s bound it (about 0.053 ms against 0.01 ms for the
-// bytes). These kernels run on the CUDA cores in fp32 with one shared-
-// memory load per FMA, far above that bound: wgmma tiles fed by TMA are
-// later work.
-#include <cuda_bf16.h>
+// (halved when causal; dq three, dk/dv four) against q, k, v, dO, lse,
+// delta read once and dq, dk, dv written once: at the qwen2-0.5B training
+// shape in fp32 (B 2, H 14, Kh 2, S 2048, dh 64, causal) about 52.6 GFLOP
+// and 53 MB. fp32 operands have no tensor-core route that keeps fp32, so
+// the CUDA cores' 67 TFLOP/s bound it (about 0.79 ms against 0.02 ms for
+// the bytes). These kernels issue one shared-memory load per FMA, above
+// that bound.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -65,19 +66,6 @@ constexpr int kBK = 32;     // dk/dv: key rows per block
 constexpr int kQT = 32;     // dk/dv: query rows per shared-memory tile
 constexpr int kEk = 16;     // dk/dv: elements of a key row per lane
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, size_t i, float x) {
-  p[i] = x;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
-  p[i] = __float2bfloat16_rn(x);
-}
-
 // Sum over the P neighbouring lanes of a row; every lane gets the same bits.
 template <int P>
 __device__ __forceinline__ float row_sum(float x) {
@@ -87,12 +75,13 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBQ * (D / kEq))
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Kh, int Sq, int Sk, int sk_true, int causal,
                     float scale) {
   constexpr int P = D / kEq;
@@ -109,15 +98,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = qi < Sq;
   const int rep = H / Kh;
   const size_t kvb = static_cast<size_t>(b / H) * Kh + (b % H) / rep;
-  const T* kb = k + kvb * Sk * D;
-  const T* vb = v + kvb * Sk * D;
+  const float* kb = k + kvb * Sk * D;
+  const float* vb = v + kvb * Sk * D;
 
   const size_t row = (static_cast<size_t>(b) * Sq + qi) * D;
   float qr[kEq], dor[kEq], acc[kEq];
 #pragma unroll
   for (int e = 0; e < kEq; ++e) {
-    qr[e] = live ? load_f(q, row + P * e + h) : 0.0f;
-    dor[e] = live ? load_f(dout, row + P * e + h) : 0.0f;
+    qr[e] = live ? q[row + P * e + h] : 0.0f;
+    dor[e] = live ? dout[row + P * e + h] : 0.0f;
     acc[e] = 0.0f;
   }
   const size_t ri = static_cast<size_t>(b) * Sq + qi;
@@ -137,8 +126,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / D, d = e % D;
       const bool in = k0 + j < Sk;
       const size_t off = static_cast<size_t>(k0 + j) * D + d;
-      k_s[j][d] = in ? load_f(kb, off) : 0.0f;
-      v_s[j][d] = in ? load_f(vb, off) : 0.0f;
+      k_s[j][d] = in ? kb[off] : 0.0f;
+      v_s[j][d] = in ? vb[off] : 0.0f;
     }
     __syncthreads();
 
@@ -173,16 +162,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
 #pragma unroll
-  for (int e = 0; e < kEq; ++e) store_f(dq, row + P * e + h, acc[e] * scale);
+  for (int e = 0; e < kEq; ++e) dq[row + P * e + h] = acc[e] * scale;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBK * (D / kEk))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                    const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Kh, int Sq, int Sk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Kh, int Sq, int Sk,
                      int sk_true, int causal, float scale) {
   constexpr int P = D / kEk;
   constexpr int NT = kBK * P;
@@ -205,8 +195,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float kr[kEk], vr[kEk], dka[kEk], dva[kEk];
 #pragma unroll
   for (int e = 0; e < kEk; ++e) {
-    kr[e] = live ? load_f(k, krow + P * e + h) : 0.0f;
-    vr[e] = live ? load_f(v, krow + P * e + h) : 0.0f;
+    kr[e] = live ? k[krow + P * e + h] : 0.0f;
+    vr[e] = live ? v[krow + P * e + h] : 0.0f;
     dka[e] = 0.0f;
     dva[e] = 0.0f;
   }
@@ -217,8 +207,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qstart = (k0 < kvalid) ? (causal ? (k0 / kQT) * kQT : 0) : Sq;
   for (int g = 0; g < rep; ++g) {
     const size_t bq = static_cast<size_t>(bb) * H + kh * rep + g;
-    const T* qb = q + bq * Sq * D;
-    const T* db = dout + bq * Sq * D;
+    const float* qb = q + bq * Sq * D;
+    const float* db = dout + bq * Sq * D;
     const float* lb = lse + bq * Sq;
     const float* deb = delta + bq * Sq;
     for (int t0 = qstart; t0 < Sq; t0 += kQT) {
@@ -227,8 +217,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int i = e / D, d = e % D;
         const bool in = t0 + i < Sq;
         const size_t off = static_cast<size_t>(t0 + i) * D + d;
-        q_s[i][d] = in ? load_f(qb, off) : 0.0f;
-        do_s[i][d] = in ? load_f(db, off) : 0.0f;
+        q_s[i][d] = in ? qb[off] : 0.0f;
+        do_s[i][d] = in ? db[off] : 0.0f;
       }
       for (int i = tid; i < kQT; i += NT) {
         const bool in = t0 + i < Sq;
@@ -274,8 +264,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!live) return;
 #pragma unroll
   for (int e = 0; e < kEk; ++e) {
-    store_f(dk, krow + P * e + h, dka[e]);
-    store_f(dv, krow + P * e + h, dva[e]);
+    dk[krow + P * e + h] = dka[e];
+    dv[krow + P * e + h] = dva[e];
   }
 }
 
@@ -284,33 +274,33 @@ bool bad_shape(int BH, int H, int Kh, int Sq, int Sk, int sk_true) {
          BH % H != 0 || Sq < 1 || Sk < 1 || sk_true < 1 || sk_true > Sk;
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int H, int Kh, int Sq, int Sk,
                       int sk_true, int causal, float scale,
                       cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_bwd_dq_kernel<T, D><<<grid, kBQ * (D / kEq), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dq_kernel<D><<<grid, kBQ * (D / kEq), 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Kh, Sq, Sk, sk_true, causal, scale);
+      static_cast<float*>(dq), H, Kh, Sq, Sk, sk_true, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int H, int Kh, int Sq,
                        int Sk, int sk_true, int causal, float scale,
                        cudaStream_t stream) {
   const dim3 grid((Sk + kBK - 1) / kBK, BH / H * Kh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kBK * (D / kEk), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkv_kernel<D><<<grid, kBK * (D / kEk), 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Kh, Sq, Sk, sk_true,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Kh, Sq, Sk, sk_true,
       causal, scale);
   return cudaGetLastError();
 }
@@ -318,44 +308,45 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q and dout (BH, Sq, D), k and v (BH / H * Kh, Sk, D), lse and delta
-// (BH, Sq) f32; dq (BH, Sq, D) in q's type. All contiguous on the current
-// device. D is 64 or 128 (the wrapper zero-pads smaller head dims; the
-// scale is passed in). bf16 != 0 selects bfloat16 q/k/v/dout/dq, else
-// float32. Returns the cudaError_t of the launch (0 on success).
+// (BH, Sq), dq (BH, Sq, D); all f32, contiguous on the current device. D is
+// 64 or 128 (the wrapper zero-pads smaller head dims; the scale is passed
+// in). bf16 takes the tensor-core flash_attention_bwd_dq_sm90.cu. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int BH, int H, int Kh,
-    int Sq, int Sk, int sk_true, int D, int causal, float scale, int bf16,
+    int Sq, int Sk, int sk_true, int D, int causal, float scale,
     void* stream) {
   if (bad_shape(BH, H, Kh, Sq, Sk, sk_true))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, DD)                                                         \
-  launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, BH, H, Kh, Sq, Sk,      \
-                   sk_true, causal, scale, s)
+#define DQ(DD)                                                            \
+  launch_dq<DD>(q, k, v, dout, lse, delta, dq, BH, H, Kh, Sq, Sk,         \
+                sk_true, causal, scale, s)
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64) err = bf16 ? DQ(__nv_bfloat16, 64) : DQ(float, 64);
-  if (D == 128) err = bf16 ? DQ(__nv_bfloat16, 128) : DQ(float, 128);
+  if (D == 64) err = DQ(64);
+  if (D == 128) err = DQ(128);
 #undef DQ
   return static_cast<int>(err);
 }
 
-// As above; dk and dv (BH / H * Kh, Sk, D) in k's type, each KV head's
-// gradient summed over the rep query heads that read it.
+// As above; dk and dv (BH / H * Kh, Sk, D) f32, each KV head's gradient
+// summed over the rep query heads that read it (bf16 takes
+// flash_attention_bwd_dkv_sm90.cu).
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int BH, int H,
     int Kh, int Sq, int Sk, int sk_true, int D, int causal, float scale,
-    int bf16, void* stream) {
+    void* stream) {
   if (bad_shape(BH, H, Kh, Sq, Sk, sk_true) || BH / H * Kh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV(T, DD)                                                        \
-  launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, BH, H, Kh, Sq, Sk, \
-                    sk_true, causal, scale, s)
+#define DKV(DD)                                                           \
+  launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, BH, H, Kh, Sq, Sk,    \
+                 sk_true, causal, scale, s)
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64) err = bf16 ? DKV(__nv_bfloat16, 64) : DKV(float, 64);
-  if (D == 128) err = bf16 ? DKV(__nv_bfloat16, 128) : DKV(float, 128);
+  if (D == 64) err = DKV(64);
+  if (D == 128) err = DKV(128);
 #undef DKV
   return static_cast<int>(err);
 }

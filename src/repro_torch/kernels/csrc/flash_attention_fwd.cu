@@ -1,15 +1,17 @@
-// Flash-attention forward on Hopper (sm_90a): online-softmax attention
-// with a causal mask, a key-padding mask (sk_true) and the GQA head fold.
+// Flash-attention forward on Hopper (sm_90a), fp32: online-softmax
+// attention with a causal mask, a key-padding mask (sk_true) and the GQA
+// head fold.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py ::
-// flash_attention_fwd_pallas (_flash_fwd_kernel). For each query row i of
-// batch-head b and every key j of its KV head:
+// Replaces, for fp32 inputs, the TPU kernel src/repro/kernels/
+// flash_attention.py :: flash_attention_fwd_pallas (_flash_fwd_kernel);
+// bf16 inputs take the tensor-core flash_attention_fwd_sm90.cu. For each
+// query row i of batch-head b and every key j of its KV head:
 //
 //   s_ij  = (q_i . k_j) * scale,  scale = dh^-0.5 (passed in)
 //   valid = j < sk_true  and, when causal, j <= i;  else s_ij = -1e30
 //   m, l, acc carried over key tiles in fp32 (running max, denominator,
 //   p @ v accumulator), tile by tile as the Pallas kernel does
-//   out_i = acc / max(l, 1e-30)          in q's dtype
+//   out_i = acc / max(l, 1e-30)          fp32
 //   lse_i = m + log(max(l, 1e-30))       fp32
 //
 // The KV head of batch-head b is (b / H) * Kh + (b % H) / rep with
@@ -21,9 +23,9 @@
 // so a row's dot product is two partial sums joined by one shuffle (a + b
 // == b + a, so both threads hold the same bits) and its accumulator
 // acc[D/2] stays in registers. K and V tiles of kKT keys are staged in
-// shared memory as fp32 (bf16 is widened exactly on load) and read by
-// broadcast. Scores of a tile live in registers; the tile's max, exp and
-// rescale follow the Pallas kernel's order. Tiles past sk_true, and under
+// shared memory and read by broadcast. Scores of a tile live in
+// registers; the tile's max, exp and rescale follow the Pallas kernel's
+// order. Tiles past sk_true, and under
 // the causal mask tiles wholly above the block's last row, are skipped:
 // key 0 is valid for every row, so m is finite after the first tile, and a
 // fully masked tile would give p = exp(-1e30 - m) = 0 and corr = 1, the
@@ -32,13 +34,11 @@
 //
 // What bounds it on the H100. 4*B*H*Sq*Sk*dh FLOPs (halved when causal)
 // against q, k, v read once and out, lse written once: at the qwen2-0.5B
-// prefill (B 1, H 14, Kh 2, S 2048, dh 64, causal, bf16) about 7.5 GFLOP
-// and 8.5 MB, so the tensor cores' 989 TFLOP/s bound it (about 7.6 us
-// against 2.5 us for the bytes). This
-// kernel runs on the CUDA cores in fp32 (67 TFLOP/s at best) with one
-// shared-memory load per FMA, so it sits far above that bound: a wgmma
-// version with TMA-fed tiles is later work.
-#include <cuda_bf16.h>
+// prefill shape in fp32 (B 2, H 14, Kh 2, S 2048, dh 64, causal) about 15
+// GFLOP and 17 MB. fp32 operands have no tensor-core route that keeps
+// fp32 (TF32 drops 13 bits), so the CUDA cores' 67 TFLOP/s bound it
+// (about 0.22 ms against 0.005 ms for the bytes). This kernel issues one
+// shared-memory load per FMA, so it sits above that bound.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -50,23 +50,10 @@ constexpr int kThreads = 2 * kBQ;       // two threads per row
 constexpr int kKT = 32;                 // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, size_t i, float x) {
-  p[i] = x;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float x) {
-  p[i] = __float2bfloat16_rn(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Kh, int Sq, int Sk,
                  int sk_true, int causal, float scale) {
   constexpr int D2 = D / 2;
@@ -82,15 +69,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = qi < Sq;
   const int rep = H / Kh;
   const size_t kvb = static_cast<size_t>(b / H) * Kh + (b % H) / rep;
-  const T* kb = k + kvb * Sk * D;
-  const T* vb = v + kvb * Sk * D;
+  const float* kb = k + kvb * Sk * D;
+  const float* vb = v + kvb * Sk * D;
 
   float qr[D2];
   float acc[D2];
   const size_t qrow = (static_cast<size_t>(b) * Sq + qi) * D;
 #pragma unroll
   for (int i = 0; i < D2; ++i) {
-    qr[i] = live ? load_f(q, qrow + 2 * i + h) : 0.0f;
+    qr[i] = live ? q[qrow + 2 * i + h] : 0.0f;
     acc[i] = 0.0f;
   }
   float m = kNegInf, l = 0.0f;
@@ -108,8 +95,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / D, d = e % D;
       const bool in = k0 + j < Sk;
       const size_t off = static_cast<size_t>(k0 + j) * D + d;
-      k_s[j][d] = in ? load_f(kb, off) : 0.0f;
-      v_s[j][d] = in ? load_f(vb, off) : 0.0f;
+      k_s[j][d] = in ? kb[off] : 0.0f;
+      v_s[j][d] = in ? vb[off] : 0.0f;
     }
     __syncthreads();
 
@@ -149,56 +136,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!live) return;
   const float lc = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < D2; ++i) store_f(out, qrow + 2 * i + h, acc[i] / lc);
+  for (int i = 0; i < D2; ++i) out[qrow + 2 * i + h] = acc[i] / lc;
   if (h == 0) lse[static_cast<size_t>(b) * Sq + qi] = m + logf(lc);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int BH, int H, int Kh, int Sq, int Sk,
                    int sk_true, int causal, float scale,
                    cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), H, Kh, Sq, Sk, sk_true, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int BH, int H, int Kh, int Sq,
-                     int Sk, int sk_true, int causal, float scale,
-                     cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, lse, BH, H, Kh, Sq, Sk, sk_true,
-                         causal, scale, stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, out, lse, BH, H, Kh, Sq, Sk, sk_true,
-                          causal, scale, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// q (BH, Sq, D), k and v (BH / H * Kh, Sk, D), out (BH, Sq, D) in q's type,
+// q (BH, Sq, D), k and v (BH / H * Kh, Sk, D), out (BH, Sq, D), all f32,
 // lse (BH, Sq) f32; all contiguous on the current device. D is 64 or 128
-// (the wrapper zero-pads smaller head dims; the scale is passed in).
-// bf16 != 0 selects bfloat16 q/k/v/out, else float32. Returns the
-// cudaError_t of the launch (0 on success).
+// (the wrapper zero-pads smaller head dims; the scale is passed in). bf16
+// takes flash_attention_fwd_sm90.cu. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int BH, int H, int Kh, int Sq, int Sk, int sk_true, int D, int causal,
-    float scale, int bf16, void* stream) {
+    float scale, void* stream) {
   if (BH < 1 || BH > 65535 || H < 1 || Kh < 1 || H % Kh != 0 ||
       BH % H != 0 || Sq < 1 || Sk < 1 || sk_true < 1 || sk_true > Sk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, out, lse, BH, H, Kh, Sq, Sk,
-                                     sk_true, causal, scale, s)
-           : launch_d<float>(D, q, k, v, out, lse, BH, H, Kh, Sq, Sk,
-                             sk_true, causal, scale, s);
-  return static_cast<int>(err);
+  if (D == 64)
+    return static_cast<int>(launch<64>(q, k, v, out, lse, BH, H, Kh, Sq, Sk,
+                                       sk_true, causal, scale, s));
+  if (D == 128)
+    return static_cast<int>(launch<128>(q, k, v, out, lse, BH, H, Kh, Sq,
+                                        Sk, sk_true, causal, scale, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

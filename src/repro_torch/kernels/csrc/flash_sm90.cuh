@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core flash kernels
-// (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu): the
+// (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu,
+// flash_attention_bwd_dq_sm90.cu): the
 // swizzled shared-memory tile, its cp.async load, the wgmma descriptors and
 // instructions, and the split of an fp32 fragment into bf16 operands.
 //
@@ -31,6 +32,8 @@
 
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 // A fault planted at build time (nvcc -DFLASH_SM90_FAULT=n, a library of
 // its own name) by tools/parity_reach.py, to show what the checks catch.
 // The kernels that the package builds leave it undefined: 0, no fault, and
@@ -47,15 +50,12 @@ enum PlantedFault : int {
   kFirstTermOnly = 1,   // every split product on its first term alone
   kFoldOrder = 2,       // dk/dv: the fold's order rotated from call to call
   kCausalStart = 4,     // dk/dv: the causal query start one tile late
+  kCausalLoopShort = 8, // dq: the causal key loop one tile short
 };
 constexpr int kFault = FLASH_SM90_FAULT;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kPanelRowBytes = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Byte offset of the 16-byte chunk holding columns 8*cc .. 8*cc + 7 of row
 // r in a swizzled tile of R rows.
@@ -66,27 +66,6 @@ __device__ __forceinline__ uint32_t chunk_offset(int r, int cc) {
                                (((cc & 7) ^ (r & 7)) << 4));
 }
 
-// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-// 4 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // Makes this thread's completed shared-memory writes visible to wgmma (the
 // async proxy); a barrier then publishes them to the whole block.
 __device__ __forceinline__ void fence_async_shared() {

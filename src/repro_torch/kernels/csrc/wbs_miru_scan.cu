@@ -27,9 +27,9 @@
 // What bounds it on the H100. By linearity the plane sum is one product of
 // the decoded beta*h, so T steps need 2*B*T*H*H + 2*B*T*H*nb float
 // operations: at B = 64, T = 14, H = 100 about 18 MFLOP and 1.5 MB to
-// move, under half a microsecond (bytes). The kernel repeats the product
-// per plane, the T loop is serial and B / kBM = 8 blocks occupy 8 of 132
-// SMs, so latency (the per-thread K loop and two barriers a step) bounds
+// move, under half a microsecond (bytes). The T loop is serial and
+// B / kBM = 8 blocks occupy 8 of 132 SMs, so latency (the per-thread K
+// loop, one pass carrying all plane sums, and two barriers a step) bounds
 // it, and most of the card idles. Retiling the batch
 // (fewer rows per block, or splitting columns across a cluster) is later work.
 #include <cuda_runtime.h>
@@ -89,9 +89,10 @@ wbs_miru_scan_kernel(const float* __restrict__ drive,
       float acc = 0.0f;
       for (int k0 = 0; k0 < H; k0 += wbs::kBK) {
         const int kt = H - k0 < wbs::kBK ? H - k0 : wbs::kBK;
-        acc = wbs::plane_tile(acc, sign_s + r * H + k0, code_s + r * H + k0,
-                              uu + static_cast<size_t>(k0) * H + n, H, kt,
-                              n_bits, g);
+        acc = wbs::plane_tile(
+            acc, wbs::CodePlanes{sign_s + r * H + k0, code_s + r * H + k0,
+                                 n_bits},
+            uu + static_cast<size_t>(k0) * H + n, H, kt, n_bits, g);
       }
       const float y = __fmul_rn(__fmul_rn(acc, norm), w_scale);
       const size_t o = (row * T + t) * H + n;

@@ -1,19 +1,21 @@
 """Wrappers of the CUDA kernels ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu`` — the flash-attention forward and its
-backward (dq; dk and dv), replacing ``repro/kernels/flash_attention.py ::
-flash_attention_fwd_pallas`` and ``flash_attention_bwd_pallas`` — and of
-their bf16 tensor-core versions for Hopper, ``csrc/flash_attention_fwd_sm90
-.cu`` and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (wgmma on 128-byte-
-swizzled bf16 tiles; ``csrc/flash_sm90.cuh``).
+backward (dq; dk and dv) for fp32, replacing ``repro/kernels/
+flash_attention.py :: flash_attention_fwd_pallas`` and
+``flash_attention_bwd_pallas`` — and of their bf16 tensor-core versions for
+Hopper, ``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_
+dq_sm90.cu`` and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (wgmma on 128-
+byte-swizzled bf16 tiles; ``csrc/flash_sm90.cuh``).
 
 The wrappers take CUDA tensors only, in the Pallas kernels' layout: q (and
-out, dO) (B·H, Sq, D), k and v (B·Kh, Sk, D) with D 64 or 128;
-``kernels/ops.py`` transposes, pads and dispatches (bf16 to the ``_sm90``
-forward and dk/dv, fp32 to the others; dq has one kernel for both), and
-the plain versions are ``kernels/ref.py :: flash_attention_fwd_ref`` and
-``flash_attention_bwd_ref``. :data:`launches`, :data:`dq_launches`,
-:data:`dkv_launches`, :data:`fwd_sm90_launches` and
-:data:`dkv_sm90_launches` count the launches of the five kernels.
+out, dO) (B·H, Sq, D), k and v (B·Kh, Sk, D) with D 64 or 128; the fp32
+kernels take float32 only and the ``_sm90`` ones bfloat16 only, and each
+raises on the other dtype. ``kernels/ops.py`` transposes, pads and
+dispatches by dtype, and the plain versions are ``kernels/ref.py ::
+flash_attention_fwd_ref`` and ``flash_attention_bwd_ref``.
+:data:`launches`, :data:`dq_launches`, :data:`dkv_launches`,
+:data:`fwd_sm90_launches`, :data:`dq_sm90_launches` and
+:data:`dkv_sm90_launches` count the launches of the six kernels.
 """
 from __future__ import annotations
 
@@ -28,23 +30,24 @@ from repro_torch.kernels.wbs_matmul import check_cuda
 HEAD_DIMS = (64, 128)
 
 #: Kernel launches since import (or since a caller reset them to 0): the
-#: forward, the backward's dq kernel and its dk/dv kernel.
+#: fp32 forward, the backward's dq kernel and its dk/dv kernel.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
-#: Launches of the bf16 tensor-core forward and dk/dv (with its fold).
+#: Launches of the bf16 tensor-core forward, dq and dk/dv (with its fold).
 fwd_sm90_launches = 0
+dq_sm90_launches = 0
 dkv_sm90_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _launcher(lib: str, name: str, n_ptrs: int, n_tail: int = 1):
+def _launcher(lib: str, name: str, n_ptrs: int):
     """``lib``'s C function ``name``: n_ptrs pointers, 8 ints, the scale,
-    n_tail ints (the dtype flag), the stream."""
+    the stream."""
     fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptrs + [_I] * 8 + [_F] + [_I] * n_tail + [_P]
+        fn.argtypes = [_P] * n_ptrs + [_I] * 8 + [_F, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -67,23 +70,30 @@ def _check(q, k, v, H, Kh, sk_true, **more) -> torch.device:
     return dev
 
 
+def _check_fp32(*tensors) -> None:
+    """The fp32 kernels take float32 only (bf16 has the ``_sm90`` ones)."""
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the fp32 flash kernels take float32 only (bf16 "
+                        f"goes to the sm90 kernels), got "
+                        f"{[t.dtype for t in tensors]}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, sk_true: int, q_heads: int,
                         kv_heads: int, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q (B·H, Sq, D), k/v (B·Kh, Sk, D), f32 or bf16 → (out (B·H, Sq, D)
-    in q's dtype, lse (B·H, Sq) f32). Query head b reads KV head
-    (b // H)·Kh + (b % H) // (H // Kh); keys at or past ``sk_true`` are
-    masked."""
+    """q (B·H, Sq, D), k/v (B·Kh, Sk, D), f32 → (out (B·H, Sq, D) f32, lse
+    (B·H, Sq) f32). Query head b reads KV head (b // H)·Kh + (b % H) //
+    (H // Kh); keys at or past ``sk_true`` are masked."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true)
+    _check_fp32(q, k, v)
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
     err = _launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D,
-        int(causal), scale, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(causal), scale, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)})")
@@ -107,9 +117,10 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            delta: torch.Tensor, *, causal: bool,
                            sk_true: int, q_heads: int, kv_heads: int,
                            scale: float) -> torch.Tensor:
-    """The dq kernel: q, dout (B·H, Sq, D), k/v (B·Kh, Sk, D), lse and
-    delta = Σ dout·out (B·H, Sq) f32 → dq (B·H, Sq, D) in q's dtype."""
+    """The fp32 dq kernel: q, dout (B·H, Sq, D), k/v (B·Kh, Sk, D), all
+    f32, lse and delta = Σ dout·out (B·H, Sq) f32 → dq (B·H, Sq, D) f32."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
+    _check_fp32(q, k, v, dout)
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
     dq = torch.empty_like(q)
@@ -118,7 +129,6 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, q_heads,
         kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
-        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: cudaError "
@@ -134,10 +144,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             causal: bool, sk_true: int, q_heads: int,
                             kv_heads: int, scale: float
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel, inputs as :func:`flash_attention_bwd_dq` →
-    (dk, dv), each (B·Kh, Sk, D) in k's dtype: each KV head's gradient
-    summed over the H // Kh query heads that read it."""
+    """The fp32 dk/dv kernel, inputs as :func:`flash_attention_bwd_dq` →
+    (dk, dv), each (B·Kh, Sk, D) f32: each KV head's gradient summed over
+    the H // Kh query heads that read it."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
+    _check_fp32(q, k, v, dout)
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -146,7 +157,6 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
         q_heads, kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
-        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: "
@@ -182,7 +192,7 @@ def flash_attention_fwd_sm90(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
     err = _launcher("flash_attention_fwd_sm90",
-                    "flash_attention_fwd_sm90_launch", 5, 0)(
+                    "flash_attention_fwd_sm90_launch", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D,
         int(causal), scale, torch.cuda.current_stream(dev).cuda_stream)
@@ -193,6 +203,34 @@ def flash_attention_fwd_sm90(q: torch.Tensor, k: torch.Tensor,
     global fwd_sm90_launches
     fwd_sm90_launches += 1
     return out, lse
+
+
+def flash_attention_bwd_dq_sm90(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, dout: torch.Tensor,
+                                lse: torch.Tensor, delta: torch.Tensor, *,
+                                causal: bool, sk_true: int, q_heads: int,
+                                kv_heads: int, scale: float) -> torch.Tensor:
+    """The bf16 tensor-core dq, arguments as :func:`flash_attention_bwd_dq`,
+    bf16 only → dq (B·H, Sq, D) bf16. Raises on any other dtype (it never
+    hands a call to the fp32 kernel)."""
+    dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
+    _check_sm90(q, k, v, dout)
+    _lse_delta(lse, delta, q)
+    BH, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    err = _launcher("flash_attention_bwd_dq_sm90",
+                    "flash_attention_bwd_dq_sm90_launch", 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, q_heads,
+        kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dq_sm90 launch failed: "
+                           f"cudaError {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    global dq_sm90_launches
+    dq_sm90_launches += 1
+    return dq
 
 
 def flash_attention_bwd_dkv_sm90(q: torch.Tensor, k: torch.Tensor,
@@ -215,7 +253,7 @@ def flash_attention_bwd_dkv_sm90(q: torch.Tensor, k: torch.Tensor,
     dv_part = torch.empty_like(dk_part)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _launcher("flash_attention_bwd_dkv_sm90",
-                    "flash_attention_bwd_dkv_sm90_launch", 10, 0)(
+                    "flash_attention_bwd_dkv_sm90_launch", 10)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk_part.data_ptr(),
         dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, q_heads,

@@ -52,14 +52,6 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0) * (x.ndim - 1) + (0, extra))
 
 
-def pad_wbs_weights(w: torch.Tensor) -> torch.Tensor:
-    """Pad a (K, N) weight tile's columns to the kernel's column tile.
-    Zero columns are exact: they only produce output columns that are
-    sliced away."""
-    N = w.shape[1]
-    return F.pad(w, (0, round_up(N, _matmul_kernel.TN) - N)).contiguous()
-
-
 def read_key_words(read_key: np.ndarray) -> tuple[int, int]:
     """The read-noise kernel's Philox key: two 32-bit words drawn from a
     :mod:`repro_torch.prng` key."""
@@ -78,7 +70,8 @@ def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
     element per call, shared by all rows, drawn from ``read_key`` inside
     the kernel (:func:`read_key_words`; ``ref.read_noise``). The draw
     depends on the key alone, so the CPU and the card read the same
-    noise."""
+    noise. On the card one kernel launch computes the call: the kernels
+    take any M and N, so nothing is padded or sliced."""
     _forward_only(w)
     if read_sigma > 0:
         if read_key is None:
@@ -89,18 +82,13 @@ def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
                 sign, code, w, gains, read_sigma, words, adc_bits, adc_range)
     elif not sign.is_cuda:
         return ref.wbs_matmul_ref(sign, code, w, gains, adc_bits, adc_range)
-    M, N = sign.shape[0], w.shape[1]
-    Mp = round_up(M, _matmul_kernel.TM)
-    args = (_pad_rows(sign, Mp), _pad_rows(code, Mp),
-            pad_wbs_weights(w.to(torch.float32)),
+    args = (sign.contiguous(), code.contiguous(),
+            w.to(torch.float32).contiguous(),
             gains.to(torch.float32).contiguous())
     if read_sigma > 0:
-        y = _matmul_kernel.wbs_matmul_read_noise(
-            *args, read_sigma, words, n_cols=N, adc_bits=adc_bits,
-            adc_range=adc_range)
-    else:
-        y = _matmul_kernel.wbs_matmul(*args, adc_bits, adc_range)
-    return y[:M, :N]
+        return _matmul_kernel.wbs_matmul_read_noise(
+            *args, read_sigma, words, adc_bits=adc_bits, adc_range=adc_range)
+    return _matmul_kernel.wbs_matmul(*args, adc_bits, adc_range)
 
 
 def wbs_dense(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
@@ -259,9 +247,18 @@ def _flash_fwd_kernel(dtype: torch.dtype):
             if dtype == torch.bfloat16 else _flash_kernel.flash_attention_fwd)
 
 
+def _flash_dq_kernel(dtype: torch.dtype):
+    """The dq kernel for a dtype, by the rule of :func:`_flash_fwd_kernel`:
+    bf16 the tensor-core ``flash_attention_bwd_dq_sm90``, anything else the
+    fp32 kernel."""
+    return (_flash_kernel.flash_attention_bwd_dq_sm90
+            if dtype == torch.bfloat16
+            else _flash_kernel.flash_attention_bwd_dq)
+
+
 def _flash_dkv_kernel(dtype: torch.dtype):
     """The dk/dv kernel for a dtype, by the rule of
-    :func:`_flash_fwd_kernel`; dq has one kernel for both dtypes."""
+    :func:`_flash_fwd_kernel`."""
     return (_flash_kernel.flash_attention_bwd_dkv_sm90
             if dtype == torch.bfloat16
             else _flash_kernel.flash_attention_bwd_dkv)
@@ -345,9 +342,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = Σ dout·out is a torch reduction (the reference computes it
     outside its kernels too), the head dims are zero-padded to 64 or 128
     as in the forward and the gradients sliced back; the dq kernel and
-    the dk/dv kernel launch once each, the dk/dv kernel by dtype as the
-    forward (bf16 the tensor-core kernel with its fold, fp32 the fp32
-    kernel)."""
+    the dk/dv kernel launch once each, both by dtype as the forward (bf16
+    the tensor-core dq and dk/dv with its fold, fp32 the fp32 kernels)."""
     B, Sq, H, dh = q.shape
     Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true
@@ -365,7 +361,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale=float(dh) ** -0.5)
         args = (pad(qt, dh), pad(kt, dh), pad(vt, dv), pad(dot, dv),
                 lse.contiguous(), delta)
-        dq = _flash_kernel.flash_attention_bwd_dq(*args, **kw)[..., :dh]
+        dq = _flash_dq_kernel(q.dtype)(*args, **kw)[..., :dh]
         dk, dvv = _flash_dkv_kernel(q.dtype)(*args, **kw)
         dk, dvv = dk[..., :dh], dvv[..., :dv]
     return _heads_back(dq, B), _heads_back(dk, B), _heads_back(dvv, B)

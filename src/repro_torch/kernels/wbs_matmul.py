@@ -4,10 +4,9 @@ wbs_matmul_pallas``: :func:`wbs_matmul` at ``read_sigma == 0``,
 :func:`wbs_matmul_read_noise` with the in-kernel read noise of
 ``read_sigma > 0``.
 
-The wrappers take CUDA tensors only and shapes the kernels accept (M a
-multiple of :data:`TM`, N of :data:`TN`); ``kernels/ops.py`` pads and
-dispatches, and the plain versions are ``kernels/ref.py ::
-wbs_matmul_ref`` and ``wbs_matmul_read_noise_ref``. :data:`launches` and
+The wrappers take CUDA tensors only, of any M, K and N (the kernels mask
+the ragged edges); ``kernels/ops.py`` dispatches, and the plain versions
+are ``kernels/ref.py :: wbs_matmul_ref`` and ``wbs_matmul_read_noise_ref``. :data:`launches` and
 :data:`read_noise_launches` count the launches of each kernel.
 """
 from __future__ import annotations
@@ -19,7 +18,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-TM, TN = 8, 32          # the kernel's output tile (rows, columns)
 MAX_BITS = 8            # codes are uint8
 
 #: Kernel launches since import (or since a caller reset it to 0).
@@ -43,8 +41,8 @@ def _fn():
 def _read_noise_fn():
     fn = _build.load("wbs_matmul").wbs_matmul_read_noise_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
-                       _F, _F, _F, _U, _U, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F,
+                       _F, _F, _U, _U, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,9 +87,8 @@ def _check(sign, code, w, gains) -> tuple[torch.device, int, int, int, int]:
                          f"{tuple(code.shape)}, w {tuple(w.shape)}, gains "
                          f"{tuple(gains.shape)}")
     N, n_bits = w.shape[1], gains.shape[0]
-    if M % TM or N % TN:
-        raise ValueError(f"M={M} must be a multiple of {TM} and N={N} of "
-                         f"{TN} (kernels/ops.py pads)")
+    if min(M, K, N) < 1:
+        raise ValueError(f"empty product: M={M}, K={K}, N={N}")
     if not 1 <= n_bits <= MAX_BITS:
         raise ValueError(f"n_bits={n_bits} outside 1..{MAX_BITS}")
     return dev, M, K, N, n_bits
@@ -120,28 +117,23 @@ def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
 def wbs_matmul_read_noise(sign: torch.Tensor, code: torch.Tensor,
                           w: torch.Tensor, gains: torch.Tensor,
                           read_sigma: float, key_words: tuple[int, int],
-                          n_cols: Optional[int] = None,
                           adc_bits: Optional[int] = None,
                           adc_range: float = 4.0) -> torch.Tensor:
     """:func:`wbs_matmul` with each weight read as w·(1 + σ·z), z the
     Philox4x32-10 normal of (``key_words``, k, n) — one draw per weight
-    element per call, shared by all rows. ``n_cols`` is the true width
-    of ``w`` (the counter stride) when its columns are zero-padded to
-    :data:`TN`; None means no padding. ``read_sigma`` is rounded to
-    float32."""
+    element per call, shared by all rows (the counter is k·N + n).
+    ``read_sigma`` is rounded to float32."""
     dev, M, K, N, n_bits = _check(sign, code, w, gains)
-    n_cols = N if n_cols is None else int(n_cols)
-    if not 1 <= n_cols <= N or K * n_cols >= 2 ** 32:
-        raise ValueError(f"n_cols={n_cols} outside 1..{N}, or K·n_cols "
-                         f"beyond 32 bits")
+    if K * N >= 2 ** 32:
+        raise ValueError(f"K·N = {K * N} normals: the counter has 32 bits")
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key_words)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     use_adc, step, lo, hi = adc_args(adc_bits, adc_range)
     norm = 2.0 ** n_bits / (2.0 ** n_bits - 1.0)
     err = _read_noise_fn()(
         sign.data_ptr(), code.data_ptr(), w.data_ptr(), gains.data_ptr(),
-        out.data_ptr(), M, K, N, n_cols, n_bits, norm, use_adc, step, lo,
-        hi, read_sigma, k0, k1, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), M, K, N, n_bits, norm, use_adc, step, lo, hi,
+        read_sigma, k0, k1, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"wbs_matmul_read_noise launch failed: "
                            f"cudaError {err}")

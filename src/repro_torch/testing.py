@@ -30,6 +30,7 @@ The flash backward's kernels are held to its plain version
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -324,3 +325,34 @@ def grads_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     if got.dtype == torch.float32:
         return bool(torch.allclose(got, want, rtol=1e-4, atol=atol))
     return bf16_within(got, want, rtol=1e-4, atol=atol)[0]
+
+
+def record_lse_mismatch(path, inputs: dict, lse: torch.Tensor,
+                        want_lse: torch.Tensor, card, plain,
+                        atol: float = 1e-5) -> dict:
+    """After a flash forward's lse failed its check against the plain
+    version: recompute each side once (``card()`` and ``plain()`` return
+    a fresh lse), save the inputs and all four lse to ``path``
+    (``torch.save``; its directory is made if missing), and return which
+    side moved: whether each side repeated its bits, how many rows each
+    first result and each repeat differ from the other side by more than
+    ``atol``, and the CPU's thread count (its reductions may block
+    differently with it)."""
+    lse2, want2 = card(), plain()
+    a, b, a2, b2 = (t.detach().cpu().double() for t in (lse, want_lse,
+                                                        lse2, want2))
+    over = lambda x, y: int(((x - y).abs() > atol).sum())
+    rec = {"card_repeats_its_bits": bool(torch.equal(a, a2)),
+           "plain_repeats_its_bits": bool(torch.equal(b, b2)),
+           "rows_over_atol": over(a, b),
+           "rows_over_atol_card_again": over(a2, b),
+           "rows_over_atol_plain_again": over(a, b2),
+           "max_abs_d": float((a - b).abs().max()),
+           "max_abs_d_both_again": float((a2 - b2).abs().max()),
+           "cpu_threads": torch.get_num_threads(), "saved": str(path)}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({**{k: t.detach().cpu() for k, t in inputs.items()},
+                "lse": lse.detach().cpu(), "want_lse": want_lse.cpu(),
+                "lse_again": lse2.detach().cpu(),
+                "want_lse_again": want2.detach().cpu(), **rec}, path)
+    return rec

@@ -138,6 +138,9 @@ def test_flash_refuses_gradients_and_cpu_tensors_in_the_kernel_wrapper():
                                                        torch.zeros(2, 8))),
                       (kflash.flash_attention_bwd_dkv, (
                           torch.zeros(2, 8, 64), torch.zeros(2, 8),
+                          torch.zeros(2, 8))),
+                      (kflash.flash_attention_bwd_dq_sm90, (
+                          torch.zeros(2, 8, 64), torch.zeros(2, 8),
                           torch.zeros(2, 8)))):
         with pytest.raises(ValueError, match="CUDA"):
             fn(torch.zeros(2, 8, 64), torch.zeros(1, 8, 64),

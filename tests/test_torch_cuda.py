@@ -8,6 +8,8 @@ worker collects the same tests). Run them on a GPU machine with
 The plain versions repeat the kernels' arithmetic (summation order,
 float64 tanh), so the kernels must match them bit for bit.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -40,8 +42,11 @@ def _on(dev, *arrays):
 
 @pytest.mark.parametrize("adc_bits", [8, None])
 @pytest.mark.parametrize("m,k,n", [(896, 28, 100), (64, 100, 100),
-                                   (5, 37, 13), (16, 300, 40), (8, 256, 256)])
+                                   (5, 37, 13), (16, 300, 40), (8, 256, 256),
+                                   (33, 129, 70), (400, 256, 100)])
 def test_wbs_matmul_kernel_equals_plain(cuda, m, k, n, adc_bits):
+    """Bitwise, at ragged M and N (nothing padded: the wrapper takes the
+    operands as they are), one launch a call."""
     rng = np.random.default_rng(m + k + n)
     x, w = _on(cuda, rng.uniform(-1, 1, (m, k)).astype(np.float32),
                rng.normal(0, 0.3, (k, n)).astype(np.float32))
@@ -53,6 +58,22 @@ def test_wbs_matmul_kernel_equals_plain(cuda, m, k, n, adc_bits):
     torch.cuda.synchronize()
     assert kmatmul.launches == before + 1
     assert torch.equal(got, want)
+    assert torch.equal(kmatmul.wbs_matmul(sign, code, w, g, adc_bits), want)
+
+
+@pytest.mark.parametrize("n_bits", [1, 4, 8])
+def test_wbs_matmul_kernel_equals_plain_at_other_widths(cuda, n_bits):
+    """The single-pass plane sums at every code width, with gains that are
+    not the ideal ratios, two K tiles, ragged M and N."""
+    rng = np.random.default_rng(n_bits)
+    x, w = _on(cuda, rng.uniform(-1, 1, (13, 300)).astype(np.float32),
+               rng.normal(0, 0.3, (300, 37)).astype(np.float32))
+    sign, code = quantize_signed(x, n_bits)
+    g = ideal_gains(n_bits, device=cuda) * torch.from_numpy(
+        rng.uniform(0.9, 1.1, n_bits).astype(np.float32)).to(cuda)
+    got = ops.wbs_matmul(sign, code, w, g, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.wbs_matmul_ref(sign, code, w, g, 8))
 
 
 @pytest.mark.parametrize("adc_bits", [8, None])
@@ -103,8 +124,8 @@ def test_wrappers_check_their_inputs(cuda):
     g = ideal_gains(8, device=cuda)
     with pytest.raises(TypeError):
         kmatmul.wbs_matmul(sign.float(), code, w, g)
-    with pytest.raises(ValueError, match="multiple"):
-        kmatmul.wbs_matmul(sign[:5], code[:5], w, g)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kmatmul.wbs_matmul(sign[:5], code, w, g)
     with pytest.raises(ValueError, match="contiguous"):
         kmatmul.wbs_matmul(sign, code, torch.zeros((32, 4), device=cuda).t(),
                            g)
@@ -232,12 +253,10 @@ def test_read_noise_kernel_equals_plain(cuda, m, k, n, adc_bits):
 def test_read_noise_kernel_at_zero_sigma_is_the_plain_kernel(cuda):
     for m, k, n in ((32, 28, 100), (32, 100, 100), (896, 28, 100)):
         sign, code, w, g = _read_noise_inputs(cuda, m, k, n, 7)
-        w_p = ops.pad_wbs_weights(w)
         for adc_bits in (8, None):
-            a = kmatmul.wbs_matmul_read_noise(sign, code, w_p, g, 0.0,
-                                              (1, 2), n_cols=n,
+            a = kmatmul.wbs_matmul_read_noise(sign, code, w, g, 0.0, (1, 2),
                                               adc_bits=adc_bits)
-            b = kmatmul.wbs_matmul(sign, code, w_p, g, adc_bits)
+            b = kmatmul.wbs_matmul(sign, code, w, g, adc_bits)
             torch.cuda.synchronize()
             assert torch.equal(a, b)
 
@@ -267,11 +286,12 @@ def _flash_inputs(dev, B, Sq, Sk, H, Kh, dh, dtype, seed):
 
 
 # The launch counters of the flash kernels (kernels/flash_attention.py).
-# kernels/ops.py sends bf16 to the tensor-core forward and dk/dv, fp32 to
-# the fp32 ones; dq has one kernel for both.
+# kernels/ops.py sends bf16 to the tensor-core forward, dq and dk/dv, fp32
+# to the fp32 ones.
 _FLASH_COUNTERS = ("launches", "fwd_sm90_launches", "dq_launches",
-                   "dkv_launches", "dkv_sm90_launches")
+                   "dq_sm90_launches", "dkv_launches", "dkv_sm90_launches")
 _FWD_COUNTER = {"float32": "launches", "bfloat16": "fwd_sm90_launches"}
+_DQ_COUNTER = {"float32": "dq_launches", "bfloat16": "dq_sm90_launches"}
 _DKV_COUNTER = {"float32": "dkv_launches", "bfloat16": "dkv_sm90_launches"}
 
 
@@ -310,11 +330,23 @@ def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
     torch.cuda.synchronize()
     assert _launched(before, _FWD_COUNTER[dtype])
     # The plain version on the same inputs, through the same wrapper.
-    want_o, want_l = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
-                                             causal=causal)
+    plain = lambda: ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
+                                            causal=causal)
+    want_o, want_l = plain()
     assert out.dtype == dt and lse.dtype == torch.float32
-    np.testing.assert_allclose(lse.cpu().numpy(), want_l.numpy(), rtol=0,
-                               atol=1e-5)
+    if not torch.allclose(lse.cpu(), want_l, rtol=0, atol=1e-5):
+        # Keep the inputs and both lse (under the checkout's chiprun_out/,
+        # the git-ignored directory of a GPU run's results), and recompute
+        # each side once: the record, in the failure's message, says
+        # which side moved.
+        rec = testing.record_lse_mismatch(
+            Path(__file__).resolve().parents[1] / "chiprun_out" / "flash_lse"
+            / f"test_{B}_{Sq}_{Sk}_{H}_{Kh}_{dh}_{causal}_{dtype}.pt",
+            dict(q=q, k=k, v=v), lse,
+            want_l, lambda: ops.flash_attention_fwd(q, k, v,
+                                                    causal=causal)[1],
+            lambda: plain()[1])
+        pytest.fail(f"lse off the plain version's by more than 1e-5: {rec}")
     if dt == torch.float32:
         np.testing.assert_allclose(out.cpu().numpy(), want_o.numpy(),
                                    rtol=2e-5, atol=2e-6)
@@ -361,8 +393,9 @@ def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(
 ])
 def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                        sk_true, dtype):
-    """dq, and the dk/dv kernel of the dtype (bf16: the tensor-core
-    ``flash_attention_bwd_dkv_sm90`` with its fold), each launched once."""
+    """The dq and dk/dv kernels of the dtype (bf16: the tensor-core
+    ``flash_attention_bwd_dq_sm90`` and ``flash_attention_bwd_dkv_sm90``
+    with its fold), each launched once."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + dh)
     out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
@@ -371,7 +404,7 @@ def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
     before = _flash_launches()
     got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, sk_true)
     torch.cuda.synchronize()
-    assert _launched(before, "dq_launches", _DKV_COUNTER[dtype])
+    assert _launched(before, _DQ_COUNTER[dtype], _DKV_COUNTER[dtype])
     want = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal, sk_true)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.shape == t.shape and g.dtype == dt
@@ -381,14 +414,49 @@ def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
             not got[2][:, sk_true:].any()
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", [
+    (2, 2048, 2048, 14, 2, 64, True, None),   # the qwen2-0.5B train step
+    (1, 1100, 2048, 14, 2, 64, True, 1100),   # the training twin's keys
+    (2, 2048, 2048, 14, 2, 64, False, None),  # not causal
+    (1, 100, 333, 4, 2, 64, False, 250),      # Sq != Sk, ragged sk_true
+    (1, 130, 130, 7, 1, 128, True, None),     # head dim 128, rep 7
+    (2, 96, 200, 4, 4, 128, False, 150),      # head dim 128, rep 1
+    (1, 70, 70, 4, 2, 80, True, None),        # head dim 80, padded
+])
+def test_flash_dq_sm90_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
+                                    sk_true):
+    """The tensor-core dq against ``ref.flash_attention_bwd_ref`` at
+    ``testing.grads_close``, launched once a call, with Sq off the 64-row
+    tile in most cases."""
+    from repro_torch.kernels import flash_attention as kflash
+    bf = torch.bfloat16
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, bf, Sq + Sk + H)
+    dout = _flash_inputs(cuda, B, Sq, Sq, H, H, dh, bf, 3)[0]
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                       sk_true=sk_true)
+    before = kflash.dq_sm90_launches
+    dq = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                 sk_true)[0]
+    torch.cuda.synchronize()
+    assert kflash.dq_sm90_launches == before + 1
+    want = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal,
+                                   sk_true)[0]
+    assert dq.dtype == bf and dq.shape == q.shape
+    assert testing.grads_close(dq, want), float((dq.float() - want).abs()
+                                                .max())
+
+
 @pytest.mark.parametrize("B,S,H,Kh,dh,causal", [
     (2, 2048, 14, 2, 64, True),          # the qwen2-0.5B train step
     (1, 300, 7, 1, 128, False),          # rep 7, head dim 128
 ])
 def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
                                                    causal):
-    """The tensor-core forward and dk/dv (its rep partials folded in a
-    fixed order, no atomics) give the same bits on every call."""
+    """The tensor-core forward, dq (a block owns its rows) and dk/dv (its
+    rep partials folded in a fixed order, no atomics) give the same bits
+    on every call: the forward and backward twice, then dq ten more
+    times."""
+    from repro_torch.kernels import flash_attention as kflash
     q, k, v = _flash_inputs(cuda, B, S, S, H, Kh, dh, torch.bfloat16, 11)
     dout = _flash_inputs(cuda, B, S, S, H, H, dh, torch.bfloat16, 12)[0]
     runs = []
@@ -399,11 +467,26 @@ def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    heads = lambda t: t.transpose(1, 2).reshape(-1, S, dh)
+    qt, kt, vt, ot, dot = (heads(t).contiguous() for t in (q, k, v, out,
+                                                           dout))
+    lse = lse.reshape(-1, S)
+    delta = torch.sum(dot.float() * ot.float(), -1)
+    kw = dict(causal=causal, sk_true=S, q_heads=H, kv_heads=Kh,
+              scale=dh ** -0.5)
+    first = kflash.flash_attention_bwd_dq_sm90(qt, kt, vt, dot, lse, delta,
+                                               **kw)
+    for _ in range(10):
+        again = kflash.flash_attention_bwd_dq_sm90(qt, kt, vt, dot, lse,
+                                                   delta, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
 
 
 def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):
     """A bf16 call the tensor-core kernels cannot take raises; it is never
-    handed to the fp32 kernels (no flash counter moves)."""
+    handed to the fp32 kernels, which raise on bf16 themselves (no flash
+    counter moves)."""
     from repro_torch.kernels import flash_attention as kflash
     bf = torch.bfloat16
     q, k, v = (t.transpose(1, 2).reshape(-1, 64, 96).contiguous() for t in
@@ -415,10 +498,23 @@ def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):
         kflash.flash_attention_fwd_sm90(q, k, v, **kw)
     with pytest.raises(ValueError, match="D must be one of"):
         kflash.flash_attention_bwd_dkv_sm90(q, k, v, q, lse, lse, **kw)
+    with pytest.raises(ValueError, match="D must be one of"):
+        kflash.flash_attention_bwd_dq_sm90(q, k, v, q, lse, lse, **kw)
     q64, k64, v64 = (t[..., :64].contiguous() for t in (q, k, v))
     with pytest.raises(TypeError, match="bfloat16 only"):
         kflash.flash_attention_fwd_sm90(q64.float(), k64.float(),
                                         v64.float(), **kw)
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        kflash.flash_attention_bwd_dq_sm90(q64.float(), k64.float(),
+                                           v64.float(), q64.float(), lse,
+                                           lse, **kw)
+    # The fp32 kernels take fp32 only: bf16 never reaches them.
+    with pytest.raises(TypeError, match="float32 only"):
+        kflash.flash_attention_fwd(q64, k64, v64, **kw)
+    with pytest.raises(TypeError, match="float32 only"):
+        kflash.flash_attention_bwd_dq(q64, k64, v64, q64, lse, lse, **kw)
+    with pytest.raises(TypeError, match="float32 only"):
+        kflash.flash_attention_bwd_dkv(q64, k64, v64, q64, lse, lse, **kw)
     flat = torch.zeros(q64.numel() + 1, dtype=bf, device=cuda)
     q_odd = flat[1:].view(q64.shape)              # 2 bytes off alignment
     with pytest.raises(ValueError, match="16-byte aligned"):

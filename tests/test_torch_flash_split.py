@@ -1,21 +1,23 @@
 """The arithmetic of the bf16 tensor-core flash kernels
-(``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_dkv_sm90
-.cu``) emulated in plain PyTorch on the CPU, against the reference's
-Pallas kernels in interpret mode.
+(``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_dq_sm90
+.cu``, ``csrc/flash_attention_bwd_dkv_sm90.cu``) emulated in plain
+PyTorch on the CPU, against the reference's Pallas kernels in interpret
+mode.
 
 Tensor cores take bf16 operands. The kernels feed them the bf16 inputs as
 they are (q·kᵀ, dO·vᵀ, k·qᵀ: products of bf16 values are exact in fp32,
 the sums fp32) and split the fp32 operand of the second product into
 bf16 terms t0 = bf16(x), t1 = bf16(x − t0), ..., one product each into
-one fp32 sum: p in p·V in three terms, pᵀ and dsᵀ in pᵀ·dO and dsᵀ·Q in
-two (hi and lo). The emulation repeats that per tile of 64 keys
-(forward: the online softmax, acc·corr + tile) or 64 queries (dk/dv:
-each query head's partial summed per tile, the rep partials folded in
-query-head order, rounded to bf16 once). The kernels cannot run here;
-this shows that the design meets the bounds ``chip_smoke.py`` holds the
-kernels to (``testing.bf16_within`` on ``out``, lse at atol 1e-5,
-``testing.grads_close`` on dk and dv), and that p rounded to bf16 alone
-(one term) does not. (The card's tensor cores sum in another order than
+one fp32 sum: p in p·V in three terms, ds in ds·K, pᵀ and dsᵀ in pᵀ·dO
+and dsᵀ·Q in two (hi and lo). The emulation repeats that per tile of 64
+keys (forward: the online softmax, acc·corr + tile; dq: each tile's ds·K
+added to the running sum, dq·scale rounded to bf16 once) or 64 queries
+(dk/dv: each query head's partial summed per tile, the rep partials
+folded in query-head order, rounded to bf16 once). The kernels cannot
+run here; this shows that the design meets the bounds ``chip_smoke.py``
+holds the kernels to (``testing.bf16_within`` on ``out``, lse at atol
+1e-5, ``testing.grads_close`` on dq, dk and dv), and that p or ds
+rounded to bf16 alone (one term) does not. (The card's tensor cores sum in another order than
 this emulation: two terms for p·V, which pass here, left one element of
 ``out`` outside its bound on the card, so the forward takes three.)
 
@@ -39,7 +41,7 @@ TILE = 64                # keys (forward) or queries (dk/dv) a tile
 LSE_ATOL = 1e-5
 
 
-FWD_TERMS, DKV_TERMS = 3, 2      # the kernels' kTerms
+FWD_TERMS, DQ_TERMS, DKV_TERMS = 3, 2, 2      # the kernels' kTerms
 
 
 def _split_product(x, b, terms):
@@ -85,6 +87,30 @@ def fwd_split(q, k, v, causal, sk_true, H, Kh, terms=FWD_TERMS):
         m = m_new
     lc = torch.clamp_min(l, 1e-30)
     return (acc / lc[..., None]).to(torch.bfloat16), m + torch.log(lc)
+
+
+def dq_split(q, k, v, out, lse, dout, causal, sk_true, H, Kh,
+             terms=DQ_TERMS):
+    """The sm90 dq kernel: per query head, key tiles of 64 up to sk_true
+    (and the diagonal, causal); S and dP in fp32 from the bf16 operands,
+    ds·K with ds split into bf16 terms, each tile's product added to the
+    running fp32 sum; dq·scale rounded to bf16 once."""
+    BH, Sq, dh = q.shape
+    scale = dh ** -0.5
+    kr, vr = ref._kv_for_queries(k, v, BH, H, Kh)
+    delta = torch.sum(dout.float() * out.float(), -1)
+    qf, dof = q.float(), dout.float()
+    rows = torch.arange(Sq)[:, None]
+    dq = torch.zeros(BH, Sq, dh)
+    for k0 in range(0, sk_true, TILE):
+        kt, vt = kr[:, k0:k0 + TILE].float(), vr[:, k0:k0 + TILE].float()
+        cols = k0 + torch.arange(kt.shape[1])[None, :]
+        s = (qf @ kt.transpose(1, 2)) * scale
+        p = torch.where(_mask(rows, cols, sk_true, causal, False),
+                        torch.exp(s - lse[..., None]), 0.0)
+        ds = p * (dof @ vt.transpose(1, 2) - delta[..., None])
+        dq = dq + _split_product(ds, kt, terms)
+    return (dq * scale).to(torch.bfloat16)
 
 
 def dkv_split(q, k, v, out, lse, dout, causal, sk_true, H, Kh,
@@ -168,22 +194,50 @@ def test_fwd_split_meets_the_kernel_bounds_against_pallas(
     assert float((lse - want_lse).abs().max()) <= LSE_ATOL
 
 
+def _pallas_bwd(q, k, v, out, lse, dout, causal, sk_true, H, Kh):
+    """The Pallas backward in interpret mode on K/V repeated to the query
+    heads: (dq, dk, dv), dk and dv summed over each KV head's group."""
+    B = q.shape[0] // H
+    Sk, dh = k.shape[1:]
+    rep = H // Kh
+    kr, vr = (np.repeat(t.float().numpy().reshape(B, Kh, Sk, dh), rep, 1)
+              .reshape(B * H, Sk, dh) for t in (k, v))
+    dq, dk, dv = flash_attention_bwd_pallas(
+        _j(q), jnp.asarray(kr), jnp.asarray(vr), _j(out), jnp.asarray(
+            lse.numpy()), _j(dout), causal=causal, bq=32, bk=32,
+        sk_true=sk_true, interpret=True)
+    fold = lambda t: torch.from_numpy(np.asarray(t)).reshape(
+        B * Kh, rep, Sk, dh).sum(1)
+    return torch.from_numpy(np.asarray(dq)), fold(dk), fold(dv)
+
+
+# Sq not a multiple of the kernel's 64-row tile (the Pallas kernel takes
+# multiples of its 32-row block), with a ragged sk_true.
+DQ_CASES = CASES + [(1, 96, 96, 14, 2, 64, True, 90),
+                    (1, 160, 224, 4, 2, 64, False, 170)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", DQ_CASES)
+def test_dq_split_meets_the_kernel_bounds_against_pallas(
+        B, Sq, Sk, H, Kh, dh, causal, sk_true):
+    q, k, v, dout = _inputs(B * Sq + Sk + dh + 2, B, Sq, Sk, H, Kh, dh)
+    out, lse = fwd_split(q, k, v, causal, sk_true, H, Kh)
+    dq = dq_split(q, k, v, out, lse, dout, causal, sk_true, H, Kh)
+    want = _pallas_bwd(q, k, v, out, lse, dout, causal, sk_true, H, Kh)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert testing.grads_close(dq, want), float(
+        (dq.float() - want).abs().max())
+
+
 @pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", CASES)
 def test_dkv_split_meets_the_kernel_bounds_against_pallas(
         B, Sq, Sk, H, Kh, dh, causal, sk_true):
     q, k, v, dout = _inputs(B * Sq + Sk + dh + 1, B, Sq, Sk, H, Kh, dh)
     out, lse = fwd_split(q, k, v, causal, sk_true, H, Kh)
     dk, dv = dkv_split(q, k, v, out, lse, dout, causal, sk_true, H, Kh)
-    rep = H // Kh
-    kr, vr = (np.repeat(t.float().numpy().reshape(B, Kh, Sk, dh), rep, 1)
-              .reshape(B * H, Sk, dh) for t in (k, v))
-    _, want_dk, want_dv = flash_attention_bwd_pallas(
-        _j(q), jnp.asarray(kr), jnp.asarray(vr), _j(out), jnp.asarray(
-            lse.numpy()), _j(dout), causal=causal, bq=32, bk=32,
-        sk_true=sk_true, interpret=True)
+    _, want_dk, want_dv = _pallas_bwd(q, k, v, out, lse, dout, causal,
+                                      sk_true, H, Kh)
     for got, want in ((dk, want_dk), (dv, want_dv)):
-        want = torch.from_numpy(np.asarray(want)).reshape(
-            B * Kh, rep, Sk, dh).sum(1)
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert testing.grads_close(got, want), float(
             (got.float() - want).abs().max())
@@ -205,3 +259,16 @@ def test_p_rounded_to_bf16_alone_misses_the_bounds():
                                        causal, skt, H, Kh)
     got = dkv_split(q, k, v, out, lse, dout, causal, skt, H, Kh, terms=1)
     assert not all(testing.grads_close(g, w) for g, w in zip(got, want[1:]))
+
+
+def test_ds_rounded_to_bf16_alone_misses_the_dq_bound():
+    """dq's split is needed too: with ds rounded to bf16 once, dq falls
+    outside the bound that two terms meet (the training shape's heads)."""
+    B, Sq, Sk, H, Kh, dh, causal, skt = CASES[0]
+    q, k, v, dout = _inputs(7, B, Sq, Sk, H, Kh, dh)
+    out, lse = fwd_split(q, k, v, causal, skt, H, Kh)
+    want = _pallas_bwd(q, k, v, out, lse, dout, causal, skt, H, Kh)[0]
+    one = dq_split(q, k, v, out, lse, dout, causal, skt, H, Kh, terms=1)
+    two = dq_split(q, k, v, out, lse, dout, causal, skt, H, Kh)
+    assert testing.grads_close(two, want)
+    assert not testing.grads_close(one, want)

@@ -10,6 +10,7 @@ wrappers' own checks are exercised directly.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 # The JAX reference; a GPU machine without JAX still collects the
 # CUDA-marked tests (tests/test_torch_cuda.py).
@@ -26,6 +27,7 @@ from repro_torch.kernels import wbs_matmul as kmatmul  # noqa: E402
 from repro_torch.kernels import wbs_miru_scan as kscan  # noqa: E402
 from repro_torch.kernels import miru_readout as kreadout  # noqa: E402
 from repro_torch.kernels import miru_scan as kmiru  # noqa: E402
+from repro_torch.utils import round_up  # noqa: E402
 from repro.kernels.miru_scan import miru_scan_pallas  # noqa: E402
 
 SCAN_KW = dict(beta=0.8, lam=0.5, n_bits=8, adc_range=4.0)
@@ -156,19 +158,67 @@ def test_wbs_input_drive_matches_reference(weight_scale):
     assert torch.equal(got[:, 2], step)
 
 
-def test_pad_wbs_weights_and_ops_matmul():
-    sign, code, w = _matmul_inputs(5, 33, 70, 3)
-    w_p = ops.pad_wbs_weights(w)
-    assert w_p.shape == (33, 96) and w_p.is_contiguous()
-    assert torch.equal(w_p[:, :70], w) and not w_p[:, 70:].any()
+def _single_pass(sign, code, w, gains):
+    """The kernels' plane_tile (csrc/wbs_common.cuh) step for step: per K
+    tile of 128, ONE pass over k carrying every plane's sum, each step a
+    fused multiply-add (the exact plane product p·w, summed with one
+    rounding: formed in float64, which holds the sum of these two floats
+    exactly, and rounded to float32 once), the plane sums then joined to
+    the accumulator in plane order."""
+    n_bits = gains.shape[0]
+    M, K = sign.shape
+    s = sign.to(torch.float32)
+    acc = torch.zeros((M, w.shape[1]), dtype=torch.float32)
+    for k0 in range(0, K, ref.BK):
+        dots = [torch.zeros_like(acc) for _ in range(n_bits)]
+        for k in range(k0, min(k0 + ref.BK, K)):
+            for b in range(n_bits):
+                p = ((code[:, k].to(torch.int32) >> (n_bits - 1 - b)) & 1
+                     ).to(torch.float32) * s[:, k]
+                pw = p[:, None] * w[k]
+                assert torch.equal(pw.double(),
+                                   p[:, None].double() * w[k].double())
+                dots[b] = (dots[b].double() + pw.double()).to(torch.float32)
+        for b in range(n_bits):
+            acc = acc + gains[b] * dots[b]
+    return acc * (2.0 ** n_bits / (2.0 ** n_bits - 1.0))
+
+
+@pytest.mark.parametrize("n_bits", [1, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(5, 300, 37), (13, 129, 100)])
+def test_single_pass_plane_order_equals_the_plain_version_bitwise(
+        m, k, n, n_bits):
+    """All plane sums carried in one pass over k and joined in plane order
+    (the order the CUDA kernels keep) give ref.wbs_matmul_ref's bits, at K
+    over one 128-deep tile and ragged M and N, with gains that are not
+    the ideal ratios (so the order of joining the planes matters)."""
+    rng = np.random.default_rng(m * k + n + n_bits)
+    x = torch.from_numpy(rng.uniform(-1, 1, (m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.3, (k, n)).astype(np.float32))
+    sign, code = quantize_signed(x, n_bits)
+    gains = torch.from_numpy(
+        (2.0 ** -np.arange(1, n_bits + 1) * rng.uniform(0.9, 1.1, n_bits))
+        .astype(np.float32))
+    assert torch.equal(_single_pass(sign, code, w, gains),
+                       ref.wbs_matmul_ref(sign, code, w, gains))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 33, 70), (1, 130, 33),
+                                   (9, 28, 100)])
+def test_ops_matmul_ragged_edges_are_exact_zeros(m, k, n):
+    """``ops.wbs_matmul`` takes any M and N (the kernel masks the ragged
+    edges instead of padding): zero rows and columns past the edges only
+    add output rows and columns of exact zeros, so the product at any
+    shape is the whole-tile product cut back."""
+    sign, code, w = _matmul_inputs(m, k, n, 3)
     g = ideal_gains(8)
     want = ref.wbs_matmul_ref(sign, code, w, g, 8)
     assert torch.equal(ops.wbs_matmul(sign, code, w, g, 8), want)
-    # Padded rows and columns are exact zeros: the padded product, cut
-    # back, is the product.
-    padded = ref.wbs_matmul_ref(ops._pad_rows(sign, 8), ops._pad_rows(code, 8),
-                                w_p, g, 8)
-    assert torch.equal(padded[:5, :70], want) and not padded[5:].any()
+    padded = ref.wbs_matmul_ref(
+        ops._pad_rows(sign, round_up(m, 8)),
+        ops._pad_rows(code, round_up(m, 8)), F.pad(w, (0, round_up(n, 32) - n)), g, 8)
+    assert torch.equal(padded[:m, :n], want)
+    assert not padded[m:].any() and not padded[:, n:].any()
 
 
 def test_ops_refuse_gradients():

@@ -54,17 +54,19 @@ each made in this process without touching the package's files:
   or ``dkv_head_shift`` (dk/dv landing on the next KV head), beside
   ``LM_TRAIN_LOSS_RTOL``, ``LM_TRAIN_GNORM_RTOL`` and
   ``LM_TRAIN_PARAMS_REL``; then the bf16 route (the tensor-core flash
-  forward and dk/dv, which the fp32 twin does not run): whether each of
+  forward, dq and dk/dv, which the fp32 twin does not run): whether each of
   ``chip_smoke.py``'s flash checks (``check_lm_kernels``,
   ``check_flash_bwd``) passes, sound and with a fault planted in the
   kernels at build time (``csrc/flash_sm90.cuh``'s ``FLASH_SM90_FAULT``,
-  variants of the two libraries under names of their own, which this
+  variants of the libraries under names of their own, which this
   process loads in place of the package's builds):
-  ``split_first_term_only`` (p, pᵀ and dsᵀ rounded to bf16 alone),
-  ``fold_order_per_call`` (dk/dv's fold of the rep partials starting at
-  another query head on each call, as float atomics would) or
-  ``causal_start_late`` (dk/dv's causal query loop starting one tile
-  past the diagonal).
+  ``split_first_term_only`` (p, ds, pᵀ and dsᵀ rounded to bf16 alone in
+  all three kernels), ``fold_order_per_call`` (dk/dv's fold of the rep
+  partials starting at another query head on each call, as float atomics
+  would), ``causal_start_late`` (dk/dv's causal query loop starting one
+  tile past the diagonal), ``dq_first_term_only`` (the dq kernel's ds on
+  its first bf16 term alone) or ``dq_causal_loop_short`` (dq's causal key
+  loop one tile short of the diagonal).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
 lm_train`` (all by default).
@@ -367,9 +369,15 @@ def lm_train(dev) -> None:
                      <= cs.LM_TRAIN_PARAMS_REL))
 
 
-BF16_FAULTS = {"split_first_term_only": 1, "fold_order_per_call": 2,
-               "causal_start_late": 4}
-SM90_LIBS = ("flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90")
+SM90_LIBS = ("flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
+             "flash_attention_bwd_dkv_sm90")
+DQ_LIB, DKV_LIB = "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90"
+# Each fault: its FLASH_SM90_FAULT value and the libraries built with it.
+BF16_FAULTS = {"split_first_term_only": (1, SM90_LIBS),
+               "fold_order_per_call": (2, (DKV_LIB,)),
+               "causal_start_late": (4, (DKV_LIB,)),
+               "dq_first_term_only": (1, (DQ_LIB,)),
+               "dq_causal_loop_short": (8, (DQ_LIB,))}
 
 
 def fault_flags(fault: int) -> tuple[str, ...]:
@@ -377,14 +385,14 @@ def fault_flags(fault: int) -> tuple[str, ...]:
 
 
 @contextlib.contextmanager
-def planted(fault: int):
-    """The tensor-core flash kernels run with ``fault`` planted: the
-    wrappers load the libraries built with ``-DFLASH_SM90_FAULT``."""
+def planted(fault: int, libs=SM90_LIBS):
+    """The tensor-core flash kernels ``libs`` run with ``fault`` planted:
+    the wrappers load those libraries built with ``-DFLASH_SM90_FAULT``."""
     from repro_torch.kernels import _build
     load = _build.load
 
     def faulty(name, flags=()):
-        return load(name, flags + fault_flags(fault) if name in SM90_LIBS
+        return load(name, flags + fault_flags(fault) if name in libs
                     else flags)
     _build.load = faulty
     try:
@@ -399,11 +407,14 @@ def flash_bf16(dev) -> None:
 
     import numpy as np
     from repro_torch.kernels import _build
-    with ThreadPoolExecutor(len(BF16_FAULTS)) as pool:   # all nvcc at once
-        list(pool.map(lambda f: _build.build(SM90_LIBS, fault_flags(f)),
-                      BF16_FAULTS.values()))
-    for name, fault in {"card": 0, **BF16_FAULTS}.items():
-        with planted(fault):
+    libs_of = {}                   # each fault's libraries, built once
+    for fault, libs in BF16_FAULTS.values():
+        libs_of.setdefault(fault, set()).update(libs)
+    with ThreadPoolExecutor(len(libs_of)) as pool:       # all nvcc at once
+        list(pool.map(lambda f: _build.build(sorted(libs_of[f]),
+                                             fault_flags(f)), libs_of))
+    for name, (fault, libs) in {"card": (0, ()), **BF16_FAULTS}.items():
+        with planted(fault, libs):
             for check in (cs.check_lm_kernels, cs.check_flash_bwd):
                 try:
                     check(dev, np.random.default_rng(0))
