@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the ten CUDA libraries compiled by nvcc for sm_90a from
+2. build: the eleven CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
@@ -26,13 +26,14 @@ Phases, each printed as one JSON line:
    its dtype's kernel once), and with keys padded past ``sk_true`` bit
    for bit as without, and the same call twice bit for bit; the flash
    backward's dq and dk/dv kernels (bf16: the tensor-core dq and dk/dv
-   with its fold) at the training shape (bf16 and fp32; bf16 also twice,
-   bit for bit), the training twin's, with keys past ``sk_true`` and
-   Sq != Sk,
-   rep 1, a head dim padded from 80 to 128 and one of 128 (fp32 at rtol
-   1e-4 with a floor of 1e-5 of the largest gradient, bf16 within one
-   ulp plus that), and the gradients through the autograd Function
-   against torch.autograd through ``full_attention``;
+   with its fold; fp32: the fp32 tensor-core dq and dk/dv, each with its
+   split of the inputs into bf16 terms, dk/dv with its fold) at the
+   training shape (bf16 and fp32, each also twice, bit for bit), the
+   training twin's, with keys past ``sk_true`` and Sq != Sk, rep 1, a
+   head dim padded from 80 to 128 and one of 128 (fp32 at rtol 1e-4 with
+   a floor of 1e-5 of the largest gradient, bf16 within one ulp plus
+   that), and the gradients through the autograd Function against
+   torch.autograd through ``full_attention``;
 4. serve: the paper's 28×100×10 network (``configs/m2ru_paper.py``) with
    seeded random weights, served through ``RecurrentServeEngine`` on the
    ``wbs`` substrate (64 slots, chunk 14) for a 256-request burst over 96
@@ -86,9 +87,15 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    flash forward (24 and their 24 recomputes), 24 of the tensor-core dq
    and 24 of the tensor-core dk/dv a step, and the busy share of a traced
    3-step
-   window; (ii) the 2-layer fp32 training twin, 3 steps on 1,100 tokens
-   (KV padded to 2,048, ``sk_true`` 1,100; the fp32 forward, dq and dk/dv
-   kernels), against the port's CPU run of the same steps: every loss
+   window; (ii) the same config in fp32 at full depth (TF32 off), 5
+   timed steps after 3 of warm-up: ms a step, every loss and grad norm
+   finite, exactly 48 launches of the fp32 forward, 24 of the fp32
+   tensor-core dq and 24 of its dk/dv a step (none of the bf16 kernels),
+   the device time of dq and dk/dv a step and the busy share of a traced
+   3-step window; (iii) the 2-layer fp32 training twin, 3 steps on 1,100
+   tokens (KV padded to 2,048, ``sk_true`` 1,100; the fp32 forward, dq
+   and dk/dv kernels), against the port's CPU run of the same steps:
+   every loss
    (``LM_TRAIN_LOSS_RTOL``), grad norm (``LM_TRAIN_GNORM_RTOL``) and the
    final params (their distance over the CPU update's norm,
    ``LM_TRAIN_PARAMS_REL``); then ``ops.kwta`` once at (64, 1024), k 580;
@@ -97,8 +104,11 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    k-WTA the exact top-k, a different function; for the flash backward
    the backward of ``scaled_dot_product_attention``), each over a CUDA
    graph of repeated launches, beside the least time the card could
-   take (for the tensor-core flash kernels also that bound with their
-   bf16 split's extra products, ``bound_split_ms``); the WBS product at
+   take (for the bf16 tensor-core flash kernels also that bound with
+   their bf16 split's extra products, ``bound_split_ms``; for the fp32
+   backward the bound of its six bf16 products a product and, beside it,
+   that of the fp32 products on the CUDA cores, ``bound_cuda_cores_ms``);
+   the WBS product at
    both main-path shapes (the drive and the per-step product) beside
    ``torch.matmul`` of the dequantized operand; the fp32 route's flash
    forward, dq and dk/dv on fp32 inputs beside
@@ -220,6 +230,9 @@ LM_SERVE_ATOL = 1e-3
 # and dk/dv kernels once a layer.
 LM_TRAIN_B, LM_TRAIN_S = 2, 2048
 LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_TRACE_STEPS = 3, 30, 3
+# The same config in fp32 at full depth (the fp32 forward, dq and dk/dv
+# a layer, as the bf16 run's kernels), fewer steps: each is slower.
+LM_TRAIN_F32_WARMUP, LM_TRAIN_F32_STEPS = 3, 5
 # The training twin: the 2-layer fp32 model of the LM twins on one
 # 1,100-token sequence a step (the flash branch, KV padded to 2,048,
 # sk_true 1,100), warmup 0 (lr 3e-4 from the first step), 3 Trainer
@@ -252,7 +265,8 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "flash_attention_bwd_dq_sm90": ("flash_attention",
                                            "dq_sm90_launches")}
 # The flash kernels each dtype takes (kernels/ops.py's fixed rule): bf16
-# the tensor-core forward, dq and dk/dv, fp32 the fp32 ones.
+# the tensor-core forward, dq and dk/dv, fp32 the fp32 forward and the
+# fp32 tensor-core dq and dk/dv.
 FLASH_FWD = {"torch.bfloat16": "flash_attention_fwd_sm90",
              "torch.float32": "flash_attention_fwd"}
 FLASH_DQ = {"torch.bfloat16": "flash_attention_bwd_dq_sm90",
@@ -658,10 +672,11 @@ def check_flash_bwd(dev, rng) -> dict:
     Sq != Sk without the causal mask and with keys past sk_true, rep 1,
     a head dim of 80 zero-padded to 128 and one of 128; each call
     launching the dq and dk/dv kernels of its dtype (bf16 the tensor-core
-    dq and dk/dv with its fold) once; at the training shape in bf16 the same
-    call again, bit for bit; then the gradients through the autograd
-    Function against torch.autograd through the plain ``full_attention``,
-    fp32 (``testing.grads_close``)."""
+    dq and dk/dv with its fold, fp32 the fp32 tensor-core dq and dk/dv)
+    once; at the training shape in each dtype the same call again, bit for
+    bit; then the gradients through the autograd Function against
+    torch.autograd through the plain ``full_attention``, fp32
+    (``testing.grads_close``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
@@ -677,7 +692,7 @@ def check_flash_bwd(dev, rng) -> dict:
              ((1, 100, 333, 4, 2, 64, False, 250), (f32, bf16)),
              ((2, 130, 130, 4, 4, 64, True, None), (f32, bf16)),
              ((1, 96, 200, 4, 1, 80, False, 150), (f32, bf16)),
-             ((1, 300, 300, 14, 2, 128, True, None), (bf16,))]
+             ((1, 300, 300, 14, 2, 128, True, None), (bf16, f32))]
     with torch.no_grad():
         for (B, Sq, Sk, H, Kh, dh, causal, skt), dtypes in cases:
             for dt in dtypes:
@@ -699,7 +714,7 @@ def check_flash_bwd(dev, rng) -> dict:
                     ok = ok and not (got[1][:, skt:].any()
                                      or got[2][:, skt:].any())
                 extra = {}
-                if dt == bf16 and B == LM_TRAIN_B and Sq == LM_TRAIN_S:
+                if B == LM_TRAIN_B and Sq == LM_TRAIN_S:
                     again = ops.flash_attention_bwd(q, k, v, out, lse, dout,
                                                     causal, skt)
                     same = all(torch.equal(a, b)
@@ -862,7 +877,8 @@ def streams(arrivals, reqs, uids):
 
 
 # The port's kernels (csrc/*.cu) live in an anonymous namespace at the top.
-_PORT_KERNEL = re.compile(r"(void )?\(anonymous namespace\)::")
+_PORT_KERNEL = re.compile(
+    r"(void )?(\(anonymous namespace\)|flash_f32_sm90)::")
 
 
 def device_busy(fn) -> dict:
@@ -1488,11 +1504,12 @@ def lm_config(n_layers: Optional[int] = None, dtype=None):
                                dtype=dtype or cfg.dtype)
 
 
-def lm_full_model(dev):
-    """Full qwen2-0.5B in bf16, weights drawn on the card from seed 0."""
+def lm_full_model(dev, dtype=None):
+    """Full qwen2-0.5B in bf16 (or ``dtype``), weights drawn on the card
+    from seed 0."""
     import torch
     from repro_torch.models import lm
-    cfg = lm_config()
+    cfg = lm_config(dtype=dtype)
     return cfg, lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
 
 
@@ -1729,58 +1746,15 @@ def train_twin_distances(run: dict, cpu: dict, init: dict) -> dict:
 
 
 def lm_train(dev, twins: dict) -> dict:
-    """(i) the full model's training steps through the flash forward and
-    backward kernels: ms a step, tokens/s, losses and grad norms, peak
-    memory, launches a step, the busy share of a traced window; (ii) the
-    2-layer fp32 training twin against the CPU's run of the same steps."""
-    import numpy as np
+    """(i) the full model's training steps in bf16 and (ii) in fp32
+    through the flash forward and backward kernels of each dtype
+    (:func:`lm_train_full`); (iii) the 2-layer fp32 training twin against
+    the CPU's run of the same steps."""
     import torch
-    from repro_torch.train import TrainConfig, Trainer
-    cfg, params = lm_full_model(dev)
-    tr = Trainer(cfg, TrainConfig(),
-                 lm_train_batcher(cfg, LM_TRAIN_B, LM_TRAIN_S),
-                 params=params, device=dev)
-    del params
-    tr.run(steps=LM_TRAIN_WARMUP)
-    _sync(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
-    t0 = time.perf_counter()
-    hist = tr.run(steps=LM_TRAIN_STEPS)[-LM_TRAIN_STEPS:]
-    _sync(dev)
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention_fwd_sm90": 2 * cfg.n_layers,
-            "flash_attention_bwd_dq_sm90": cfg.n_layers,
-            "flash_attention_bwd_dkv_sm90": cfg.n_layers}
-    exact = all(launches[k] == n * LM_TRAIN_STEPS for k, n in want.items()) \
-        and all(c == 0 for k, c in launches.items() if k not in want)
-    losses = [h["loss"] for h in hist]
-    gnorms = [h["grad_norm"] for h in hist]
-    finite = bool(np.isfinite(losses).all() and np.isfinite(gnorms).all())
-    step_ms = float(np.median([h["sec"] for h in hist])) * 1e3
-    t0 = time.perf_counter()
-    tr.run(steps=LM_TRAIN_TRACE_STEPS)
-    _sync(dev)
-    busy = busy_share(lambda: tr.run(steps=LM_TRAIN_TRACE_STEPS),
-                      time.perf_counter() - t0)
-    busy["window"] = f"{LM_TRAIN_TRACE_STEPS} train steps"
-    emit("lm_train", part="train", config=LM, layers=cfg.n_layers,
-         dtype=str(cfg.dtype), remat=cfg.remat,
-         tokens_per_step=[LM_TRAIN_B, LM_TRAIN_S], steps=LM_TRAIN_STEPS,
-         n_params=tr.n_params, step_ms_median=step_ms,
-         step_ms=[h["sec"] * 1e3 for h in hist], wall_s=wall,
-         tokens_per_s=LM_TRAIN_STEPS * LM_TRAIN_B * LM_TRAIN_S / wall,
-         losses=losses, grad_norms=gnorms,
-         max_memory_allocated_gb=peak / 1e9, launches=launches,
-         launches_per_step={k: v / LM_TRAIN_STEPS
-                            for k, v in launches.items()},
-         launches_exact=exact, finite=finite, traced_run=busy)
-    if not (finite and exact):
-        raise AssertionError(f"lm_train: finite {finite}, launches "
-                             f"{launches} (want {want} a step)")
-    del tr
+    launches = lm_train_full(dev, torch.bfloat16, LM_TRAIN_WARMUP,
+                             LM_TRAIN_STEPS, "train")
+    launches_fp32 = lm_train_full(dev, torch.float32, LM_TRAIN_F32_WARMUP,
+                                  LM_TRAIN_F32_STEPS, "train_fp32")
 
     run = lm_train_twin_run(dev)
     cpu = twins["lm_train"].result()
@@ -1806,7 +1780,75 @@ def lm_train(dev, twins: dict) -> dict:
     if not ok:
         raise AssertionError(f"lm_train twin: {d}, launches "
                              f"{run['launches']} (want {twin_want})")
-    return {"lm_train": launches, "lm_train_twin": run["launches"]}
+    return {"lm_train": launches, "lm_train_fp32": launches_fp32,
+            "lm_train_twin": run["launches"]}
+
+
+def lm_train_full(dev, dtype, warmup: int, steps: int, part: str) -> dict:
+    """The full model (:func:`lm_full_model`) in ``dtype`` through
+    ``Trainer`` at ``TrainConfig``'s defaults, 2 × 2,048 tokens a
+    step: ``steps`` timed after ``warmup``: ms a step, tokens/s, finite
+    losses and grad norms, peak memory, exactly 48 launches of the
+    dtype's flash forward (24 and their 24 recomputes), 24 of its dq and
+    24 of its dk/dv a step and none of another flash kernel; then a
+    traced window of LM_TRAIN_TRACE_STEPS beside the same number run
+    untraced: the busy share and the device time a step of the flash
+    forward, dq, dk/dv (with its fold) and the fp32 backward's split.
+    Returns the timed steps' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.train import TrainConfig, Trainer
+    cfg, params = lm_full_model(dev, dtype)
+    tr = Trainer(cfg, TrainConfig(),
+                 lm_train_batcher(cfg, LM_TRAIN_B, LM_TRAIN_S),
+                 params=params, device=dev)
+    del params
+    tr.run(steps=warmup)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.run(steps=steps)[-steps:]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {FLASH_FWD[str(dtype)]: 2 * cfg.n_layers,
+            FLASH_DQ[str(dtype)]: cfg.n_layers,
+            FLASH_DKV[str(dtype)]: cfg.n_layers}
+    exact = all(launches[k] == n * steps for k, n in want.items()) \
+        and all(c == 0 for k, c in launches.items() if k not in want)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    finite = bool(np.isfinite(losses).all() and np.isfinite(gnorms).all())
+    t0 = time.perf_counter()
+    tr.run(steps=LM_TRAIN_TRACE_STEPS)
+    _sync(dev)
+    busy = busy_share(lambda: tr.run(steps=LM_TRAIN_TRACE_STEPS),
+                      time.perf_counter() - t0)
+    busy["window"] = f"{LM_TRAIN_TRACE_STEPS} train steps"
+    per_step = lambda name: sum(
+        k["device_ms"] for k in busy["port_kernels"]
+        if name in k["name"]) / LM_TRAIN_TRACE_STEPS
+    emit("lm_train", part=part, config=LM, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), remat=cfg.remat,
+         tokens_per_step=[LM_TRAIN_B, LM_TRAIN_S], steps=steps,
+         n_params=tr.n_params,
+         step_ms_median=float(np.median([h["sec"] for h in hist])) * 1e3,
+         step_ms=[h["sec"] * 1e3 for h in hist], wall_s=wall,
+         tokens_per_s=steps * LM_TRAIN_B * LM_TRAIN_S / wall,
+         losses=losses, grad_norms=gnorms,
+         max_memory_allocated_gb=peak / 1e9, launches=launches,
+         launches_per_step={k: v / steps for k, v in launches.items()},
+         launches_exact=exact, finite=finite,
+         device_ms_per_step={n: per_step(k) for n, k in (
+             ("fwd", "flash_fwd_"), ("dq", "flash_bwd_dq_"),
+             ("dkv", "flash_bwd_dkv_"), ("split", "split_inputs_kernel"))},
+         traced_run=busy)
+    if not (finite and exact):
+        raise AssertionError(f"lm_train {part}: finite {finite}, launches "
+                             f"{launches} (want {want} a step)")
+    return launches
 
 
 def kwta_path(dev) -> dict:
@@ -2040,7 +2082,8 @@ def flash_bwd_times(dev, rng) -> dict:
     """The flash backward's kernels at the training shape (B 2, S 2,048,
     14/2 heads, dh 64, causal): on bf16 inputs the tensor-core dq and
     dk/dv (with its fold) the train step runs, on fp32 inputs the fp32
-    route's dq and dk/dv; each beside the plain version and the backward
+    route's tensor-core dq and dk/dv (each with its split of the inputs,
+    dk/dv with its fold); each beside the plain version and the backward
     of ``scaled_dot_product_attention`` over a saved forward on the same
     inputs (both compute dq, dk and dv together: the same figure stands
     beside each kernel of the dtype), and the whole bf16 backward as the
@@ -2054,9 +2097,12 @@ def flash_bwd_times(dev, rng) -> dict:
     # Causal halves each of the 2·S·S·dh products a head: dq takes three
     # (s, dO·vᵀ, ds·k), dk/dv four (s, dO·vᵀ, pᵀ·dO, dsᵀ·q), against q,
     # k, v, dO, lse and delta read once and the outputs written once. The
-    # tensor-core kernels split ds (dq) and pᵀ and dsᵀ (dk/dv) into bf16
-    # hi and lo: four products instead of three, six instead of four
-    # (bound_split_ms).
+    # bf16 kernels split ds (dq) and pᵀ and dsᵀ (dk/dv) into bf16 hi and
+    # lo: four products instead of three, six instead of four
+    # (bound_split_ms). The fp32 kernels carry every operand in three bf16
+    # terms and make each product of six: their bound is that bf16
+    # tensor-core work, beside the fp32 products on the CUDA cores
+    # (bound_cuda_cores_ms).
     prod = 2.0 * B * H * S * S * dh / 2
     out = {}
     for dt, dq_k, dkv_k in ((torch.bfloat16, "flash_attention_bwd_dq_sm90",
@@ -2100,12 +2146,20 @@ def flash_bwd_times(dev, rng) -> dict:
                       plain_ms=plain, plain="ref.flash_attention_bwd_ref: "
                       "dq, dk and dv together", library_ms=lib,
                       library=lib_name)
-        b, by = flash_bound(3 * prod, dq_bytes, dt)
-        out[dq_k] = dict(ms=time_graph(lambda: dq_fn(*args, **kw)),
-                         bound_ms=b, bound_by=by, **common)
-        b, by = flash_bound(4 * prod, dkv_bytes, dt)
-        out[dkv_k] = dict(ms=time_graph(lambda: dkv_fn(*args, **kw)),
-                          bound_ms=b, bound_by=by, **common)
+        for key, fn, n_prod, n_bytes in ((dq_k, dq_fn, 3, dq_bytes),
+                                         (dkv_k, dkv_fn, 4, dkv_bytes)):
+            out[key] = dict(ms=time_graph(lambda: fn(*args, **kw)), **common)
+            if dt == torch.bfloat16:
+                b, by = flash_bound(n_prod * prod, n_bytes, dt)
+            else:
+                b, by = bound_ms(0.0, n_bytes,
+                                 flops_bf16_tc=6 * n_prod * prod)
+                out[key].update(
+                    bound_cuda_cores_ms=flash_bound(n_prod * prod, n_bytes,
+                                                    dt)[0],
+                    note="the split of the inputs into bf16 terms"
+                         + (" and the fold" if key == dkv_k else ""))
+            out[key].update(bound_ms=b, bound_by=by)
         if dt != torch.bfloat16:
             continue
         out[dq_k]["bound_split_ms"] = flash_bound(4 * prod, dq_bytes, dt)[0]
@@ -2185,8 +2239,9 @@ def main() -> int:
     # for (serve for the WBS kernels and the readout, train (a) for the
     # ideal scan, train (d) for the read-noise product, the LM prefill for
     # the bf16 tensor-core forward and its fp32 twin for the fp32 forward,
-    # LM training for the tensor-core dq and dk/dv and its fp32 twin for
-    # the fp32 dq and dk/dv, ops.kwta at the bench shape for k-WTA);
+    # LM training for the tensor-core dq and dk/dv and its full-depth fp32
+    # run for the fp32 dq and dk/dv, ops.kwta at the bench shape for
+    # k-WTA);
     # launches_by_path has every path's count.
     by_path = {"serve": run["launches"], "train_software": sw["launches"],
                "train_protocol_ideal": cl["ideal"]["launches"],
@@ -2198,15 +2253,15 @@ def main() -> int:
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve", "flash_attention_fwd": "lm_prefill_twin",
-           "flash_attention_bwd_dq": "lm_train_twin",
-           "flash_attention_bwd_dkv": "lm_train_twin", "kwta": "ops_kwta",
+           "flash_attention_bwd_dq": "lm_train_fp32",
+           "flash_attention_bwd_dkv": "lm_train_fp32", "kwta": "ops_kwta",
            "flash_attention_fwd_sm90": "lm_prefill",
            "flash_attention_bwd_dkv_sm90": "lm_train",
            "flash_attention_bwd_dq_sm90": "lm_train"}
     src = "src/repro_torch/kernels/csrc/"
     lib = {"flash_attention_fwd": "flash_attention_fwd",   # else the module
-           "flash_attention_bwd_dq": "flash_attention_bwd",
-           "flash_attention_bwd_dkv": "flash_attention_bwd",
+           "flash_attention_bwd_dq": "flash_attention_bwd_dq_f32_sm90",
+           "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_f32_sm90",
            "flash_attention_fwd_sm90": "flash_attention_fwd_sm90",
            "flash_attention_bwd_dkv_sm90": "flash_attention_bwd_dkv_sm90",
            "flash_attention_bwd_dq_sm90": "flash_attention_bwd_dq_sm90"}
@@ -2243,7 +2298,8 @@ def main() -> int:
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
          "library_ms": t[k]["library_ms"], "library": t[k]["library"],
-         **{f: t[k][f] for f in ("bound_split_ms", "note") if f in t[k]}}
+         **{f: t[k][f] for f in ("bound_split_ms", "bound_cuda_cores_ms",
+                                 "note") if f in t[k]}}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

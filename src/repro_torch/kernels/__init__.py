@@ -2,8 +2,10 @@
 
 - ``csrc/``: the CUDA C++ sources (``wbs_matmul.cu``, ``wbs_miru_scan.cu``
   and their shared ``wbs_common.cuh``; ``miru_scan.cu``,
-  ``miru_readout.cu``, ``flash_attention_fwd.cu``,
-  ``flash_attention_bwd.cu``, ``kwta.cu``), built by :mod:`._build`.
+  ``miru_readout.cu``, ``flash_attention_fwd.cu``, ``kwta.cu``, and the
+  tensor-core flash kernels ``flash_attention_*_sm90.cu`` with their
+  ``flash_sm90.cuh`` and ``flash_f32_sm90.cuh``), built by
+  :mod:`._build`.
 - ``wbs_matmul``, ``wbs_miru_scan``, ``miru_scan``, ``miru_readout``,
   ``flash_attention``, ``kwta``: the ctypes wrappers of the kernels, CUDA
   tensors only, each with a ``launches`` counter (``wbs_matmul`` also

@@ -25,9 +25,10 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
-         "flash_attention_fwd", "flash_attention_bwd", "kwta",
-         "flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
-         "flash_attention_bwd_dkv_sm90")
+         "flash_attention_fwd", "kwta", "flash_attention_fwd_sm90",
+         "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90",
+         "flash_attention_bwd_dq_f32_sm90",
+         "flash_attention_bwd_dkv_f32_sm90")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

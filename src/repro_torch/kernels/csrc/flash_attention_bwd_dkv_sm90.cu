@@ -4,10 +4,9 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel src/repro/kernels/
 // flash_attention.py :: flash_attention_bwd_pallas (_flash_dkv_kernel,
-// pallas_call :205); fp32 inputs keep flash_attention_bwd.cu's dk/dv
-// kernel, and dq stays there for both. The function is that kernel's, in
-// fp32: for key j of a KV head and each query row i of the H / Kh query
-// heads that read it,
+// pallas_call :205); fp32 inputs take flash_attention_bwd_dkv_f32_sm90.cu.
+// The function is that kernel's, in fp32: for key j of a KV head and each
+// query row i of the H / Kh query heads that read it,
 //
 //   s_ij  = (k_j . q_i) * scale;  masked where j >= sk_true or, causal,
 //   j > i; p_ij = exp(s_ij - lse_i) (0 where masked)

@@ -4,7 +4,7 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel src/repro/kernels/
 // flash_attention.py :: flash_attention_bwd_pallas (_flash_dq_kernel,
-// pallas_call :185); fp32 inputs keep flash_attention_bwd.cu's dq kernel.
+// pallas_call :185); fp32 inputs take flash_attention_bwd_dq_f32_sm90.cu.
 // The function is that kernel's, in fp32: for query row i of query head b
 // and each key j of the KV head it reads,
 //

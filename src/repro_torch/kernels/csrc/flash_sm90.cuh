@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 tensor-core flash kernels
+// Hopper (sm_90a) building blocks of the tensor-core flash kernels
 // (flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu,
-// flash_attention_bwd_dq_sm90.cu): the
+// flash_attention_bwd_dq_sm90.cu, and the fp32 backward through
+// flash_f32_sm90.cuh): the
 // swizzled shared-memory tile, its cp.async load, the wgmma descriptors and
 // instructions, and the split of an fp32 fragment into bf16 operands.
 //
@@ -51,6 +52,8 @@ enum PlantedFault : int {
   kFoldOrder = 2,       // dk/dv: the fold's order rotated from call to call
   kCausalStart = 4,     // dk/dv: the causal query start one tile late
   kCausalLoopShort = 8, // dq: the causal key loop one tile short
+  kInputFirstTermOnly = 16,  // fp32 route: q.k^T on the inputs' first
+                             // bf16 terms alone (flash_f32_sm90.cuh)
 };
 constexpr int kFault = FLASH_SM90_FAULT;
 

@@ -1,10 +1,12 @@
-"""Wrappers of the CUDA kernels ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu`` — the flash-attention forward and its
-backward (dq; dk and dv) for fp32, replacing ``repro/kernels/
-flash_attention.py :: flash_attention_fwd_pallas`` and
-``flash_attention_bwd_pallas`` — and of their bf16 tensor-core versions for
-Hopper, ``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_
-dq_sm90.cu`` and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (wgmma on 128-
+"""Wrappers of the CUDA kernels of the flash-attention forward and its
+backward (dq; dk and dv), replacing ``repro/kernels/flash_attention.py ::
+flash_attention_fwd_pallas`` and ``flash_attention_bwd_pallas``: for
+fp32 the forward ``csrc/flash_attention_fwd.cu`` (CUDA cores) and the
+tensor-core backward ``csrc/flash_attention_bwd_dq_f32_sm90.cu`` and
+``csrc/flash_attention_bwd_dkv_f32_sm90.cu`` (fp32 operands as sums of
+three bf16 terms; ``csrc/flash_f32_sm90.cuh``); for bf16 the tensor-core
+``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_dq_
+sm90.cu`` and ``csrc/flash_attention_bwd_dkv_sm90.cu`` (wgmma on 128-
 byte-swizzled bf16 tiles; ``csrc/flash_sm90.cuh``).
 
 The wrappers take CUDA tensors only, in the Pallas kernels' layout: q (and
@@ -30,7 +32,8 @@ from repro_torch.kernels.wbs_matmul import check_cuda
 HEAD_DIMS = (64, 128)
 
 #: Kernel launches since import (or since a caller reset them to 0): the
-#: fp32 forward, the backward's dq kernel and its dk/dv kernel.
+#: fp32 forward, the fp32 backward's dq (with its split) and its dk/dv
+#: (with its split and fold).
 launches = 0
 dq_launches = 0
 dkv_launches = 0
@@ -112,24 +115,43 @@ def _lse_delta(lse, delta, q) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
+def _term_planes(q, k) -> torch.Tensor:
+    """Scratch for the fp32 backward's bf16 term planes: three of q's and
+    dO's size each and three of k's and v's."""
+    return torch.empty(3 * (2 * q.numel() + 2 * k.numel()),
+                       dtype=torch.bfloat16, device=q.device)
+
+
+def _check_fp32_aligned(*tensors) -> None:
+    """The fp32 backward takes float32 only, 16-byte aligned (its split
+    reads 16 bytes at a time)."""
+    _check_fp32(*tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the fp32 flash backward needs 16-byte aligned "
+                         "tensors")
+
+
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            dout: torch.Tensor, lse: torch.Tensor,
                            delta: torch.Tensor, *, causal: bool,
                            sk_true: int, q_heads: int, kv_heads: int,
                            scale: float) -> torch.Tensor:
-    """The fp32 dq kernel: q, dout (B·H, Sq, D), k/v (B·Kh, Sk, D), all
-    f32, lse and delta = Σ dout·out (B·H, Sq) f32 → dq (B·H, Sq, D) f32."""
+    """The fp32 tensor-core dq: q, dout (B·H, Sq, D), k/v (B·Kh, Sk, D),
+    all f32, lse and delta = Σ dout·out (B·H, Sq) f32 → dq (B·H, Sq, D)
+    f32. One launch splits the inputs into bf16 term planes (scratch,
+    allocated here) and runs the dq kernel."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
-    _check_fp32(q, k, v, dout)
+    _check_fp32_aligned(q, k, v, dout)
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
     dq = torch.empty_like(q)
-    err = _launcher("flash_attention_bwd", "flash_attention_bwd_dq_launch",
-                    7)(
+    terms = _term_planes(q, k)
+    err = _launcher("flash_attention_bwd_dq_f32_sm90",
+                    "flash_attention_bwd_dq_f32_sm90_launch", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, q_heads,
-        kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
-        torch.cuda.current_stream(dev).cuda_stream)
+        lse.data_ptr(), delta.data_ptr(), terms.data_ptr(), dq.data_ptr(),
+        BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D, int(causal),
+        scale, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: cudaError "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)})")
@@ -144,19 +166,28 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             causal: bool, sk_true: int, q_heads: int,
                             kv_heads: int, scale: float
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fp32 dk/dv kernel, inputs as :func:`flash_attention_bwd_dq` →
-    (dk, dv), each (B·Kh, Sk, D) f32: each KV head's gradient summed over
-    the H // Kh query heads that read it."""
+    """The fp32 tensor-core dk/dv, inputs as :func:`flash_attention_bwd_dq`
+    → (dk, dv), each (B·Kh, Sk, D) f32: each KV head's gradient summed over
+    the H // Kh query heads that read it. One launch runs the split into
+    term planes, the dk/dv kernel, which writes each query head's partial
+    into scratch (2 × B·H·Sk·D floats), and the fold that sums each KV
+    head's partials in a fixed order in fp32; the scratch is allocated
+    here."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true, dout=dout)
-    _check_fp32(q, k, v, dout)
+    _check_fp32_aligned(q, k, v, dout)
     _lse_delta(lse, delta, q)
     BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    dk_part = torch.empty((BH, Sk, D), dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _launcher("flash_attention_bwd",
-                    "flash_attention_bwd_dkv_launch", 8)(
+    terms = _term_planes(q, k)
+    err = _launcher("flash_attention_bwd_dkv_f32_sm90",
+                    "flash_attention_bwd_dkv_f32_sm90_launch", 11)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-        q_heads, kv_heads, Sq, k.shape[1], sk_true, D, int(causal), scale,
+        lse.data_ptr(), delta.data_ptr(), terms.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        BH, q_heads, kv_heads, Sq, Sk, sk_true, D, int(causal), scale,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: "

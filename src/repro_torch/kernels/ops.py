@@ -250,7 +250,8 @@ def _flash_fwd_kernel(dtype: torch.dtype):
 def _flash_dq_kernel(dtype: torch.dtype):
     """The dq kernel for a dtype, by the rule of :func:`_flash_fwd_kernel`:
     bf16 the tensor-core ``flash_attention_bwd_dq_sm90``, anything else the
-    fp32 kernel."""
+    fp32 tensor-core ``flash_attention_bwd_dq`` (its operands split into
+    bf16 terms; it raises on a dtype other than fp32)."""
     return (_flash_kernel.flash_attention_bwd_dq_sm90
             if dtype == torch.bfloat16
             else _flash_kernel.flash_attention_bwd_dq)
@@ -343,7 +344,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outside its kernels too), the head dims are zero-padded to 64 or 128
     as in the forward and the gradients sliced back; the dq kernel and
     the dk/dv kernel launch once each, both by dtype as the forward (bf16
-    the tensor-core dq and dk/dv with its fold, fp32 the fp32 kernels)."""
+    the tensor-core dq and dk/dv with its fold, fp32 the fp32 tensor-core
+    dq and dk/dv, each with its split of the inputs into bf16 terms and
+    dk/dv with its fold)."""
     B, Sq, H, dh = q.shape
     Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true

@@ -390,12 +390,15 @@ def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(
     (2, 130, 130, 4, 4, 64, True, None),      # rep 1
     (1, 96, 200, 4, 1, 80, False, 150),       # head dim 80, padded to 128
     (1, 70, 70, 4, 2, 128, True, None),       # head dim 128
+    (1, 300, 333, 14, 2, 128, False, 300),    # head dim 128, rep 7, sk_true
 ])
 def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                        sk_true, dtype):
     """The dq and dk/dv kernels of the dtype (bf16: the tensor-core
     ``flash_attention_bwd_dq_sm90`` and ``flash_attention_bwd_dkv_sm90``
-    with its fold), each launched once."""
+    with its fold; fp32: the fp32 tensor-core ``flash_attention_bwd_dq``
+    and ``flash_attention_bwd_dkv``, on inputs split into bf16 terms),
+    each launched once."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, dt, Sq + Sk + dh)
     out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
@@ -446,19 +449,21 @@ def test_flash_dq_sm90_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                                 .max())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("B,S,H,Kh,dh,causal", [
     (2, 2048, 14, 2, 64, True),          # the qwen2-0.5B train step
     (1, 300, 7, 1, 128, False),          # rep 7, head dim 128
 ])
 def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
-                                                   causal):
-    """The tensor-core forward, dq (a block owns its rows) and dk/dv (its
-    rep partials folded in a fixed order, no atomics) give the same bits
-    on every call: the forward and backward twice, then dq ten more
-    times."""
+                                                   causal, dtype):
+    """The tensor-core forward (bf16; fp32 takes the CUDA-core one), dq (a
+    block owns its rows) and dk/dv (its rep partials folded in a fixed
+    order, no atomics) of the dtype give the same bits on every call: the
+    forward and backward twice, then dq and dk/dv ten more times."""
     from repro_torch.kernels import flash_attention as kflash
-    q, k, v = _flash_inputs(cuda, B, S, S, H, Kh, dh, torch.bfloat16, 11)
-    dout = _flash_inputs(cuda, B, S, S, H, H, dh, torch.bfloat16, 12)[0]
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(cuda, B, S, S, H, Kh, dh, dt, 11)
+    dout = _flash_inputs(cuda, B, S, S, H, H, dh, dt, 12)[0]
     runs = []
     for _ in range(2):
         out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
@@ -474,13 +479,47 @@ def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
     delta = torch.sum(dot.float() * ot.float(), -1)
     kw = dict(causal=causal, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
-    first = kflash.flash_attention_bwd_dq_sm90(qt, kt, vt, dot, lse, delta,
-                                               **kw)
-    for _ in range(10):
-        again = kflash.flash_attention_bwd_dq_sm90(qt, kt, vt, dot, lse,
-                                                   delta, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(first, again)
+    kernels = ((kflash.flash_attention_bwd_dq_sm90,
+                kflash.flash_attention_bwd_dkv_sm90) if dt == torch.bfloat16
+               else (kflash.flash_attention_bwd_dq,
+                     kflash.flash_attention_bwd_dkv))
+    for kernel in kernels:
+        first = kernel(qt, kt, vt, dot, lse, delta, **kw)
+        for _ in range(10):
+            again = kernel(qt, kt, vt, dot, lse, delta, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_fp32_backward_takes_the_f32_tensor_core_kernels(cuda,
+                                                               monkeypatch):
+    """The dispatch: an fp32 backward loads the fp32 tensor-core libraries
+    and no other flash library, and moves ``dq_launches`` and
+    ``dkv_launches`` by one each a call and the bf16 counters not at all;
+    a bf16 backward loads the bf16 ones."""
+    from repro_torch.kernels import _build
+    load, loaded = _build.load, []
+
+    def recording(name, flags=()):
+        loaded.append(name)
+        return load(name, flags)
+    monkeypatch.setattr(_build, "load", recording)
+    for dtype, libs in (("float32", {"flash_attention_bwd_dq_f32_sm90",
+                                     "flash_attention_bwd_dkv_f32_sm90"}),
+                        ("bfloat16", {"flash_attention_bwd_dq_sm90",
+                                      "flash_attention_bwd_dkv_sm90"})):
+        dt = getattr(torch, dtype)
+        q, k, v = _flash_inputs(cuda, 1, 130, 130, 4, 2, 64, dt, 14)
+        dout = _flash_inputs(cuda, 1, 130, 130, 4, 4, 64, dt, 15)[0]
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+        for _ in range(2):
+            loaded.clear()
+            before = _flash_launches()
+            ops.flash_attention_bwd(q, k, v, out, lse, dout, True)
+            torch.cuda.synchronize()
+            assert _launched(before, _DQ_COUNTER[dtype],
+                             _DKV_COUNTER[dtype])
+            assert set(loaded) == libs, loaded
 
 
 def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):

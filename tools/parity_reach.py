@@ -53,20 +53,23 @@ each made in this process without touching the package's files:
   causal mask), ``delta_omitted`` (delta = 0: out handed over as zeros)
   or ``dkv_head_shift`` (dk/dv landing on the next KV head), beside
   ``LM_TRAIN_LOSS_RTOL``, ``LM_TRAIN_GNORM_RTOL`` and
-  ``LM_TRAIN_PARAMS_REL``; then the bf16 route (the tensor-core flash
-  forward, dq and dk/dv, which the fp32 twin does not run): whether each of
-  ``chip_smoke.py``'s flash checks (``check_lm_kernels``,
-  ``check_flash_bwd``) passes, sound and with a fault planted in the
-  kernels at build time (``csrc/flash_sm90.cuh``'s ``FLASH_SM90_FAULT``,
-  variants of the libraries under names of their own, which this
-  process loads in place of the package's builds):
+  ``LM_TRAIN_PARAMS_REL``; then the tensor-core kernels (the bf16
+  route's flash forward, dq and dk/dv, which the fp32 twin does not run,
+  and the fp32 route's dq and dk/dv): whether each of ``chip_smoke.py``'s
+  flash checks (``check_lm_kernels``, ``check_flash_bwd``) passes, sound
+  and with a fault planted in the kernels at build time
+  (``csrc/flash_sm90.cuh``'s ``FLASH_SM90_FAULT``, variants of the
+  libraries under names of their own, which this process loads in place
+  of the package's builds):
   ``split_first_term_only`` (p, ds, pᵀ and dsᵀ rounded to bf16 alone in
   all three kernels), ``fold_order_per_call`` (dk/dv's fold of the rep
   partials starting at another query head on each call, as float atomics
   would), ``causal_start_late`` (dk/dv's causal query loop starting one
   tile past the diagonal), ``dq_first_term_only`` (the dq kernel's ds on
-  its first bf16 term alone) or ``dq_causal_loop_short`` (dq's causal key
-  loop one tile short of the diagonal).
+  its first bf16 term alone), ``dq_causal_loop_short`` (dq's causal key
+  loop one tile short of the diagonal), ``f32_dq_qk_first_term_only`` or
+  ``f32_dkv_qk_first_term_only`` (the fp32 dq's or dk/dv's q·kᵀ on the
+  first bf16 terms of q and k alone).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
 lm_train`` (all by default).
@@ -372,12 +375,16 @@ def lm_train(dev) -> None:
 SM90_LIBS = ("flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
              "flash_attention_bwd_dkv_sm90")
 DQ_LIB, DKV_LIB = "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90"
+F32_DQ_LIB = "flash_attention_bwd_dq_f32_sm90"
+F32_DKV_LIB = "flash_attention_bwd_dkv_f32_sm90"
 # Each fault: its FLASH_SM90_FAULT value and the libraries built with it.
-BF16_FAULTS = {"split_first_term_only": (1, SM90_LIBS),
+SM90_FAULTS = {"split_first_term_only": (1, SM90_LIBS),
                "fold_order_per_call": (2, (DKV_LIB,)),
                "causal_start_late": (4, (DKV_LIB,)),
                "dq_first_term_only": (1, (DQ_LIB,)),
-               "dq_causal_loop_short": (8, (DQ_LIB,))}
+               "dq_causal_loop_short": (8, (DQ_LIB,)),
+               "f32_dq_qk_first_term_only": (16, (F32_DQ_LIB,)),
+               "f32_dkv_qk_first_term_only": (16, (F32_DKV_LIB,))}
 
 
 def fault_flags(fault: int) -> tuple[str, ...]:
@@ -401,19 +408,22 @@ def planted(fault: int, libs=SM90_LIBS):
         _build.load = load
 
 
-def flash_bf16(dev) -> None:
-    """The bf16 route's kernel checks: sound beside planted faults."""
+def flash_sm90(dev) -> bool:
+    """The tensor-core kernels' checks (the bf16 route's and the fp32
+    backward's): sound beside planted faults. Whether the sound build
+    passes every check and each planted fault fails one."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from repro_torch.kernels import _build
     libs_of = {}                   # each fault's libraries, built once
-    for fault, libs in BF16_FAULTS.values():
+    for fault, libs in SM90_FAULTS.values():
         libs_of.setdefault(fault, set()).update(libs)
     with ThreadPoolExecutor(len(libs_of)) as pool:       # all nvcc at once
         list(pool.map(lambda f: _build.build(sorted(libs_of[f]),
                                              fault_flags(f)), libs_of))
-    for name, (fault, libs) in {"card": (0, ()), **BF16_FAULTS}.items():
+    passes = {}
+    for name, (fault, libs) in {"card": (0, ()), **SM90_FAULTS}.items():
         with planted(fault, libs):
             for check in (cs.check_lm_kernels, cs.check_flash_bwd):
                 try:
@@ -421,8 +431,13 @@ def flash_bf16(dev) -> None:
                     failed = None
                 except AssertionError as e:
                     failed = str(e)[:300]
-                emit(path="flash_bf16", run=name, check=check.__name__,
+                passes.setdefault(name, []).append(failed is None)
+                emit(path="flash_sm90", run=name, check=check.__name__,
                      passes=failed is None, failure=failed)
+    reach = all(passes.pop("card")) and not any(all(p)
+                                                for p in passes.values())
+    emit(path="flash_sm90", sound_passes_and_every_fault_caught=reach)
+    return reach
 
 
 def main() -> int:
@@ -450,11 +465,12 @@ def main() -> int:
         read_noise(dev)
     if "lm" in paths:
         lm(dev)
+    reach = True
     if "lm_train" in paths:
         lm_train(dev)
-        flash_bf16(dev)
+        reach = flash_sm90(dev)
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
-    return 0
+    return 0 if reach else 1
 
 
 if __name__ == "__main__":
