@@ -16,14 +16,17 @@ Phases, each printed as one JSON line:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
    read-noise WBS product and k-WTA, tie-aware (rtol = atol = 2e-5) for
-   the WBS product; the read-noise variant also at σ = 0 against the
+   the WBS product; the fused WBS scan also where its clusters' edges
+   fall (B 1, 5, 33; H 37, 130, on both sides of the switch of U's slab
+   to global memory, 1,024); the read-noise variant also at σ = 0 against the
    plain kernel (bitwise), on two identical rows of one call (identical
    outputs), and in its moments over 512 keys; the flash-attention
    forward at the qwen2-0.5B prefill's shape and five others (fp32
    ``out`` at rtol 2e-5 / atol 2e-6, ``lse`` at atol 1e-5, bf16 ``out``
    within one bf16 ulp plus that fp32 tolerance; bf16 through the
-   tensor-core kernel, fp32 through the fp32 one, each call launching
-   its dtype's kernel once), and with keys padded past ``sk_true`` bit
+   tensor-core kernel, fp32 through the fp32 tensor-core one on inputs
+   split into bf16 terms, each call launching its dtype's kernel once),
+   and with keys padded past ``sk_true`` bit
    for bit as without, and the same call twice bit for bit; the flash
    backward's dq and dk/dv kernels (bf16: the tensor-core dq and dk/dv
    with its fold; fp32: the fp32 tensor-core dq and dk/dv, each with its
@@ -106,11 +109,14 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    graph of repeated launches, beside the least time the card could
    take (for the bf16 tensor-core flash kernels also that bound with
    their bf16 split's extra products, ``bound_split_ms``; for the fp32
-   backward the bound of its six bf16 products a product and, beside it,
-   that of the fp32 products on the CUDA cores, ``bound_cuda_cores_ms``);
-   the WBS product at
-   both main-path shapes (the drive and the per-step product) beside
-   ``torch.matmul`` of the dequantized operand; the fp32 route's flash
+   forward and backward the bound of its six bf16 products a product
+   and, beside it, that of the fp32 products on the CUDA cores,
+   ``bound_cuda_cores_ms``); the WBS product at both main-path shapes
+   (the drive and the per-step product) beside ``torch.matmul`` of the
+   dequantized operand; the fused WBS scan at the serve and the train
+   (b)/(c) shapes, with its launch (rows, cluster, blocks), the bound of
+   its plane sums' FMAs, its bytes' and a model of its serial floor
+   (``serial_floor_model_ms``, not a measurement); the fp32 route's flash
    forward, dq and dk/dv on fp32 inputs beside
    ``scaled_dot_product_attention`` on the same fp32 inputs (TF32 off).
 
@@ -254,7 +260,8 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "wbs_miru_scan": ("wbs_miru_scan", "launches"),
            "miru_scan": ("miru_scan", "launches"),
            "miru_readout": ("miru_readout", "launches"),
-           "flash_attention_fwd": ("flash_attention", "launches"),
+           "flash_attention_fwd_f32_sm90": ("flash_attention",
+                                            "fwd_f32_sm90_launches"),
            "flash_attention_bwd_dq": ("flash_attention", "dq_launches"),
            "flash_attention_bwd_dkv": ("flash_attention", "dkv_launches"),
            "kwta": ("kwta", "launches"),
@@ -265,10 +272,10 @@ KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "flash_attention_bwd_dq_sm90": ("flash_attention",
                                            "dq_sm90_launches")}
 # The flash kernels each dtype takes (kernels/ops.py's fixed rule): bf16
-# the tensor-core forward, dq and dk/dv, fp32 the fp32 forward and the
-# fp32 tensor-core dq and dk/dv.
+# the tensor-core forward, dq and dk/dv, fp32 the fp32 tensor-core
+# forward, dq and dk/dv.
 FLASH_FWD = {"torch.bfloat16": "flash_attention_fwd_sm90",
-             "torch.float32": "flash_attention_fwd"}
+             "torch.float32": "flash_attention_fwd_f32_sm90"}
 FLASH_DQ = {"torch.bfloat16": "flash_attention_bwd_dq_sm90",
             "torch.float32": "flash_attention_bwd_dq"}
 FLASH_DKV = {"torch.bfloat16": "flash_attention_bwd_dkv_sm90",
@@ -281,6 +288,11 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 34e12
 PEAK_BF16_TENSOR_FLOPS = 989e12    # dense, tensor cores
 PEAK_BYTES = 3.35e12
+# A model of one step of the fused WBS scan at H 100, at the least: a
+# 108-long chain of dependent FMAs (4 cycles each), a double tanh, the
+# ADC's division and the codes' round trip through the cluster (an
+# estimate, not a measurement).
+SCAN_STEP_CYCLES = 1000
 
 
 T_START = time.perf_counter()
@@ -422,6 +434,60 @@ def scan_inputs(rng, dev, B, T, H, with_h0):
         h0=f(rng.uniform(-0.5, 0.5, (B, H))) if with_h0 else None)
 
 
+def check_scan(dev, rng) -> float:
+    """The fused WBS scan against its plain version, bit for bit; its
+    largest difference."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref, wbs_miru_scan
+    err = 0.0
+    with torch.no_grad():
+        # The fused scan at the serve and the train (b)/(c) shapes, at H
+        # 256, and where the clusters' edges fall: B 1, 5 and 33 (rows
+        # padded to whole clusters), H 37 and 130 (column slabs cut short),
+        # H on both sides of the switch of U's slab to global memory, and
+        # H 1,024.
+        switch = next(h for h in range(2, 6000)
+                      if not wbs_miru_scan.geometry(8, h).u_in_smem)
+        for B, T, H in ((SLOTS, CHUNK, N_H), (CL_BATCH, T_SEQ, N_H),
+                        (SLOTS, CHUNK, 256), (1, CHUNK, N_H), (5, 4, 37),
+                        (33, 3, 130), (8, 2, switch - 1), (8, 2, switch),
+                        (8, 2, 1024)):
+            geom = wbs_miru_scan.geometry(B, H)
+            for with_h0 in (False, True):
+                inp = scan_inputs(rng, dev, B, T, H, with_h0)
+                for adc in (ADC_BITS, None):
+                    kw = dict(beta=BETA, lam=LAM, n_bits=N_BITS, adc_bits=adc,
+                              adc_range=ADC_RANGE, weight_scale=W_SCALE)
+                    got = ops.wbs_miru_scan(**inp, **kw)
+                    h0 = inp["h0"] if with_h0 else torch.zeros(
+                        (B, H), device=dev)
+                    u_scaled = inp["u_h"] / W_SCALE
+                    want = ref.wbs_miru_scan_ref(
+                        inp["drive"], u_scaled, h0, inp["b_h"], BETA, LAM,
+                        N_BITS, adc, ADC_RANGE, W_SCALE)
+                    torch.cuda.synchronize()
+                    rep = testing.compare_scan(
+                        got, want, drive=inp["drive"], u_scaled=u_scaled,
+                        b_h=inp["b_h"], beta=BETA, n_bits=N_BITS,
+                        w_scale=W_SCALE, adc_bits=adc,
+                        adc_range=ADC_RANGE).check()
+                    err = max(err, rep.max_abs_err)
+                    bitwise = all(torch.equal(a, b)
+                                  for a, b in zip(got, want))
+                    emit("kernels", kernel="wbs_miru_scan",
+                         shape=[B, T, H], h0=with_h0, adc_bits=adc,
+                         cluster_rows=geom.rows, cluster=geom.cluster,
+                         blocks=geom.blocks(B),
+                         u_in_smem=geom.u_in_smem,
+                         bitwise=bitwise, **rep.as_dict())
+                    if not bitwise:
+                        raise AssertionError(
+                            f"wbs_miru_scan != plain at {(B, T, H)}, "
+                            f"h0={with_h0}, adc_bits={adc}")
+    return err
+
+
 def check_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -444,32 +510,7 @@ def check_kernels(dev) -> dict:
                 emit("kernels", kernel="wbs_matmul", case=name,
                      shape=[M, K, N], adc_bits=adc,
                      bitwise=bool(torch.equal(got, want)), **rep.as_dict())
-        for H in (N_H, 256):
-            for with_h0 in (False, True):
-                inp = scan_inputs(rng, dev, SLOTS, CHUNK, H, with_h0)
-                for adc in (ADC_BITS, None):
-                    kw = dict(beta=BETA, lam=LAM, n_bits=N_BITS, adc_bits=adc,
-                              adc_range=ADC_RANGE, weight_scale=W_SCALE)
-                    got = ops.wbs_miru_scan(**inp, **kw)
-                    h0 = inp["h0"] if with_h0 else torch.zeros(
-                        (SLOTS, H), device=dev)
-                    u_scaled = inp["u_h"] / W_SCALE
-                    want = ref.wbs_miru_scan_ref(
-                        inp["drive"], u_scaled, h0, inp["b_h"], BETA, LAM,
-                        N_BITS, adc, ADC_RANGE, W_SCALE)
-                    torch.cuda.synchronize()
-                    rep = testing.compare_scan(
-                        got, want, drive=inp["drive"], u_scaled=u_scaled,
-                        b_h=inp["b_h"], beta=BETA, n_bits=N_BITS,
-                        w_scale=W_SCALE, adc_bits=adc,
-                        adc_range=ADC_RANGE).check()
-                    err["wbs_miru_scan"] = max(err["wbs_miru_scan"],
-                                               rep.max_abs_err)
-                    emit("kernels", kernel="wbs_miru_scan",
-                         shape=[SLOTS, CHUNK, H], h0=with_h0, adc_bits=adc,
-                         bitwise=all(torch.equal(a, b)
-                                     for a, b in zip(got, want)),
-                         **rep.as_dict())
+        err["wbs_miru_scan"] = check_scan(dev, rng)
         # The ideal scan at the training shapes: batch 64 and the 300-row
         # test set at the paper's width, and batch 64 at H = 256.
         for B, H in ((SW_BATCH, N_H), (SW_TEST, N_H), (SW_BATCH, 256)):
@@ -552,15 +593,15 @@ def check_lm_kernels(dev, rng) -> dict:
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
-    err = {"flash_attention_fwd": 0.0, "flash_attention_fwd_sm90": 0.0,
-           "kwta": 0.0}
+    err = {"flash_attention_fwd_f32_sm90": 0.0,
+           "flash_attention_fwd_sm90": 0.0, "kwta": 0.0}
     # (B, Sq, Sk, H, Kh, dh, causal): the qwen2-0.5B prefill (GQA rep 7)
     # at the main path's batch (the second sequence's heads read KV heads
     # 2-3) and at one sequence, kernel_bench's shape, Sk off the tile (and
     # the KV padded past sk_true, as the prefill twin does), Sq != Sk
     # without the causal mask, rep 1.
     cases = [((LM_PREFILL_B, LM_PREFILL_S, LM_PREFILL_S, 14, 2, 64, True),
-              (torch.bfloat16,)),
+              (torch.bfloat16, torch.float32)),
              ((1, 2048, 2048, 14, 2, 64, True), (torch.bfloat16,)),
              ((2, 256, 256, 4, 2, 64, True), (torch.float32, torch.bfloat16)),
              ((1, 1100, 1100, 14, 2, 64, True), (torch.float32,)),
@@ -963,10 +1004,23 @@ def serve_path(dev, device_name: str) -> dict:
                 served=served, launches=launches)
 
 
-def contracts(dev, run: dict) -> None:
-    import numpy as np
+def recurrence_fused_equals_per_step(dev, cfg, params) -> bool:
+    """``wbs``'s device recurrence at the serve shape through the fused
+    scan and through one ``wbs_matmul`` a step: the same bits?"""
     import torch
     from repro_torch.backends import get_backend
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand((SLOTS, CHUNK, N_X), generator=g) * 2 - 1).to(dev)
+    h0 = (torch.rand((SLOTS, N_H), generator=g) - 0.5).to(dev)
+    backend = get_backend("wbs")
+    with torch.no_grad():
+        a = backend.device_recurrence(params, cfg, x, fused=True, h0=h0)
+        b = backend.device_recurrence(params, cfg, x, fused=False, h0=h0)
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def contracts(dev, run: dict) -> None:
+    import numpy as np
     cfg, params, arrivals = run["cfg"], run["params"], run["arrivals"]
     by_uid = dict(zip(run["uids"], run["served"]))
 
@@ -975,14 +1029,7 @@ def contracts(dev, run: dict) -> None:
     per_step = streams(arrivals, reqs, run["uids"])
     fused_equal = all(np.array_equal(a, b)
                       for a, b in zip(run["served"], per_step))
-    g = torch.Generator().manual_seed(1)
-    x = (torch.rand((SLOTS, CHUNK, N_X), generator=g) * 2 - 1).to(dev)
-    h0 = (torch.rand((SLOTS, N_H), generator=g) - 0.5).to(dev)
-    backend = get_backend("wbs")
-    with torch.no_grad():
-        a = backend.device_recurrence(params, cfg, x, fused=True, h0=h0)
-        b = backend.device_recurrence(params, cfg, x, fused=False, h0=h0)
-    recurrence_equal = all(torch.equal(u, v) for u, v in zip(a, b))
+    recurrence_equal = recurrence_fused_equals_per_step(dev, cfg, params)
     if not (fused_equal and recurrence_equal):
         raise AssertionError(f"fused != per-step: serve {fused_equal}, "
                              f"device_recurrence {recurrence_equal}")
@@ -1588,7 +1635,7 @@ def lm_path(dev, twins: dict) -> dict:
     require_launches("lm_prefill", pre_launches,
                      ("flash_attention_fwd_sm90",))
     if pre_launches["flash_attention_fwd_sm90"] != cfg.n_layers or \
-            pre_launches["flash_attention_fwd"]:
+            pre_launches["flash_attention_fwd_f32_sm90"]:
         raise AssertionError(f"lm_prefill: {pre_launches} flash launches, "
                              f"want {cfg.n_layers} of the bf16 tensor-core "
                              f"forward (one a layer) and no other")
@@ -1606,7 +1653,7 @@ def lm_path(dev, twins: dict) -> dict:
     reset_launches()
     got = lm_prefill_twin_logits(tcfg, tparams, dev)
     twin_all = read_launches()
-    twin_launches = twin_all["flash_attention_fwd"]
+    twin_launches = twin_all["flash_attention_fwd_f32_sm90"]
     cpu = twins["lm_prefill"].result()["logits"]
     d = float((got - cpu).abs().max())
     emit("lm", part="prefill_twin", layers=LM_TWIN_LAYERS, tokens=LM_TWIN_S,
@@ -1761,8 +1808,8 @@ def lm_train(dev, twins: dict) -> dict:
     d = train_twin_distances(run, cpu, lm_twin_model(torch.device("cpu"))[1])
     # The fp32 twin takes the fp32 forward, dq and dk/dv kernels.
     n = LM_TWIN_LAYERS * LM_TRAIN_TWIN_STEPS
-    twin_want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
-                 "flash_attention_bwd_dkv": n}
+    twin_want = {"flash_attention_fwd_f32_sm90": 2 * n,
+                 "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
     twin_exact = all(run["launches"][k] == n for k, n in twin_want.items()) \
         and all(c == 0 for k, c in run["launches"].items()
                 if k not in twin_want)
@@ -1926,27 +1973,49 @@ def times(dev) -> dict:
                 **inp, read_sigma=READ_SIGMA, key_words=words),
                 reps=2, rounds=3),
             library_ms=None, library=None, bound_ms=b, bound_by=by)
-        B, T, H = SLOTS, CHUNK, N_H
-        inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
-        u_scaled = inp["u_h"] / W_SCALE
-        gains = inp["drive"].new_tensor(
-            [2.0 ** -(k + 1) for k in range(N_BITS)]).expand(T, N_BITS)
-        gains = gains.contiguous()
-        # One (B, H)×(H, H) product per step plus the decode of β·h.
-        flops = 2.0 * B * T * H * H + 2.0 * B * T * H * N_BITS
-        n_bytes = 4 * (B * T * H + H * H + B * H + H + T * N_BITS) \
-            + 3 * 4 * B * T * H
-        b, by = bound_ms(flops, n_bytes)
-        out["wbs_miru_scan"] = dict(
-            shape=[B, T, H],
-            ms=time_graph(lambda: wbs_miru_scan.wbs_miru_scan(
-                inp["drive"], u_scaled, inp["h0"], inp["b_h"], gains,
-                beta=BETA, lam=LAM, adc_bits=ADC_BITS, adc_range=ADC_RANGE,
-                w_scale=W_SCALE)),
-            plain_ms=time_graph(lambda: ref.wbs_miru_scan_ref(
-                inp["drive"], u_scaled, inp["h0"], inp["b_h"], BETA, LAM,
-                N_BITS, ADC_BITS, ADC_RANGE, W_SCALE), reps=2, rounds=3),
-            library_ms=None, library=None, bound_ms=b, bound_by=by)
+        # The fused scan at the serve shape and at train (b)/(c)'s. The
+        # bits fix the order of every plane sum, so its work is the
+        # B·T·H·H·n_bits fp32 FMAs of the plane sums (no tensor core may
+        # take them, and no sum may be split): bound_ms, against its bytes
+        # (bound_bytes_ms). The T steps are serial besides: each is at
+        # least a (H + n_bits)-long chain of dependent FMAs, a double tanh,
+        # the ADC's division and the codes' round trip, about
+        # SCAN_STEP_CYCLES cycles at the card's top SM clock
+        # (serial_floor_model_ms: a model, not a measurement).
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+        for key, (B, T) in (("wbs_miru_scan", (SLOTS, CHUNK)),
+                            ("wbs_miru_scan@train", (CL_BATCH, T_SEQ))):
+            H = N_H
+            inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
+            u_scaled = inp["u_h"] / W_SCALE
+            gains = inp["drive"].new_tensor(
+                [2.0 ** -(k + 1) for k in range(N_BITS)]).expand(T, N_BITS)
+            gains = gains.contiguous()
+            geom = wbs_miru_scan.geometry(B, H)
+            flops = 2.0 * B * T * H * H * N_BITS
+            n_bytes = 4 * (B * T * H + H * H + B * H + H + T * N_BITS) \
+                + 3 * 4 * B * T * H
+            b, by = bound_ms(flops, n_bytes)
+            out[key] = dict(
+                shape=[B, T, H],
+                ms=time_graph(lambda: wbs_miru_scan.wbs_miru_scan(
+                    inp["drive"], u_scaled, inp["h0"], inp["b_h"], gains,
+                    beta=BETA, lam=LAM, adc_bits=ADC_BITS,
+                    adc_range=ADC_RANGE, w_scale=W_SCALE, geom=geom)),
+                plain_ms=time_graph(lambda: ref.wbs_miru_scan_ref(
+                    inp["drive"], u_scaled, inp["h0"], inp["b_h"], BETA, LAM,
+                    N_BITS, ADC_BITS, ADC_RANGE, W_SCALE), reps=2, rounds=3),
+                library_ms=None, library=None, bound_ms=b, bound_by=by,
+                bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3,
+                serial_floor_model_ms=T * SCAN_STEP_CYCLES
+                / (mhz * 1e3),
+                max_sm_mhz=mhz, cluster_rows=geom.rows, cluster=geom.cluster,
+                blocks=geom.blocks(B),
+                sms=torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
         # The ideal scan at train (a)'s shape. One (B, H)×(H, H) product
         # per step; xw in, h_all and pre out, U and h0 once. No single
         # PyTorch call computes the recurrence.
@@ -2032,23 +2101,32 @@ def lm_times(dev, rng) -> dict:
     B, S, H, Kh, dh = LM_PREFILL_B, LM_PREFILL_S, 14, 2, 64
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
-    for key, dt in (("flash_attention_fwd_sm90", torch.bfloat16),
-                    ("flash_attention_fwd", torch.float32)):
+    for key, fn, dt in (("flash_attention_fwd_sm90",
+                         flash_attention.flash_attention_fwd_sm90,
+                         torch.bfloat16),
+                        ("flash_attention_fwd_f32_sm90",
+                         flash_attention.flash_attention_fwd,
+                         torch.float32)):
         q, k, v = flash_inputs(rng, dev, B, S, S, H, Kh, dh, dt)
         qt = q.transpose(1, 2).reshape(B * H, S, dh).contiguous()
         kt = k.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
         vt = v.transpose(1, 2).reshape(B * Kh, S, dh).contiguous()
         # Causal: half the score matrix, q, k, v read once and out, lse
-        # written once. The tensor-core kernel splits p into three bf16
-        # terms, three products for p.V: 2x the operations
-        # (bound_split_ms).
+        # written once. The bf16 kernel splits p into three bf16 terms,
+        # three products for p.V: 2x the operations (bound_split_ms). The
+        # fp32 kernel carries every operand in three bf16 terms and makes
+        # each product of six: its bound is that bf16 tensor-core work,
+        # beside the fp32 products on the CUDA cores
+        # (bound_cuda_cores_ms).
         flops = 4.0 * B * H * S * S * dh / 2
         size = qt.element_size()
         n_bytes = size * (2 * B * H * S * dh + 2 * B * Kh * S * dh) \
             + 4 * B * H * S
-        b, by = flash_bound(flops, n_bytes, dt)
+        if dt == torch.bfloat16:
+            b, by = flash_bound(flops, n_bytes, dt)
+        else:
+            b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=6 * flops)
         yard, yard_name = sdpa_yardstick(q, k, v, H, Kh)
-        fn = getattr(flash_attention, key)
         out[key] = dict(
             shape=[B, S, H, Kh, dh], dtype=str(dt), causal=True,
             ms=time_graph(lambda: fn(qt, kt, vt, **kw)),
@@ -2059,6 +2137,9 @@ def lm_times(dev, rng) -> dict:
         if dt == torch.bfloat16:
             out[key]["bound_split_ms"] = flash_bound(2 * flops, n_bytes,
                                                      dt)[0]
+        else:
+            out[key]["bound_cuda_cores_ms"] = flash_bound(flops, n_bytes,
+                                                          dt)[0]
     out.update(flash_bwd_times(dev, rng))
     # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
     # and writes out once and makes |x| and iters + 2 comparisons an
@@ -2252,14 +2333,15 @@ def main() -> int:
                "table1_cmos": t1["cmos"], **lmr, **lmt, "ops_kwta": kw}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
-           "miru_readout": "serve", "flash_attention_fwd": "lm_prefill_twin",
+           "miru_readout": "serve",
+           "flash_attention_fwd_f32_sm90": "lm_prefill_twin",
            "flash_attention_bwd_dq": "lm_train_fp32",
            "flash_attention_bwd_dkv": "lm_train_fp32", "kwta": "ops_kwta",
            "flash_attention_fwd_sm90": "lm_prefill",
            "flash_attention_bwd_dkv_sm90": "lm_train",
            "flash_attention_bwd_dq_sm90": "lm_train"}
     src = "src/repro_torch/kernels/csrc/"
-    lib = {"flash_attention_fwd": "flash_attention_fwd",   # else the module
+    lib = {"flash_attention_fwd_f32_sm90": "flash_attention_fwd_f32_sm90",
            "flash_attention_bwd_dq": "flash_attention_bwd_dq_f32_sm90",
            "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_f32_sm90",
            "flash_attention_fwd_sm90": "flash_attention_fwd_sm90",
@@ -2273,8 +2355,9 @@ def main() -> int:
                 "miru_scan": "src/repro/kernels/miru_scan.py:47",
                 "miru_readout": "h @ w_o in src/repro/core/miru.py:133 (not "
                                 "a TPU kernel; repair of queue C)",
-                "flash_attention_fwd": "src/repro/kernels/flash_attention.py"
-                                       ":227 (pallas_call :270)",
+                "flash_attention_fwd_f32_sm90": "src/repro/kernels/"
+                                                "flash_attention.py:227 "
+                                                "(pallas_call :270), fp32",
                 "flash_attention_bwd_dq": "src/repro/kernels/"
                                           "flash_attention.py:161 "
                                           "(pallas_call :185)",

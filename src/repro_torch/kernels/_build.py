@@ -25,7 +25,7 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
-         "flash_attention_fwd", "kwta", "flash_attention_fwd_sm90",
+         "flash_attention_fwd_f32_sm90", "kwta", "flash_attention_fwd_sm90",
          "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90",
          "flash_attention_bwd_dq_f32_sm90",
          "flash_attention_bwd_dkv_f32_sm90")

@@ -4,8 +4,8 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel src/repro/kernels/
 // flash_attention.py :: flash_attention_fwd_pallas (_flash_fwd_kernel,
-// pallas_call :270); fp32 inputs keep flash_attention_fwd.cu. The function
-// is that kernel's, scores, probabilities and sums in fp32:
+// pallas_call :270); fp32 inputs take flash_attention_fwd_f32_sm90.cu.
+// The function is that kernel's, scores, probabilities and sums in fp32:
 //
 //   s_ij  = (q_i . k_j) * scale;  -1e30 where j >= sk_true or, causal, j > i
 //   per 64-key tile: m' = max(m, max_j s_ij), corr = exp(m - m'),

@@ -1,5 +1,6 @@
-// The fp32 route of the tensor-core flash backward on Hopper (sm_90a),
-// shared by flash_attention_bwd_dq_f32_sm90.cu and
+// The fp32 route of the tensor-core flash kernels on Hopper (sm_90a),
+// shared by flash_attention_fwd_f32_sm90.cu,
+// flash_attention_bwd_dq_f32_sm90.cu and
 // flash_attention_bwd_dkv_f32_sm90.cu: fp32 operands carried as sums of
 // bf16 terms through the bf16 wgmma of flash_sm90.cuh.
 //
@@ -15,9 +16,9 @@
 // cores' fp32 accumulation, which truncates to the accumulator's
 // precision, loses the least of them.
 //
-// The inputs (q, k, v, dO) are split once a call by split_inputs_kernel
-// into term planes in global memory, which the kernels load as bf16 tiles
-// with cp.async, one tile a term; p and ds, which the kernels compute in
+// The inputs (q, k, v, and dO in the backward) are split once a call by
+// split_inputs_kernel into term planes in global memory, which the kernels
+// load as bf16 tiles with cp.async, one tile a term; p and ds, which the kernels compute in
 // registers, are split there (flash_sm90.cuh split_terms, three terms).
 #pragma once
 
@@ -39,8 +40,9 @@ __host__ __device__ constexpr int pair_j(int n) {
   return n < 3 ? n : (n < 5 ? n - 3 : 0);
 }
 
-// The first cross term of q.k^T (S in dq, S^T in dk/dv): with the planted
-// fault kInputFirstTermOnly only t0(q).t0(k), the last one.
+// The first cross term of q.k^T (S in the forward and dq, S^T in dk/dv):
+// with the planted fault kInputFirstTermOnly only t0(q).t0(k), the last
+// one.
 constexpr int kFirstScorePair =
     (kFault & kInputFirstTermOnly) ? kPairs - 1 : 0;
 
@@ -140,8 +142,10 @@ __global__ void __launch_bounds__(256) split_inputs_kernel(SplitJobs jobs) {
   }
 }
 
-// The term planes of q and dO (nq floats each) and of k and v (nk each),
-// laid out in `terms` as q's, dO's, k's, v's kTerms planes each.
+// The term planes of q (nq floats), of dO (nq, the backward only) and of
+// k and v (nk each), laid out in `terms` as q's, dO's, k's, v's kTerms
+// planes each; with dout null (the forward) q's, k's, v's, and planes->dout
+// null.
 struct TermPlanes {
   const bf16 *q, *dout, *k, *v;
 };
@@ -151,16 +155,20 @@ inline cudaError_t split_inputs(const void* q, const void* k, const void* v,
                                 size_t nk, TermPlanes* planes,
                                 cudaStream_t stream) {
   bf16* t = static_cast<bf16*>(terms);
-  SplitJobs jobs;
-  jobs.job[0] = {static_cast<const float*>(q), t, nq};
-  jobs.job[1] = {static_cast<const float*>(dout), t + kTerms * nq, nq};
-  jobs.job[2] = {static_cast<const float*>(k), t + 2 * kTerms * nq, nk};
-  jobs.job[3] = {static_cast<const float*>(v), t + 2 * kTerms * nq +
-                                                   kTerms * nk, nk};
-  *planes = {jobs.job[0].t, jobs.job[1].t, jobs.job[2].t, jobs.job[3].t};
+  SplitJobs jobs = {};
+  int n_jobs = 0;
+  auto add = [&](const void* x, size_t n) {
+    jobs.job[n_jobs++] = {static_cast<const float*>(x), t, n};
+    t += kTerms * n;
+    return jobs.job[n_jobs - 1].t;
+  };
+  planes->q = add(q, nq);
+  planes->dout = dout ? add(dout, nq) : nullptr;
+  planes->k = add(k, nk);
+  planes->v = add(v, nk);
   const size_t n = nq > nk ? nq : nk;
   const size_t want = (n / 8 + 255) / 256;
-  const dim3 grid(static_cast<unsigned>(want < 2048 ? want : 2048), 4);
+  const dim3 grid(static_cast<unsigned>(want < 2048 ? want : 2048), n_jobs);
   split_inputs_kernel<<<grid, 256, 0, stream>>>(jobs);
   return cudaGetLastError();
 }

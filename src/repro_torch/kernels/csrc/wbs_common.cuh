@@ -3,18 +3,19 @@
 //
 // All of them evaluate the gain-weighted bit-plane product with the
 // routines below (plane_dots, then join_planes; plane_tile is the two
-// together), so the fused recurrence and the per-step path (one wbs_matmul
-// launch per time step) perform the same float operations in the same
-// order: fused and per-step are bitwise equal wherever the ADC
+// together; the scan runs plane_dots' sums in a software-pipelined loop
+// of its own, the same operations in the same order), so the fused
+// recurrence and the per-step path (one wbs_matmul launch per time step)
+// perform the same float operations in the same order: fused and per-step are bitwise equal wherever the ADC
 // re-quantizes the integrator every step. The kernels differ only in where
 // the routines find each input's decoded bit planes (a table in shared
-// memory for wbs_matmul_kernel, whose rows meet every column of the
-// block; sign and code bytes decoded on the spot for the read-noise kernel
-// and the scan; decode_planes computes the same values for both) and in
-// how the work of the outputs is dealt to threads (wbs_matmul_kernel: at
-// large shapes a thread owns several columns, at small ones several
-// threads share an output, each computing the sums of a group of planes,
-// and one joins them all in plane order).
+// memory for wbs_matmul_kernel and the scan, whose rows meet every column
+// of the block; sign and code bytes decoded on the spot for the read-noise
+// kernel; decode_planes computes the same values for all) and in how the
+// work of the outputs is dealt to threads (wbs_matmul_kernel: at large
+// shapes a thread owns several columns, at small ones several threads
+// share an output, each computing the sums of a group of planes, and one
+// joins them all in plane order; the scan does the latter).
 //
 // Every float operation is written with an explicit round-to-nearest
 // intrinsic. nvcc would otherwise contract a*b+c into one FMA where one
@@ -49,8 +50,9 @@ __device__ __forceinline__ void decode_planes(int8_t sign, uint8_t code,
 
 // Planes from a table of decoded inputs: entry k is two float4, planes
 // 0-3 and 4-7 (decode_planes' values), in shared memory. get<PB> reads
-// planes b0 .. b0 + PB - 1 (PB 8, or 4 with b0 0 or 4: the two layouts
-// wbs_matmul_kernel launches) in two vector loads or one.
+// planes b0 .. b0 + PB - 1 (PB 8, or 4 with b0 0 or 4: the layouts
+// wbs_matmul_kernel and wbs_miru_scan_kernel launch) in two vector loads
+// or one.
 struct TablePlanes {
   const float4* t;
   template <int PB>

@@ -1,8 +1,8 @@
 """Wrappers of the CUDA kernels of the flash-attention forward and its
 backward (dq; dk and dv), replacing ``repro/kernels/flash_attention.py ::
 flash_attention_fwd_pallas`` and ``flash_attention_bwd_pallas``: for
-fp32 the forward ``csrc/flash_attention_fwd.cu`` (CUDA cores) and the
-tensor-core backward ``csrc/flash_attention_bwd_dq_f32_sm90.cu`` and
+fp32 the tensor-core ``csrc/flash_attention_fwd_f32_sm90.cu``,
+``csrc/flash_attention_bwd_dq_f32_sm90.cu`` and
 ``csrc/flash_attention_bwd_dkv_f32_sm90.cu`` (fp32 operands as sums of
 three bf16 terms; ``csrc/flash_f32_sm90.cuh``); for bf16 the tensor-core
 ``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_dq_
@@ -15,7 +15,7 @@ kernels take float32 only and the ``_sm90`` ones bfloat16 only, and each
 raises on the other dtype. ``kernels/ops.py`` transposes, pads and
 dispatches by dtype, and the plain versions are ``kernels/ref.py ::
 flash_attention_fwd_ref`` and ``flash_attention_bwd_ref``.
-:data:`launches`, :data:`dq_launches`, :data:`dkv_launches`,
+:data:`fwd_f32_sm90_launches`, :data:`dq_launches`, :data:`dkv_launches`,
 :data:`fwd_sm90_launches`, :data:`dq_sm90_launches` and
 :data:`dkv_sm90_launches` count the launches of the six kernels.
 """
@@ -32,9 +32,9 @@ from repro_torch.kernels.wbs_matmul import check_cuda
 HEAD_DIMS = (64, 128)
 
 #: Kernel launches since import (or since a caller reset them to 0): the
-#: fp32 forward, the fp32 backward's dq (with its split) and its dk/dv
-#: (with its split and fold).
-launches = 0
+#: fp32 forward (with its split), the fp32 backward's dq (with its split)
+#: and its dk/dv (with its split and fold).
+fwd_f32_sm90_launches = 0
 dq_launches = 0
 dkv_launches = 0
 #: Launches of the bf16 tensor-core forward, dq and dk/dv (with its fold).
@@ -85,23 +85,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, sk_true: int, q_heads: int,
                         kv_heads: int, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q (B·H, Sq, D), k/v (B·Kh, Sk, D), f32 → (out (B·H, Sq, D) f32, lse
-    (B·H, Sq) f32). Query head b reads KV head (b // H)·Kh + (b % H) //
-    (H // Kh); keys at or past ``sk_true`` are masked."""
+    """The fp32 tensor-core forward: q (B·H, Sq, D), k/v (B·Kh, Sk, D), f32
+    → (out (B·H, Sq, D) f32, lse (B·H, Sq) f32). Query head b reads KV head
+    (b // H)·Kh + (b % H) // (H // Kh); keys at or past ``sk_true`` are
+    masked. One launch splits the inputs into bf16 term planes (scratch,
+    allocated here) and runs the forward."""
     dev = _check(q, k, v, q_heads, kv_heads, sk_true)
-    _check_fp32(q, k, v)
+    _check_fp32_aligned(q, k, v)
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
-    err = _launcher("flash_attention_fwd", "flash_attention_fwd_launch", 5)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), BH, q_heads, kv_heads, Sq, k.shape[1], sk_true, D,
-        int(causal), scale, torch.cuda.current_stream(dev).cuda_stream)
+    terms = torch.empty(3 * (q.numel() + 2 * k.numel()),
+                        dtype=torch.bfloat16, device=dev)
+    err = _launcher("flash_attention_fwd_f32_sm90",
+                    "flash_attention_fwd_f32_sm90_launch", 6)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), terms.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), BH, q_heads, kv_heads, Sq,
+        k.shape[1], sk_true, D, int(causal), scale,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
                            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)})")
-    global launches
-    launches += 1
+    global fwd_f32_sm90_launches
+    fwd_f32_sm90_launches += 1
     return out, lse
 
 
@@ -123,11 +129,11 @@ def _term_planes(q, k) -> torch.Tensor:
 
 
 def _check_fp32_aligned(*tensors) -> None:
-    """The fp32 backward takes float32 only, 16-byte aligned (its split
+    """The fp32 kernels take float32 only, 16-byte aligned (their split
     reads 16 bytes at a time)."""
     _check_fp32(*tensors)
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the fp32 flash backward needs 16-byte aligned "
+        raise ValueError("the fp32 flash kernels need 16-byte aligned "
                          "tensors")
 
 

@@ -32,7 +32,6 @@ from repro_torch.kernels import miru_scan as _miru_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import wbs_matmul as _matmul_kernel
 from repro_torch.kernels import wbs_miru_scan as _scan_kernel
-from repro_torch.utils import round_up
 
 
 def _forward_only(*tensors: Optional[torch.Tensor]) -> None:
@@ -159,12 +158,13 @@ def wbs_miru_scan(drive: torch.Tensor, u_h: torch.Tensor,
                                      gains=gains, **kw)
     if gains is None:
         gains = ideal_gains(n_bits, device=drive.device).expand(T, n_bits)
-    Bp = round_up(B, _scan_kernel.BM)
+    geom = _scan_kernel.geometry(B, H)
+    Bp = geom.padded(B)
     h_all, h_prev, pre = _scan_kernel.wbs_miru_scan(
         _pad_rows(drive.to(torch.float32), Bp), u_scaled.contiguous(),
         _pad_rows(h0.to(torch.float32), Bp),
         b_h.reshape(H).to(torch.float32).contiguous(),
-        gains.to(torch.float32).contiguous(), **kw)
+        gains.to(torch.float32).contiguous(), geom=geom, **kw)
     return h_all[:B], h_prev[:B], pre[:B]
 
 
@@ -241,8 +241,9 @@ def _heads_back(t: torch.Tensor, B: int) -> torch.Tensor:
 def _flash_fwd_kernel(dtype: torch.dtype):
     """The forward kernel for a dtype, a fixed rule: bf16 takes the
     tensor-core kernel (``flash_attention_fwd_sm90``), anything else the
-    fp32 kernel (which raises on a dtype other than fp32). The sm90 kernel
-    raises on what it cannot take; no call moves to the other kernel."""
+    fp32 tensor-core kernel (``flash_attention_fwd``: its inputs split into
+    bf16 terms; it raises on a dtype other than fp32). Each raises on what
+    it cannot take; no call moves to the other kernel."""
     return (_flash_kernel.flash_attention_fwd_sm90
             if dtype == torch.bfloat16 else _flash_kernel.flash_attention_fwd)
 

@@ -76,10 +76,24 @@ def test_wbs_matmul_kernel_equals_plain_at_other_widths(cuda, n_bits):
     assert torch.equal(got, ref.wbs_matmul_ref(sign, code, w, g, 8))
 
 
+def _smem_switch(b):
+    """The narrowest H at which a block of the scan at batch b reads its
+    slab of U from global memory (kernels/wbs_miru_scan.py :: geometry,
+    an H100's shared memory): arithmetic alone, the same in every pytest
+    worker."""
+    return next(h for h in range(2, 6000)
+                if not kscan.geometry(b, h).u_in_smem)
+
+
 @pytest.mark.parametrize("adc_bits", [8, None])
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("b,t,h", [(64, 14, 100), (64, 14, 256), (3, 5, 37),
-                                   (9, 3, 128), (8, 2, 1024)])
+@pytest.mark.parametrize("b,t,h", [
+    (64, 14, 100), (32, 28, 100),        # the serve and train shapes
+    (64, 14, 256), (3, 5, 37), (9, 3, 128), (8, 2, 1024),
+    (1, 6, 100), (5, 4, 37), (33, 3, 130),   # B off the cluster's rows
+    (16, 3, 37), (16, 3, 130),               # H off the cluster's width
+    (8, 2, _smem_switch(8) - 1), (8, 2, _smem_switch(8)),   # U's switch
+])
 def test_wbs_miru_scan_kernel_equals_plain(cuda, b, t, h, with_h0, adc_bits):
     rng = np.random.default_rng(b * t + h)
     drive, u, b_h, h0 = _on(
@@ -99,6 +113,46 @@ def test_wbs_miru_scan_kernel_equals_plain(cuda, b, t, h, with_h0, adc_bits):
     assert kscan.launches == before + 1
     for a, c in zip(got, want):
         assert torch.equal(a, c)
+
+
+def test_wbs_miru_scan_rows_do_not_depend_on_their_cluster(cuda):
+    """A row's bits are the same whichever rows share its cluster: a
+    64-row call launched with 1, 2, 4 and 8 rows a cluster in clusters of
+    2, 4 and 8 blocks, and 5 rows of it in a call padded with junk rows
+    to whole clusters of 2, 4 and 8 rows, all equal the call at
+    ``geometry``'s launch (1 row a cluster of 2 at H 100)."""
+    rng = np.random.default_rng(5)
+    drive, u, b_h, h0 = _on(
+        cuda, rng.normal(0, 0.6, (64, 14, 100)).astype(np.float32),
+        rng.uniform(-0.17, 0.17, (100, 100)).astype(np.float32) / 1.5,
+        rng.normal(0, 0.1, (100,)).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (64, 100)).astype(np.float32))
+    gains = ideal_gains(8, device=cuda).expand(14, 8).contiguous()
+    kw = dict(beta=0.8, lam=0.5, adc_bits=8, adc_range=4.0, w_scale=1.5)
+    scan = lambda d, h, g: kscan.wbs_miru_scan(d, u, h, b_h, gains,
+                                               geom=g, **kw)
+    base = kscan.geometry(64, 100)
+    assert (base.rows, base.cluster) == (1, 2)
+    full = scan(drive, h0, base)
+    want = ref.wbs_miru_scan_ref(drive, u, h0, b_h, 0.8, 0.5, 8, 8, 4.0, 1.5)
+    torch.cuda.synchronize()
+    for a, c in zip(full, want):
+        assert torch.equal(a, c)
+    for rows in (1, 2, 4, 8):
+        for cluster in (2, 4, 8):
+            got = scan(drive, h0, kscan.Geometry.of(rows, cluster, 100))
+            torch.cuda.synchronize()
+            for a, c in zip(got, full):
+                assert torch.equal(a, c), (rows, cluster)
+    junk = torch.full((3, 14, 100), 3.0, device=cuda)
+    for rows in (2, 4, 8):
+        g = kscan.Geometry.of(rows, 2, 100)
+        pad = g.padded(5) - 5
+        got = scan(torch.cat([drive[17:22], junk[:pad]]),
+                   torch.cat([h0[17:22], junk[:pad, 0]]), g)
+        torch.cuda.synchronize()
+        for a, c in zip(got, full):
+            assert torch.equal(a[:5], c[17:22]), rows
 
 
 def test_fused_equals_per_step_on_the_card(cuda):
@@ -288,9 +342,11 @@ def _flash_inputs(dev, B, Sq, Sk, H, Kh, dh, dtype, seed):
 # The launch counters of the flash kernels (kernels/flash_attention.py).
 # kernels/ops.py sends bf16 to the tensor-core forward, dq and dk/dv, fp32
 # to the fp32 ones.
-_FLASH_COUNTERS = ("launches", "fwd_sm90_launches", "dq_launches",
-                   "dq_sm90_launches", "dkv_launches", "dkv_sm90_launches")
-_FWD_COUNTER = {"float32": "launches", "bfloat16": "fwd_sm90_launches"}
+_FLASH_COUNTERS = ("fwd_f32_sm90_launches", "fwd_sm90_launches",
+                   "dq_launches", "dq_sm90_launches", "dkv_launches",
+                   "dkv_sm90_launches")
+_FWD_COUNTER = {"float32": "fwd_f32_sm90_launches",
+                "bfloat16": "fwd_sm90_launches"}
 _DQ_COUNTER = {"float32": "dq_launches", "bfloat16": "dq_sm90_launches"}
 _DKV_COUNTER = {"float32": "dkv_launches", "bfloat16": "dkv_sm90_launches"}
 
@@ -382,6 +438,28 @@ def test_flash_kernel_masks_padding_by_sk_true_and_skips_future_tiles(
         assert torch.equal(a, b) and torch.equal(la, lb)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H,Kh", [(7, 1), (4, 4)])      # rep 7 and 1
+def test_flash_fp32_forward_with_padded_keys_equals_plain(cuda, H, Kh, dh,
+                                                         causal):
+    """The fp32 tensor-core forward (its inputs in three bf16 terms) with
+    keys padded past ``sk_true``: out within the fp32 tolerance of the
+    plain version, lse within 1e-5, one launch of the fp32 forward."""
+    B, Sq, Sk, skt = 2, 200, 330, 170
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, Kh, dh, torch.float32,
+                            H + dh + int(causal))
+    before = _flash_launches()
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal, sk_true=skt)
+    torch.cuda.synchronize()
+    assert _launched(before, _FWD_COUNTER["float32"])
+    want_o, want_l = ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(),
+                                             causal=causal, sk_true=skt)
+    np.testing.assert_allclose(out.cpu().numpy(), want_o.numpy(), rtol=2e-5,
+                               atol=2e-6)
+    assert float((lse.cpu() - want_l).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", [
     (2, 2048, 2048, 14, 2, 64, True, None),   # the qwen2-0.5B train step
@@ -456,9 +534,9 @@ def test_flash_dq_sm90_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
 ])
 def test_flash_sm90_kernels_are_bitwise_run_to_run(cuda, B, S, H, Kh, dh,
                                                    causal, dtype):
-    """The tensor-core forward (bf16; fp32 takes the CUDA-core one), dq (a
-    block owns its rows) and dk/dv (its rep partials folded in a fixed
-    order, no atomics) of the dtype give the same bits on every call: the
+    """The tensor-core forward, dq (a block owns its rows) and dk/dv (its
+    rep partials folded in a fixed order, no atomics) of the dtype give
+    the same bits on every call: the
     forward and backward twice, then dq and dk/dv ten more times."""
     from repro_torch.kernels import flash_attention as kflash
     dt = getattr(torch, dtype)
@@ -613,16 +691,16 @@ def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     cfg, params = _lm(cuda, attn_chunk=16)
     toks = torch.randint(0, cfg.vocab, (2, 40),
                          generator=torch.Generator().manual_seed(1))
-    before = kflash.launches
+    before = kflash.fwd_f32_sm90_launches
     logits = lm.prefill(params, cfg, {"tokens": toks})
     torch.cuda.synchronize()
-    assert kflash.launches == before + cfg.n_layers
+    assert kflash.fwd_f32_sm90_launches == before + cfg.n_layers
     cpu = lm.prefill(tree_to(params, "cpu"), cfg, {"tokens": toks})
     np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(), rtol=1e-5,
                                atol=1e-5)
-    before = kflash.launches
+    before = kflash.fwd_f32_sm90_launches
     lm.prefill(params, cfg, {"tokens": toks[:, :16]})   # S <= chunk: full
-    assert kflash.launches == before
+    assert kflash.fwd_f32_sm90_launches == before
 
 
 def test_trainer_on_the_card_follows_the_cpu(cuda):
@@ -646,10 +724,10 @@ def test_trainer_on_the_card_follows_the_cpu(cuda):
                      ShardedBatcher(lambda rng, s: lm_token_batch(
                          rng, 2, 40, cfg.vocab)),
                      params=tree_to(params, dev), device=dev)
-        before = (kflash.launches, kflash.dq_launches, kflash.dkv_launches)
+        before = (kflash.fwd_f32_sm90_launches, kflash.dq_launches, kflash.dkv_launches)
         hist = tr.run(steps=3)
         torch.cuda.synchronize()
-        after = (kflash.launches, kflash.dq_launches, kflash.dkv_launches)
+        after = (kflash.fwd_f32_sm90_launches, kflash.dq_launches, kflash.dkv_launches)
         runs[dev.type] = (hist, tree_to(tr.params, "cpu"),
                           [a - b for a, b in zip(after, before)])
     (hc, pc, lc), (hh, ph, lh) = runs["cuda"], runs["cpu"]

@@ -97,9 +97,14 @@ def _mask(rows, cols, sk_true, causal, keys_are_rows):
     return ok & (kj <= qi) if causal else ok
 
 
-def fwd_split(q, k, v, causal, sk_true, H, Kh, terms=FWD_TERMS):
+def fwd_split(q, k, v, causal, sk_true, H, Kh, terms=FWD_TERMS,
+              in_terms=None):
     """The sm90 forward's arithmetic: q (B·H, Sq, dh), k/v (B·Kh, Sk, ·)
-    bf16 → (out bf16, lse f32)."""
+    bf16 → (out bf16, lse f32). With ``in_terms`` the fp32 forward on fp32
+    inputs: q·kᵀ over split operands (``_products``), p·V with V in v's
+    terms, out kept fp32."""
+    mm_qk = _products(in_terms)[0]
+    v_terms = None if in_terms is None else in_terms[1]
     k, v = ref._kv_for_queries(k, v, q.shape[0], H, Kh)
     BH, Sq, dh = q.shape
     scale = dh ** -0.5
@@ -110,7 +115,7 @@ def fwd_split(q, k, v, causal, sk_true, H, Kh, terms=FWD_TERMS):
     rows = torch.arange(Sq)[:, None]
     for k0 in range(0, sk_true, TILE):
         kt, vt = k[:, k0:k0 + TILE].float(), v[:, k0:k0 + TILE].float()
-        s = (qf @ kt.transpose(1, 2)) * scale
+        s = mm_qk(qf, kt.transpose(1, 2)) * scale
         cols = k0 + torch.arange(kt.shape[1])[None, :]
         s = torch.where(_mask(rows, cols, sk_true, causal, False), s,
                         ref.NEG_INF)
@@ -118,10 +123,11 @@ def fwd_split(q, k, v, causal, sk_true, H, Kh, terms=FWD_TERMS):
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + _split_product(p, vt, terms)
+        acc = acc * corr[..., None] + _split_product(p, vt, terms, v_terms)
         m = m_new
     lc = torch.clamp_min(l, 1e-30)
-    return (acc / lc[..., None]).to(torch.bfloat16), m + torch.log(lc)
+    out = acc / lc[..., None]
+    return (out if in_terms else out.to(torch.bfloat16)), m + torch.log(lc)
 
 
 def dq_split(q, k, v, out, lse, dout, causal, sk_true, H, Kh,
@@ -315,6 +321,24 @@ def test_ds_rounded_to_bf16_alone_misses_the_dq_bound():
     two = dq_split(q, k, v, out, lse, dout, causal, skt, H, Kh)
     assert testing.grads_close(two, want)
     assert not testing.grads_close(one, want)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,dh,causal,sk_true", DQ_CASES)
+def test_fwd_split_f32_meets_the_fp32_bounds_against_pallas(
+        B, Sq, Sk, H, Kh, dh, causal, sk_true):
+    """The fp32 forward's arithmetic (``csrc/flash_attention_fwd_f32_
+    sm90.cu``: q, k, v and p each in three bf16 terms, q·kᵀ and p·V the
+    six cross terms lightest first, the online softmax in fp32) within the
+    bounds the card holds the fp32 forward to (out at rtol 2e-5 / atol
+    2e-6, lse at atol 1e-5) of the Pallas forward in fp32."""
+    q, k, v, _ = _inputs(B * Sq + Sk + dh + 5, B, Sq, Sk, H, Kh, dh,
+                         torch.float32)
+    out, lse = fwd_split(q, k, v, causal, sk_true, H, Kh, **F32)
+    want, want_lse = _pallas_fwd(q, k, v, causal, sk_true, H, Kh)
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    assert torch.allclose(out, want, rtol=2e-5, atol=2e-6), float(
+        (out - want).abs().max())
+    assert float((lse - want_lse).abs().max()) <= LSE_ATOL
 
 
 def _f32_case(seed, B, Sq, Sk, H, Kh, dh, causal, sk_true, qk_sd=1.0):

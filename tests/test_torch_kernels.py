@@ -137,6 +137,49 @@ def test_wbs_miru_scan_per_step_gains():
                          gains=gains).check()
 
 
+@pytest.mark.parametrize("b,h", [(64, 100), (32, 100), (1, 100), (5, 37),
+                                 (33, 130), (300, 100), (8, 1024)])
+def test_scan_geometry_and_row_padding_leave_the_real_rows_alone(b, h):
+    """The scan's launch for (B, H) (``kernels/wbs_miru_scan.py ::
+    geometry``): whole clusters of at most 8 blocks whose column slabs
+    cover H, fewer than a cluster's rows of padding, a plane table that
+    fits a block, and at the main paths' shapes (B 64 and 32, H 100) at
+    least 64 blocks. The rows ``ops.wbs_miru_scan`` pads, whatever they
+    hold, leave the real rows' bits alone (``ref.wbs_miru_scan_ref``)."""
+    g = kscan.geometry(b, h)
+    bp = g.padded(b)
+    assert bp % g.rows == 0 and 0 <= bp - b < g.rows
+    assert 1 <= g.cluster <= 8 and 1 <= g.rows <= 8 and g.ncols % 2 == 0
+    assert (g.ncols - 2) * g.cluster < h <= g.ncols * g.cluster
+    assert kscan.smem_bytes(h, g.rows, g.ncols, False) <= kscan.SMEM_LIMIT
+    assert g.u_in_smem == (kscan.smem_bytes(h, g.rows, g.ncols, True)
+                           <= kscan.SMEM_LIMIT)
+    assert g.blocks(b) == bp // g.rows * g.cluster
+    if h == 100 and b in (64, 32):
+        assert g.blocks(b) >= 64
+    t = 2 if h > 200 else 3
+    drive, u, b_h, h0 = (torch.from_numpy(a) for a in _scan_inputs(
+        b, t, h, b + h, True))
+    args = (u / 1.5, b_h, 0.8, 0.5, 8, 8, 4.0, 1.5)
+    want = ref.wbs_miru_scan_ref(drive, args[0], h0, *args[1:])
+    junk = torch.full((bp - b, t, h), 3.0)
+    for pad_d, pad_h in ((ops._pad_rows(drive, bp), ops._pad_rows(h0, bp)),
+                         (torch.cat([drive, junk]),
+                          torch.cat([h0, junk[:, 0]]))):
+        assert pad_d.shape == (bp, t, h) and pad_h.shape == (bp, h)
+        got = ref.wbs_miru_scan_ref(pad_d, args[0], pad_h, *args[1:])
+        for a, c in zip(got, want):
+            assert torch.equal(a[:b], c)
+
+
+def test_scan_geometry_refuses_an_h_whose_table_does_not_fit():
+    kscan.geometry(1, 5598)
+    with pytest.raises(ValueError, match="too wide"):
+        kscan.geometry(1, 5599)
+    # Wide H keeps fewer rows a cluster, so the table still fits.
+    assert kscan.geometry(64, 4096).rows == 1
+
+
 @pytest.mark.parametrize("weight_scale", [1.0, 1.5])
 def test_wbs_input_drive_matches_reference(weight_scale):
     B, T, K, H = 3, 5, 28, 20
@@ -238,7 +281,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="CUDA"):
         kscan.wbs_miru_scan(torch.zeros(8, 2, 4), torch.zeros(4, 4),
                             torch.zeros(8, 4), torch.zeros(4),
-                            torch.zeros(2, 8), beta=0.8, lam=0.5)
+                            torch.zeros(2, 8), beta=0.8, lam=0.5,
+                            geom=kscan.geometry(8, 4))
     assert kmatmul.adc_args(8, 4.0) == (1, 1 / 32, -128, 127)
     assert kmatmul.adc_args(None, 4.0)[0] == 0
 

@@ -5,7 +5,8 @@ comparing two trees on one NVIDIA GPU.
 Run from the repository root:
 
     python3 tools/kernel_times.py [--src DIR] [--label NAME] [--out FILE]
-                                  [--old-fp32-bwd FILE]
+                                  [--old-fp32-bwd FILE] [--old-fp32-fwd FILE]
+                                  [--old-scan FILE]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (this
 tree's by default). The rows and their timers are ``chip_smoke.py``'s
@@ -32,6 +33,28 @@ into the package) and its dq and dk/dv are timed at the training shape in
 fp32 beside this tree's dq and dk/dv and fp32 SDPA's whole backward (TF32
 off) on the same inputs, old, new, new, old; each result is held to the
 plain version (``testing.grads_close``).
+
+``--old-fp32-fwd FILE`` and ``--old-scan FILE`` do the same for the fp32
+flash forward (the CUDA-core ``flash_attention_fwd.cu``, whose C
+function is ``flash_attention_fwd_launch``) and the fused WBS scan (the
+``wbs_miru_scan.cu`` of 8 batch rows a block) of commit 2263fdf,
+extracted likewise:
+
+    git show 2263fdf:src/repro_torch/kernels/csrc/flash_attention_fwd.cu \
+        > archive/flash_attention_fwd.cu
+    git show 2263fdf:src/repro_torch/kernels/csrc/wbs_miru_scan.cu \
+        > archive/wbs_miru_scan.cu
+
+The forward is timed at the qwen2-0.5B training shape in fp32, old, new,
+new, old, beside fp32 SDPA, each held to the plain version (out at rtol
+2e-5 / atol 2e-6, lse at atol 1e-5), and beside a copy of this tree's
+kernel with one K/V stage at D 64 (its ``kStages`` rewritten in a
+temporary copy of the source: two blocks an SM if it fits 128
+registers; its ptxas stack frame is reported). The scan is timed at the
+serve shape (64, 14, 100) and train (b)'s (32, 28, 100), old, new, new,
+old, both bitwise equal to the plain version, and this tree's kernel at
+other launch geometries (rows a cluster, cluster size: the wrapper's
+``geom``) once each.
 
 Prints one JSON object with the card's name and power limit.
 """
@@ -64,25 +87,199 @@ def ops_rows(cs, dev) -> dict:
     return out
 
 
+def _build_file(src: Path, flags=()):
+    """``src`` built by nvcc into a temporary directory (never into the
+    package), finding its headers among this tree's, and loaded, with
+    nvcc's report."""
+    import ctypes
+    import subprocess
+    import tempfile
+    from repro_torch.kernels import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        so = Path(tmp) / f"libold_{src.stem}.so"
+        run = subprocess.run([_build.nvcc(), *_build.FLAGS, *flags,
+                              f"-I{_build.CSRC}", "-o", str(so), str(src)],
+                             check=True, capture_output=True, text=True)
+        return ctypes.CDLL(str(so)), run.stdout + run.stderr
+
+
+def old_fp32_fwd_rows(cs, dev, src: Path) -> dict:
+    """The old fp32 forward (C function ``flash_attention_fwd_launch`` of
+    ``src``) beside this tree's, the same with one K/V stage, and fp32
+    SDPA, at the training shape."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+    lib, _ = _build_file(src)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd_launch.argtypes = [P] * 5 + [I] * 8 + [Fl, P]
+    lib.flash_attention_fwd_launch.restype = I
+    # This tree's forward with one K/V stage at D 64, from a copy of its
+    # source (the package's build has two).
+    text = (_build.CSRC / "flash_attention_fwd_f32_sm90.cu").read_text()
+    stages = "kStages = D == 64 ? 2 : 1;"
+    if text.count(stages) != 1:
+        raise RuntimeError(f"no single {stages!r} in the fp32 forward")
+    with tempfile.TemporaryDirectory() as tmp:
+        one = Path(tmp) / "flash_attention_fwd_f32_sm90_one_stage.cu"
+        one.write_text(text.replace(stages, "kStages = 1;"))
+        stage1, stage1_log = _build_file(one)
+    fn1 = stage1.flash_attention_fwd_f32_sm90_launch
+    fn1.argtypes = [P] * 6 + [I] * 8 + [Fl, P]
+    fn1.restype = I
+    B, S, H, Kh, dh = cs.LM_TRAIN_B, cs.LM_TRAIN_S, 14, 2, 64
+    kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
+              scale=dh ** -0.5)
+    ints = (B * H, H, Kh, S, S, S, dh, 1)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        q, k, v = cs.flash_inputs(rng, dev, B, S, S, H, Kh, dh,
+                                  torch.float32)
+        heads = lambda t: t.transpose(1, 2).reshape(-1, S, dh).contiguous()
+        qt, kt, vt = heads(q), heads(k), heads(v)
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+
+        def old():
+            out, lse = torch.empty_like(qt), qt.new_empty(B * H, S)
+            err = lib.flash_attention_fwd_launch(
+                qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *ints, kw["scale"], stream())
+            assert err == 0, err
+            return out, lse
+
+        def one_stage():
+            out, lse = torch.empty_like(qt), qt.new_empty(B * H, S)
+            terms = torch.empty(3 * (qt.numel() + 2 * kt.numel()),
+                                dtype=torch.bfloat16, device=dev)
+            err = fn1(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                      terms.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                      *ints, kw["scale"], stream())
+            assert err == 0, err
+            return out, lse
+
+        new = lambda: fa.flash_attention_fwd(qt, kt, vt, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(qt, kt, vt, True, S, H,
+                                                     Kh)
+        close = {}
+        for name, fn in (("old", old), ("new", new),
+                         ("new_one_stage", one_stage)):
+            out, lse = fn()
+            torch.cuda.synchronize()
+            close[name] = bool(torch.allclose(out, want, rtol=2e-5,
+                                              atol=2e-6)) and \
+                float((lse - want_lse).abs().max()) <= 1e-5
+        res = {"shape": [B, S, H, Kh, dh], "dtype": "torch.float32",
+               "causal": True, "within_fp32_bounds": close,
+               "old_ms": [], "new_ms": [],
+               "one_stage_ptxas": [ln.strip() for ln in stage1_log
+                                   .splitlines() if "stack frame" in ln
+                                   or "registers" in ln]}
+        for label, fn in (("old_ms", old), ("new_ms", new), ("new_ms", new),
+                          ("old_ms", old)):
+            res[label].append(cs.time_graph(fn))
+        res["new_one_stage_ms"] = cs.time_graph(one_stage)
+        yard, _ = cs.sdpa_yardstick(q, k, v, H, Kh)
+        res["sdpa_fp32_ms"] = cs.time_graph(yard)
+    return res
+
+
+def old_scan_rows(cs, dev, src: Path) -> dict:
+    """The old fused scan (C function ``wbs_miru_scan_launch`` of ``src``,
+    B a multiple of 8) beside this tree's at the serve and train (b)
+    shapes, and this tree's at other launch geometries."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.analog.wbs import ideal_gains
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wbs_miru_scan as ks
+    from repro_torch.kernels.wbs_matmul import adc_args
+    lib, _ = _build_file(src)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.wbs_miru_scan_launch.argtypes = [P] * 8 + [I] * 4 + [Fl] * 5 + \
+        [I, Fl, Fl, Fl, P]
+    lib.wbs_miru_scan_launch.restype = I
+    rng = np.random.default_rng(4)
+    out = {}
+    with torch.no_grad():
+        for key, (B, T) in (("serve", (cs.SLOTS, cs.CHUNK)),
+                            ("train", (cs.CL_BATCH, cs.T_SEQ))):
+            H, nb = cs.N_H, cs.N_BITS
+            inp = cs.scan_inputs(rng, dev, B, T, H, with_h0=True)
+            us = inp["u_h"] / cs.W_SCALE
+            g = ideal_gains(nb, device=dev).expand(T, nb).contiguous()
+            use_adc, step, lo, hi = adc_args(cs.ADC_BITS, cs.ADC_RANGE)
+            norm = 2.0 ** nb / (2.0 ** nb - 1.0)
+            kw = dict(beta=cs.BETA, lam=cs.LAM, adc_bits=cs.ADC_BITS,
+                      adc_range=cs.ADC_RANGE, w_scale=cs.W_SCALE)
+
+            def old():
+                o = [torch.empty(B, T, H, device=dev) for _ in range(3)]
+                err = lib.wbs_miru_scan_launch(
+                    inp["drive"].data_ptr(), us.data_ptr(),
+                    inp["h0"].data_ptr(), inp["b_h"].data_ptr(),
+                    g.data_ptr(), *(t.data_ptr() for t in o), B, T, H, nb,
+                    cs.BETA, cs.LAM, 1.0 - cs.LAM, norm, cs.W_SCALE,
+                    use_adc, step, lo, hi,
+                    torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return o
+
+            geom = ks.geometry(B, H)
+
+            def new(gm=geom):
+                return ks.wbs_miru_scan(inp["drive"], us, inp["h0"],
+                                        inp["b_h"], g, geom=gm, **kw)
+            want = ref.wbs_miru_scan_ref(
+                inp["drive"], us, inp["h0"], inp["b_h"], cs.BETA, cs.LAM,
+                nb, cs.ADC_BITS, cs.ADC_RANGE, cs.W_SCALE)
+            bitwise = {}
+            for name, fn in (("old", old), ("new", new)):
+                got = fn()
+                torch.cuda.synchronize()
+                bitwise[name] = all(torch.equal(a, b)
+                                    for a, b in zip(got, want))
+            res = {"shape": [B, T, H], "bitwise": bitwise,
+                   "geometry": dict(rows=geom.rows, cluster=geom.cluster,
+                                    ncols=geom.ncols, blocks=geom.blocks(B)),
+                   "old_ms": [], "new_ms": [], "variants": []}
+            for label, fn in (("old_ms", old), ("new_ms", new),
+                              ("new_ms", new), ("old_ms", old)):
+                res[label].append(cs.time_graph(fn))
+            for rows in (1, 2, 4, 8):
+                for cluster in (2, 4, 8):
+                    gm = ks.Geometry.of(rows, cluster, H)
+                    if B % rows or gm == geom:
+                        continue
+                    got = new(gm)
+                    torch.cuda.synchronize()
+                    res["variants"].append(dict(
+                        rows=rows, cluster=cluster, blocks=gm.blocks(B),
+                        bitwise=all(torch.equal(a, b)
+                                    for a, b in zip(got, want)),
+                        ms=cs.time_graph(lambda: new(gm))))
+            out[key] = res
+    return out
+
+
 def old_fp32_bwd_rows(cs, dev, src: Path) -> dict:
     """The old fp32 dq and dk/dv (C functions ``flash_attention_bwd_dq_
     launch`` and ``flash_attention_bwd_dkv_launch`` of ``src``) beside
     this tree's and fp32 SDPA's whole backward, at the training shape."""
     import ctypes
-    import subprocess
-    import tempfile
 
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch import testing
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as fa
-    with tempfile.TemporaryDirectory() as tmp:
-        so = Path(tmp) / "libold_flash_attention_bwd.so"
-        subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(so),
-                        str(src)], check=True, capture_output=True)
-        lib = ctypes.CDLL(str(so))
+    lib, _ = _build_file(src)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, n_ptrs in (("flash_attention_bwd_dq_launch", 7),
                          ("flash_attention_bwd_dkv_launch", 8)):
@@ -154,6 +351,8 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out")
     ap.add_argument("--old-fp32-bwd", type=Path)
+    ap.add_argument("--old-fp32-fwd", type=Path)
+    ap.add_argument("--old-scan", type=Path)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs                  # puts this tree's src first
@@ -175,6 +374,10 @@ def main() -> int:
            "ops": ops_rows(cs, dev)}
     if args.old_fp32_bwd:
         res["old_fp32_bwd"] = old_fp32_bwd_rows(cs, dev, args.old_fp32_bwd)
+    if args.old_fp32_fwd:
+        res["old_fp32_fwd"] = old_fp32_fwd_rows(cs, dev, args.old_fp32_fwd)
+    if args.old_scan:
+        res["old_scan"] = old_scan_rows(cs, dev, args.old_scan)
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:

@@ -67,12 +67,20 @@ each made in this process without touching the package's files:
   would), ``causal_start_late`` (dk/dv's causal query loop starting one
   tile past the diagonal), ``dq_first_term_only`` (the dq kernel's ds on
   its first bf16 term alone), ``dq_causal_loop_short`` (dq's causal key
-  loop one tile short of the diagonal), ``f32_dq_qk_first_term_only`` or
-  ``f32_dkv_qk_first_term_only`` (the fp32 dq's or dk/dv's q·kᵀ on the
-  first bf16 terms of q and k alone).
+  loop one tile short of the diagonal), ``f32_dq_qk_first_term_only``,
+  ``f32_dkv_qk_first_term_only`` or ``f32_fwd_qk_first_term_only`` (the
+  fp32 dq's, dk/dv's or forward's q·kᵀ on the first bf16 terms of q and k
+  alone);
+- ``scan``, the fused WBS scan: whether ``chip_smoke.check_scan`` (the
+  kernel bit for bit against its plain version at every shape it checks)
+  and the fused-equals-per-step contract pass, sound and with
+  ``slab_planes_joined_lsb_first`` planted at build time
+  (``csrc/wbs_miru_scan.cu``'s ``WBS_SCAN_FAULT``: the second block of
+  each cluster joins its columns' plane sums LSB first).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
-lm_train`` (all by default).
+lm_train scan`` (all by default). It exits 1 unless the sound builds pass
+the kernel checks and every planted kernel fault fails one.
 """
 from __future__ import annotations
 
@@ -90,7 +98,7 @@ import chip_smoke as cs  # noqa: E402
 
 _OUT = None
 PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm",
-         "lm_train")
+         "lm_train", "scan")
 
 
 def emit(**row) -> None:
@@ -377,6 +385,7 @@ SM90_LIBS = ("flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
 DQ_LIB, DKV_LIB = "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90"
 F32_DQ_LIB = "flash_attention_bwd_dq_f32_sm90"
 F32_DKV_LIB = "flash_attention_bwd_dkv_f32_sm90"
+F32_FWD_LIB = "flash_attention_fwd_f32_sm90"
 # Each fault: its FLASH_SM90_FAULT value and the libraries built with it.
 SM90_FAULTS = {"split_first_term_only": (1, SM90_LIBS),
                "fold_order_per_call": (2, (DKV_LIB,)),
@@ -384,7 +393,8 @@ SM90_FAULTS = {"split_first_term_only": (1, SM90_LIBS),
                "dq_first_term_only": (1, (DQ_LIB,)),
                "dq_causal_loop_short": (8, (DQ_LIB,)),
                "f32_dq_qk_first_term_only": (16, (F32_DQ_LIB,)),
-               "f32_dkv_qk_first_term_only": (16, (F32_DKV_LIB,))}
+               "f32_dkv_qk_first_term_only": (16, (F32_DKV_LIB,)),
+               "f32_fwd_qk_first_term_only": (16, (F32_FWD_LIB,))}
 
 
 def fault_flags(fault: int) -> tuple[str, ...]:
@@ -392,14 +402,15 @@ def fault_flags(fault: int) -> tuple[str, ...]:
 
 
 @contextlib.contextmanager
-def planted(fault: int, libs=SM90_LIBS):
-    """The tensor-core flash kernels ``libs`` run with ``fault`` planted:
-    the wrappers load those libraries built with ``-DFLASH_SM90_FAULT``."""
+def planted(fault: int, libs=SM90_LIBS, flags_of=fault_flags):
+    """The kernels ``libs`` run with ``fault`` planted: the wrappers load
+    those libraries built with ``flags_of(fault)`` (``-DFLASH_SM90_FAULT``
+    by default)."""
     from repro_torch.kernels import _build
     load = _build.load
 
     def faulty(name, flags=()):
-        return load(name, flags + fault_flags(fault) if name in libs
+        return load(name, flags + flags_of(fault) if name in libs
                     else flags)
     _build.load = faulty
     try:
@@ -440,6 +451,47 @@ def flash_sm90(dev) -> bool:
     return reach
 
 
+def scan_flags(fault: int) -> tuple[str, ...]:
+    return (f"-DWBS_SCAN_FAULT={fault}",) if fault else ()
+
+
+def scan(dev) -> bool:
+    """The fused scan's bitwise check (``chip_smoke.check_scan``) and the
+    fused-equals-per-step contract, sound and with
+    ``slab_planes_joined_lsb_first`` planted at build time
+    (``csrc/wbs_miru_scan.cu``'s ``WBS_SCAN_FAULT``: the second block of
+    each cluster joins its columns' plane sums LSB first). Whether the
+    sound build passes both and the fault fails one. (Where the ADC
+    re-quantizes every step, as on the serve path, a reordered sum moves
+    the integrator by an ulp and the ADC's level almost never: the
+    bitwise check's ADC-off cases are the ones that see it.)"""
+    import numpy as np
+    from repro_torch.kernels import _build
+    _build.build(["wbs_miru_scan"], scan_flags(1))
+    cfg, params = cs.paper_model(dev)
+
+    def fused_equals_per_step():
+        if not cs.recurrence_fused_equals_per_step(dev, cfg, params):
+            raise AssertionError("fused != per-step (device_recurrence)")
+    passes = {}
+    for name, fault in (("card", 0), ("slab_planes_joined_lsb_first", 1)):
+        with planted(fault, ("wbs_miru_scan",), scan_flags):
+            for check in (lambda: cs.check_scan(dev, np.random.default_rng(0)),
+                          fused_equals_per_step):
+                try:
+                    check()
+                    failed = None
+                except AssertionError as e:
+                    failed = str(e)[:300]
+                passes.setdefault(name, []).append(failed is None)
+                emit(path="scan", run=name, passes=failed is None,
+                     failure=failed)
+    reach = all(passes["card"]) and not all(
+        passes["slab_planes_joined_lsb_first"])
+    emit(path="scan", sound_passes_and_the_fault_caught=reach)
+    return reach
+
+
 def main() -> int:
     global _OUT
     import torch
@@ -469,6 +521,8 @@ def main() -> int:
     if "lm_train" in paths:
         lm_train(dev)
         reach = flash_sm90(dev)
+    if "scan" in paths:
+        reach = scan(dev) and reach
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())
     return 0 if reach else 1
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Host-side times of the port's training paths on one NVIDIA GPU.
 
-Run from the repository root (the tree whose ``src/repro_torch`` and
-``chip_smoke.py`` it times is the one this file sits in):
+Run from the repository root:
 
-    python3 tools/train_host_time.py [--repeats 3] [--out FILE]
+    python3 tools/train_host_time.py [--src DIR] [--repeats 3] [--out FILE]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (this
+tree's by default), through this tree's ``chip_smoke.py``.
 
 Prints one JSON line per repeat with:
 
@@ -31,10 +33,14 @@ Prints one JSON line per repeat with:
   ending in a synchronize;
 - ``read_noise_vmm_ms``: one ``analog`` ``vmm`` with read noise at the
   per-step shape (32, 100) × (100, 100): the key split, the plane-gain
-  draw, the quantizer and the kernel, ending in a synchronize.
+  draw, the quantizer and the kernel, ending in a synchronize;
+- ``serve_burst_ms``: the serve phase's burst (256 requests over 96
+  users, 16 engine steps on ``wbs``, ``chip_smoke.serve``), wall time
+  from submit to the last logits on the host, median of 3.
 
-Two trees are compared by running each tree's copy of this file in one
-call, alternating (A, B, B, A), since host times spread between calls.
+Two trees are compared in one call, alternating (A, B, B, A), since host
+times spread between calls: unpack the parent with ``git archive`` under
+``archive/`` and pass its ``src`` to ``--src``.
 """
 from __future__ import annotations
 
@@ -127,17 +133,40 @@ def noise_times(dev) -> dict:
     return out
 
 
+def serve_burst_ms(dev) -> float:
+    """Median wall ms of the serve phase's burst (three runs after a
+    warm-up)."""
+    import statistics
+    from repro_torch.serve import replay
+    cfg, params = cs.paper_model(dev)
+    arrivals = [(a.uid, f) for a, f in replay(cs.burst_spec())]
+    cs.serve(cfg, params, arrivals, dev)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cs.serve(cfg, params, arrivals, dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))   # before this tree's
     if not torch.cuda.is_available():
         print("train_host_time: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    # chip_smoke's runs read every kernel's launch counter; a tree under
+    # --src (the parent, say) may not have all of this tree's.
+    import importlib
+    cs.KERNELS = {k: (m, a) for k, (m, a) in cs.KERNELS.items() if hasattr(
+        importlib.import_module(f"repro_torch.kernels.{m}"), a)}
     from repro_torch.kernels import _build
     _build.build()
     dev = torch.device("cuda", 0)
@@ -145,7 +174,9 @@ def main() -> int:
     for backend in ("ideal", "wbs"):
         cs.protocol_run(dev, backend, n_tasks=1)
     for rep in range(args.repeats):
-        row = {"tree": str(ROOT), "repeat": rep, "split_us": split_us(),
+        import repro_torch
+        row = {"src": str(Path(repro_torch.__file__).parent.parent),
+               "repeat": rep, "split_us": split_us(),
                "schedule_s": schedule_s(),
                "sw_ms_per_step": 1e3 * cs.software_run(dev)["wall_s"]
                / cs.SW_STEPS}
@@ -157,6 +188,7 @@ def main() -> int:
         row["read_noise_ms_per_step"] = cs.train_step_ms(
             dev, cs.read_noise_backend(), steps=30)
         row.update(noise_times(dev))
+        row["serve_burst_ms"] = serve_burst_ms(dev)
         line = json.dumps(row)
         print(line, flush=True)
         if args.out:
