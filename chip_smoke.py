@@ -293,6 +293,12 @@ PEAK_BYTES = 3.35e12
 # ADC's division and the codes' round trip through the cluster (an
 # estimate, not a measurement).
 SCAN_STEP_CYCLES = 1000
+# A model of one step of the ideal scan at width H, at the least: the
+# H-long chain of dependent adds of each output's sum (MIRU_ADD_CYCLES
+# each; the multiplies are off the chain), then a double tanh, the update
+# and a block barrier, about MIRU_TAIL_CYCLES (an estimate, not a
+# measurement).
+MIRU_ADD_CYCLES, MIRU_TAIL_CYCLES = 4, 400
 
 
 T_START = time.perf_counter()
@@ -488,6 +494,41 @@ def check_scan(dev, rng) -> float:
     return err
 
 
+def check_miru_scan(dev, rng) -> float:
+    """The ideal scan against its plain version, bit for bit; its largest
+    difference. At the training shapes (batch 64 and the 300-row test set
+    at the paper's width), one past the paper's width (the next register
+    chain), on both sides of the width past which U's column leaves the
+    registers (U then in shared memory), and at H 256 (U from global
+    memory)."""
+    import torch
+    from repro_torch.kernels import miru_scan, ops, ref
+    err = 0.0
+    reg = miru_scan.REG_H
+    with torch.no_grad():
+        for B, T, H in ((SW_BATCH, T_SEQ, N_H), (SW_TEST, T_SEQ, N_H),
+                        (SW_BATCH, 4, N_H + 1), (SW_BATCH, 4, reg),
+                        (SW_BATCH, 4, reg + 1), (SW_BATCH, T_SEQ, 256)):
+            place = miru_scan.u_place(H)
+            for with_h0 in (False, True):
+                inp = scan_inputs(rng, dev, B, T, H, with_h0)
+                h0 = inp["h0"] if with_h0 else torch.zeros((B, H), device=dev)
+                got = ops.miru_scan(inp["drive"], inp["u_h"], h0, BETA, LAM)
+                want = ref.miru_scan_ref(inp["drive"], inp["u_h"], h0, BETA,
+                                         LAM)
+                torch.cuda.synchronize()
+                e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                err = max(err, e)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+                emit("kernels", kernel="miru_scan", shape=[B, T, H],
+                     h0=with_h0, u_place=place, blocks=B,
+                     bitwise=bitwise, max_abs_err=e)
+                if not bitwise:
+                    raise AssertionError(f"miru_scan != plain at "
+                                         f"{(B, T, H)}, h0={with_h0}")
+    return err
+
+
 def check_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -511,24 +552,7 @@ def check_kernels(dev) -> dict:
                      shape=[M, K, N], adc_bits=adc,
                      bitwise=bool(torch.equal(got, want)), **rep.as_dict())
         err["wbs_miru_scan"] = check_scan(dev, rng)
-        # The ideal scan at the training shapes: batch 64 and the 300-row
-        # test set at the paper's width, and batch 64 at H = 256.
-        for B, H in ((SW_BATCH, N_H), (SW_TEST, N_H), (SW_BATCH, 256)):
-            for with_h0 in (False, True):
-                inp = scan_inputs(rng, dev, B, T_SEQ, H, with_h0)
-                h0 = inp["h0"] if with_h0 else torch.zeros((B, H), device=dev)
-                got = ops.miru_scan(inp["drive"], inp["u_h"], h0, BETA, LAM)
-                want = ref.miru_scan_ref(inp["drive"], inp["u_h"], h0, BETA,
-                                         LAM)
-                torch.cuda.synchronize()
-                e = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                err["miru_scan"] = max(err["miru_scan"], e)
-                bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
-                emit("kernels", kernel="miru_scan", shape=[B, T_SEQ, H],
-                     h0=with_h0, bitwise=bitwise, max_abs_err=e)
-                if not bitwise:
-                    raise AssertionError(f"miru_scan != plain at "
-                                         f"{(B, T_SEQ, H)}, h0={with_h0}")
+        err["miru_scan"] = check_miru_scan(dev, rng)
         # The readout at the serve (896 rows), eval (200) and train (64)
         # shapes; each row's bits must not depend on the number of rows.
         w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
@@ -1952,27 +1976,31 @@ def times(dev) -> dict:
                 library_ms=time_graph(lambda: torch.matmul(deq, inp["w"])),
                 library="torch.matmul of the dequantized operand",
                 bound_ms=b, bound_by=by)
-        # The read-noise variant at the per-step shape of train (d): the
-        # product as above plus, per weight element, one Box–Muller normal
-        # (counted as 8 fp64 operations: two scalings, log, ×−2, sqrt,
-        # ×2π, cos, the product; Philox's integer rounds are not counted,
-        # so the bound is a floor) and the perturbation's 3 fp32
+        # The read-noise variant at train (d)'s two shapes, the per-step
+        # recurrent product (the kernels line) and the step's input drive:
+        # the product as above plus, per weight element, one Box–Muller
+        # normal (counted as 8 fp64 operations: two scalings, log, ×−2,
+        # sqrt, ×2π, cos, the product; Philox's integer rounds are not
+        # counted, so the bound is a floor) and the perturbation's 3 fp32
         # operations. No single PyTorch call computes this function.
-        M, K, N = CL_BATCH, N_H, N_H
-        inp = matmul_inputs(rng, dev, M, K, N, BETA)
         words = ops.read_key_words(np.asarray([0, 42], np.uint32))
-        flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS + 3.0 * K * N
-        n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
-        b, by = bound_ms(flops, n_bytes, flops64=8.0 * K * N)
-        out["wbs_matmul_read_noise"] = dict(
-            shape=[M, K, N], read_sigma=READ_SIGMA,
-            ms=time_graph(lambda: wbs_matmul.wbs_matmul_read_noise(
-                inp["sign"], inp["code"], inp["w"], inp["gains"], READ_SIGMA,
-                words)),
-            plain_ms=time_graph(lambda: ref.wbs_matmul_read_noise_ref(
-                **inp, read_sigma=READ_SIGMA, key_words=words),
-                reps=2, rounds=3),
-            library_ms=None, library=None, bound_ms=b, bound_by=by)
+        for key, (M, K, N, xs) in {
+                "wbs_matmul_read_noise": (CL_BATCH, N_H, N_H, BETA),
+                "wbs_matmul_read_noise@drive": (CL_BATCH, N_X, N_H,
+                                                1.0)}.items():
+            inp = matmul_inputs(rng, dev, M, K, N, xs)
+            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS + 3.0 * K * N
+            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
+            b, by = bound_ms(flops, n_bytes, flops64=8.0 * K * N)
+            out[key] = dict(
+                shape=[M, K, N], read_sigma=READ_SIGMA,
+                ms=time_graph(lambda: wbs_matmul.wbs_matmul_read_noise(
+                    inp["sign"], inp["code"], inp["w"], inp["gains"],
+                    READ_SIGMA, words)),
+                plain_ms=time_graph(lambda: ref.wbs_matmul_read_noise_ref(
+                    **inp, read_sigma=READ_SIGMA, key_words=words),
+                    reps=2, rounds=3),
+                library_ms=None, library=None, bound_ms=b, bound_by=by)
         # The fused scan at the serve shape and at train (b)/(c)'s. The
         # bits fix the order of every plane sum, so its work is the
         # B·T·H·H·n_bits fp32 FMAs of the plane sums (no tensor core may
@@ -2017,8 +2045,12 @@ def times(dev) -> dict:
                 sms=torch.cuda.get_device_properties(dev)
                 .multi_processor_count)
         # The ideal scan at train (a)'s shape. One (B, H)×(H, H) product
-        # per step; xw in, h_all and pre out, U and h0 once. No single
-        # PyTorch call computes the recurrence.
+        # per step: its 2·B·T·H·H fp32 operations (bound_ms), against its
+        # bytes, xw in, h_all and pre out, U and h0 once (bound_bytes_ms).
+        # The T steps and each output's sum over k are serial besides:
+        # about MIRU_ADD_CYCLES·H + MIRU_TAIL_CYCLES a step at the card's
+        # top SM clock (serial_floor_model_ms: a model, not a
+        # measurement). No single PyTorch call computes the recurrence.
         B, T, H = SW_BATCH, T_SEQ, N_H
         inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
         flops = 2.0 * B * T * H * H
@@ -2031,7 +2063,12 @@ def times(dev) -> dict:
             plain_ms=time_graph(lambda: ref.miru_scan_ref(
                 inp["drive"], inp["u_h"], inp["h0"], BETA, LAM),
                 reps=2, rounds=3),
-            library_ms=None, library=None, bound_ms=b, bound_by=by)
+            library_ms=None, library=None, bound_ms=b, bound_by=by,
+            bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3,
+            serial_floor_model_ms=T * (MIRU_ADD_CYCLES * H
+                                       + MIRU_TAIL_CYCLES) / (mhz * 1e3),
+            max_sm_mhz=mhz, u_place=miru_scan.u_place(H), blocks=B,
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
         # The readout at the serve shape (the kernels line) and the eval
         # shape, beside torch.addmm of the same operands.
         w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
@@ -2262,17 +2299,20 @@ def flash_bwd_times(dev, rng) -> dict:
 
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
-    dk/dv: every library named ``*_sm90``) a stack frame. wgmma reads its
-    register operands after the instruction issues; a value the compiler
-    keeps in local memory is loaded into a scratch register that it may
-    reuse while the tensor cores still read it, which makes results change
-    from run to run (seen on the card with a 128-byte frame)."""
+    dk/dv: every library named ``*_sm90``) or the ideal scan a stack
+    frame. wgmma reads its register operands after the instruction
+    issues; a value the compiler keeps in local memory is loaded into a
+    scratch register that it may reuse while the tensor cores still read
+    it, which makes results change from run to run (seen on the card with
+    a 128-byte frame). The scan keeps U's column in registers: a spill
+    would put it back on the chain of every step."""
     frames = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                   .splitlines() if "bytes stack frame" in ln
                   and not ln.strip().startswith("0 bytes stack frame")]
-              for n, p in libs.items() if n.endswith("_sm90")}
+              for n, p in libs.items()
+              if n.endswith("_sm90") or n == "miru_scan"}
     if any(frames.values()):
-        raise AssertionError(f"sm90 flash kernels use local memory: {frames}")
+        raise AssertionError(f"kernels use local memory: {frames}")
 
 
 def main() -> int:

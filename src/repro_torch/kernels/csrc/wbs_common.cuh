@@ -1,21 +1,19 @@
-// Arithmetic shared by the WBS kernels (wbs_matmul.cu's product and its
-// read-noise variant, wbs_miru_scan.cu).
+// Arithmetic shared by the WBS kernels (wbs_matmul.cu's product, which
+// the read-noise path runs too, and wbs_miru_scan.cu).
 //
-// All of them evaluate the gain-weighted bit-plane product with the
-// routines below (plane_dots, then join_planes; plane_tile is the two
-// together; the scan runs plane_dots' sums in a software-pipelined loop
-// of its own, the same operations in the same order), so the fused
-// recurrence and the per-step path (one wbs_matmul launch per time step)
-// perform the same float operations in the same order: fused and per-step are bitwise equal wherever the ADC
-// re-quantizes the integrator every step. The kernels differ only in where
-// the routines find each input's decoded bit planes (a table in shared
-// memory for wbs_matmul_kernel and the scan, whose rows meet every column
-// of the block; sign and code bytes decoded on the spot for the read-noise
-// kernel; decode_planes computes the same values for all) and in how the
-// work of the outputs is dealt to threads (wbs_matmul_kernel: at large
-// shapes a thread owns several columns, at small ones several threads
-// share an output, each computing the sums of a group of planes, and one
-// joins them all in plane order; the scan does the latter).
+// Both evaluate the gain-weighted bit-plane product with the routines
+// below (plane_dots, then join_planes; the scan runs plane_dots' sums in
+// a software-pipelined loop of its own, the same operations in the same
+// order), so the fused recurrence and the per-step path (one wbs_matmul
+// launch per time step) perform the same float operations in the same
+// order: fused and per-step are bitwise equal wherever the ADC
+// re-quantizes the integrator every step. Each input's decoded bit planes
+// come from a table in shared memory (decode_planes' values, built once
+// per block or step), and the kernels differ in how the work of the
+// outputs is dealt to threads (wbs_matmul_kernel: at large shapes a
+// thread owns several columns, at small ones several threads share an
+// output, each computing the sums of a group of planes, and one joins
+// them all in plane order; the scan does the latter).
 //
 // Every float operation is written with an explicit round-to-nearest
 // intrinsic. nvcc would otherwise contract a*b+c into one FMA where one
@@ -66,18 +64,6 @@ struct TablePlanes {
       const float4 a = t[2 * k + b0 / 4];
       p[0] = a.x; p[1] = a.y; p[2] = a.z; p[3] = a.w;
     }
-  }
-};
-
-// Planes decoded on the spot from one input row's sign and code bytes.
-struct CodePlanes {
-  const int8_t* sign;
-  const uint8_t* code;
-  int n_bits;
-  template <int PB>
-  __device__ __forceinline__ void get(int k, int, float (&p)[PB]) const {
-    static_assert(PB == kMaxBits, "decoded planes come all at once");
-    decode_planes(sign[k], code[k], n_bits, p);
   }
 };
 
@@ -132,19 +118,6 @@ __device__ __forceinline__ float join_planes(float acc,
   for (int b = 0; b < kMaxBits; ++b)
     if (b < n_bits) acc = __fadd_rn(acc, __fmul_rn(gains[b], dot[b]));
   return acc;
-}
-
-// One K tile of the plane product for one output:
-// acc + sum_b gains[b] * sum_{k < kt} plane_b[k] * w[k * ldw], all
-// n_bits plane sums carried in one pass over k (the dependent chain is
-// kt + n_bits steps, not n_bits * kt), then joined in plane order.
-template <class Planes>
-__device__ __forceinline__ float plane_tile(float acc, const Planes& planes,
-                                            const float* w, int ldw, int kt,
-                                            int n_bits, const float* gains) {
-  float dot[1][kMaxBits];
-  plane_dots<kMaxBits, 1>(dot, planes, 0, w, ldw, kt, n_bits);
-  return join_planes(acc, dot[0], n_bits, gains);
 }
 
 // Mid-rise ADC: clip(rint(y / step), lo, hi) * step. rintf rounds half to

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/wbs_matmul.py ::
 // wbs_matmul_pallas (_wbs_kernel), both branches: wbs_matmul_kernel at
-// read_sigma == 0, wbs_matmul_read_noise_kernel (further down) with the
-// in-kernel per-access read noise of read_sigma > 0:
+// read_sigma == 0, and with the per-access read noise of read_sigma > 0
+// a draw pass (read_noise_weights, further down) before the same kernel:
 //
 //   out[m, n] = ADC( norm * sum_tiles sum_b gains[b] *
 //                    sum_{k in tile} plane_b[m, k] * sign[m, k] * w[k, n] )
@@ -54,6 +54,14 @@
 #include "cp_async.cuh"
 #include "smem_optin.cuh"
 #include "wbs_common.cuh"
+
+// A fault planted at build time (nvcc -DREAD_NOISE_FAULT=1, a library of
+// its own name) by tools/parity_reach.py, to show what the checks catch:
+// the second block of the draw pass draws at counter k * N + n + 1. The
+// package's build leaves it 0.
+#ifndef READ_NOISE_FAULT
+#define READ_NOISE_FAULT 0
+#endif
 
 namespace {
 
@@ -210,10 +218,10 @@ cudaError_t launch_matmul(const void* sign, const void* code, const void* w,
 // draw per 128-row block and call. Here z is a pure function of (key, k,
 // n): a counter-based generator, Philox4x32-10 keyed by two words the
 // wrapper draws from the caller's key, with the element index k * N + n
-// as its counter. Every block that reads w[k, n] in one call computes the
-// same z, so each call draws one normal per weight element, shared by all
-// rows, for any M (the TPU shares a draw within a 128-row block only), and
-// the plain version (kernels/ref.py :: read_noise) reproduces it exactly.
+// as its counter. So each call draws one normal per weight element,
+// shared by all rows, for any M (the TPU shares a draw within a 128-row
+// block only), and the plain version (kernels/ref.py :: read_noise)
+// reproduces it exactly.
 //
 // z is the TPU kernel's Box-Muller: u = (bits >> 8) * 2^-24 clamped below
 // at 2^-24, z = sqrt(-2 ln u1) * cos(2 pi u2), evaluated in double and
@@ -221,22 +229,22 @@ cudaError_t launch_matmul(const void* sign, const void* code, const void* w,
 // the plain version's float64 evaluation gives the same float. The
 // perturbation rounds as the plain version writes it, sigma * z, then
 // 1 + that, then w * that, with explicit _rn intrinsics so nvcc contracts
-// nothing into an FMA; the contraction is wbs_common.cuh :: plane_tile,
-// the planes decoded on the spot from each row's sign and code. At sigma
-// == 0 the perturbed tile is w itself, so the launch equals
-// wbs_matmul_kernel's bit for bit.
+// nothing into an FMA.
 //
-// Design: a block owns a (kRnTM = 8) x kTN output tile. For each K tile it
-// first writes the perturbed (kt x kTN) slab of w into shared memory, each
-// of its 256 threads drawing 16 of the 4096 normals, then contracts from
-// there: the noise of a column slab is computed once per block, not once
-// per output row. Blocks that share a column slab (M / 8 of them) repeat
-// its draws; at the per-step shape (32 x 100 x 100) that is 4x the 10,000
-// draws. Ragged M and N are masked here, as in wbs_matmul_kernel. What
-// bounds it: the draws, about 50 double operations each for log, cos and
-// sqrt, at H100's 34 TFLOP/s of non-tensor fp64 — well under a
-// microsecond at these shapes, so the launch and the serial contraction
-// dominate, as for wbs_matmul_kernel.
+// Design: one C call, two launches. A draw pass (read_noise_weights)
+// writes the perturbed weights into a (K, N) scratch the wrapper
+// allocates, one thread a normal, on at least 64 blocks; then
+// wbs_matmul_kernel contracts the scratch, chosen as wbs_matmul_launch
+// chooses. The plain version is defined as exactly that composition
+// (ref.wbs_matmul_read_noise_ref: wbs_matmul_ref over w * (1 + sigma z)),
+// so the launch is bitwise by construction, and at sigma == 0 the scratch
+// is w itself: the same bits as wbs_matmul_kernel. What bounds it: the
+// draws, about 50 double operations each for log, cos and sqrt (10,000
+// normals at the per-step shape: some 0.015 microseconds at H100's 34
+// TFLOP/s of non-tensor fp64, far below a launch), and the product as
+// wbs_matmul_kernel's (the launch, its staging loads, one thread's k
+// chain); the two launches' fixed costs dominate at the main path's
+// shapes.
 // ---------------------------------------------------------------------------
 
 // Philox4x32-10 (Salmon et al., SC'11) as Random123 defines it: ten rounds,
@@ -271,53 +279,45 @@ __device__ __forceinline__ float read_normal(uint32_t idx, uint32_t k0,
                             cos(6.283185307179586 * u2));
 }
 
-constexpr int kRnTM = 8;  // output rows per read-noise block
+// Draw-pass threads a block: enough blocks to spread the draws over the
+// card (at least 64 at the main path's 2,800 and 10,000 normals).
+__host__ inline int draw_threads(uint32_t count) {
+  const uint32_t per = (count + 131) / 132;
+  const uint32_t t = (per + 31) / 32 * 32;
+  return static_cast<int>(t < 32 ? 32 : (t > 256 ? 256 : t));
+}
 
-__global__ void __launch_bounds__(kRnTM * kTN)
-wbs_matmul_read_noise_kernel(const int8_t* __restrict__ sign,
-                             const uint8_t* __restrict__ code,
-                             const float* __restrict__ w,
-                             const float* __restrict__ gains,
-                             float* __restrict__ out, int M, int K, int N,
-                             int n_bits, float norm, int use_adc, float step,
-                             float lo, float hi, float sigma, uint32_t key0,
-                             uint32_t key1) {
-  __shared__ float g[wbs::kMaxBits];
-  __shared__ float slab[wbs::kBK * kTN];
-  const int tid = threadIdx.y * kTN + threadIdx.x;
-  if (tid < n_bits) g[tid] = gains[tid];
+// w_noisy[i] = w[i] * (1 + sigma * z_i), z_i the normal of counter i =
+// k * N + n, one thread an element.
+__global__ void __launch_bounds__(256)
+read_noise_weights(const float* __restrict__ w, float* __restrict__ w_noisy,
+                   uint32_t count, float sigma, uint32_t key0,
+                   uint32_t key1) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  uint32_t counter = i;
+#if READ_NOISE_FAULT
+  if (blockIdx.x == 1) counter = i + 1;
+#endif
+  w_noisy[i] = __fmul_rn(
+      w[i], __fadd_rn(1.0f, __fmul_rn(sigma, read_normal(counter, key0,
+                                                          key1))));
+}
 
-  const int n0 = blockIdx.x * kTN;
-  const int m = blockIdx.y * kRnTM + threadIdx.y, n = n0 + threadIdx.x;
-  const size_t row = static_cast<size_t>(m < M ? m : 0) * K;
-  float acc = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += wbs::kBK) {
-    const int kt = K - k0 < wbs::kBK ? K - k0 : wbs::kBK;
-    __syncthreads();  // the previous tile's slab is consumed
-    for (int i = tid; i < kt * kTN; i += kRnTM * kTN) {
-      const int k = k0 + i / kTN;
-      const int nn = n0 + i % kTN;
-      // Columns past N are none of w's: no draw, a zero weight.
-      if (nn < N) {
-        const float z = read_normal(
-            static_cast<uint32_t>(k) * static_cast<uint32_t>(N) +
-                static_cast<uint32_t>(nn),
-            key0, key1);
-        slab[i] = __fmul_rn(w[static_cast<size_t>(k) * N + nn],
-                            __fadd_rn(1.0f, __fmul_rn(sigma, z)));
-      } else {
-        slab[i] = 0.0f;
-      }
-    }
-    __syncthreads();
-    acc = wbs::plane_tile(
-        acc, wbs::CodePlanes{sign + row + k0, code + row + k0, n_bits},
-        slab + threadIdx.x, kTN, kt, n_bits, g);
-  }
-  if (m >= M || n >= N) return;
-  float y = __fmul_rn(acc, norm);
-  if (use_adc) y = wbs::adc(y, step, lo, hi);
-  out[static_cast<size_t>(m) * N + n] = y;
+// The product of wbs_matmul_launch: a product with outputs enough to fill
+// the card several times over (the drive's 89,600) gives a thread two
+// columns, which share its loads of the planes; one with few (the step's
+// 6,400) gives an output two threads of four planes each, so that more
+// SMs share its k chains.
+cudaError_t launch_product(const void* sign, const void* code, const void* w,
+                           const void* gains, void* out, int M, int K, int N,
+                           int n_bits, float norm, int use_adc, float step,
+                           float lo, float hi, cudaStream_t s) {
+  return static_cast<long long>(M) * N >= 32768
+             ? launch_matmul<1, 2>(sign, code, w, gains, out, M, K, N,
+                                   n_bits, norm, use_adc, step, lo, hi, s)
+             : launch_matmul<2, 1>(sign, code, w, gains, out, M, K, N,
+                                   n_bits, norm, use_adc, step, lo, hi, s);
 }
 
 }  // namespace
@@ -333,38 +333,33 @@ extern "C" int wbs_matmul_launch(const void* sign, const void* code,
                                  void* stream) {
   if (M < 1 || K < 1 || N < 1 || n_bits < 1 || n_bits > wbs::kMaxBits)
     return static_cast<int>(cudaErrorInvalidValue);
-  // A product with outputs enough to fill the card several times over
-  // (the drive's 89,600) gives a thread two columns, which share its loads
-  // of the planes; one with few (the step's 6,400) gives an output two
-  // threads of four planes each, so that more SMs share its k chains.
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      static_cast<long long>(M) * N >= 32768
-          ? launch_matmul<1, 2>(sign, code, w, gains, out, M, K, N, n_bits,
-                                norm, use_adc, step, lo, hi, s)
-          : launch_matmul<2, 1>(sign, code, w, gains, out, M, K, N, n_bits,
-                                norm, use_adc, step, lo, hi, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_product(sign, code, w, gains, out, M, K, N,
+                                         n_bits, norm, use_adc, step, lo, hi,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
-// The read-noise variant: as wbs_matmul_launch, plus sigma and the Philox
-// key (key0, key1). K * N, the count of normals, must fit in 32 bits.
+// The read-noise variant: as wbs_matmul_launch, plus sigma, the Philox key
+// (key0, key1) and w_noisy, a (K, N) f32 scratch for the perturbed
+// weights. K * N, the count of normals, must fit in 32 bits.
 extern "C" int wbs_matmul_read_noise_launch(
     const void* sign, const void* code, const void* w, const void* gains,
-    void* out, int M, int K, int N, int n_bits, float norm, int use_adc,
-    float step, float lo, float hi, float sigma, unsigned int key0,
-    unsigned int key1, void* stream) {
+    void* w_noisy, void* out, int M, int K, int N, int n_bits, float norm,
+    int use_adc, float step, float lo, float hi, float sigma,
+    unsigned int key0, unsigned int key1, void* stream) {
   if (M < 1 || K < 1 || N < 1 || n_bits < 1 || n_bits > wbs::kMaxBits ||
-      (M + kRnTM - 1) / kRnTM > 65535 ||
       static_cast<unsigned long long>(K) * N > 0xFFFFFFFFull)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kTN, kRnTM);
-  const dim3 grid((N + kTN - 1) / kTN, (M + kRnTM - 1) / kRnTM);
-  wbs_matmul_read_noise_kernel<<<grid, block, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(sign), static_cast<const uint8_t*>(code),
-      static_cast<const float*>(w), static_cast<const float*>(gains),
-      static_cast<float*>(out), M, K, N, n_bits, norm, use_adc, step, lo, hi,
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t count = static_cast<uint32_t>(K) * static_cast<uint32_t>(N);
+  const int threads = draw_threads(count);
+  const unsigned int blocks = static_cast<unsigned int>(
+      (static_cast<unsigned long long>(count) + threads - 1) / threads);
+  read_noise_weights<<<blocks, threads, 0, s>>>(
+      static_cast<const float*>(w), static_cast<float*>(w_noisy), count,
       sigma, key0, key1);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_product(sign, code, w_noisy, gains, out, M,
+                                         K, N, n_bits, norm, use_adc, step,
+                                         lo, hi, s));
 }

@@ -173,7 +173,7 @@ def miru_scan(xw: torch.Tensor, u_h: torch.Tensor, h0: torch.Tensor,
     """Fused ideal MiRU recurrence — counterpart of ``ops.miru_scan`` in
     the reference. xw (B, T, H) = x@W_h + b_h, u_h (H, H), h0 (B, H) →
     (h_all, pre), each (B, T, H) f32. No H limit silently switches to the
-    plain version: the kernel takes every H its shared memory holds and
+    plain version: the kernel takes every H up to ``miru_scan.MAX_H`` and
     raises beyond."""
     _forward_only(xw, u_h, h0)
     if not xw.is_cuda:

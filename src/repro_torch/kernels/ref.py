@@ -59,8 +59,9 @@ def tanh_f32(x: torch.Tensor) -> torch.Tensor:
 def plane_product(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
                   gains: torch.Tensor) -> torch.Tensor:
     """acc (M, N) = Σ_tiles Σ_b gains[b]·Σ_{k∈tile} plane_b[m,k]·sign[m,k]
-    ·w[k,n], in the order of ``wbs_common.cuh :: plane_tile``. The plane
-    products are exact, so only the two running sums round."""
+    ·w[k,n], in the order of ``wbs_common.cuh :: plane_dots`` then
+    ``join_planes``. The plane products are exact, so only the two running
+    sums round."""
     n_bits = gains.shape[0]
     M, K = sign.shape
     shifts = torch.arange(n_bits - 1, -1, -1, device=code.device)

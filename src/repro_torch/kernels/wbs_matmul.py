@@ -41,8 +41,8 @@ def _fn():
 def _read_noise_fn():
     fn = _build.load("wbs_matmul").wbs_matmul_read_noise_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F,
-                       _F, _F, _U, _U, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F,
+                       _F, _F, _F, _U, _U, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,18 +122,22 @@ def wbs_matmul_read_noise(sign: torch.Tensor, code: torch.Tensor,
     """:func:`wbs_matmul` with each weight read as w·(1 + σ·z), z the
     Philox4x32-10 normal of (``key_words``, k, n) — one draw per weight
     element per call, shared by all rows (the counter is k·N + n).
-    ``read_sigma`` is rounded to float32."""
+    ``read_sigma`` is rounded to float32. One C call: a draw pass writes
+    the perturbed weights into a (K, N) scratch, then the product of
+    :func:`wbs_matmul` contracts it."""
     dev, M, K, N, n_bits = _check(sign, code, w, gains)
     if K * N >= 2 ** 32:
         raise ValueError(f"K·N = {K * N} normals: the counter has 32 bits")
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key_words)
+    w_noisy = torch.empty((K, N), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     use_adc, step, lo, hi = adc_args(adc_bits, adc_range)
     norm = 2.0 ** n_bits / (2.0 ** n_bits - 1.0)
     err = _read_noise_fn()(
         sign.data_ptr(), code.data_ptr(), w.data_ptr(), gains.data_ptr(),
-        out.data_ptr(), M, K, N, n_bits, norm, use_adc, step, lo, hi,
-        read_sigma, k0, k1, torch.cuda.current_stream(dev).cuda_stream)
+        w_noisy.data_ptr(), out.data_ptr(), M, K, N, n_bits, norm, use_adc,
+        step, lo, hi, read_sigma, k0, k1,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"wbs_matmul_read_noise launch failed: "
                            f"cudaError {err}")

@@ -209,6 +209,48 @@ def test_miru_scan_kernel_equals_plain(cuda, b, t, h, with_h0):
         assert torch.equal(a, c)
 
 
+def _miru_inputs(dev, b, t, h, seed):
+    rng = np.random.default_rng(seed)
+    return _on(dev, rng.normal(0, 0.6, (b, t, h)).astype(np.float32),
+               (rng.uniform(-1, 1, (h, h)) * np.sqrt(3.0 / h)).astype(
+                   np.float32),
+               rng.uniform(-0.5, 0.5, (b, h)).astype(np.float32))
+
+
+@pytest.mark.parametrize("place,h", [("registers", 100), ("smem", 100),
+                                     ("global", 100), ("smem", 129),
+                                     ("global", 129), ("global", 256)])
+def test_miru_scan_at_every_u_place(cuda, place, h):
+    """Each place the scan can read U from (its column in registers, U in
+    shared or in global memory), forced one by one on 13 rows: the plain
+    version's bits."""
+    b, t = 13, 5
+    xw, u, h0 = _miru_inputs(cuda, b, t, h, h + len(place))
+    got = kmiru.miru_scan(xw, u, h0, beta=0.8, lam=0.5, place=place)
+    want = ref.miru_scan_ref(xw, u, h0, 0.8, 0.5)
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("h", [w + d for w in kmiru.REG_CHAINS
+                               for d in (0, 1)])
+@pytest.mark.parametrize("b", [1, 5, 65, 300])
+def test_miru_scan_at_ragged_batches_and_the_register_width(cuda, b, h):
+    """``ops.miru_scan`` at ragged B on both sides of each register
+    chain's length, the last the width past which U's column leaves the
+    registers: one launch, the plain version's bits."""
+    xw, u, h0 = _miru_inputs(cuda, b, 3, h, b + h)
+    assert (kmiru.u_place(h) == "registers") == (h <= kmiru.REG_H)
+    before = kmiru.launches
+    got = ops.miru_scan(xw, u, h0, 0.8, 0.5)
+    want = ref.miru_scan_ref(xw, u, h0, 0.8, 0.5)
+    torch.cuda.synchronize()
+    assert kmiru.launches == before + 1
+    for a, c in zip(got, want):
+        assert a.shape == c.shape and torch.equal(a, c)
+
+
 def test_readout_kernel_equals_plain_and_is_row_exact(cuda):
     rng = np.random.default_rng(5)
     h, w, b = _on(cuda, rng.uniform(-1, 1, (896, 100)).astype(np.float32),
@@ -326,6 +368,31 @@ def test_read_noise_is_shared_by_all_rows_of_a_call(cuda):
     torch.cuda.synchronize()
     assert torch.equal(y[3], y[200])
     assert not torch.equal(y, ops.wbs_matmul(sign, code, w, g, None))
+
+
+@pytest.mark.parametrize("m,k,n", [(7, 100, 100), (33, 130, 45),
+                                   (1, 28, 100), (1, 257, 70),
+                                   (3000, 28, 100)])
+def test_read_noise_kernel_at_ragged_edges(cuda, m, k, n):
+    """M not a multiple of a block's rows, N not a multiple of 32, K over
+    one 128-deep tile, M 1, and a product past the wide layout's switch
+    (M·N ≥ 32,768): bitwise against the plain version, and at σ = 0 the
+    plain kernel's bits."""
+    from repro_torch import prng
+    sign, code, w, g = _read_noise_inputs(cuda, m, k, n, m + k + n)
+    key = prng.PRNGKey(m + k * n)
+    words = ops.read_key_words(key)
+    for adc_bits in (8, None):
+        got = kmatmul.wbs_matmul_read_noise(sign, code, w, g, 0.1, words,
+                                            adc_bits=adc_bits)
+        want = ref.wbs_matmul_read_noise_ref(sign, code, w, g, 0.1, words,
+                                             adc_bits)
+        zero = kmatmul.wbs_matmul_read_noise(sign, code, w, g, 0.0, words,
+                                             adc_bits=adc_bits)
+        plain = kmatmul.wbs_matmul(sign, code, w, g, adc_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(zero, plain)
 
 
 # ---------------------------------------------------------------------------

@@ -180,6 +180,54 @@ def test_scan_geometry_refuses_an_h_whose_table_does_not_fit():
     assert kscan.geometry(64, 4096).rows == 1
 
 
+def _miru_inputs(b, t, h, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(0, 0.6, (b, t, h)).astype(np.float32)),
+            torch.from_numpy((rng.uniform(-1, 1, (h, h))
+                              * np.sqrt(3.0 / h)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(-0.5, 0.5, (b, h)).astype(
+                np.float32)))
+
+
+@pytest.mark.parametrize("b,h", [(64, 100), (300, 100), (1, 100), (5, 37),
+                                 (397, 128), (64, 129), (8, 256),
+                                 (2, 3632)])
+def test_miru_scan_place_and_each_row_alone(b, h):
+    """Where the ideal scan reads U from at width H (``kernels/
+    miru_scan.py :: u_place``): its column in registers exactly up to
+    ``REG_H``, else shared memory where a block's layout fits, else
+    global memory. The kernel runs one block a row (B blocks: 64 at train
+    (a)'s shape), so a row's bits must not depend on the rows beside it:
+    the first, a middle and the last row scanned alone give the batch's
+    bits (``ref.miru_scan_ref``)."""
+    place = kmiru.u_place(h)
+    assert (place == "registers") == (h <= kmiru.REG_H)
+    assert kmiru.smem_bytes(h, place) <= kmiru.SMEM_LIMIT
+    assert (place == "smem") == (h > kmiru.REG_H and kmiru.smem_bytes(
+        h, "smem") <= kmiru.SMEM_LIMIT)
+    t = 2 if h > 200 else 3
+    xw, u, h0 = _miru_inputs(b, t, h, b + h)
+    want = ref.miru_scan_ref(xw, u, h0, 0.8, 0.5)
+    for r in sorted({0, b // 2, b - 1}):
+        got = ref.miru_scan_ref(xw[r:r + 1], u, h0[r:r + 1], 0.8, 0.5)
+        for a, c in zip(got, want):
+            assert torch.equal(a[0], c[r])
+
+
+def test_miru_scan_refuses_h_past_its_limit():
+    assert kmiru.u_place(kmiru.MAX_H) == "global"
+    with pytest.raises(ValueError, match="outside"):
+        kmiru.u_place(kmiru.MAX_H + 1)
+    # A forced place that cannot hold U raises.
+    kmiru.check_place(kmiru.REG_H, "registers")
+    with pytest.raises(ValueError, match="registers"):
+        kmiru.check_place(kmiru.REG_H + 1, "registers")
+    with pytest.raises(ValueError, match="shared memory"):
+        kmiru.check_place(300, "smem")
+    with pytest.raises(ValueError, match="3632"):
+        kmiru.check_place(kmiru.MAX_H + 1, "global")
+
+
 @pytest.mark.parametrize("weight_scale", [1.0, 1.5])
 def test_wbs_input_drive_matches_reference(weight_scale):
     B, T, K, H = 3, 5, 28, 20
@@ -202,12 +250,12 @@ def test_wbs_input_drive_matches_reference(weight_scale):
 
 
 def _single_pass(sign, code, w, gains):
-    """The kernels' plane_tile (csrc/wbs_common.cuh) step for step: per K
-    tile of 128, ONE pass over k carrying every plane's sum, each step a
-    fused multiply-add (the exact plane product p·w, summed with one
-    rounding: formed in float64, which holds the sum of these two floats
-    exactly, and rounded to float32 once), the plane sums then joined to
-    the accumulator in plane order."""
+    """The kernels' plane_dots and join_planes (csrc/wbs_common.cuh) step
+    for step: per K tile of 128, ONE pass over k carrying every plane's
+    sum, each step a fused multiply-add (the exact plane product p·w,
+    summed with one rounding: formed in float64, which holds the sum of
+    these two floats exactly, and rounded to float32 once), the plane sums
+    then joined to the accumulator in plane order."""
     n_bits = gains.shape[0]
     M, K = sign.shape
     s = sign.to(torch.float32)

@@ -6,19 +6,21 @@ Run from the repository root:
 
     python3 tools/kernel_times.py [--src DIR] [--label NAME] [--out FILE]
                                   [--old-fp32-bwd FILE] [--old-fp32-fwd FILE]
-                                  [--old-scan FILE]
+                                  [--old-scan FILE] [--old-read-noise FILE]
+                                  [--old-miru-scan FILE]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (this
-tree's by default). The rows and their timers are ``chip_smoke.py``'s
-own (``times``: each kernel's wrapper on inputs prepared as the main
-path hands them over, beside its plain version, the library call where
-one exists and the bound; the flash kernels on their own dtype's inputs;
-TF32 off), so the timed tree must offer this tree's kernel wrappers.
-To compare a commit with its parent, unpack the parent with
-``git archive`` under ``archive/`` and time both trees in one call,
-A B B A. One row is added to chip_smoke's: ``ops.wbs_matmul`` as a whole
-at the drive and the per-step shape (``ops_ms``: the launch with what
-the dispatch does around it).
+tree's by default). The rows and their timers are the timed tree's own
+``chip_smoke.py``'s (the one beside ``--src``; ``times``: each kernel's
+wrapper on inputs prepared as the main path hands them over, beside its
+plain version, the library call where one exists and the bound; the
+flash kernels on their own dtype's inputs; TF32 off). To compare a
+commit with its parent, unpack the parent with ``git archive`` under
+``archive/`` and time both trees in one call, A B B A. One row is added
+to chip_smoke's: ``ops.wbs_matmul`` as a whole at the drive and the
+per-step shape (``ops_ms``: the launch with what the dispatch does around
+it). The ``--old-*`` options time this tree's kernels against older
+sources in one process and need ``--src`` left at this tree's.
 
 ``--old-fp32-bwd FILE`` also times the fp32 flash backward's CUDA-core
 kernels of the tree before the tensor-core redesign, from their source
@@ -33,6 +35,22 @@ into the package) and its dq and dk/dv are timed at the training shape in
 fp32 beside this tree's dq and dk/dv and fp32 SDPA's whole backward (TF32
 off) on the same inputs, old, new, new, old; each result is held to the
 plain version (``testing.grads_close``).
+
+``--old-read-noise FILE`` and ``--old-miru-scan FILE`` time the
+read-noise product and the ideal scan of commit d589c78 beside this
+tree's: pass that commit's ``wbs_matmul.cu`` and ``miru_scan.cu`` where
+they lie in a copy of its tree (``git archive d589c78`` unpacked under
+``archive/``), so that each includes its own tree's headers. The read-noise product is timed at train (d)'s two shapes
+((32, 28) × (28, 100), the step's drive, and (32, 100) × (100, 100),
+the recurrent product), the scan at train (a)'s (64, 28, 100), the
+test set's (300, 28, 100), (64, 28, 200) and (64, 28, 256), old, new,
+new, old, every
+result bit for bit against the plain version; the scan also with U read
+from each place that fits the width (``miru_scan.PLACES``: registers,
+shared or global memory), twice each, in one order and then the other,
+and at train (a)'s shape
+with its double tanh or its sums cut out of temporary copies of its
+source (``parts_cut_ms``: where a step's time goes; timing only).
 
 ``--old-fp32-fwd FILE`` and ``--old-scan FILE`` do the same for the fp32
 flash forward (the CUDA-core ``flash_attention_fwd.cu``, whose C
@@ -267,6 +285,186 @@ def old_scan_rows(cs, dev, src: Path) -> dict:
     return out
 
 
+def old_read_noise_rows(cs, dev, src: Path) -> dict:
+    """The parent's read-noise kernel (C function
+    ``wbs_matmul_read_noise_launch`` of ``src``: one fused launch, no
+    scratch) beside this tree's at train (d)'s two shapes, old, new, new,
+    old, each held bit for bit to the plain version."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wbs_matmul as kmm
+    from repro_torch.kernels.wbs_matmul import adc_args
+    lib, _ = _build_file(src)
+    P, I, Fl, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_uint
+    fn = lib.wbs_matmul_read_noise_launch
+    fn.argtypes = [P] * 5 + [I] * 4 + [Fl, I, Fl, Fl, Fl, Fl, U, U, P]
+    fn.restype = I
+    words = ops.read_key_words(np.asarray([0, 42], np.uint32))
+    use_adc, step, lo, hi = adc_args(None, cs.ADC_RANGE)
+    rng = np.random.default_rng(5)
+    out = {}
+    with torch.no_grad():
+        for key, (M, K, N, xs) in {
+                "drive": (cs.CL_BATCH, cs.N_X, cs.N_H, 1.0),
+                "step": (cs.CL_BATCH, cs.N_H, cs.N_H, cs.BETA)}.items():
+            inp = cs.matmul_inputs(rng, dev, M, K, N, xs)
+            nb = inp["gains"].shape[0]
+            norm = 2.0 ** nb / (2.0 ** nb - 1.0)
+
+            def old():
+                y = torch.empty((M, N), device=dev)
+                err = fn(inp["sign"].data_ptr(), inp["code"].data_ptr(),
+                         inp["w"].data_ptr(), inp["gains"].data_ptr(),
+                         y.data_ptr(), M, K, N, nb, norm, use_adc, step, lo,
+                         hi, cs.READ_SIGMA, *words,
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return y
+
+            def new():
+                return kmm.wbs_matmul_read_noise(
+                    inp["sign"], inp["code"], inp["w"], inp["gains"],
+                    cs.READ_SIGMA, words)
+            want = ref.wbs_matmul_read_noise_ref(
+                **inp, read_sigma=cs.READ_SIGMA, key_words=words)
+            bitwise = {}
+            for name, f in (("old", old), ("new", new)):
+                got = f()
+                torch.cuda.synchronize()
+                bitwise[name] = bool(torch.equal(got, want))
+            res = {"shape": [M, K, N], "bitwise": bitwise, "old_ms": [],
+                   "new_ms": []}
+            for label, f in (("old_ms", old), ("new_ms", new),
+                             ("new_ms", new), ("old_ms", old)):
+                res[label].append(cs.time_graph(f))
+            out[key] = res
+    return out
+
+
+def old_miru_scan_rows(cs, dev, src: Path) -> dict:
+    """The parent's ideal scan (C function ``miru_scan_launch`` of ``src``:
+    8 rows a block) beside this tree's at train (a)'s shape, the test
+    set's and train (a)'s at H 200 (U in shared memory) and H 256 (U from
+    global memory), old, new, new,
+    old, and this tree's with U read from each place it fits at that
+    width (registers, shared or global memory), each timed twice, in one
+    order and then the other."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import miru_scan as km
+    lib, _ = _build_file(src)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.miru_scan_launch.argtypes = [P] * 5 + [I] * 3 + [Fl] * 3 + [P]
+    lib.miru_scan_launch.restype = I
+    rng = np.random.default_rng(6)
+    out = {}
+    with torch.no_grad():
+        for key, B, H in (("train", cs.SW_BATCH, cs.N_H),
+                          ("test", cs.SW_TEST, cs.N_H),
+                          ("train@200", cs.SW_BATCH, 200),
+                          ("train@256", cs.SW_BATCH, 256)):
+            T = cs.T_SEQ
+            inp = cs.scan_inputs(rng, dev, B, T, H, with_h0=True)
+            xw, u, h0 = inp["drive"], inp["u_h"], inp["h0"]
+
+            def old():
+                o = [torch.empty(B, T, H, device=dev) for _ in range(2)]
+                err = lib.miru_scan_launch(
+                    xw.data_ptr(), u.data_ptr(), h0.data_ptr(),
+                    *(t.data_ptr() for t in o), B, T, H, cs.BETA, cs.LAM,
+                    1.0 - cs.LAM, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return o
+
+            def new(place=None):
+                return km.miru_scan(xw, u, h0, beta=cs.BETA, lam=cs.LAM,
+                                    place=place)
+            want = ref.miru_scan_ref(xw, u, h0, cs.BETA, cs.LAM)
+            equal = lambda got: all(torch.equal(a, b)
+                                    for a, b in zip(got, want))
+            bitwise = {}
+            for name, f in (("old", old), ("new", new)):
+                got = f()
+                torch.cuda.synchronize()
+                bitwise[name] = equal(got)
+            res = {"shape": [B, T, H], "bitwise": bitwise,
+                   "u_place": km.u_place(H), "blocks": B,
+                   "old_ms": [], "new_ms": []}
+            for label, f in (("old_ms", old), ("new_ms", new),
+                             ("new_ms", new), ("old_ms", old)):
+                res[label].append(cs.time_graph(f))
+            places = [pl for pl in km.PLACES
+                      if km.smem_bytes(H, pl) <= km.SMEM_LIMIT
+                      and (pl != "registers" or H <= km.REG_H)]
+            res["places"] = {}
+            for pl in places:
+                got = new(pl)
+                torch.cuda.synchronize()
+                res["places"][pl] = dict(bitwise=equal(got), ms=[])
+            for order in (places, places[::-1]):
+                for pl in order:
+                    res["places"][pl]["ms"].append(
+                        cs.time_graph(lambda: new(pl)))
+            out[key] = res
+        out["train"]["parts_cut_ms"] = miru_scan_parts(cs, dev, rng)
+    return out
+
+
+def miru_scan_parts(cs, dev, rng) -> dict:
+    """Where a step of this tree's ideal scan goes: the kernel at train
+    (a)'s shape built from temporary copies of its source with the double
+    tanh (tanh(p) read as p) or the sums over k (zeros) cut out, timed
+    beside the whole. Timing only: the cut kernels compute another
+    function."""
+    import ctypes
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import miru_scan as km
+    text = (_build.CSRC / "miru_scan.cu").read_text()
+    cuts = {"tanh": ("static_cast<float>(tanh(static_cast<double>(p)))",
+                     "p"),
+            "sums": ("const float acc = row_sum_reg<KU>(cur, ur);",
+                     "const float acc = 0.0f;")}
+    B, T, H = cs.SW_BATCH, cs.T_SEQ, cs.N_H
+    place = km.u_place(H)
+    inp = cs.scan_inputs(rng, dev, B, T, H, with_h0=True)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    out = {"shape": [B, T, H], "whole": cs.time_graph(
+        lambda: km.miru_scan(inp["drive"], inp["u_h"], inp["h0"],
+                             beta=cs.BETA, lam=cs.LAM))}
+    with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
+        for name, (old, new) in cuts.items():
+            if text.count(old) != 1:
+                raise RuntimeError(f"no single {old!r} in miru_scan.cu")
+            src = Path(tmp) / f"miru_scan_without_{name}.cu"
+            src.write_text(text.replace(old, new))
+            lib, _ = _build_file(src)
+            fn = lib.miru_scan_launch
+            fn.argtypes = [P] * 5 + [I] * 3 + [Fl] * 3 + [I, P]
+            fn.restype = I
+
+            def run():
+                o = [torch.empty(B, T, H, device=dev) for _ in range(2)]
+                err = fn(inp["drive"].data_ptr(), inp["u_h"].data_ptr(),
+                         inp["h0"].data_ptr(), *(t.data_ptr() for t in o),
+                         B, T, H, cs.BETA, cs.LAM, 1.0 - cs.LAM,
+                         km.PLACES.index(place),
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return o
+            out[f"without_{name}"] = cs.time_graph(run)
+    return out
+
+
 def old_fp32_bwd_rows(cs, dev, src: Path) -> dict:
     """The old fp32 dq and dk/dv (C functions ``flash_attention_bwd_dq_
     launch`` and ``flash_attention_bwd_dkv_launch`` of ``src``) beside
@@ -353,10 +551,17 @@ def main() -> int:
     ap.add_argument("--old-fp32-bwd", type=Path)
     ap.add_argument("--old-fp32-fwd", type=Path)
     ap.add_argument("--old-scan", type=Path)
+    ap.add_argument("--old-read-noise", type=Path)
+    ap.add_argument("--old-miru-scan", type=Path)
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs                  # puts this tree's src first
-    sys.path.insert(0, str(Path(args.src).resolve()))   # --src before it
+    src = Path(args.src).resolve()
+    olds = (args.old_fp32_bwd, args.old_fp32_fwd, args.old_scan,
+            args.old_read_noise, args.old_miru_scan)
+    if src != ROOT / "src" and any(olds):
+        ap.error("the --old-* options time this tree's kernels: leave --src")
+    sys.path.insert(0, str(src.parent))      # the timed tree's chip_smoke
+    import chip_smoke as cs                  # puts its src first
+    sys.path.insert(0, str(src))             # --src before it
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -378,6 +583,12 @@ def main() -> int:
         res["old_fp32_fwd"] = old_fp32_fwd_rows(cs, dev, args.old_fp32_fwd)
     if args.old_scan:
         res["old_scan"] = old_scan_rows(cs, dev, args.old_scan)
+    if args.old_read_noise:
+        res["old_read_noise"] = old_read_noise_rows(cs, dev,
+                                                    args.old_read_noise)
+    if args.old_miru_scan:
+        res["old_miru_scan"] = old_miru_scan_rows(cs, dev,
+                                                  args.old_miru_scan)
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:

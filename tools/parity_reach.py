@@ -76,11 +76,22 @@ each made in this process without touching the package's files:
   and the fused-equals-per-step contract pass, sound and with
   ``slab_planes_joined_lsb_first`` planted at build time
   (``csrc/wbs_miru_scan.cu``'s ``WBS_SCAN_FAULT``: the second block of
-  each cluster joins its columns' plane sums LSB first).
+  each cluster joins its columns' plane sums LSB first);
+- ``miru_scan``, the ideal scan: whether ``chip_smoke.check_miru_scan``
+  (the kernel bit for bit against its plain version) passes, sound and
+  with ``chain_drops_last_k`` planted at build time
+  (``csrc/miru_scan.cu``'s ``MIRU_SCAN_FAULT``: the second block's sums
+  leave out the last input);
+- ``read_noise`` also runs the read-noise product's check
+  (``chip_smoke.check_read_noise``: bitwise against its plain version,
+  σ = 0 equal to the plain kernel, identical rows, the moments), sound
+  and with ``draw_counter_off_by_one`` planted at build time
+  (``csrc/wbs_matmul.cu``'s ``READ_NOISE_FAULT``: the second block of
+  the draw pass draws at counter k·N + n + 1).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
-lm_train scan`` (all by default). It exits 1 unless the sound builds pass
-the kernel checks and every planted kernel fault fails one.
+lm_train scan miru_scan`` (all by default). It exits 1 unless the sound
+builds pass the kernel checks and every planted kernel fault fails one.
 """
 from __future__ import annotations
 
@@ -98,7 +109,7 @@ import chip_smoke as cs  # noqa: E402
 
 _OUT = None
 PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm",
-         "lm_train", "scan")
+         "lm_train", "scan", "miru_scan")
 
 
 def emit(**row) -> None:
@@ -451,8 +462,30 @@ def flash_sm90(dev) -> bool:
     return reach
 
 
-def scan_flags(fault: int) -> tuple[str, ...]:
-    return (f"-DWBS_SCAN_FAULT={fault}",) if fault else ()
+def kernel_fault(path: str, lib: str, macro: str, fault: str,
+                 checks) -> bool:
+    """Each of ``checks`` (called with a fresh rng), sound and with
+    ``fault`` planted at build time in library ``lib`` (``-D<macro>=1``).
+    Whether the sound build passes every check and the fault fails one."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    flags = lambda f: (f"-D{macro}={f}",) if f else ()
+    _build.build([lib], flags(1))
+    passes = {}
+    for name, f in (("card", 0), (fault, 1)):
+        with planted(f, (lib,), flags):
+            for check in checks:
+                try:
+                    check(np.random.default_rng(0))
+                    failed = None
+                except AssertionError as e:
+                    failed = str(e)[:300]
+                passes.setdefault(name, []).append(failed is None)
+                emit(path=path, run=name, passes=failed is None,
+                     failure=failed)
+    reach = all(passes["card"]) and not all(passes[fault])
+    emit(path=path, sound_passes_and_the_fault_caught=reach)
+    return reach
 
 
 def scan(dev) -> bool:
@@ -460,36 +493,19 @@ def scan(dev) -> bool:
     fused-equals-per-step contract, sound and with
     ``slab_planes_joined_lsb_first`` planted at build time
     (``csrc/wbs_miru_scan.cu``'s ``WBS_SCAN_FAULT``: the second block of
-    each cluster joins its columns' plane sums LSB first). Whether the
-    sound build passes both and the fault fails one. (Where the ADC
+    each cluster joins its columns' plane sums LSB first). (Where the ADC
     re-quantizes every step, as on the serve path, a reordered sum moves
     the integrator by an ulp and the ADC's level almost never: the
     bitwise check's ADC-off cases are the ones that see it.)"""
-    import numpy as np
-    from repro_torch.kernels import _build
-    _build.build(["wbs_miru_scan"], scan_flags(1))
     cfg, params = cs.paper_model(dev)
 
-    def fused_equals_per_step():
+    def fused_equals_per_step(rng):
         if not cs.recurrence_fused_equals_per_step(dev, cfg, params):
             raise AssertionError("fused != per-step (device_recurrence)")
-    passes = {}
-    for name, fault in (("card", 0), ("slab_planes_joined_lsb_first", 1)):
-        with planted(fault, ("wbs_miru_scan",), scan_flags):
-            for check in (lambda: cs.check_scan(dev, np.random.default_rng(0)),
-                          fused_equals_per_step):
-                try:
-                    check()
-                    failed = None
-                except AssertionError as e:
-                    failed = str(e)[:300]
-                passes.setdefault(name, []).append(failed is None)
-                emit(path="scan", run=name, passes=failed is None,
-                     failure=failed)
-    reach = all(passes["card"]) and not all(
-        passes["slab_planes_joined_lsb_first"])
-    emit(path="scan", sound_passes_and_the_fault_caught=reach)
-    return reach
+    return kernel_fault("scan", "wbs_miru_scan", "WBS_SCAN_FAULT",
+                        "slab_planes_joined_lsb_first",
+                        (lambda rng: cs.check_scan(dev, rng),
+                         fused_equals_per_step))
 
 
 def main() -> int:
@@ -513,14 +529,22 @@ def main() -> int:
     if "software" in paths:
         software(dev, cs.software_run(torch.device("cpu")))
     protocol(dev, [p for p in ("ideal", "wbs", "analog") if p in paths])
+    reach = True
     if "read_noise" in paths:
         read_noise(dev)
+        reach = kernel_fault("read_noise", "wbs_matmul", "READ_NOISE_FAULT",
+                             "draw_counter_off_by_one",
+                             (lambda rng: cs.check_read_noise(dev, rng),))
+    if "miru_scan" in paths:
+        reach = kernel_fault("miru_scan", "miru_scan", "MIRU_SCAN_FAULT",
+                             "chain_drops_last_k",
+                             (lambda rng: cs.check_miru_scan(dev, rng),)) \
+            and reach
     if "lm" in paths:
         lm(dev)
-    reach = True
     if "lm_train" in paths:
         lm_train(dev)
-        reach = flash_sm90(dev)
+        reach = flash_sm90(dev) and reach
     if "scan" in paths:
         reach = scan(dev) and reach
     emit(nvidia_smi=cs.nvidia_smi(), cpu_threads=torch.get_num_threads())

@@ -31,6 +31,11 @@ Prints one JSON line per repeat with:
 - ``analog_update_ms``/``analog_state_update_ms``: one
   ``device_apply_update`` at the protocol's shapes, draws included,
   ending in a synchronize;
+- ``read_noise_device_ms_per_step``: the device time of a train (d) step
+  (the summed kernel times of a torch.profiler trace of
+  ``chip_smoke.train_step_ms`` over 10 steps and its 3 warm-up steps,
+  over 13), and ``read_noise_port_kernels``: the port's kernels in that
+  trace, calls and device ms;
 - ``read_noise_vmm_ms``: one ``analog`` ``vmm`` with read noise at the
   per-step shape (32, 100) × (100, 100): the key split, the plane-gain
   draw, the quantizer and the kernel, ending in a synchronize;
@@ -187,6 +192,11 @@ def main() -> int:
             row[f"{backend}_ms_per_step"] = cs.train_step_ms(dev, backend)
         row["read_noise_ms_per_step"] = cs.train_step_ms(
             dev, cs.read_noise_backend(), steps=30)
+        trace = cs.device_busy(lambda: cs.train_step_ms(
+            dev, cs.read_noise_backend(), steps=10))
+        row["read_noise_device_ms_per_step"] = \
+            1e3 * trace["device_busy_s"] / 13
+        row["read_noise_port_kernels"] = trace["port_kernels"]
         row.update(noise_times(dev))
         row["serve_burst_ms"] = serve_burst_ms(dev)
         line = json.dumps(row)
