@@ -380,6 +380,26 @@ def time_graph(fn, reps: int = 20, rounds: int = 5) -> float:
     return start.elapsed_time(end) / (reps * rounds)
 
 
+def launch_floor(blocks: int, threads: int):
+    """A zero-argument call that launches the empty kernel
+    (``csrc/launch_floor.cu``) at ``blocks`` blocks of ``threads``
+    threads, as the wrappers launch theirs: one C call through ctypes on
+    the current stream."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    fn = _build.load("launch_floor").launch_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch_floor launch failed: cudaError {err}")
+    return call
+
+
 def time_events(fn, reps: int = 20) -> float:
     """Milliseconds per call of ``fn`` between CUDA events around ``reps``
     back-to-back calls after a warm-up, without a graph (host launch
@@ -553,30 +573,50 @@ def check_kernels(dev) -> dict:
                      bitwise=bool(torch.equal(got, want)), **rep.as_dict())
         err["wbs_miru_scan"] = check_scan(dev, rng)
         err["miru_scan"] = check_miru_scan(dev, rng)
-        # The readout at the serve (896 rows), eval (200) and train (64)
-        # shapes; each row's bits must not depend on the number of rows.
-        w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
+        err["miru_readout"] = check_readout(dev, rng)
+        err["wbs_matmul_read_noise"] = check_read_noise(dev, rng)
+        err.update(check_lm_kernels(dev, rng))
+    err.update(check_flash_bwd(dev, rng))
+    return err
+
+
+# The readout's larger-K case: K past one shared-memory tile of the
+# kernel at every M (miru_readout.geometry), N past a block's columns.
+READOUT_WIDE = ((1500, N_Y), (N_H, 300))
+
+
+def check_readout(dev, rng) -> float:
+    """The readout bit for bit against its plain version and row-exact
+    (each row's bits those of the same row in a call on all the rows) at
+    the serve (896 rows), eval (200), train (64, 32), chunk and single-row
+    shapes, and at the :data:`READOUT_WIDE` widths on a generator of its
+    own (so that the draws of the checks after it stay as they were).
+    Returns the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    err = 0.0
+    cases = [(rng, N_H, N_Y)] + [(np.random.default_rng(21), K, N)
+                                 for K, N in READOUT_WIDE]
+    for g, K, N in cases:
+        w_o = torch.from_numpy(g.normal(0, 0.3, (K, N)).astype(
             np.float32)).to(dev)
-        b_o = torch.from_numpy(rng.normal(0, 0.1, N_Y).astype(
-            np.float32)).to(dev)
-        h = torch.from_numpy(rng.uniform(-1, 1, (SLOTS * CHUNK, N_H)).astype(
+        b_o = torch.from_numpy(g.normal(0, 0.1, N).astype(np.float32)).to(dev)
+        h = torch.from_numpy(g.uniform(-1, 1, (SLOTS * CHUNK, K)).astype(
             np.float32)).to(dev)
         full = ops.miru_readout(h, w_o, b_o)
-        for M in (SLOTS * CHUNK, CL_TEST, SW_BATCH, CHUNK, 1):
+        for M in (SLOTS * CHUNK, CL_TEST, SW_BATCH, CL_BATCH, CHUNK, 1):
             got = ops.miru_readout(h[:M].contiguous(), w_o, b_o)
             want = ref.miru_readout_ref(h[:M], w_o, b_o)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
-            err["miru_readout"] = max(err["miru_readout"], e)
+            err = max(err, e)
             bitwise = torch.equal(got, want) and torch.equal(got, full[:M])
-            emit("kernels", kernel="miru_readout", shape=[M, N_H, N_Y],
+            emit("kernels", kernel="miru_readout", shape=[M, K, N],
                  bitwise_and_row_exact=bitwise, max_abs_err=e)
             if not bitwise:
                 raise AssertionError(f"miru_readout not bitwise or not "
-                                     f"row-exact at M={M}")
-        err["wbs_matmul_read_noise"] = check_read_noise(dev, rng)
-        err.update(check_lm_kernels(dev, rng))
-    err.update(check_flash_bwd(dev, rng))
+                                     f"row-exact at M={M}, K={K}, N={N}")
     return err
 
 
@@ -706,26 +746,50 @@ def check_lm_kernels(dev, rng) -> dict:
                 raise AssertionError(f"padding past sk_true changed the "
                                      f"output, or a second call differs "
                                      f"({dt}, causal {causal})")
-    # k-WTA: kernel_bench's (64, 1024) at k 580, 3 and 11 rows (the
-    # reference pads 11 to 16), and long rows; f32 and bf16.
-    for R, N, kk in ((64, 1024, 580), (3, 1024, 100), (11, 4096, 300),
-                     (8, 65536, 6000)):
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
-                np.float32)).to(dev, dt)
-            got = ops.kwta(x, kk)
-            want = ref.kwta_bisect_ref(x, kk)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(got, want))
-            err["kwta"] = max(err["kwta"], float(
-                (got.float() - want.float()).abs().max()))
-            kept = (got != 0).sum(-1)
-            emit("kernels", kernel="kwta", shape=[R, N], k=kk, dtype=str(dt),
-                 bitwise=same, kept_min=int(kept.min()),
-                 kept_max=int(kept.max()))
-            if not same:
-                raise AssertionError(f"kwta != plain at {(R, N)}, k {kk}, "
-                                     f"{dt}")
+    err["kwta"] = check_kwta(dev, rng)
+    return err
+
+
+# k-WTA's checked shapes (R, N, k): kernel_bench's (64, 1024) at k 580, 3
+# and 11 rows (the reference pads 11 to 16), and long rows, on the main
+# generator; then each path's edges (kwta.plan: a warp a row up to 512,
+# then a block of the fewest warps that hold the row at 16 values a
+# thread up to 16,384, 4 warps at 2,048 and 8 at 2,049, then the row from
+# global memory), k 0 and k N - 1, on a generator of its own, so that the
+# draws of the checks after it stay as they were.
+KWTA_SHAPES = ((64, 1024, 580), (3, 1024, 100), (11, 4096, 300),
+               (8, 65536, 6000))
+KWTA_EDGES = ((5, 512, 256), (6, 513, 1), (5, 2048, 1000), (6, 2049, 2048),
+              (7, 16384, 16383), (3, 16385, 0))
+
+
+def check_kwta(dev, rng) -> float:
+    """``ops.kwta`` bit for bit against its plain version at
+    :data:`KWTA_SHAPES` and :data:`KWTA_EDGES`, f32 and bf16; returns the
+    largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kwta, ops, ref
+    err = 0.0
+    edges = np.random.default_rng(22)
+    for g, shapes in ((rng, KWTA_SHAPES), (edges, KWTA_EDGES)):
+        for R, N, kk in shapes:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(g.normal(0, 1, (R, N)).astype(
+                    np.float32)).to(dev, dt)
+                got = ops.kwta(x, kk)
+                want = ref.kwta_bisect_ref(x, kk)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(got, want))
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+                kept = (got != 0).sum(-1)
+                emit("kernels", kernel="kwta", shape=[R, N], k=kk,
+                     dtype=str(dt), path=kwta.plan(N, dt).path, bitwise=same,
+                     kept_min=int(kept.min()), kept_max=int(kept.max()))
+                if not same:
+                    raise AssertionError(f"kwta != plain at {(R, N)}, k {kk}, "
+                                         f"{dt}")
     return err
 
 
@@ -2070,7 +2134,8 @@ def times(dev) -> dict:
             max_sm_mhz=mhz, u_place=miru_scan.u_place(H), blocks=B,
             sms=torch.cuda.get_device_properties(dev).multi_processor_count)
         # The readout at the serve shape (the kernels line) and the eval
-        # shape, beside torch.addmm of the same operands.
+        # shape, beside torch.addmm of the same operands, and the empty
+        # kernel launched at its blocks and threads (launch_floor_ms).
         w_o = torch.from_numpy(rng.normal(0, 0.3, (N_H, N_Y)).astype(
             np.float32)).to(dev)
         b_o = torch.from_numpy(rng.normal(0, 0.1, N_Y).astype(
@@ -2081,6 +2146,9 @@ def times(dev) -> dict:
                 np.float32)).to(dev)
             b, by = bound_ms(2.0 * M * N_H * N_Y + M * N_Y,
                              4 * (M * N_H + N_H * N_Y + N_Y + M * N_Y))
+            g = miru_readout.geometry(M, N_H, N_Y,
+                                      miru_readout.sm_count(dev))
+            rows, cols = g.grid(M, N_Y)
             out[key] = dict(
                 shape=[M, N_H, N_Y],
                 ms=time_graph(lambda: miru_readout.miru_readout(h, w_o,
@@ -2089,7 +2157,10 @@ def times(dev) -> dict:
                                                                  b_o)),
                 library_ms=time_graph(lambda: torch.addmm(b_o, h, w_o)),
                 library="torch.addmm",
-                bound_ms=b, bound_by=by)
+                bound_ms=b, bound_by=by, geometry=g._asdict(),
+                blocks=rows * cols, threads=g.threads,
+                launch_floor_ms=time_graph(launch_floor(rows * cols,
+                                                        g.threads)))
         out.update(lm_times(dev, rng))
     for name, t in out.items():
         emit("times", kernel=name, **t)
@@ -2178,21 +2249,33 @@ def lm_times(dev, rng) -> dict:
             out[key]["bound_cuda_cores_ms"] = flash_bound(flops, n_bytes,
                                                           dt)[0]
     out.update(flash_bwd_times(dev, rng))
-    # k-WTA at kernel_bench's (64, 1024), k 580, f32: the function reads x
-    # and writes out once and makes |x| and iters + 2 comparisons an
-    # element. The yardstick is the exact top-k k-WTA (torch.topk), a
-    # different function (exact, not bisected).
-    R, N, kk, iters = 64, 1024, 580, 32
-    x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype("float32")).to(dev)
-    b, by = bound_ms(R * N * (iters + 3.0), 2 * 4 * R * N)
-    out["kwta"] = dict(
-        shape=[R, N], k=kk, dtype="float32",
-        ms=time_graph(lambda: kwta.kwta(x, kk, iters)),
-        plain_ms=time_graph(lambda: ref.kwta_bisect_ref(x, kk, iters),
-                            reps=2, rounds=3),
-        library_ms=time_graph(lambda: ref.kwta_ref(x, kk)),
-        library="exact top-k k-WTA (torch.topk), a different function",
-        bound_ms=b, bound_by=by)
+    # k-WTA at check_kwta's shapes (KWTA_SHAPES; kernel_bench's (64, 1024),
+    # k 580, f32, is the kernels line's), and at (64, 1024) in bf16: the
+    # function reads x and writes out once and makes |x| and iters + 2
+    # comparisons an element. The yardstick is the exact top-k k-WTA
+    # (torch.topk), a different function (exact, not bisected). Beside
+    # each, the empty kernel at the plan's blocks and threads
+    # (launch_floor_ms).
+    iters = 32
+    for (R, N, kk), dt in [(s, torch.float32) for s in KWTA_SHAPES] \
+            + [(KWTA_SHAPES[0], torch.bfloat16)]:
+        x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
+            "float32")).to(dev, dt)
+        b, by = bound_ms(R * N * (iters + 3.0), 2 * x.element_size() * R * N)
+        p = kwta.plan(N, dt)
+        blocks, threads = kwta.launch_shape(R, p)
+        key = "kwta" if (R, N, dt) == (64, 1024, torch.float32) \
+            else f"kwta@{R}x{N}" + ("_bf16" if dt == torch.bfloat16 else "")
+        out[key] = dict(
+            shape=[R, N], k=kk, dtype=str(dt).replace("torch.", ""),
+            ms=time_graph(lambda: kwta.kwta(x, kk, iters)),
+            plain_ms=time_graph(lambda: ref.kwta_bisect_ref(x, kk, iters),
+                                reps=2, rounds=3),
+            library_ms=time_graph(lambda: ref.kwta_ref(x, kk)),
+            library="exact top-k k-WTA (torch.topk), a different function",
+            bound_ms=b, bound_by=by, plan=p._asdict(), blocks=blocks,
+            threads=threads,
+            launch_floor_ms=time_graph(launch_floor(blocks, threads)))
     return out
 
 
@@ -2299,18 +2382,20 @@ def flash_bwd_times(dev, rng) -> dict:
 
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
-    dk/dv: every library named ``*_sm90``) or the ideal scan a stack
-    frame. wgmma reads its register operands after the instruction
-    issues; a value the compiler keeps in local memory is loaded into a
-    scratch register that it may reuse while the tensor cores still read
-    it, which makes results change from run to run (seen on the card with
-    a 128-byte frame). The scan keeps U's column in registers: a spill
-    would put it back on the chain of every step."""
+    dk/dv: every library named ``*_sm90``), the ideal scan, the readout
+    or k-WTA a stack frame. wgmma reads its register operands after the
+    instruction issues; a value the compiler keeps in local memory is
+    loaded into a scratch register that it may reuse while the tensor
+    cores still read it, which makes results change from run to run (seen
+    on the card with a 128-byte frame). The scan keeps U's column in
+    registers, k-WTA its rows, the readout its chains' operands in shared
+    memory: a spill would put local memory back on each chain."""
     frames = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
                   .splitlines() if "bytes stack frame" in ln
                   and not ln.strip().startswith("0 bytes stack frame")]
               for n, p in libs.items()
-              if n.endswith("_sm90") or n == "miru_scan"}
+              if n.endswith("_sm90")
+              or n in ("miru_scan", "miru_readout", "kwta")}
     if any(frames.values()):
         raise AssertionError(f"kernels use local memory: {frames}")
 
@@ -2393,7 +2478,7 @@ def main() -> int:
                                          "(read_sigma > 0: :36-45, :65-73)",
                 "wbs_miru_scan": "src/repro/kernels/wbs_miru_scan.py:105",
                 "miru_scan": "src/repro/kernels/miru_scan.py:47",
-                "miru_readout": "h @ w_o in src/repro/core/miru.py:133 (not "
+                "miru_readout": "h @ w_o in src/repro/core/miru.py:139 (not "
                                 "a TPU kernel; repair of queue C)",
                 "flash_attention_fwd_f32_sm90": "src/repro/kernels/"
                                                 "flash_attention.py:227 "

@@ -28,7 +28,7 @@ NAMES = ("wbs_matmul", "wbs_miru_scan", "miru_scan", "miru_readout",
          "flash_attention_fwd_f32_sm90", "kwta", "flash_attention_fwd_sm90",
          "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv_sm90",
          "flash_attention_bwd_dq_f32_sm90",
-         "flash_attention_bwd_dkv_f32_sm90")
+         "flash_attention_bwd_dkv_f32_sm90", "launch_floor")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later), shared
-// by the flash kernels (flash_sm90.cuh) and the WBS product (wbs_matmul.cu):
+// by the flash kernels (flash_sm90.cuh), the WBS product (wbs_matmul.cu)
+// and the readout (miru_readout.cu):
 // a thread issues its copies without waiting on each, and one wait
 // covers them all.
 #pragma once

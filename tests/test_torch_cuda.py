@@ -261,9 +261,33 @@ def test_readout_kernel_equals_plain_and_is_row_exact(cuda):
     torch.cuda.synchronize()
     assert kreadout.launches == before + 1
     assert torch.equal(full, ref.miru_readout_ref(h, w, b))
-    for m in (1, 14, 200, 896):
+    for m in (1, 14, 32, 64, 200, 896):
         assert torch.equal(ops.miru_readout(h[:m].contiguous(), w, b),
                            full[:m])
+
+
+@pytest.mark.parametrize("k,n", [(1500, 10), (1501, 10), (37, 300)])
+def test_readout_kernel_row_exact_past_one_tile(cuda, k, n):
+    """K past one shared-memory tile (the chain carried across tiles; K
+    % 4 != 0 takes the 4-byte copies of h), and N past a block's columns
+    (a column tile of w_o, 4-byte copies): bit for bit and row-exact at
+    every M, one launch a call."""
+    from repro_torch.kernels import miru_readout as kr
+    rng = np.random.default_rng(k + n)
+    h, w, b = _on(cuda, rng.uniform(-1, 1, (896, k)).astype(np.float32),
+                  rng.normal(0, 0.3, (k, n)).astype(np.float32),
+                  rng.normal(0, 0.1, (n,)).astype(np.float32))
+    assert kr.geometry(896, k, n).k_tile < k or kr.geometry(
+        896, k, n).cols < n
+    full = ops.miru_readout(h, w, b)
+    assert torch.equal(full, ref.miru_readout_ref(h, w, b))
+    for m in (1, 14, 32, 64, 200):
+        before = kreadout.launches
+        got = ops.miru_readout(h[:m].contiguous(), w, b)
+        torch.cuda.synchronize()
+        assert kreadout.launches == before + 1
+        assert torch.equal(got, full[:m])
+        assert torch.equal(got, ref.miru_readout_ref(h[:m], w, b))
 
 
 def test_miru_forward_fused_launches_the_scan_on_the_card(cuda):
@@ -727,13 +751,29 @@ def test_flash_gradients_through_the_function_match_full_attention(cuda):
         assert testing.grads_close(a, b)
 
 
+def _kwta_rows(R, N, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (R, N)).astype(np.float32)
+    if ties:                        # repeated magnitudes, both signs
+        x = np.round(x * 4) / 4
+    return x
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,N,k", [(64, 1024, 580), (3, 100, 10),
-                                   (11, 257, 30), (8, 65536, 6000)])
-def test_kwta_kernel_equals_plain(cuda, R, N, k, dtype):
+@pytest.mark.parametrize("R,N,k,ties", [
+    (64, 1024, 580, False), (3, 100, 10, False), (11, 257, 30, False),
+    (8, 65536, 6000, False),
+    # each path's edges (kwta.plan: a warp a row up to 512, a block of 2-32
+    # warps a row up to 16,384, then the row streamed), R not a multiple
+    # of the four rows a block of the warp path, k 0 and k N - 1, tied rows
+    (1, 1, 0, False), (5, 512, 256, False), (13, 512, 511, True),
+    (6, 513, 1, False), (9, 1024, 0, True), (5, 2048, 1000, False),
+    (6, 2049, 2048, True), (7, 16384, 16383, False), (5, 16384, 3000, True),
+    (3, 16385, 0, False), (2, 70000, 9000, True),
+])
+def test_kwta_kernel_equals_plain(cuda, R, N, k, ties, dtype):
     from repro_torch.kernels import kwta as kkwta
-    rng = np.random.default_rng(R + N)
-    x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(np.float32)).to(
+    x = torch.from_numpy(_kwta_rows(R, N, R + N, ties)).to(
         cuda, getattr(torch, dtype))
     before = kkwta.launches
     got = ops.kwta(x, k)

@@ -435,6 +435,101 @@ def test_new_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
                        read_sigma=0.1)
 
 
+def _readout_launch_walk(M, K, N, g):
+    """The outputs and k ranges of ``csrc/miru_readout.cu``'s launch under
+    geometry g, walked as its blocks, threads and tiles run: {(m, n): the
+    k each tile sums, in order}."""
+    seen = {}
+    rows, cols = g.grid(M, N)
+    for bx in range(rows):
+        for by in range(cols):
+            for r in range(g.rows):
+                for c in range(g.cols):
+                    m, n = bx * g.rows + r, by * g.cols + c
+                    if m >= M or n >= N:
+                        continue
+                    assert (m, n) not in seen
+                    seen[(m, n)] = [k for k0 in range(0, K, g.k_tile)
+                                    for k in range(k0, min(k0 + g.k_tile, K))]
+    return seen
+
+
+@pytest.mark.parametrize("m,k,n", [(896, 100, 10), (200, 100, 10),
+                                   (64, 100, 10), (32, 100, 10),
+                                   (1, 100, 10), (14, 1500, 10),
+                                   (896, 1500, 10), (3, 37, 300),
+                                   (5, 1, 1), (9, 7, 257)])
+def test_readout_geometry_covers_every_output_and_k_once(m, k, n):
+    """``miru_readout.geometry`` launches every output exactly once, each
+    summing k = 0..K-1 ascending across its K-tiles, within the block's
+    threads and shared memory and the grid's limits; 896 rows spread over
+    128 blocks, 32 and 64 rows over 32 and 64."""
+    g = kreadout.geometry(m, k, n)
+    assert g.k_tile % 4 == 0 and g.k_tile >= 4
+    assert kreadout.smem_floats(g) <= kreadout.SMEM_FLOATS
+    assert g.rows * g.cols <= kreadout.MAX_THREADS <= 1024
+    assert g.grid(m, n)[1] <= 65535
+    walk = _readout_launch_walk(m, k, n, g)
+    assert len(walk) == m * n
+    assert all(ks == list(range(k)) for ks in walk.values())
+    if k <= 1000 and n <= kreadout.MAX_THREADS:
+        assert g.k_tile >= k and g.cols == n        # one tile, whole rows
+    if n == 10 and m in (32, 64, 896):
+        assert g.grid(m, n)[0] == {32: 32, 64: 64, 896: 128}[m]
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132, 144])
+def test_readout_geometry_follows_the_cards_sms(sms):
+    """``geometry`` aims its row groups at the card's SMs (the wrapper
+    reads them from the device): one row a block up to M = sms, and every
+    output still launched once with its k ascending."""
+    for m in (1, 32, 64, 200, 896):
+        g = kreadout.geometry(m, 100, 10, sms)
+        assert g.rows == max(1, min(-(-m // sms), kreadout.MAX_THREADS // 10))
+        walk = _readout_launch_walk(m, 100, 10, g)
+        assert len(walk) == m * 10
+        assert all(ks == list(range(100)) for ks in walk.values())
+    assert kreadout.geometry(896, 100, 10) \
+        == kreadout.geometry(896, 100, 10, kreadout.H100_SMS)
+
+
+def _readout_tiled(h, w, b, g):
+    """The kernel's arithmetic under geometry g on the CPU: each block's
+    rows and columns, the chain carried across the K-tiles in ascending
+    k, products and sums rounded to fp32, the bias last."""
+    M, K = h.shape
+    N = w.shape[1]
+    out = torch.empty(M, N)
+    rows, cols = g.grid(M, N)
+    for bx in range(rows):
+        for by in range(cols):
+            ms = slice(bx * g.rows, min((bx + 1) * g.rows, M))
+            ns = slice(by * g.cols, min((by + 1) * g.cols, N))
+            acc = torch.zeros(ms.stop - ms.start, ns.stop - ns.start)
+            for k0 in range(0, K, g.k_tile):
+                for k in range(k0, min(k0 + g.k_tile, K)):
+                    acc = acc + h[ms, k, None] * w[k, ns]
+            out[ms, ns] = acc + b[ns]
+    return out
+
+
+@pytest.mark.parametrize("geom", [None, (1, 10, 100), (3, 4, 8), (7, 10, 4),
+                                  (25, 7, 12)])
+def test_readout_geometry_never_changes_a_row(geom):
+    """Whatever rows a block, columns a block and K-tile the launch takes,
+    every row's bits are the plain version's, which depend on that row
+    alone."""
+    rng = np.random.default_rng(31)
+    h, w, b = (torch.from_numpy(rng.normal(0, 0.5, s).astype(np.float32))
+               for s in ((40, 101), (101, 10), (10,)))
+    g = kreadout.geometry(40, 101, 10) if geom is None \
+        else kreadout.Geometry(*geom)
+    want = ref.miru_readout_ref(h, w, b)
+    assert torch.equal(_readout_tiled(h, w, b, g), want)
+    for m in (1, 13, 32):
+        assert torch.equal(_readout_tiled(h[:m], w, b, g), want[:m])
+
+
 def test_wbs_input_drive_per_step_gains_are_the_per_step_products():
     """With per-step gains, each step's drive is that step's own
     crossbar product, row for row."""
@@ -507,3 +602,88 @@ def test_kwta_wrapper_refuses_cpu_tensors_and_bad_inputs():
     from repro_torch.kernels import kwta as kkwta
     with pytest.raises(ValueError, match="CUDA"):
         kkwta.kwta(torch.zeros(2, 8), 3)
+
+
+@pytest.mark.parametrize("N,path,warps,v", [
+    (1, "warp", 1, 1), (100, "warp", 1, 4),
+    (512, "warp", 1, 16),                       # the warp path's limit
+    (513, "block", 2, 16), (1024, "block", 2, 16),
+    (2048, "block", 4, 16), (2049, "block", 8, 16), (8193, "block", 32, 16),
+    (16384, "block", 32, 16),                   # the block path's limit
+    (16385, "stream", 32, 0), (65536, "stream", 32, 0),
+    (1 << 20, "stream", 32, 0),                 # ops.KWTA_ROW_LIMIT
+])
+def test_kwta_plan_takes_each_row_length_to_its_path(N, path, warps, v):
+    from repro_torch.kernels import kwta as kkwta
+    assert (kkwta.WARP_N, kkwta.BLOCK_N) == (512, 16384)
+    assert ops.KWTA_ROW_LIMIT == 1 << 20
+    for dt in (torch.float32, torch.bfloat16):
+        p = kkwta.plan(N, dt)
+        assert tuple(p) == (path, warps, v)
+    # only the register kernels that csrc/kwta.cu instantiates
+    assert v in {"warp": kkwta.WARP_V, "block": (kkwta.PLAN_V,),
+                 "stream": (0,)}[path]
+    if path != "stream":            # the fewest warps, then values, that fit
+        assert 32 * warps * v >= N
+        assert N > 16 * warps * v or (path == "warp" and v == 1) \
+            or (path == "block" and warps == 2)
+    blocks, threads = kkwta.launch_shape(11, p)
+    assert (blocks, threads) == ((3, 128) if path == "warp"
+                                 else (11, 32 * warps))
+
+
+def test_kwta_plan_refuses_other_dtypes_and_empty_rows():
+    from repro_torch.kernels import kwta as kkwta
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kkwta.plan(10, torch.float16)
+    with pytest.raises(ValueError, match="empty rows"):
+        kkwta.plan(0)
+
+
+def _kwta_by_plan(x, k, p, iters=32):
+    """``csrc/kwta.cu``'s arithmetic under plan p on the CPU: the row
+    spread over the plan's threads, value j of thread t element j·threads
+    + t, +0 past N; each thread's counts summed over the row; the max an
+    fmax over the threads' maxima; mid by fp32 rounding."""
+    R, N = x.shape
+    x32 = x.to(torch.float32)
+    threads = 32 * p.warps
+    per = -(-N // threads) if p.path == "stream" else p.v
+    held = torch.zeros(R, per * threads)
+    held[:, :N] = x32
+    held = held.reshape(R, per, threads).abs()
+    out = torch.empty_like(x32)
+    for r in range(R):
+        mx = held[r].amax(0).amax()
+        lo, hi = torch.tensor(0.0), mx + 1.0
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            if int((held[r] > mid).sum(0).sum()) > k:
+                lo = mid
+            else:
+                hi = mid
+        theta = hi if int((held[r] > hi).sum(0).sum()) >= k else lo
+        out[r] = torch.where(x32[r].abs() > theta, x32[r], 0.0)
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,N,k,ties", [(3, 100, 10, False),
+                                        (5, 2048, 2047, True),
+                                        (2, 2049, 0, False),
+                                        (2, 5000, 700, True)])
+def test_kwta_plans_never_change_a_row(R, N, k, ties, dtype):
+    """Every plan that holds a row (its own, and those of the longer rows,
+    the streamed one included) gives the plain version's bits: the counts
+    are integers and the padding is +0, which no threshold (≥ +0)
+    counts."""
+    from repro_torch.kernels import kwta as kkwta
+    x = torch.from_numpy(_kwta_rows(R, N, N + k, ties)).to(
+        getattr(torch, dtype))
+    want = ref.kwta_bisect_ref(x, k)
+    plans = {kkwta.plan(n) for n in (N, 128, 512, 513, 2048, 4096, 8192,
+                                     kkwta.BLOCK_N, kkwta.BLOCK_N + 1)
+             if n >= N}
+    assert len(plans) >= 3
+    for p in plans:
+        assert torch.equal(_kwta_by_plan(x, k, p), want), p

@@ -8,6 +8,7 @@ Run from the repository root:
                                   [--old-fp32-bwd FILE] [--old-fp32-fwd FILE]
                                   [--old-scan FILE] [--old-read-noise FILE]
                                   [--old-miru-scan FILE]
+                                  [--old-readout FILE] [--old-kwta FILE]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (this
 tree's by default). The rows and their timers are the timed tree's own
@@ -73,6 +74,22 @@ serve shape (64, 14, 100) and train (b)'s (32, 28, 100), old, new, new,
 old, both bitwise equal to the plain version, and this tree's kernel at
 other launch geometries (rows a cluster, cluster size: the wrapper's
 ``geom``) once each.
+
+``--old-readout FILE`` and ``--old-kwta FILE`` time the readout and
+k-WTA of commit 7eda07d (one thread an output reading from global
+memory; a block of 512 threads a row with three barriers a count) beside
+this tree's: pass its ``miru_readout.cu`` and ``kwta.cu`` (``git archive
+7eda07d`` unpacked under ``archive/``). The readout is timed at the
+serve, eval and train shapes ((896, 100, 10), (200, …), (64, …), (32,
+…)), k-WTA at ``chip_smoke.KWTA_SHAPES`` in f32 and bf16, old, new, new,
+old, every result bit for bit against the plain version, beside
+``torch.addmm`` (the readout) and the empty kernel launched at this
+tree's blocks and threads (``launch_floor_ms``); plus the variants, each
+built from a temporary copy of this tree's source: the readout with one
+thread a row carrying its 10 chains interleaved, at 8 and 32 rows a
+block, and k-WTA in f32 under every plan that holds the row at N 100 to
+16,384 (one warp a row, 2-32 warps a row, the row streamed: the evidence
+for ``kwta.plan``).
 
 Prints one JSON object with the card's name and power limit.
 """
@@ -543,6 +560,300 @@ def old_fp32_bwd_rows(cs, dev, src: Path) -> dict:
     return out
 
 
+# The readout variant that kernel_times appends to a temporary copy of
+# csrc/miru_readout.cu (it uses that file's stage_tile, smem_floats and
+# constants): one thread a row of h, carrying the row's N = 10 chains
+# interleaved over one load of h from shared memory, each k ascending as
+# in the package's kernel (so bit for bit the same function).
+READOUT_ROWS_VARIANT = r"""
+namespace {
+constexpr int kRowCols = 10;
+__global__ void __launch_bounds__(kMaxThreads)
+readout_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ out,
+                    int M, int K, int rows, int k_tile, int vec_h) {
+  extern __shared__ __align__(16) float smem[];
+  const int hstride = k_tile + kPad;
+  float* hs = smem;
+  float* ws = hs + rows * hstride;
+  float* bs = ws + k_tile * kRowCols;
+  const int m0 = blockIdx.x * rows;
+  const int r = threadIdx.x;
+  const bool active = r < rows;
+  const float* hr = hs + r * hstride;
+  for (int i = threadIdx.x; i < kRowCols; i += blockDim.x)
+    cp_async4(smem_u32(bs + i), b + i, 4);
+  float acc[kRowCols];
+#pragma unroll
+  for (int j = 0; j < kRowCols; ++j) acc[j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += k_tile) {
+    const int kt = min(k_tile, K - k0);
+    if (k0 > 0) __syncthreads();
+    stage_tile(h, w, hs, ws, M, K, kRowCols, m0, 0, k0, kt, rows, kRowCols,
+               k_tile, vec_h, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    int k = 0;
+#pragma unroll 5
+    for (; k + 4 <= kt; k += 4) {
+      const float4 hv = *reinterpret_cast<const float4*>(hr + k);
+      const float* wk = ws + k * kRowCols;
+#pragma unroll
+      for (int j = 0; j < kRowCols; ++j) {
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(hv.x, wk[j]));
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(hv.y, wk[kRowCols + j]));
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(hv.z, wk[2 * kRowCols + j]));
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(hv.w, wk[3 * kRowCols + j]));
+      }
+    }
+    for (; k < kt; ++k)
+#pragma unroll
+      for (int j = 0; j < kRowCols; ++j)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(hr[k], ws[k * kRowCols + j]));
+  }
+  const int m = m0 + r;
+  if (!active || m >= M) return;
+#pragma unroll
+  for (int j = 0; j < kRowCols; ++j)
+    out[static_cast<size_t>(m) * kRowCols + j] = __fadd_rn(acc[j], bs[j]);
+}
+}  // namespace
+
+extern "C" int miru_readout_rows_launch(const void* h, const void* w,
+                                        const void* b, void* out, int M,
+                                        int K, int N, int rows, int k_tile,
+                                        void* stream) {
+  if (M < 1 || K < 1 || N != kRowCols || rows < 1 || rows > kMaxThreads ||
+      k_tile < 4 || k_tile % 4 ||
+      smem_floats(rows, kRowCols, k_tile) > kSmemFloats ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_h = K % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  readout_rows_kernel<<<(M + rows - 1) / rows, (rows + 31) / 32 * 32,
+                        smem_floats(rows, kRowCols, k_tile) * sizeof(float),
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(out), M, K, rows,
+      k_tile, vec_h);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def old_readout_rows(cs, dev, src: Path) -> dict:
+    """The parent's readout (C function ``miru_readout_launch`` of ``src``:
+    one thread an output reading both operands from global memory) beside
+    this tree's at the serve shape (896, 100, 10), the eval shape (200,
+    100, 10) and train (a)'s and (b)'s (64 and 32 rows), old, new, new,
+    old, each bit for bit against the plain version, with ``torch.addmm``
+    and the empty kernel at this tree's blocks and threads in the same
+    process; and :data:`READOUT_ROWS_VARIANT` (one thread a row carrying
+    its 10 chains interleaved) at 8 and 32 rows a block."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import miru_readout as kr
+    from repro_torch.kernels import _build, ref
+    lib, _ = _build_file(src)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.miru_readout_launch.argtypes = [P] * 4 + [I] * 3 + [P]
+    lib.miru_readout_launch.restype = I
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / "miru_readout_rows.cu"
+        copy.write_text((_build.CSRC / "miru_readout.cu").read_text()
+                        + READOUT_ROWS_VARIANT)
+        ilp, ilp_log = _build_file(copy)
+    ilp.miru_readout_rows_launch.argtypes = [P] * 4 + [I] * 5 + [P]
+    ilp.miru_readout_rows_launch.restype = I
+    rng = np.random.default_rng(7)
+    K, N = cs.N_H, cs.N_Y
+    w = torch.from_numpy(rng.normal(0, 0.3, (K, N)).astype(np.float32)).to(
+        dev)
+    b = torch.from_numpy(rng.normal(0, 0.1, N).astype(np.float32)).to(dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    out = {"ilp_ptxas": [ln.strip() for ln in ilp_log.splitlines()
+                         if "stack frame" in ln or "registers" in ln]}
+    with torch.no_grad():
+        for key, M in (("serve", cs.SLOTS * cs.CHUNK), ("eval", cs.CL_TEST),
+                       ("train_a", cs.SW_BATCH), ("train_b", cs.CL_BATCH)):
+            h = torch.from_numpy(rng.uniform(-1, 1, (M, K)).astype(
+                np.float32)).to(dev)
+
+            def old():
+                y = torch.empty((M, N), device=dev)
+                err = lib.miru_readout_launch(h.data_ptr(), w.data_ptr(),
+                                              b.data_ptr(), y.data_ptr(), M,
+                                              K, N, stream())
+                assert err == 0, err
+                return y
+
+            def cols_a_thread(rows):
+                def run():
+                    y = torch.empty((M, N), device=dev)
+                    err = ilp.miru_readout_rows_launch(
+                        h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        y.data_ptr(), M, K, N, rows, 100, stream())
+                    assert err == 0, err
+                    return y
+                return run
+            new = lambda: kr.miru_readout(h, w, b)
+            want = ref.miru_readout_ref(h, w, b)
+            variants = {f"cols_a_thread_10_rows_{r}": cols_a_thread(r)
+                        for r in (8, 32)}
+            bitwise = {}
+            for name, f in (("old", old), ("new", new), *variants.items()):
+                got = f()
+                torch.cuda.synchronize()
+                bitwise[name] = bool(torch.equal(got, want))
+            g = kr.geometry(M, K, N, kr.sm_count(dev))
+            rows, cols = g.grid(M, N)
+            res = {"shape": [M, K, N], "bitwise": bitwise,
+                   "geometry": g._asdict(), "blocks": rows * cols,
+                   "old_ms": [], "new_ms": []}
+            for label, f in (("old_ms", old), ("new_ms", new),
+                             ("new_ms", new), ("old_ms", old)):
+                res[label].append(cs.time_graph(f))
+            res["addmm_ms"] = cs.time_graph(lambda: torch.addmm(b, h, w))
+            res["launch_floor_ms"] = cs.time_graph(
+                cs.launch_floor(rows * cols, g.threads))
+            res["variants_ms"] = {n: cs.time_graph(f)
+                                  for n, f in variants.items()}
+            out[key] = res
+    return out
+
+
+def old_kwta_rows(cs, dev, src: Path) -> dict:
+    """The parent's k-WTA (C function ``kwta_launch`` of ``src``: a block
+    of 512 threads a row, three barriers a count, the row re-read each
+    round) beside this tree's at ``chip_smoke.KWTA_SHAPES`` in f32 and
+    bf16, old, new, new, old, each bit for bit against the plain version,
+    with the empty kernel at this tree's blocks and threads; then
+    :func:`kwta_plan_rows`."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kwta as kk
+    from repro_torch.kernels import ref
+    lib, _ = _build_file(src)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.kwta_launch.argtypes = [P, P] + [I] * 5 + [P]
+    lib.kwta_launch.restype = I
+    rng = np.random.default_rng(8)
+    iters = 32
+    out = {}
+    with torch.no_grad():
+        for (R, N, k), dt in [(s, d) for s in cs.KWTA_SHAPES
+                              for d in (torch.float32, torch.bfloat16)]:
+            x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
+                np.float32)).to(dev, dt)
+
+            def old():
+                y = torch.empty_like(x)
+                err = lib.kwta_launch(x.data_ptr(), y.data_ptr(), R, N, k,
+                                      iters, int(dt == torch.bfloat16),
+                                      torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return y
+            new = lambda: kk.kwta(x, k, iters)
+            want = ref.kwta_bisect_ref(x, k, iters)
+            bitwise = {}
+            for name, f in (("old", old), ("new", new)):
+                got = f()
+                torch.cuda.synchronize()
+                bitwise[name] = bool(torch.equal(got, want))
+            p = kk.plan(N, dt)
+            blocks, threads = kk.launch_shape(R, p)
+            res = {"shape": [R, N], "k": k, "dtype": str(dt),
+                   "plan": p._asdict(), "blocks": blocks,
+                   "bitwise": bitwise, "old_ms": [], "new_ms": []}
+            for label, f in (("old_ms", old), ("new_ms", new),
+                             ("new_ms", new), ("old_ms", old)):
+                res[label].append(cs.time_graph(f))
+            res["launch_floor_ms"] = cs.time_graph(
+                cs.launch_floor(blocks, threads))
+            out[f"{R}x{N}_{str(dt).replace('torch.', '')}"] = res
+    out["plans"] = kwta_plan_rows(cs, dev)
+    return out
+
+
+# The k-WTA register kernels that csrc/kwta.cu leaves out (kwta.plan
+# never takes them) and that kwta_plan_rows adds to a temporary copy of
+# it: one warp a row at 32 values a lane, 4 and 8 values a thread on the
+# block path.
+KWTA_PLAN_CASES = {"    KWTA_REGS(16, true)\n":
+                   "    KWTA_REGS(16, true)\n    KWTA_REGS(32, true)\n",
+                   "    KWTA_REGS(16, false)\n":
+                   "    KWTA_REGS(4, false)\n    KWTA_REGS(8, false)\n"
+                   "    KWTA_REGS(16, false)\n"}
+
+
+def kwta_plan_rows(cs, dev) -> dict:
+    """k-WTA in f32 under every plan that holds the row at the lengths
+    ``kwta.plan`` chooses between (64 rows; 8 at 16,384): one warp a row,
+    2-32 warps a row at the fewest values a thread (4, 8 or 16) that hold
+    it, the row streamed; launched through ``kwta_launch`` of a temporary
+    copy of this tree's ``kwta.cu`` with :data:`KWTA_PLAN_CASES` added,
+    each bit for bit against the plain version and timed once,
+    ``plan``'s marked. The evidence for ``kwta.plan``."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import kwta as kk
+    text = (_build.CSRC / "kwta.cu").read_text()
+    for old, new in KWTA_PLAN_CASES.items():
+        if text.count(old) != 1:
+            raise RuntimeError(f"no single {old!r} in kwta.cu")
+        text = text.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / "kwta_plans.cu"
+        copy.write_text(text)
+        lib, _ = _build_file(copy)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.kwta_launch.argtypes = [P, P] + [I] * 8 + [P]
+    lib.kwta_launch.restype = I
+    rng = np.random.default_rng(9)
+    out = {}
+    with torch.no_grad():
+        for R, N in ((64, 100), (64, 512), (64, 1024), (64, 2048),
+                     (64, 4096), (8, 16384)):
+            x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
+                np.float32)).to(dev)
+            k = N // 2
+            want = ref.kwta_bisect_ref(x, k)
+            plans = [kk.Plan("warp", 1, next(v for v in (1, 2, 4, 8, 16, 32)
+                                             if 32 * v >= N))] \
+                if N <= 32 * 32 else []
+            plans += [kk.Plan("block", w, next(v for v in (4, 8, 16)
+                                               if 32 * w * v >= N))
+                      for w in (2, 4, 8, 16, 32) if 32 * w * 16 >= N]
+            plans.append(kk.Plan("stream", kk.BLOCK_WARPS, 0))
+            rows = []
+            for p in plans:
+                def f(p=p):
+                    y = torch.empty_like(x)
+                    err = lib.kwta_launch(
+                        x.data_ptr(), y.data_ptr(), R, N, k, 32, 0,
+                        kk.PATHS.index(p.path), p.warps, p.v,
+                        torch.cuda.current_stream().cuda_stream)
+                    assert err == 0, (err, p)
+                    return y
+                got = f()
+                torch.cuda.synchronize()
+                rows.append(dict(plan=list(p), planned=p == kk.plan(N),
+                                 bitwise=bool(torch.equal(got, want)),
+                                 ms=cs.time_graph(f)))
+            out[f"{R}x{N}"] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -553,10 +864,13 @@ def main() -> int:
     ap.add_argument("--old-scan", type=Path)
     ap.add_argument("--old-read-noise", type=Path)
     ap.add_argument("--old-miru-scan", type=Path)
+    ap.add_argument("--old-readout", type=Path)
+    ap.add_argument("--old-kwta", type=Path)
     args = ap.parse_args()
     src = Path(args.src).resolve()
     olds = (args.old_fp32_bwd, args.old_fp32_fwd, args.old_scan,
-            args.old_read_noise, args.old_miru_scan)
+            args.old_read_noise, args.old_miru_scan, args.old_readout,
+            args.old_kwta)
     if src != ROOT / "src" and any(olds):
         ap.error("the --old-* options time this tree's kernels: leave --src")
     sys.path.insert(0, str(src.parent))      # the timed tree's chip_smoke
@@ -589,6 +903,10 @@ def main() -> int:
     if args.old_miru_scan:
         res["old_miru_scan"] = old_miru_scan_rows(cs, dev,
                                                   args.old_miru_scan)
+    if args.old_readout:
+        res["old_readout"] = old_readout_rows(cs, dev, args.old_readout)
+    if args.old_kwta:
+        res["old_kwta"] = old_kwta_rows(cs, dev, args.old_kwta)
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:

@@ -87,11 +87,24 @@ each made in this process without touching the package's files:
   σ = 0 equal to the plain kernel, identical rows, the moments), sound
   and with ``draw_counter_off_by_one`` planted at build time
   (``csrc/wbs_matmul.cu``'s ``READ_NOISE_FAULT``: the second block of
-  the draw pass draws at counter k·N + n + 1).
+  the draw pass draws at counter k·N + n + 1);
+- ``readout``: whether ``chip_smoke.check_kernels`` (the readout bit
+  for bit against its plain version and row-exact at every shape it
+  checks, then the other kernels) passes, sound and with
+  ``late_blocks_sum_k_descending`` planted at build time
+  (``csrc/miru_readout.cu``'s ``READOUT_FAULT``: every block past the
+  first sums each tile's k descending);
+- ``kwta``: whether ``chip_smoke.check_lm_kernels`` (k-WTA bit for bit
+  against its plain version on each path, after the flash forward's
+  checks) passes, sound and with ``lane_31_left_out_of_counts`` planted
+  at build time (``csrc/kwta.cu``'s ``KWTA_FAULT``: in every block past
+  the first, lane 31 of each warp leaves its values out of the
+  bisection's counts).
 
 ``--paths`` picks some of ``software ideal wbs analog read_noise lm
-lm_train scan miru_scan`` (all by default). It exits 1 unless the sound
-builds pass the kernel checks and every planted kernel fault fails one.
+lm_train scan miru_scan readout kwta`` (all by default). It exits 1
+unless the sound builds pass the kernel checks and every planted kernel
+fault fails one.
 """
 from __future__ import annotations
 
@@ -109,7 +122,7 @@ import chip_smoke as cs  # noqa: E402
 
 _OUT = None
 PATHS = ("software", "ideal", "wbs", "analog", "read_noise", "lm",
-         "lm_train", "scan", "miru_scan")
+         "lm_train", "scan", "miru_scan", "readout", "kwta")
 
 
 def emit(**row) -> None:
@@ -539,6 +552,15 @@ def main() -> int:
         reach = kernel_fault("miru_scan", "miru_scan", "MIRU_SCAN_FAULT",
                              "chain_drops_last_k",
                              (lambda rng: cs.check_miru_scan(dev, rng),)) \
+            and reach
+    if "readout" in paths:
+        reach = kernel_fault("readout", "miru_readout", "READOUT_FAULT",
+                             "late_blocks_sum_k_descending",
+                             (lambda rng: cs.check_kernels(dev),)) and reach
+    if "kwta" in paths:
+        reach = kernel_fault("kwta", "kwta", "KWTA_FAULT",
+                             "lane_31_left_out_of_counts",
+                             (lambda rng: cs.check_lm_kernels(dev, rng),)) \
             and reach
     if "lm" in paths:
         lm(dev)
