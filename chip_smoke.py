@@ -101,7 +101,32 @@ lm_train. the LM training path: (i) the same full model (bf16, remat
    every loss
    (``LM_TRAIN_LOSS_RTOL``), grad norm (``LM_TRAIN_GNORM_RTOL``) and the
    final params (their distance over the CPU update's norm,
-   ``LM_TRAIN_PARAMS_REL``); then ``ops.kwta`` once at (64, 1024), k 580;
+   ``LM_TRAIN_PARAMS_REL``);
+train_adam. the BPTT + Adam baseline through the Fig. 4 protocol
+   (``algo="adam"``, 6 epochs a task, otherwise train (b)'s settings) on
+   ``ideal`` and ``wbs`` (the drive, the fused scan and the readout
+   launched under autograd, the scan's straight-through backward once a
+   step): the reference's bands (task 0 > 0.75, R[-1, 0] > 0.25, DFA
+   within 0.25 of Adam's MA and above 0.45), the leading losses and R
+   against the port's CPU run (``ideal`` at train (b)'s tolerances,
+   ``wbs`` at ``R_TOLERANCE["adam_wbs"]``), launches and
+   backward calls a step, ms a step, the busy share of a traced window;
+   TF32 off;
+grad_contract. the scan's gradients through the kernel forward equal to
+   those on the plain forward's residuals, bit for bit, at (64, 28, 100)
+   and (32, 28, 100); fused and per-step gradients of a CE loss on
+   ``wbs`` at the paper's shape within rtol 1e-4, atol 1e-6; the hidden
+   gradients nonzero;
+train_ragged. DFA on ``wbs`` at N_H over the few-shot keyword stream
+   (ragged in T and n_train) under a PadPolicy: finite, above chance, R
+   and the leading losses against the port's CPU run; ``force=True``
+   equal to it; the seq-MNIST surrogate (28 × 28) with a PadPolicy
+   attached but aligned equal to the run without, bit for bit;
+train_loss_aware. ``loss_aware`` replay with Adam on ``ideal`` (the
+   device-resident buffer): full after task 0, the permuted stream's
+   bands, the metered replay traffic equal to the exact count, R and the
+   leading losses against the port's CPU run;
+   then ``ops.kwta`` once at (64, 1024), k 580;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -182,11 +207,40 @@ CL_TASKS, CL_TRAIN, CL_TEST, CL_EPOCHS, CL_BATCH, CL_CAPACITY = \
 #   lost writes to U 2 steps and 7 examples (MA 0.022);
 # - train (d), read noise, against the CPU's first epoch: 12 of 15 steps
 #   agree; σ = 0 and σ = 0.05 on the card leave 0.
+#
+# - train (e), Adam on ``wbs``: sound runs spread wider than DFA's. The
+#   port's CPU runs at 2 and 8 threads agree on every loss; the run at 1
+#   thread leaves them at step 10, its R 3 test examples (MA 0.005) away;
+#   the card leaves the 1-thread run at step 9 with R 4 examples (MA
+#   0.0033) away, and lies 5 examples from the 2-thread run. So it has
+#   its own R entry, past that spread; its leading losses (3 steps, as
+#   DFA's on ``wbs``) are the sharper check.
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
-# Leading steps of train (b)-(d) whose losses must agree (train (a): all).
-LOSS_AGREE_STEPS = {"ideal": 100, "wbs": 3, "analog": 5, "read_noise": 5}
+# Leading steps of train (b)-(h) whose losses must agree (train (a): all).
+LOSS_AGREE_STEPS = {"ideal": 100, "wbs": 3, "analog": 5, "read_noise": 5,
+                    "adam_wbs": 3}
 PARAMS_ATOL = 1e-3            # train (a)'s final params against the CPU's
-R_TOLERANCE = {"ideal": (2, 0.01), "wbs": (4, 0.01), "analog": (4, 0.01)}
+R_TOLERANCE = {"ideal": (2, 0.01), "wbs": (4, 0.01), "analog": (4, 0.01),
+               "adam_wbs": (6, 0.01)}
+# Train (e), the Adam settings of tests/test_continual.py: 6 epochs a task
+# (DFA's 14 match Adam's optimization effort, not its steps), the rest as
+# train (b); its losses and R are held to the CPU at train (b)'s entries
+# on ``ideal`` and at ``adam_wbs``'s on ``wbs``.
+ADAM_EPOCHS = 6
+# Train (g): the few-shot keyword stream (make_keyword_fewshot_tasks'
+# defaults: 4 tasks of 64, 32, 16 and 8 shots, 16-32 frames of 20
+# features, 4 classes; 200 test utterances a task, train (b)'s test-set
+# size, the scale of R_TOLERANCE), DFA on ``wbs`` at N_H under a
+# PadPolicy that keeps each epoch's partial batch; then the seq-MNIST
+# surrogate (make_seq_mnist_tasks, offline: 28 × 28) aligned, with and
+# without the policy, RAG_MNIST_TASKS × CL_TRAIN/CL_TEST for
+# RAG_MNIST_EPOCHS.
+RAG_BATCH, RAG_CAPACITY = 16, 64
+RAG_MNIST_TASKS, RAG_MNIST_EPOCHS = 2, 2
+# Train (h): loss_aware replay (ReplaySpec(capacity=32,
+# policy="loss_aware"), tests/test_replay_policies.py's buffer) with Adam
+# on ``ideal``, train (e)'s stream and epochs.
+LA_CAPACITY = 32
 # Train (d): §V-B's 10 % cycle-to-cycle read variability (CrossbarSpec's
 # own default) on ``analog``; the CPU twin runs its first epoch.
 READ_SIGMA, RN_CPU_EPOCHS = 0.10, 1
@@ -1275,38 +1329,46 @@ def read_noise_backend():
 
 
 def protocol_run(dev, backend, n_tasks: Optional[int] = None,
-                 count: bool = False, epochs: Optional[int] = None) -> dict:
-    """The Fig. 4 protocol on ``dev``: ``run_continual`` with DFA and
-    reservoir replay on ``backend`` (a name or a backend) over
-    ``n_tasks`` permuted tasks, ``epochs`` a task (default CL_EPOCHS)."""
+                 count: bool = False, epochs: Optional[int] = None,
+                 algo: str = "dfa", replay=None) -> dict:
+    """The Fig. 4 protocol on ``dev``: ``run_continual`` with ``algo``
+    and ``replay`` (default reservoir replay of CL_CAPACITY) on
+    ``backend`` (a name or a backend) over ``n_tasks`` permuted tasks,
+    ``epochs`` a task (default CL_EPOCHS). With ``count``, the launch
+    counters (and ``scan_backward_calls``) are zeroed just before the run
+    and read just after."""
     from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
                                             run_continual)
     from repro_torch.core.miru import MiRUConfig
     from repro_torch.data.synthetic import make_permuted_tasks
+    from repro_torch.kernels import ops
     n_tasks = CL_TASKS if n_tasks is None else n_tasks
     tasks = make_permuted_tasks(0, n_tasks=n_tasks, n_train=CL_TRAIN,
                                 n_test=CL_TEST)
     cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
-    trainer = TrainerSpec(algo="dfa", batch_size=CL_BATCH,
+    trainer = TrainerSpec(algo=algo, batch_size=CL_BATCH,
                           epochs_per_task=CL_EPOCHS if epochs is None
                           else epochs)
     _sync(dev)
     if count:
         reset_launches()
+        ops.scan_backward_calls = 0
     t0 = time.perf_counter()
     out = run_continual(cfg, trainer, tasks,
-                        replay=ReplaySpec(capacity=CL_CAPACITY),
+                        replay=replay if replay is not None
+                        else ReplaySpec(capacity=CL_CAPACITY),
                         device=backend, torch_device=dev)
     _sync(dev)
     out["wall_s"] = time.perf_counter() - t0
     out["launches"] = read_launches()
+    out["scan_backward_calls"] = ops.scan_backward_calls
     return out
 
 
-def train_step_ms(dev, backend: str, steps: int = 100) -> float:
-    """Milliseconds per DFA train step of the protocol on the card: the
-    first ``steps`` batches of task 0's schedule through the trainer's own
-    step, after a warm-up, ending in a synchronize."""
+def train_steps(dev, backend: str, algo: str = "dfa"):
+    """``run(n) -> seconds``: the next ``n`` train steps of the protocol on
+    the card — task 0's schedule through the trainer's own step, cycling
+    over its batches, after 3 warm-up steps — ending in a synchronize."""
     import torch
     from repro_torch import prng
     from repro_torch.backends import get_backend
@@ -1318,25 +1380,41 @@ def train_step_ms(dev, backend: str, steps: int = 100) -> float:
     tasks = make_permuted_tasks(0, n_tasks=1, n_train=CL_TRAIN,
                                 n_test=CL_TEST)
     cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
-    trainer = TrainerSpec(epochs_per_task=CL_EPOCHS, batch_size=CL_BATCH)
+    trainer = TrainerSpec(algo=algo, epochs_per_task=CL_EPOCHS,
+                          batch_size=CL_BATCH)
     be = get_backend(backend)
     sched = build_batch_schedule(trainer, ReplaySpec(capacity=CL_CAPACITY),
                                  tasks)
-    step, _ = _make_raw_steps(cfg, trainer, be)
+    step, _, opt = _make_raw_steps(cfg, trainer, be)
     key, params, psi, st = _init_run(cfg, trainer, be, dev)
-    xs = torch.from_numpy(sched.x[0][:steps]).to(dev)
-    ys = torch.from_numpy(sched.y[0][:steps]).to(dev)
-    opt = {"psi": psi}
-    with torch.no_grad():
-        for s in range(3):
-            step(params, opt, prng.PRNGKey(s), xs[s], ys[s], st)
-        _sync(dev)
-        t0 = time.perf_counter()
-        for s in range(steps):
-            key, k = prng.split(key)
-            params, opt, _, _, st = step(params, opt, k, xs[s], ys[s], st)
-        _sync(dev)
-    return 1e3 * (time.perf_counter() - t0) / steps
+    xs = torch.from_numpy(sched.x[0]).to(dev)
+    ys = torch.from_numpy(sched.y[0]).to(dev)
+    state = {"params": params, "st": st, "key": key, "pos": 0,
+             "opt": opt.init(params) if algo == "adam" else {"psi": psi}}
+
+    def run(n: int) -> float:
+        with torch.no_grad():
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                s = state["pos"] % xs.shape[0]
+                state["key"], k = prng.split(state["key"])
+                (state["params"], state["opt"], _, _,
+                 state["st"]) = step(state["params"], state["opt"], k,
+                                     xs[s], ys[s], state["st"])
+                state["pos"] += 1
+            _sync(dev)
+        return time.perf_counter() - t0
+
+    run(3)
+    return run
+
+
+def train_step_ms(dev, backend: str, steps: int = 100,
+                  algo: str = "dfa") -> float:
+    """Milliseconds per train step of the protocol on the card
+    (:func:`train_steps`)."""
+    return 1e3 * train_steps(dev, backend, algo)(steps) / steps
 
 
 def table1_run(dev, name: str) -> tuple:
@@ -1395,15 +1473,25 @@ def cpu_twin(kind: str) -> dict:
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
+    elif kind.startswith("adam:"):
+        run = protocol_run(cpu, kind.split(":")[1], algo="adam",
+                           epochs=ADAM_EPOCHS)
+    elif kind == "ragged":
+        run = ragged_run(cpu)
+    elif kind == "loss_aware":
+        run = loss_aware_run(cpu)
     else:
         run = protocol_run(cpu, kind.split(":")[1])
     return {k: run[k] for k in ("R", "MA", "losses", "wall_s")}
 
 
-#: Every twin, longest first (measured on the CPU of the card's host).
+#: Every twin, longest first (measured on the CPU of the card's host),
+#: those of the phases after the LM's last: the pool takes them in this
+#: order, so an early phase never waits behind a later one's twin.
 TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "table1:analog_state", "protocol:ideal", "table1:cmos",
-         "read_noise", "lm_serve", "lm_prefill")
+         "read_noise", "lm_serve", "lm_prefill", "adam:wbs", "ragged",
+         "loss_aware", "adam:ideal")
 
 
 def start_twins():
@@ -1518,6 +1606,319 @@ def train_read_noise(dev, twins: dict) -> dict:
          loss_agree_steps=agree, cpu_steps=len(cpu["losses"]),
          wall_s=run["wall_s"], cpu_wall_s=cpu["wall_s"],
          ms_per_train_step=1e3 * run["wall_s"] / n_steps)
+    return run
+
+
+def train_adam(dev, twins: dict, dfa: dict) -> dict:
+    """Phase 6e: the BPTT + Adam baseline (``algo="adam"``) through the
+    Fig. 4 protocol on ``ideal`` and ``wbs`` (``wbs``: the hoisted drive
+    and the fused scan under autograd, the scan's straight-through
+    backward once a step), at tests/test_continual.py's Adam settings:
+    the reference's bands (task 0 > 0.75 after task 0, R[-1, 0] > 0.25,
+    and ``test_dfa_competitive_with_adam``: DFA's MA — train (b)'s
+    ``ideal`` run, ``dfa`` — above 0.45 and within 0.25 of Adam's), the
+    leading losses and R against the port's CPU run (``ideal`` at train
+    (b)'s tolerances, ``wbs`` at its own, ``adam_wbs``), launches and
+    scan backward calls a step,
+    ms a step and the busy share of a traced window of steps."""
+    import numpy as np
+    import torch
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train (e): TF32 is on for the backward's "
+                             "products")
+    paths = {"ideal": ("miru_readout",),
+             "wbs": ("wbs_matmul", "wbs_miru_scan", "miru_readout")}
+    out = {}
+    for backend, kernels in paths.items():
+        protocol_run(dev, backend, n_tasks=1, epochs=1, algo="adam")
+        run = protocol_run(dev, backend, count=True, algo="adam",
+                           epochs=ADAM_EPOCHS)
+        require_launches(f"train adam {backend}", run["launches"], kernels)
+        n_steps = len(run["losses"])
+        bwd = run["scan_backward_calls"]
+        if bwd != (n_steps if backend == "wbs" else 0):
+            raise AssertionError(f"train adam {backend}: {bwd} scan "
+                                 f"backward calls in {n_steps} steps")
+        R = np.asarray(run["R"])
+        if not (R[0, 0] > 0.75 and R[-1, 0] > 0.25
+                and np.isfinite(run["losses"]).all()):
+            raise AssertionError(f"train adam {backend}: R {R.tolist()} "
+                                 f"outside the reference's bands")
+        if backend == "ideal" and not (
+                dfa["MA"] > 0.45 and run["MA"] - dfa["MA"] < 0.25):
+            raise AssertionError(f"train adam: DFA's MA {dfa['MA']} vs "
+                                 f"Adam's {run['MA']}")
+        cpu = twins[f"adam:{backend}"].result()
+        tol = "ideal" if backend == "ideal" else "adam_wbs"
+        agree = loss_agree_steps(run["losses"], cpu["losses"])
+        if agree < min(LOSS_AGREE_STEPS[tol], len(cpu["losses"])):
+            raise AssertionError(f"train adam {backend}: the losses leave "
+                                 f"the CPU run's at step {agree}")
+        if not r_within(tol, run, cpu):
+            raise AssertionError(
+                f"train adam {backend}: R {R.tolist()} on the card vs "
+                f"{np.asarray(cpu['R']).tolist()} on the CPU")
+        steps = train_steps(dev, backend, "adam")
+        ms = 1e3 * steps(100) / 100
+        window = 20
+        busy = busy_share(lambda: steps(window), steps(window))
+        emit("train_adam", backend=backend, R=R.tolist(), MA=run["MA"],
+             dfa_MA=dfa["MA"], cpu_R=np.asarray(cpu["R"]).tolist(),
+             cpu_MA=cpu["MA"], loss_agree_steps=agree,
+             max_abs_dR=float(np.abs(R - np.asarray(cpu["R"])).max()),
+             abs_dMA=abs(run["MA"] - cpu["MA"]),
+             tolerance={"test_examples": R_TOLERANCE[tol][0],
+                        "MA": R_TOLERANCE[tol][1],
+                        "loss_agree_steps": LOSS_AGREE_STEPS[tol]},
+             steps=n_steps, epochs=ADAM_EPOCHS, wall_s=run["wall_s"],
+             cpu_wall_s=cpu["wall_s"], launches=run["launches"],
+             launches_per_step={k: v / n_steps
+                                for k, v in run["launches"].items()},
+             scan_backward_calls=bwd, ms_per_train_step=ms,
+             traced_steps=dict(busy, steps=window))
+        out[backend] = run
+    return out
+
+
+def grad_contract(dev) -> None:
+    """Phase 6f, the straight-through gradients at the paper's shape on
+    the card: (i) the fused scan's gradients through the kernel forward
+    equal, bit for bit, those of the same backward on the plain forward's
+    residuals (which equal the kernel's, bit for bit) at (64, 28, 100)
+    and (32, 28, 100); (ii) a CE loss's gradients through
+    ``miru_forward_device`` on ``wbs``, fused and per-step, agree at the
+    reference's rtol 1e-4, atol 1e-6 (tests/test_fused_recurrence.py),
+    and (iii) the hidden weights' gradients are nonzero."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import miru_forward_device
+    from repro_torch.core.miru import MiRUConfig, init_miru_params
+    from repro_torch.data.synthetic import make_permuted_tasks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.utils import softmax_cross_entropy
+    rng = np.random.default_rng(22)
+    kw = dict(beta=BETA, lam=LAM, n_bits=N_BITS, adc_bits=ADC_BITS,
+              adc_range=ADC_RANGE, weight_scale=W_SCALE)
+    names = ("drive", "u_h", "h0", "b_h")
+    for B in (SW_BATCH, CL_BATCH):
+        inp = scan_inputs(rng, dev, B, T_SEQ, N_H, with_h0=True)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+        outs = ops.wbs_miru_scan(**leaves, **kw)
+        cts = [torch.from_numpy(rng.normal(size=(B, T_SEQ, N_H)).astype(
+            np.float32)).to(dev) for _ in range(3)]
+        got = torch.autograd.grad(outs, [leaves[k] for k in names], cts)
+        with torch.no_grad():
+            plain = ref.wbs_miru_scan_ref(
+                inp["drive"], inp["u_h"] / W_SCALE, inp["h0"], inp["b_h"],
+                BETA, LAM, N_BITS, ADC_BITS, ADC_RANGE, W_SCALE)
+            want = ops.wbs_miru_scan_bwd(inp["u_h"], plain[1], plain[2],
+                                         *cts, beta=BETA, lam=LAM)
+        _sync(dev)
+        residuals = all(torch.equal(a.detach(), b)
+                        for a, b in zip(outs, plain))
+        grads = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not (residuals and grads):
+            raise AssertionError(f"grad_contract: kernel vs plain forward "
+                                 f"at B {B}: residuals {residuals}, "
+                                 f"gradients {grads}")
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    task = make_permuted_tasks(0, n_tasks=1, n_train=CL_TRAIN,
+                               n_test=CL_TEST)[0]
+    x = torch.from_numpy(task.x_train[:CL_BATCH]).to(dev)
+    y = torch.from_numpy(task.y_train[:CL_BATCH]).to(dev)
+    params = init_miru_params(prng.PRNGKey(0), cfg, dev)
+    grads = {}
+    for fused in (True, False):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        logits, _ = miru_forward_device(leaves, cfg, x, prng.PRNGKey(0),
+                                        get_backend("wbs"), fused=fused)
+        g = torch.autograd.grad(softmax_cross_entropy(logits, y),
+                                list(leaves.values()))
+        grads[fused] = {k: v.cpu().numpy() for k, v in zip(leaves, g)}
+    worst = {}
+    for k, a in grads[True].items():
+        b = grads[False][k]
+        if not np.allclose(a, b, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"grad_contract: fused vs per-step "
+                                 f"gradient of {k}")
+        worst[k] = float(np.abs(a - b).max())
+    norms = {k: float(np.abs(v).max()) for k, v in grads[True].items()}
+    if not all(norms[k] > 0 for k in ("w_h", "u_h", "b_h")):
+        raise AssertionError(f"grad_contract: a hidden gradient is zero "
+                             f"({norms})")
+    emit("grad_contract", kernel_equals_plain_bitwise=True,
+         scan_shapes=[[SW_BATCH, T_SEQ, N_H], [CL_BATCH, T_SEQ, N_H]],
+         fused_vs_per_step_max_abs=worst, max_abs_grad=norms,
+         tolerance={"rtol": 1e-4, "atol": 1e-6})
+
+
+def ragged_run(dev, force: bool = False, count: bool = False) -> dict:
+    """Train (g)'s ragged run: DFA on ``wbs`` over the keyword stream
+    under ``PadPolicy(last_batch="pad", force=force)``."""
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            run_continual)
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.data.ragged import PadPolicy
+    from repro_torch.data.real import make_keyword_fewshot_tasks
+    tasks = make_keyword_fewshot_tasks(0, n_test=CL_TEST)
+    cfg = MiRUConfig(n_x=tasks[0].x_train.shape[2], n_h=N_H,
+                     n_y=int(max(t.y_train.max() for t in tasks)) + 1,
+                     beta=BETA, lam=LAM)
+    _sync(dev)
+    if count:
+        reset_launches()
+    t0 = time.perf_counter()
+    out = run_continual(cfg, TrainerSpec(batch_size=RAG_BATCH,
+                                         epochs_per_task=CL_EPOCHS),
+                        tasks, ReplaySpec(capacity=RAG_CAPACITY), "wbs",
+                        pad=PadPolicy(last_batch="pad", force=force),
+                        torch_device=dev)
+    _sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    return out
+
+
+def seq_mnist_run(dev, pad) -> dict:
+    """DFA on ``wbs`` over the seq-MNIST surrogate, aligned, with ``pad``
+    (None or a PadPolicy)."""
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            run_continual)
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.data.real import make_seq_mnist_tasks
+    tasks = make_seq_mnist_tasks(0, n_tasks=RAG_MNIST_TASKS,
+                                 n_train=CL_TRAIN, n_test=CL_TEST,
+                                 offline=True)
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    return run_continual(cfg, TrainerSpec(batch_size=CL_BATCH,
+                                          epochs_per_task=RAG_MNIST_EPOCHS),
+                         tasks, ReplaySpec(capacity=CL_CAPACITY), "wbs",
+                         pad=pad, torch_device=dev)
+
+
+def train_ragged(dev, twins: dict) -> dict:
+    """Phase 6g, the padded ragged path: DFA on ``wbs`` over the few-shot
+    keyword stream (ragged in T and in n_train) under a PadPolicy — the
+    masked step and eval twins through the WBS kernels — finite losses,
+    above chance (0.25) on task 0, R within ``R_TOLERANCE["wbs"]`` and
+    the leading losses against the port's CPU run; ``force=True`` (the
+    same masked program) the same R and losses bit for bit; and the
+    seq-MNIST surrogate, aligned, with a PadPolicy attached equal to the
+    run without one, R, losses and params bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.data.ragged import PadPolicy
+    run = ragged_run(dev, count=True)
+    require_launches("train_ragged", run["launches"],
+                     ("wbs_matmul", "wbs_miru_scan", "miru_readout"))
+    R = np.asarray(run["R"])
+    if not (np.isfinite(run["losses"]).all() and R[0, 0] > 0.25):
+        raise AssertionError(f"train_ragged: R {R.tolist()}")
+    forced = ragged_run(dev, force=True)
+    if not (np.array_equal(forced["R"], R)
+            and forced["losses"] == run["losses"]):
+        raise AssertionError("train_ragged: force=True changed the run")
+    cpu = twins["ragged"].result()
+    agree = loss_agree_steps(run["losses"], cpu["losses"])
+    if agree < min(LOSS_AGREE_STEPS["wbs"], len(cpu["losses"])):
+        raise AssertionError(f"train_ragged: the losses leave the CPU run's "
+                             f"at step {agree}")
+    if not r_within("wbs", run, cpu):
+        raise AssertionError(f"train_ragged: R {R.tolist()} on the card vs "
+                             f"{np.asarray(cpu['R']).tolist()} on the CPU")
+    t0 = time.perf_counter()
+    base = seq_mnist_run(dev, None)
+    padded = seq_mnist_run(dev, PadPolicy())
+    aligned_wall = time.perf_counter() - t0
+    equal = (np.array_equal(base["R"], padded["R"])
+             and base["losses"] == padded["losses"]
+             and all(torch.equal(base["params"][k], padded["params"][k])
+                     for k in base["params"]))
+    if not equal:
+        raise AssertionError("train_ragged: a PadPolicy on the aligned "
+                             "seq-MNIST stream changed the run")
+    n_steps = len(run["losses"])
+    emit("train_ragged", R=R.tolist(), MA=run["MA"],
+         cpu_R=np.asarray(cpu["R"]).tolist(), cpu_MA=cpu["MA"],
+         loss_agree_steps=agree,
+         max_abs_dR=float(np.abs(R - np.asarray(cpu["R"])).max()),
+         steps=n_steps, wall_s=run["wall_s"], cpu_wall_s=cpu["wall_s"],
+         ms_per_train_step=1e3 * run["wall_s"] / n_steps,
+         launches=run["launches"],
+         launches_per_step={k: v / n_steps
+                            for k, v in run["launches"].items()},
+         forced_equal=True, seq_mnist_pad_aligned_bitwise=True,
+         seq_mnist_R=np.asarray(base["R"]).tolist(),
+         seq_mnist_steps=len(base["losses"]), seq_mnist_wall_s=aligned_wall)
+    return run
+
+
+def loss_aware_run(dev, n_tasks: Optional[int] = None, backend="ideal",
+                   count: bool = False) -> dict:
+    """Train (h)'s run: Adam with loss_aware replay on ``backend``."""
+    from repro_torch.core.continual import ReplaySpec
+    return protocol_run(dev, backend, n_tasks=n_tasks, count=count,
+                        epochs=ADAM_EPOCHS, algo="adam",
+                        replay=ReplaySpec(capacity=LA_CAPACITY,
+                                          policy="loss_aware"))
+
+
+def train_loss_aware(dev, twins: dict) -> dict:
+    """Phase 6h: ``loss_aware`` replay (the device-resident buffer, its
+    inserts and Gumbel-max draws on the card) with Adam on ``ideal``:
+    the buffer full after task 0; the permuted stream's bands (task 0 >
+    0.75, R[-1, 0] > 0.25, finite); the metered replay traffic equal to
+    ``_ingraph_replay_traffic``'s count; R within ``R_TOLERANCE["ideal"]``
+    and the leading losses against the port's CPU run."""
+    import numpy as np
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import ReplaySpec, _ingraph_replay_traffic
+    from repro_torch.telemetry import meters
+    first = loss_aware_run(dev, n_tasks=1)
+    size = int(first["replay_state"]["size"])
+    if size != LA_CAPACITY:
+        raise AssertionError(f"train_loss_aware: {size} of {LA_CAPACITY} "
+                             f"slots filled after task 0")
+    be = get_backend("ideal")
+    be.telemetry.enable()
+    run = loss_aware_run(dev, backend=be, count=True)
+    require_launches("train_loss_aware", run["launches"], ("miru_readout",))
+    R = np.asarray(run["R"])
+    if not (R[0, 0] > 0.75 and R[-1, 0] > 0.25
+            and np.isfinite(run["losses"]).all()):
+        raise AssertionError(f"train_loss_aware: R {R.tolist()} outside "
+                             f"the bands")
+    per_task = (CL_TRAIN // CL_BATCH) * ADAM_EPOCHS
+    want = _ingraph_replay_traffic(
+        ReplaySpec(capacity=LA_CAPACITY, policy="loss_aware"), CL_BATCH,
+        [per_task] * CL_TASKS, (T_SEQ, N_X))
+    snap = run["telemetry"].snapshot()
+    got = {k: snap.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"train_loss_aware: replay traffic {got}, "
+                             f"expected {want}")
+    cpu = twins["loss_aware"].result()
+    agree = loss_agree_steps(run["losses"], cpu["losses"])
+    if agree < min(LOSS_AGREE_STEPS["ideal"], len(cpu["losses"])):
+        raise AssertionError(f"train_loss_aware: the losses leave the CPU "
+                             f"run's at step {agree}")
+    if not r_within("ideal", run, cpu):
+        raise AssertionError(f"train_loss_aware: R {R.tolist()} on the card "
+                             f"vs {np.asarray(cpu['R']).tolist()} on the CPU")
+    n_steps = len(run["losses"])
+    emit("train_loss_aware", R=R.tolist(), MA=run["MA"],
+         cpu_R=np.asarray(cpu["R"]).tolist(), cpu_MA=cpu["MA"],
+         loss_agree_steps=agree,
+         max_abs_dR=float(np.abs(R - np.asarray(cpu["R"])).max()),
+         buffer_after_task0=size, replay_traffic=got, steps=n_steps,
+         wall_s=run["wall_s"], cpu_wall_s=cpu["wall_s"],
+         ms_per_train_step=1e3 * run["wall_s"] / n_steps,
+         launches=run["launches"],
+         launches_per_step={k: v / n_steps
+                            for k, v in run["launches"].items()})
     return run
 
 
@@ -2436,6 +2837,10 @@ def main() -> int:
         t1 = table1(dev, twins)
         lmr = lm_path(dev, twins)
         lmt = lm_train(dev, twins)
+        adam = train_adam(dev, twins, cl["ideal"])
+        grad_contract(dev)
+        rag = train_ragged(dev, twins)
+        la = train_loss_aware(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -2455,7 +2860,11 @@ def main() -> int:
                "train_protocol_analog": cl["analog"]["launches"],
                "train_read_noise": rn["launches"],
                "table1_analog_state": t1["analog_state"],
-               "table1_cmos": t1["cmos"], **lmr, **lmt, "ops_kwta": kw}
+               "table1_cmos": t1["cmos"], **lmr, **lmt,
+               "train_adam_ideal": adam["ideal"]["launches"],
+               "train_adam_wbs": adam["wbs"]["launches"],
+               "train_ragged": rag["launches"],
+               "train_loss_aware": la["launches"], "ops_kwta": kw}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

@@ -39,7 +39,7 @@ from repro_torch.analog.crossbar import (CrossbarSpec, drift_pair,
 from repro_torch.backends.analog import AnalogBackend
 from repro_torch.backends.base import DeviceSpec
 from repro_torch.backends.registry import register_backend
-from repro_torch.backends.wbs import WBSBackend
+from repro_torch.backends.wbs import WBSBackend, ste_matmul
 from repro_torch.telemetry import meters
 
 
@@ -120,13 +120,18 @@ class AnalogStateBackend(AnalogBackend):
                     * noise_factor(kp, cb.read_sigma, pair["g_pos"]),
                     "g_neg": pair["g_neg"]
                     * noise_factor(kn, cb.read_sigma, pair["g_neg"])}
-            return WBSBackend.vmm(self, drive, pair_weights(pair, cb),
-                                  k_gain)
-        entry = prepared.get(tag) if prepared else None
-        w_eff = pair_weights(pair, cb) if entry is None else weights
-        # The WBS product over the device read-back (plane gains from the
-        # step's key), not the parent's read-noise path.
-        return WBSBackend.vmm(self, drive, w_eff, key, prepared=entry)
+            y = WBSBackend.vmm(self, drive.detach(), pair_weights(pair, cb),
+                               k_gain)
+        else:
+            entry = prepared.get(tag) if prepared else None
+            w_eff = pair_weights(pair, cb) if entry is None else weights
+            # The WBS product over the device read-back (plane gains from
+            # the step's key), not the parent's read-noise path.
+            y = WBSBackend.vmm(self, drive.detach(), w_eff.detach(), key,
+                               prepared=entry)
+        # The straight-through gradient goes to the trainer's logical
+        # weights, not to the read-back.
+        return ste_matmul(y, drive, weights)
 
     # ------------------------------------------------------------------
     def device_apply_update(self, params, updates, key=None, state=None):

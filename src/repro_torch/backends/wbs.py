@@ -16,6 +16,14 @@ step. The two are bitwise equal wherever the ADC is on.
 path replays that chain up front and hands the scan its (T, n_bits)
 gains. ``vmm(read_sigma=, read_key=)`` carries the analog substrate's
 per-access read noise into the kernel. Not ported: fault masks.
+
+The quantizers round, so their gradient is zero almost everywhere. Under
+autograd (BPTT + Adam) the products and the ADC are straight-through
+estimators, as in the reference: the forward returns the quantized
+value, computed on detached operands (the kernels never see an input
+that requires grad), and the backward is that of the linear product with
+the raw logical weights (:class:`SteMatmul`) or of the identity
+(:class:`SteIdentity`).
 """
 from __future__ import annotations
 
@@ -30,6 +38,56 @@ from repro_torch.analog.wbs import ideal_gains
 from repro_torch.backends.base import DeviceBackend, DeviceSpec, Params
 from repro_torch.backends.registry import register_backend
 from repro_torch.kernels import ops as kops
+
+
+class SteMatmul(torch.autograd.Function):
+    """``y_quant`` forward; backward that of ``drive @ weights``: (0,
+    g @ Wᵀ, driveᵀ @ g), leading axes of ``drive`` folded into rows."""
+
+    @staticmethod
+    def forward(ctx, y_quant, drive, weights):
+        ctx.save_for_backward(drive, weights)
+        return y_quant
+
+    @staticmethod
+    def backward(ctx, g):
+        drive, weights = ctx.saved_tensors
+        g_drive = g @ weights.T if ctx.needs_input_grad[1] else None
+        g_w = None
+        if ctx.needs_input_grad[2]:
+            d2 = drive.reshape(-1, drive.shape[-1])
+            g_w = (d2.T @ g.reshape(-1, g.shape[-1])).to(weights.dtype)
+        return None, g_drive, g_w
+
+
+class SteIdentity(torch.autograd.Function):
+    """``y_quant`` forward; the gradient passes to ``x`` unchanged."""
+
+    @staticmethod
+    def forward(ctx, y_quant, x):
+        return y_quant
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def ste_matmul(y_quant: torch.Tensor, drive: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """The quantized product ``y_quant`` with the straight-through
+    gradient of ``drive @ weights`` where autograd tracks either operand;
+    ``y_quant`` itself otherwise."""
+    if not kops.tracks_grad(drive, weights):
+        return y_quant
+    return SteMatmul.apply(y_quant.detach(), drive, weights)
+
+
+def ste_identity(y_quant: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y_quant`` with the identity's gradient to ``x`` where autograd
+    tracks ``x``."""
+    if not kops.tracks_grad(x):
+        return y_quant
+    return SteIdentity.apply(y_quant.detach(), x)
 
 
 @register_backend("wbs")
@@ -89,11 +147,11 @@ class WBSBackend(DeviceBackend):
         n_bits = self.spec.input_bits or 8
         scale = self._weight_scale()
         w = prepared if prepared is not None else weights / scale
-        y = kops.wbs_dense(drive, w.to(torch.float32), n_bits=n_bits,
-                           adc_bits=None,
+        y = kops.wbs_dense(drive.detach(), w.detach().to(torch.float32),
+                           n_bits=n_bits, adc_bits=None,
                            gains=self._sample_gains(key, drive.device),
                            read_sigma=read_sigma, read_key=read_key)
-        return y * scale
+        return ste_matmul(y * scale, drive, weights)
 
     def _fused_recurrence_ok(self, state=None) -> bool:
         """The fused scan needs a WBS drive and the output ADC: the ADC
@@ -122,8 +180,10 @@ class WBSBackend(DeviceBackend):
             k1s, k2s = (np.stack(ks) for ks in zip(*self.step_keys(key, T)))
             gains_w = self._sample_gains(k1s, x_seq.device)
             gains_u = self._sample_gains(k2s, x_seq.device)
-        drive = kops.wbs_input_drive(x_seq, params["w_h"], n_bits,
-                                     weight_scale=scale, gains=gains_w)
+        drive = kops.wbs_input_drive(x_seq.detach(), params["w_h"].detach(),
+                                     n_bits, weight_scale=scale,
+                                     gains=gains_w)
+        drive = ste_matmul(drive, x_seq, params["w_h"])
         h_all, h_prev, pre = kops.wbs_miru_scan(
             drive, params["u_h"], params["b_h"], h0, beta=cfg.beta,
             lam=cfg.lam, n_bits=n_bits, adc_bits=self.spec.adc_bits,
@@ -142,7 +202,9 @@ class WBSBackend(DeviceBackend):
     def quantize_readout(self, pre: torch.Tensor) -> torch.Tensor:
         if self.spec.adc_bits is None:
             return pre
-        return adc_quantize(pre, self.spec.adc_bits, self.spec.adc_range)
+        q = adc_quantize(pre.detach(), self.spec.adc_bits,
+                         self.spec.adc_range)
+        return ste_identity(q, pre)
 
     def apply_update(self, params: Params, updates: Params,
                      key: Optional[np.ndarray] = None

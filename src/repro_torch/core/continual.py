@@ -5,21 +5,31 @@ other with no identity at test time and a shared output head; training
 mixes fresh examples with reservoir-sampled, stochastically quantized
 replay. The run is described by two records plus a device backend:
 
-  TrainerSpec   the learning rule and its knobs. ``algo="dfa"`` (DFA
-                through time + SGD + ζ sparsification, Algorithm 1) is
-                ported; ``"adam"`` (BPTT + Adam) is the next slice.
+  TrainerSpec   the learning rule and its knobs: ``algo="dfa"`` (DFA
+                through time + SGD + ζ sparsification, Algorithm 1) or
+                ``"adam"`` (BPTT + Adam, the paper's software baseline;
+                the quantized substrates backpropagate through their
+                straight-through estimators).
   ReplaySpec    rehearsal buffer capacity, mix ratio, quantizer bits and
-                the host replay policy (:mod:`repro_torch.replay`).
+                the replay policy (:mod:`repro_torch.replay`): a host
+                policy materialized into the schedule, or ``loss_aware``
+                on the device-resident buffer of
+                :mod:`repro_torch.replay.ingraph`.
   DeviceBackend the substrate (:mod:`repro_torch.backends`): the forward
                 VMMs, the hidden ADC and the weight writes route through
                 it.
 
+``ContinualConfig`` is the legacy flat record (trainer strings ``adam``,
+``dfa``, ``dfa_hw``), mapped onto the specs by
+:meth:`ContinualConfig.specs`. ``pad`` (a
+:class:`repro_torch.data.ragged.PadPolicy`) runs ragged task streams
+through the masked step and eval twins.
+
 Every random draw follows the reference's key chain
 (:mod:`repro_torch.prng`) and every host draw its numpy generators, so
 batches, replay codes and initial weights equal the reference's bit for
-bit. Not ported yet (ROADMAP queue A): the legacy ``ContinualConfig``,
-the padded ragged path (``pad``), observability streams (``obs``) and
-the in-graph ``loss_aware`` policy; each raises.
+bit. Not ported yet (ROADMAP queue A): observability streams (``obs``),
+which raise.
 
 Reported: R[t, i] = accuracy on task i after training through task t;
 MA = mean of the final row (eq. 20).
@@ -27,6 +37,7 @@ MA = mean of the final row (eq. 20).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import warnings
 from typing import Any, Optional, Union
 
@@ -34,13 +45,15 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.backends import DeviceBackend, get_backend
+from repro_torch.analog.crossbar import CrossbarSpec
+from repro_torch.backends import DeviceBackend, DeviceSpec, get_backend
 from repro_torch.core import dfa as dfa_mod
 from repro_torch.core.miru import (MiRUConfig, init_dfa_feedback,
                                    init_miru_params, miru_apply_readout)
 from repro_torch.data.synthetic import TaskData
+from repro_torch.optim import adam
 from repro_torch.telemetry import meters
-from repro_torch.utils import accuracy, resolve_device
+from repro_torch.utils import accuracy, resolve_device, softmax_cross_entropy
 
 
 # ---------------------------------------------------------------------------
@@ -50,41 +63,108 @@ from repro_torch.utils import accuracy, resolve_device
 @dataclasses.dataclass(frozen=True)
 class TrainerSpec:
     """The learning rule and its hyper-parameters."""
-    algo: str = "dfa"                   # dfa (adam: next slice)
+    algo: str = "dfa"                   # adam | dfa
     epochs_per_task: int = 1
     batch_size: int = 32
     lr: float = 0.2                     # SGD step (dfa)
     hidden_lr_scale: float = 0.3        # per-layer update shift
+    adam_lr: float = 1e-3               # Adam step (adam)
     kwta_keep_frac: Optional[float] = 0.57  # ζ gradient sparsification
     seed: int = 0
+    # The fused recurrence where the substrate has one (bitwise equal to
+    # the per-step path): None defers to the backend (fused where it is
+    # valid), False forces the per-step path.
+    fused_recurrence: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class ReplaySpec:
     """The rehearsal pipeline (§IV-A): buffer sizing plus the policy
-    (None → ``reservoir``, the paper's hardware sampler)."""
+    (None → ``reservoir``, the paper's hardware sampler). ``decay``
+    multiplies every stored in-graph priority once an offer round, before
+    the fresh rows compete (``loss_aware``; host policies ignore it)."""
     capacity: int = 512
     ratio: float = 0.5                  # fraction of each batch from replay
     bits: int = 4                       # stochastic-quantizer precision
     policy: Optional[str] = None
+    decay: float = 0.9
 
     @property
     def resolved_policy(self) -> str:
         return self.policy if self.policy is not None else "reservoir"
 
 
-class ContinualConfig:
-    """The reference's legacy flat record. Not ported: build a
-    :class:`TrainerSpec`, a :class:`ReplaySpec` and a backend."""
+# Legacy trainer string → (algorithm, backend name).
+TRAINER_ALIASES: dict[str, tuple[str, str]] = {
+    "adam": ("adam", "ideal"),
+    "dfa": ("dfa", "ideal"),
+    "dfa_hw": ("dfa", "analog"),
+}
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ContinualConfig (the legacy flat record) is not ported "
-            "(ROADMAP queue A); pass TrainerSpec + ReplaySpec + a backend")
+
+@dataclasses.dataclass(frozen=True)
+class ContinualConfig:
+    """Legacy flat config — a deprecation shim over the composable specs
+    (:meth:`specs`). New code builds a :class:`TrainerSpec`, a
+    :class:`ReplaySpec` and a backend."""
+    trainer: str = "dfa"                # adam | dfa | dfa_hw
+    epochs_per_task: int = 1
+    batch_size: int = 32
+    lr: float = 0.2
+    hidden_lr_scale: float = 0.3
+    adam_lr: float = 1e-3
+    kwta_keep_frac: Optional[float] = 0.57
+    replay_capacity: int = 512
+    replay_ratio: float = 0.5
+    replay_bits: int = 4
+    # Hardware-like model knobs (dfa_hw):
+    input_bits: int = 8
+    adc_bits: int = 8
+    adc_range: float = 4.0
+    gain_sigma: float = 0.02            # WBS memristor-ratio variability
+    write_sigma: float = 0.10           # §V-B device write variation
+    weight_clip: float = 1.5            # crossbar dynamic range (logical)
+    track_endurance: bool = False
+    seed: int = 0
+    fused_recurrence: Optional[bool] = None
+
+    def specs(self) -> tuple[TrainerSpec, ReplaySpec, DeviceBackend]:
+        """(TrainerSpec, ReplaySpec, DeviceBackend) for the flat record;
+        the trainer string resolves through :data:`TRAINER_ALIASES`
+        (``dfa_hw`` is DFA on ``analog``)."""
+        try:
+            algo, backend_name = TRAINER_ALIASES[self.trainer]
+        except KeyError:
+            raise ValueError(
+                f"unknown trainer {self.trainer!r}; expected one of "
+                f"{sorted(TRAINER_ALIASES)}") from None
+        trainer = TrainerSpec(algo=algo,
+                              epochs_per_task=self.epochs_per_task,
+                              batch_size=self.batch_size, lr=self.lr,
+                              hidden_lr_scale=self.hidden_lr_scale,
+                              adam_lr=self.adam_lr,
+                              kwta_keep_frac=self.kwta_keep_frac,
+                              seed=self.seed,
+                              fused_recurrence=self.fused_recurrence)
+        replay = ReplaySpec(capacity=self.replay_capacity,
+                            ratio=self.replay_ratio, bits=self.replay_bits)
+        if backend_name == "analog":
+            dspec = DeviceSpec(
+                input_bits=self.input_bits, adc_bits=self.adc_bits,
+                adc_range=self.adc_range, gain_sigma=self.gain_sigma,
+                weight_clip=self.weight_clip,
+                crossbar=CrossbarSpec(write_sigma=self.write_sigma,
+                                      read_sigma=0.0,
+                                      w_clip=self.weight_clip),
+                track_endurance=self.track_endurance)
+        else:
+            dspec = DeviceSpec(track_endurance=self.track_endurance)
+        return trainer, replay, get_backend(backend_name, spec=dspec)
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, "
+                               f"obs/)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,23 +194,35 @@ def _meter_chip_step(backend, cfg, B: int) -> None:
 
 def miru_forward_device(params: dict[str, torch.Tensor], cfg: MiRUConfig,
                         x_seq: torch.Tensor, key: Optional[np.ndarray],
-                        backend: DeviceBackend, state: Optional[Any] = None
+                        backend: DeviceBackend, state: Optional[Any] = None,
+                        fused: Optional[bool] = None,
+                        lengths: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """MiRU forward with the hidden recurrence routed through a device
     backend (``device_recurrence``: per-step VMMs, or the fused scan on
-    substrates that have one), then the digital readout from the last
-    step. ``key`` feeds the substrate's noise, ``state`` is its device
-    state (the G⁺/G⁻ pairs of ``analog_state``). Meters the streamed
-    per-step readout and the interpolator when the backend's telemetry is
-    on."""
+    substrates that have one; ``fused=False`` forces the per-step path),
+    then the digital readout. ``key`` feeds the substrate's noise,
+    ``state`` is its device state (the G⁺/G⁻ pairs of ``analog_state``).
+    ``lengths`` ((B,) int) reads each row's readout at its own last true
+    step (zero-end-padded ragged rows; the recurrence is causal, so the
+    padding never reaches the states read); None reads t = T−1, the
+    historical program. Meters the streamed per-step readout and the
+    interpolator when the backend's telemetry is on (the padded tail is
+    metered as executed work, as in the reference)."""
     B, T, _ = x_seq.shape
     tele = backend.telemetry
     h_all, h_prev, pre = backend.device_recurrence(params, cfg, x_seq, key,
-                                                   state=state)
+                                                   state=state, fused=fused)
     with tele.scaled(T):
         _meter_chip_step(backend, cfg, B)
     tele.record({meters.SEQUENCES: B})
-    logits = miru_apply_readout(params, cfg, h_all[:, -1, :])
+    if lengths is None:
+        h_last = h_all[:, -1, :]
+    else:
+        idx = (lengths.long() - 1)[:, None, None].expand(B, 1,
+                                                         h_all.shape[-1])
+        h_last = torch.gather(h_all, 1, idx)[:, 0, :]
+    logits = miru_apply_readout(params, cfg, h_last)
     return logits, {"h_all": h_all, "h_prev": h_prev, "pre": pre}
 
 
@@ -138,44 +230,206 @@ def miru_forward_device(params: dict[str, torch.Tensor], cfg: MiRUConfig,
 # Train/eval steps
 # ---------------------------------------------------------------------------
 
-def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
-                    backend: DeviceBackend):
-    """(train_step, evaluate) for the learning rule on ``backend``:
+def _adam_step(backend, opt, loss_fn):
+    """The BPTT + Adam train step around ``loss_fn(params, x, y, k_fwd,
+    dev_state, *masks) -> loss``: autograd on for the loss alone (the
+    loop runs under ``torch.no_grad()``), then Adam and the backend's
+    write."""
+    def train_step(params, opt_state, key, x, y, dev_state, *masks):
+        k_fwd, k_wr = prng.split(key)
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss = loss_fn(leaves, x, y, k_fwd, dev_state, *masks)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        updates, opt_state = opt.update(dict(zip(leaves, grads)), opt_state,
+                                        params)
+        params, applied, dev_state = backend.device_apply_update(
+            params, updates, k_wr, state=dev_state)
+        return params, opt_state, loss.detach(), applied, dev_state
+    return train_step
 
-    ``train_step(params, opt_state, key, x, y, dev_state) -> (params,
-    opt_state, loss, applied, dev_state)`` splits ``key`` into the
-    forward's and the write's keys, takes the DFA gradients through the
-    backend's forward, ζ-sparsifies and scales them, and hands the write
-    to the device. ``evaluate(params, key, x, y, dev_state)`` is the
-    accuracy of the backend's forward."""
-    if trainer.algo == "adam":
-        raise NotImplementedError(
-            "algo='adam' (BPTT + Adam, the software baseline) is the next "
-            "slice of the port (ROADMAP queue A, slice 6: the MiRU's BPTT "
-            "+ Adam baseline)")
-    if trainer.algo != "dfa":
-        raise ValueError(f"unknown trainer algo {trainer.algo!r}; "
-                         f"expected 'adam' or 'dfa'")
 
-    def train_step(params, opt_state, key, x, y, dev_state):
+def _dfa_step(cfg, trainer, backend, fwd):
+    """The DFA + ζ-SGD train step: ``fwd(params, x, k_fwd, dev_state,
+    lengths)``; ``valid``/``lengths`` are the masked twin's row and time
+    masks (None: the unmasked step)."""
+    def train_step(params, opt_state, key, x, y, dev_state, valid=None,
+                   lengths=None):
         k_fwd, k_wr = prng.split(key)
         loss, grads = dfa_mod.dfa_grads(
             params, opt_state["psi"], cfg, x, y,
-            forward_fn=lambda p, c, xs: miru_forward_device(
-                p, c, xs, k_fwd, backend, dev_state))
+            forward_fn=lambda p, c, xs: fwd(p, xs, k_fwd, dev_state,
+                                            lengths),
+            row_valid=valid, lengths=lengths)
+        # ζ-sparsify, scale per layer, hand the write to the device.
         updates = dfa_mod.scaled_sparse_updates(
             grads, trainer.lr, trainer.kwta_keep_frac,
             trainer.hidden_lr_scale)
         params, applied, dev_state = backend.device_apply_update(
             params, updates, k_wr, state=dev_state)
         return params, opt_state, loss, applied, dev_state
+    return train_step
+
+
+def _check_algo(trainer: TrainerSpec) -> None:
+    if trainer.algo not in ("adam", "dfa"):
+        raise ValueError(f"unknown trainer algo {trainer.algo!r}; "
+                         f"expected 'adam' or 'dfa'")
+
+
+def _make_raw_steps(cfg: MiRUConfig, trainer: TrainerSpec,
+                    backend: DeviceBackend):
+    """(train_step, evaluate, opt) for the learning rule on ``backend``:
+
+    ``train_step(params, opt_state, key, x, y, dev_state) -> (params,
+    opt_state, loss, applied, dev_state)`` splits ``key`` into the
+    forward's and the write's keys, takes the rule's gradients through
+    the backend's forward (DFA: ζ-sparsified and scaled; Adam: true
+    gradients by autograd, through the straight-through estimators on the
+    quantized substrates) and hands the write to the device.
+    ``evaluate(params, key, x, y, dev_state)`` is the accuracy of the
+    backend's forward. ``opt`` is the Adam transform (its state is
+    ``opt.init(params)``; DFA's state is ``{"psi": Ψ}``)."""
+    _check_algo(trainer)
+    opt = adam(trainer.adam_lr)
+
+    def fwd(p, xs, k, st, lengths=None):
+        return miru_forward_device(p, cfg, xs, k, backend, st,
+                                   fused=trainer.fused_recurrence,
+                                   lengths=lengths)
+
+    if trainer.algo == "adam":
+        def loss_fn(p, x, y, k, st):
+            logits, _ = fwd(p, x, k, st)
+            return softmax_cross_entropy(logits, y)
+        train_step = _adam_step(backend, opt, loss_fn)
+    else:
+        train_step = _dfa_step(cfg, trainer, backend, fwd)
 
     def evaluate(params, key, x, y, dev_state):
-        logits, _ = miru_forward_device(params, cfg, x, key, backend,
-                                        dev_state)
+        logits, _ = fwd(params, x, key, dev_state)
         return accuracy(logits, y)
 
-    return train_step, evaluate
+    return train_step, evaluate, opt
+
+
+def _make_masked_steps(cfg: MiRUConfig, trainer: TrainerSpec,
+                       backend: DeviceBackend):
+    """The masked twins of :func:`_make_raw_steps` for padded ragged
+    schedules (:mod:`repro_torch.data.ragged`): ``train_step(params,
+    opt_state, key, x, y, dev_state, valid, lengths)`` and
+    ``evaluate(params, key, x, y, dev_state, valid, lengths)``. ``valid``
+    is the (B,) row mask (padded rows add nothing to loss, gradients or
+    accuracy), ``lengths`` the (B,) true sequence lengths (readout and
+    DFA error at each row's own last step). Masks multiply by exactly
+    0.0/1.0 and every mean divides by Σvalid clamped at 1, so an
+    all-valid, full-length batch computes the raw steps' values to the
+    last ulp."""
+    _check_algo(trainer)
+    opt = adam(trainer.adam_lr)
+
+    def fwd(p, xs, k, st, lengths):
+        return miru_forward_device(p, cfg, xs, k, backend, st,
+                                   fused=trainer.fused_recurrence,
+                                   lengths=lengths)
+
+    if trainer.algo == "adam":
+        def loss_fn(p, x, y, k, st, valid, lengths):
+            logits, _ = fwd(p, x, k, st, lengths)
+            m = valid.to(logits.dtype)
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, y[:, None].long())[:, 0]
+            return torch.sum((logz - ll) * m) / torch.clamp(torch.sum(m),
+                                                             min=1.0)
+        train_step = _adam_step(backend, opt, loss_fn)
+    else:
+        train_step = _dfa_step(cfg, trainer, backend, fwd)
+
+    def evaluate(params, key, x, y, dev_state, valid, lengths):
+        logits, _ = fwd(params, x, key, dev_state, lengths)
+        m = valid.to(torch.float32)
+        ok = (torch.argmax(logits, dim=-1) == y).to(torch.float32)
+        return torch.sum(ok * m) / torch.clamp(torch.sum(m), min=1.0)
+
+    return train_step, evaluate, opt
+
+
+def _make_ingraph_replay_step(cfg: MiRUConfig, trainer: TrainerSpec,
+                              rspec: ReplaySpec, backend: DeviceBackend,
+                              raw_train):
+    """A raw train step wrapped with the device-resident replay buffer of
+    the training-state-dependent policies (``loss_aware``). The step takes
+    *fresh-only* schedule batches and at run time splices a
+    priority-proportional rehearsal draw into the batch tail (the host
+    schedule's tail layout), trains, scores the batch's per-example loss
+    with one more forward on the updated params (the last-seen-loss
+    priority) and offers the fresh rows to the buffer
+    (:mod:`repro_torch.replay.ingraph`). Its extra keys are folded off
+    the step key, so the training and eval chains stay the host policies'.
+
+    ``step(params, opt_state, key, x, y, dev_state, rstate, replay_on) ->
+    (params, opt_state, loss, applied, dev_state, rstate)``, ``replay_on``
+    a bool (past task 0). Nothing in it reads a device value back to the
+    host."""
+    from repro_torch.replay.ingraph import (ingraph_insert, ingraph_mix,
+                                            per_example_ce)
+
+    n_rep = (int(round(trainer.batch_size * rspec.ratio))
+             if rspec.ratio > 0 else 0)
+    bits = rspec.bits
+
+    def train_step(params, opt_state, key, x, y, dev_state, rstate,
+                   replay_on):
+        B = x.shape[0]
+        k_mix = prng.fold_in(key, 0x5E1)
+        k_prio = prng.fold_in(key, 0x5E2)
+        k_ins = prng.fold_in(key, 0x5E3)
+        active = (rstate["size"] > 0) & bool(replay_on and n_rep > 0)
+        xb, yb = ingraph_mix(rstate, k_mix, x, y, n_rep, active, bits,
+                             n_classes=cfg.n_y)
+        params, opt_state, loss, applied, dev_state = raw_train(
+            params, opt_state, key, xb, yb, dev_state)
+        logits, _ = miru_forward_device(params, cfg, xb, k_prio, backend,
+                                        dev_state,
+                                        fused=trainer.fused_recurrence)
+        prio = per_example_ce(logits, yb)
+        # Rehearsed tail rows are never re-offered (the host rule).
+        fresh = torch.arange(B, device=x.device) < B - n_rep
+        valid = torch.where(active, fresh, torch.ones_like(fresh))
+        rstate = ingraph_insert(rstate, k_ins, xb, yb, prio, bits,
+                                valid=valid, decay=rspec.decay,
+                                n_classes=cfg.n_y)
+        return params, opt_state, loss, applied, dev_state, rstate
+
+    return train_step
+
+
+def _ingraph_replay_traffic(rspec: ReplaySpec, batch_size: int,
+                            steps_per_task: list[int],
+                            feature_shape: tuple[int, ...]
+                            ) -> dict[str, int]:
+    """The exact DRAM traffic of the device-resident (``loss_aware``)
+    buffer for one run: past task 0 every step fetches ``n_rep`` rows
+    (the buffer is non-empty from task 0's first step on) and offers the
+    ``B − n_rep`` fresh ones; task-0 steps offer the whole batch and
+    fetch nothing. Offered rows are the programmed-traffic bound
+    (acceptance depends on the data). A row is its quantized codes plus
+    an int32 label."""
+    from repro_torch.core.replay import code_dtype
+
+    n_rep = (int(round(batch_size * rspec.ratio))
+             if rspec.ratio > 0 else 0)
+    s0 = steps_per_task[0] if steps_per_task else 0
+    s_rest = sum(steps_per_task[1:])
+    reads = n_rep * s_rest
+    writes = batch_size * s0 + (batch_size - n_rep) * s_rest
+    row_b = (code_dtype(rspec.bits).itemsize
+             * int(np.prod(feature_shape)) + 4)
+    return {meters.REPLAY_READS: reads,
+            meters.REPLAY_READ_BYTES: reads * row_b,
+            meters.REPLAY_WRITES: writes,
+            meters.REPLAY_WRITE_BYTES: writes * row_b}
 
 
 def _to_device(state: Any, dev: torch.device) -> Any:
@@ -214,11 +468,37 @@ class BatchSchedule:
     (trainer, replay, tasks), so the stream is materialized up front.
     ``replay_traffic`` tallies the host buffer's DRAM traffic consumed
     while building it; ``occupancy[t][s]`` is the buffer's fill after
-    step s of task t."""
+    step s of task t. ``row_valid``/``lengths`` exist only on schedules
+    built under a :class:`~repro_torch.data.ragged.PadPolicy`: per task,
+    (S_t, B) bool (False on the zero rows of a kept partial batch) and
+    (S_t, B) int32 true sequence lengths."""
     x: list[np.ndarray]
     y: list[np.ndarray]
     replay_traffic: dict = dataclasses.field(default_factory=dict)
     occupancy: list[np.ndarray] = dataclasses.field(default_factory=list)
+    row_valid: Optional[list] = None
+    lengths: Optional[list] = None
+
+    def digest(self) -> str:
+        """sha256 over the materialized stream, the masks included on a
+        masked schedule (the reference's schedule identity)."""
+        h = hashlib.sha256()
+        for arr in self.x + self.y:
+            h.update(np.ascontiguousarray(arr).tobytes())
+        if self.row_valid is not None:
+            for arr in self.row_valid + self.lengths:
+                h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()
+
+    @property
+    def has_masks(self) -> bool:
+        """Whether any row is padding or any sequence is short."""
+        if self.row_valid is None:
+            return False
+        if any(not rv.all() for rv in self.row_valid):
+            return True
+        return any(ln.size and int(ln.min()) < xt.shape[2]
+                   for ln, xt in zip(self.lengths, self.x))
 
     @property
     def steps_per_task(self) -> list[int]:
@@ -240,70 +520,122 @@ def build_batch_schedule(trainer: TrainerSpec, replay: ReplaySpec,
     in exactly the reference's order: each epoch shuffles with
     ``default_rng(seed + 1)``; past task 0 the last round(B·ratio) rows
     of each batch are rehearsal draws; only the fresh rows are offered
-    to the buffer. The final partial batch of an epoch is dropped."""
+    to the buffer. For an in-graph policy (``loss_aware``) the schedule
+    is the fresh-only stream (no replay rows, no host buffer): the
+    trainer splices rehearsal from the device buffer at run time.
+
+    ``pad`` (a :class:`~repro_torch.data.ragged.PadPolicy`) builds the
+    masked schedule of a ragged stream (tasks already time-padded by
+    :func:`~repro_torch.data.ragged.pad_tasks`): per-row true lengths go
+    to :attr:`BatchSchedule.lengths`, and ``pad.last_batch`` decides the
+    final partial batch of an epoch — ``"drop"`` discards it (as the
+    default build always does), ``"pad"`` keeps it zero-padded with its
+    pad rows invalid in :attr:`BatchSchedule.row_valid` (never offered to
+    the buffer). With ``pad`` but nothing partial or short, the stream —
+    content, offers, host RNG consumption — is the default build's,
+    byte for byte."""
     from repro_torch.core.replay import ReplayBuffer
     from repro_torch.replay import get_policy_class, make_policy
 
-    if pad is not None:
-        raise _not_ported("the padded ragged schedule (pad=)")
-    if get_policy_class(replay.resolved_policy).in_graph:
-        raise _not_ported(f"the in-graph replay policy "
-                          f"{replay.resolved_policy!r}")
     T, F = tasks[0].x_train.shape[1:]
     bs = trainer.batch_size
-    policy = make_policy(replay.resolved_policy, replay.capacity,
-                         seed=trainer.seed, **_stream_context(tasks))
-    buffer = ReplayBuffer(replay.capacity, (T, F), n_bits=replay.bits,
-                          seed=trainer.seed, policy=policy)
+    keep_partial = pad is not None and pad.last_batch == "pad"
+    buffer = None
+    if not get_policy_class(replay.resolved_policy).in_graph:
+        policy = make_policy(replay.resolved_policy, replay.capacity,
+                             seed=trainer.seed, **_stream_context(tasks))
+        buffer = ReplayBuffer(replay.capacity, (T, F), n_bits=replay.bits,
+                              seed=trainer.seed, policy=policy)
     host_rng = np.random.default_rng(trainer.seed + 1)
 
-    xs_all, ys_all, occ_all = [], [], []
+    xs_all, ys_all, occ_all, rv_all, ln_all = [], [], [], [], []
     for t, task in enumerate(tasks):
         n = task.x_train.shape[0]
-        xs_t, ys_t, occ_t = [], [], []
+        row_len = (np.asarray(task.train_lengths, np.int32)
+                   if task.train_lengths is not None
+                   else np.full(n, T, np.int32))
+        xs_t, ys_t, occ_t, rv_t, ln_t = [], [], [], [], []
+        stop = n + 1 if keep_partial else n - bs + 1
         for _ in range(trainer.epochs_per_task):
             order = host_rng.permutation(n)
-            for s in range(0, n - bs + 1, bs):
+            for s in range(0, stop, bs):
                 idx = order[s:s + bs]
+                n_real = len(idx)
+                if n_real == 0:
+                    continue
                 xb = task.x_train[idx]
                 yb = task.y_train[idx]
+                rv = np.ones(bs, bool)
+                ln = np.full(bs, T, np.int32)
+                ln[:n_real] = row_len[idx]
+                if n_real < bs:
+                    # Kept partial batch: zero rows, marked invalid.
+                    xb = np.concatenate(
+                        [xb, np.zeros((bs - n_real, T, F), xb.dtype)])
+                    yb = np.concatenate(
+                        [yb, np.zeros(bs - n_real, yb.dtype)])
+                    rv[n_real:] = False
+                    ln[n_real:] = 1
                 n_rep = 0
-                if t > 0 and buffer.size > 0 and replay.ratio > 0:
+                if (buffer is not None and t > 0 and buffer.size > 0
+                        and replay.ratio > 0):
                     n_rep = int(round(bs * replay.ratio))
                     if n_rep > 0:
                         xr, yr = buffer.sample(host_rng, n_rep)
                         xb = np.concatenate([xb[:bs - n_rep],
                                              xr.reshape(-1, T, F)])
                         yb = np.concatenate([yb[:bs - n_rep], yr])
+                        # Rehearsal rows are real work at full T.
+                        rv[bs - n_rep:] = True
+                        ln[bs - n_rep:] = T
                 n_fresh = bs - n_rep
-                if n_fresh > 0:
+                if buffer is not None and n_fresh > 0:
+                    # ``valid`` only on padded schedules, as in the
+                    # reference.
+                    mask_kw = ({"valid": rv[:n_fresh]}
+                               if pad is not None else {})
                     buffer.add_batch(xb[:n_fresh], yb[:n_fresh],
-                                     task_ids=np.full(n_fresh, t))
+                                     task_ids=np.full(n_fresh, t),
+                                     **mask_kw)
                 xs_t.append(xb)
                 ys_t.append(yb)
-                occ_t.append(buffer.size)
+                occ_t.append(buffer.size if buffer is not None else 0)
+                rv_t.append(rv)
+                ln_t.append(ln)
         xs_all.append(np.stack(xs_t) if xs_t
                       else np.zeros((0, bs, T, F), np.float32))
         ys_all.append(np.stack(ys_t) if ys_t
                       else np.zeros((0, bs), np.int32))
         occ_all.append(np.asarray(occ_t, np.int32))
+        rv_all.append(np.stack(rv_t) if rv_t else np.zeros((0, bs), bool))
+        ln_all.append(np.stack(ln_t) if ln_t
+                      else np.zeros((0, bs), np.int32))
     return BatchSchedule(x=xs_all, y=ys_all,
-                         replay_traffic=dict(buffer.traffic),
-                         occupancy=occ_all)
+                         replay_traffic=(dict(buffer.traffic)
+                                         if buffer is not None else {}),
+                         occupancy=occ_all,
+                         row_valid=rv_all if pad is not None else None,
+                         lengths=ln_all if pad is not None else None)
 
 
 def evaluate_tasks(evaluate, params, key, tasks: list[TaskData],
                    upto: int, dev_state=None,
-                   device: Union[str, torch.device] = "cuda") -> np.ndarray:
+                   device: Union[str, torch.device] = "cuda",
+                   masks: Optional[tuple[np.ndarray, np.ndarray]] = None
+                   ) -> np.ndarray:
     """Accuracy on the test sets of tasks 0..``upto``, each in one batch
-    on ``device``."""
+    on ``device``. ``masks`` — (valid, lengths), each (n_tasks, n_test),
+    from :func:`~repro_torch.data.ragged.eval_masks` — runs the masked
+    ``evaluate``."""
     dev = resolve_device(device)
     accs = np.zeros(upto + 1)
     for i, task in enumerate(tasks[:upto + 1]):
+        extra = () if masks is None else tuple(
+            torch.from_numpy(m[i]).to(dev) for m in masks)
         accs[i] = float(evaluate(params, key,
                                  torch.from_numpy(task.x_test).to(dev),
                                  torch.from_numpy(task.y_test).to(dev),
-                                 dev_state))
+                                 dev_state, *extra))
     return accs
 
 
@@ -311,7 +643,33 @@ def evaluate_tasks(evaluate, params, key, tasks: list[TaskData],
 # Main loop
 # ---------------------------------------------------------------------------
 
-def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
+def _resolve_specs(spec: Union[ContinualConfig, TrainerSpec],
+                   replay: Optional[ReplaySpec],
+                   device: Union[str, DeviceBackend, None]
+                   ) -> tuple[TrainerSpec, ReplaySpec, DeviceBackend]:
+    if isinstance(spec, ContinualConfig):
+        if replay is not None or device is not None:
+            raise ValueError("pass either a legacy ContinualConfig or "
+                             "TrainerSpec + replay/device, not both")
+        warnings.warn(
+            "passing ContinualConfig to run_continual is deprecated; use "
+            "TrainerSpec/ReplaySpec + a repro_torch.backends device backend",
+            DeprecationWarning, stacklevel=3)
+        return spec.specs()
+    if not isinstance(spec, TrainerSpec):
+        raise TypeError(f"expected ContinualConfig or TrainerSpec, got "
+                        f"{type(spec).__name__}")
+    backend = get_backend(device if device is not None else "ideal")
+    if backend.tracker is not None and backend.tracker.updates_applied:
+        warnings.warn(
+            "device backend carries endurance statistics from a previous "
+            "run; write counts will accumulate across runs — pass a fresh "
+            "backend for per-run statistics", stacklevel=3)
+    return spec, replay if replay is not None else ReplaySpec(), backend
+
+
+def run_continual(cfg: MiRUConfig,
+                  spec: Union[ContinualConfig, TrainerSpec],
                   tasks: list[TaskData],
                   replay: Optional[ReplaySpec] = None,
                   device: Union[str, DeviceBackend, None] = None,
@@ -322,38 +680,51 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
     matrix, MA, the mean accuracy after each task, the per-step losses
     and the final params, plus ``device_state`` (a stateful substrate's,
     e.g. ``analog_state``'s G⁺/G⁻ pairs), ``endurance`` (the backend's
-    tracker, under ``track_endurance``) and ``telemetry`` (when the
-    backend's is on).
+    tracker, under ``track_endurance``), ``telemetry`` (when the
+    backend's is on) and ``replay_state`` (the device buffer of an
+    in-graph policy).
 
-    ``device`` is a registered backend name or instance (default
-    ``"ideal"``). ``init`` replaces the seeded initial state with
-    (key, params, Ψ) or (key, params, Ψ, device state) — e.g. the
-    reference's, carried across with
+    ``spec`` is a :class:`TrainerSpec` (with ``replay`` and ``device`` —
+    a registered backend name or instance, default ``"ideal"`` — given
+    separately) or a legacy :class:`ContinualConfig` that maps onto all
+    three (deprecated; it warns). ``pad`` (a
+    :class:`~repro_torch.data.ragged.PadPolicy`) pads a ragged stream
+    onto one shape and runs the masked step and eval twins over the
+    masked schedule — or, when nothing is ragged and ``pad.force`` is
+    off, the exact unmasked program. ``init`` replaces the seeded
+    initial state with (key, params, Ψ) or (key, params, Ψ, device
+    state) — e.g. the reference's, carried across with
     :func:`repro_torch.convert.run_state_from_numpy` and
     :func:`~repro_torch.convert.device_state_from_numpy` — so two runs
     start from identical weights (and conductances) whatever the last bit
     of ``normal`` does; without a device state the backend programs one
     from the key.
 
-    The loop runs under ``torch.no_grad()``; each task's batches move to
-    the card once, and losses are read back once, at the end."""
-    if not isinstance(spec, TrainerSpec):
-        raise NotImplementedError(
-            "run_continual takes a TrainerSpec; the legacy "
-            "ContinualConfig is not ported (ROADMAP queue A)")
+    The loop runs under ``torch.no_grad()`` (Adam enables autograd
+    around its loss alone); each task's batches move to the card once,
+    and losses are read back once, at the end."""
+    trainer, rspec, backend = _resolve_specs(spec, replay, device)
     if obs is not None:
         raise _not_ported("observability streams (obs=)")
+    _check_algo(trainer)
+    from repro_torch.replay import get_policy_class
+    from repro_torch.replay.ingraph import ingraph_init
     dev = resolve_device(torch_device)
-    rspec = replay if replay is not None else ReplaySpec()
-    backend = get_backend(device if device is not None else "ideal")
-    if backend.tracker is not None and backend.tracker.updates_applied:
-        warnings.warn(
-            "device backend carries endurance statistics from a previous "
-            "run; write counts will accumulate across runs — pass a fresh "
-            "backend for per-run statistics", stacklevel=2)
+    in_graph = get_policy_class(rspec.resolved_policy).in_graph
+    masked = False
+    ev_masks = None
+    if pad is not None:
+        from repro_torch.data.ragged import (eval_masks,
+                                             needs_masked_program, pad_tasks)
+        if in_graph:
+            raise ValueError(
+                "in-graph replay policies (loss_aware) are not supported "
+                "on the padded ragged path; pick a host-materialized "
+                "policy (reservoir/ring/class_balanced/task_stratified)")
+        tasks, eval_padded = pad_tasks(tasks, pad)
 
     if init is None:
-        key, params, psi, dev_state = _init_run(cfg, spec, backend, dev)
+        key, params, psi, dev_state = _init_run(cfg, trainer, backend, dev)
     else:
         key, params, psi = init[:3]
         params = {k: v.to(dev) for k, v in params.items()}
@@ -363,11 +734,27 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
         else:
             dev_state = backend.init_device_state(params,
                                                   prng.fold_in(key, 0x0DE5))
-    schedule = build_batch_schedule(spec, rspec, tasks, pad=pad)
-    train_step, evaluate = _make_raw_steps(cfg, spec, backend)
-    opt_state = {"psi": psi}
-    if backend.telemetry.enabled and schedule.replay_traffic:
-        backend.telemetry.record(schedule.replay_traffic)
+    schedule = build_batch_schedule(trainer, rspec, tasks, pad=pad)
+    if pad is not None:
+        masked = needs_masked_program(pad, eval_padded, schedule)
+        if masked:
+            ev_masks = eval_masks(tasks)
+    train_step, evaluate, opt = (_make_masked_steps if masked
+                                 else _make_raw_steps)(cfg, trainer, backend)
+    opt_state = (opt.init(params) if trainer.algo == "adam"
+                 else {"psi": psi})
+    rstate = None
+    if in_graph:
+        T, F = tasks[0].x_train.shape[1:]
+        rstate = ingraph_init(rspec.capacity, (T, F), rspec.bits, dev)
+        train_step = _make_ingraph_replay_step(cfg, trainer, rspec, backend,
+                                               train_step)
+        replay_traffic = _ingraph_replay_traffic(
+            rspec, trainer.batch_size, schedule.steps_per_task, (T, F))
+    else:
+        replay_traffic = schedule.replay_traffic
+    if backend.telemetry.enabled and replay_traffic:
+        backend.telemetry.record(replay_traffic)
 
     n_tasks = len(tasks)
     R = np.zeros((n_tasks, n_tasks))
@@ -376,15 +763,26 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
         for t in range(n_tasks):
             xs = torch.from_numpy(schedule.x[t]).to(dev)
             ys = torch.from_numpy(schedule.y[t]).to(dev)
+            if masked:
+                rvs = torch.from_numpy(schedule.row_valid[t]).to(dev)
+                lns = torch.from_numpy(schedule.lengths[t]).to(dev)
             for s in range(xs.shape[0]):
                 key, k_step = prng.split(key)
-                params, opt_state, loss, applied, dev_state = train_step(
-                    params, opt_state, k_step, xs[s], ys[s], dev_state)
+                args = (params, opt_state, k_step, xs[s], ys[s], dev_state)
+                if in_graph:
+                    (params, opt_state, loss, applied, dev_state,
+                     rstate) = train_step(*args, rstate, t > 0)
+                elif masked:
+                    params, opt_state, loss, applied, dev_state = \
+                        train_step(*args, rvs[s], lns[s])
+                else:
+                    params, opt_state, loss, applied, dev_state = \
+                        train_step(*args)
                 losses.append(loss)
                 backend.record_endurance(applied)
             key, k_eval = prng.split(key)
             R[t, :t + 1] = evaluate_tasks(evaluate, params, k_eval, tasks,
-                                          t, dev_state, dev)
+                                          t, dev_state, dev, ev_masks)
 
     out: dict[str, Any] = {
         "R": R,
@@ -394,6 +792,8 @@ def run_continual(cfg: MiRUConfig, spec: TrainerSpec,
         "losses": (torch.stack(losses).cpu().tolist() if losses else []),
         "params": params,
     }
+    if rstate is not None:
+        out["replay_state"] = rstate
     if dev_state is not None:
         out["device_state"] = dev_state
     if backend.tracker is not None:

@@ -6,11 +6,16 @@ backward, and the k-WTA bisection) plus the row-exact readout.
 Dispatch is by device and nothing else: a CUDA tensor goes to the CUDA
 kernel (padded here where it needs padded shapes), a CPU tensor to the plain
 version in :mod:`repro_torch.kernels.ref`. There is no fallback from one
-to the other. The scan kernels compute forward values only: the
-straight-through backward of the WBS scan (``_wbs_miru_scan_bwd`` in the
-reference) waits for the MiRU's BPTT slice, and the reference cannot
-differentiate its fused float scan either, so an input that requires
-grad raises. The readout backpropagates as the linear product it is.
+to the other. The fused WBS scan is differentiable: on inputs that
+require grad it runs inside a ``torch.autograd.Function`` whose forward
+is the same kernel (or plain version) and whose backward is the
+reference's straight-through reverse loop over T (``_wbs_miru_scan_bwd``
+there, a ``lax.scan`` and not a Pallas kernel; here plain PyTorch,
+:func:`wbs_miru_scan_bwd`). The crossbar product and the ideal scan
+compute forward values only, as the reference's Pallas product and fused
+float scan have no VJP either: an input that requires grad raises (the
+backends wrap the product in a straight-through estimator on detached
+operands). The readout backpropagates as the linear product it is.
 The flash forward is differentiable: on inputs that require grad it runs
 inside a ``torch.autograd.Function`` whose backward is the dq and dk/dv
 kernels (:func:`flash_attention_bwd`).
@@ -34,13 +39,23 @@ from repro_torch.kernels import wbs_matmul as _matmul_kernel
 from repro_torch.kernels import wbs_miru_scan as _scan_kernel
 
 
+def tracks_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records an operation on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _forward_only(*tensors: Optional[torch.Tensor]) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if tracks_grad(*tensors):
         raise NotImplementedError(
-            "the scan kernels compute forward values only; the straight-"
-            "through backward waits for the MiRU's BPTT slice (ROADMAP "
-            "queue A, slice 6) — call under torch.no_grad()")
+            "this kernel computes forward values only (the reference's "
+            "Pallas call has no VJP either); call it under torch.no_grad() "
+            "or on detached operands behind a straight-through estimator")
+
+
+#: Calls of :func:`wbs_miru_scan_bwd` (the fused WBS scan's backward),
+#: counted as the kernels count their launches.
+scan_backward_calls = 0
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -129,24 +144,10 @@ def wbs_input_drive(x_seq: torch.Tensor, w_h: torch.Tensor, n_bits: int,
     return y * weight_scale
 
 
-def wbs_miru_scan(drive: torch.Tensor, u_h: torch.Tensor,
-                  b_h: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
-                  beta: float, lam: float, n_bits: int,
-                  adc_bits: Optional[int] = None, adc_range: float = 4.0,
-                  weight_scale: float = 1.0,
-                  gains: Optional[torch.Tensor] = None
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused device-true MiRU recurrence over a precomputed drive.
-
-    drive (B, T, H) from :func:`wbs_input_drive`; u_h (H, H) *raw*
-    logical recurrent weights (divided by ``weight_scale`` once, here);
-    b_h (H,); h0 (B, H) or None for zeros; gains (T, n_bits) or None for
-    ideal ratios. Unlike the reference there is no H limit that silently
-    switches to the plain version: the kernel takes every H its shared
-    memory holds and raises beyond. Returns (h_all, h_prev, pre), each
-    (B, T, H) f32.
-    """
-    _forward_only(drive, u_h, b_h, h0)
+def _wbs_miru_scan_fwd(drive, u_h, b_h, h0, beta, lam, n_bits, adc_bits,
+                       adc_range, weight_scale, gains):
+    """The forward of :func:`wbs_miru_scan` on values: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     B, T, H = drive.shape
     if h0 is None:
         h0 = torch.zeros((B, H), dtype=torch.float32, device=drive.device)
@@ -166,6 +167,88 @@ def wbs_miru_scan(drive: torch.Tensor, u_h: torch.Tensor,
         b_h.reshape(H).to(torch.float32).contiguous(),
         gains.to(torch.float32).contiguous(), geom=geom, **kw)
     return h_all[:B], h_prev[:B], pre[:B]
+
+
+def wbs_miru_scan_bwd(u_h: torch.Tensor, h_prev: torch.Tensor,
+                      pre: torch.Tensor, ct_hall: torch.Tensor,
+                      ct_hprev: torch.Tensor, ct_pre: torch.Tensor,
+                      beta: float, lam: float
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Straight-through backward of the fused WBS scan, the reference's
+    ``_wbs_miru_scan_bwd``: the transpose of the per-step path's STE
+    composition. The λ-interpolation and tanh′ are exact (from the saved
+    ``pre``), the ADC is the identity, and the quantized product is the
+    linear product with the *raw* logical weights ``u_h`` (not
+    ``u_h / weight_scale``). A reverse loop over T from the residuals
+    (``u_h``, ``h_prev``, ``pre``) and the cotangents of (h_all, h_prev,
+    pre). Returns (d_drive (B, T, H), d_u (H, H), d_h0 (B, H), d_b (H,));
+    the plane gains get no gradient."""
+    global scan_backward_calls
+    scan_backward_calls += 1
+    B, T, H = pre.shape
+    u = u_h.to(torch.float32)
+    dtanh = 1.0 - ref.tanh_f32(pre) ** 2
+    gh = torch.zeros_like(h_prev[:, 0, :])
+    du = torch.zeros_like(u)
+    g_pre_all = torch.empty_like(pre)
+    for t in range(T - 1, -1, -1):
+        g_tot = ct_hall[:, t] + gh
+        g_pre = ct_pre[:, t] + (1.0 - lam) * dtanh[:, t] * g_tot
+        du = du + (beta * h_prev[:, t]).T @ g_pre
+        gh = ct_hprev[:, t] + lam * g_tot + beta * (g_pre @ u.T)
+        g_pre_all[:, t] = g_pre
+    return g_pre_all, du.to(u_h.dtype), gh, torch.sum(g_pre_all, dim=(0, 1))
+
+
+class _WBSMiRUScan(torch.autograd.Function):
+    """The fused WBS scan with its straight-through backward. Saves
+    (u_h, h_prev, pre), the reference's residuals (its gains get no
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, drive, u_h, b_h, h0, static, gains):
+        h_all, h_prev, pre = _wbs_miru_scan_fwd(drive, u_h, b_h, h0,
+                                                *static, gains)
+        ctx.save_for_backward(u_h, h_prev, pre)
+        ctx.beta, ctx.lam = static[0], static[1]
+        return h_all, h_prev, pre
+
+    @staticmethod
+    def backward(ctx, ct_hall, ct_hprev, ct_pre):
+        u_h, h_prev, pre = ctx.saved_tensors
+        d_drive, d_u, d_h0, d_b = wbs_miru_scan_bwd(
+            u_h, h_prev, pre, ct_hall, ct_hprev, ct_pre, ctx.beta, ctx.lam)
+        return d_drive, d_u, d_b, d_h0, None, None
+
+
+def wbs_miru_scan(drive: torch.Tensor, u_h: torch.Tensor,
+                  b_h: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+                  beta: float, lam: float, n_bits: int,
+                  adc_bits: Optional[int] = None, adc_range: float = 4.0,
+                  weight_scale: float = 1.0,
+                  gains: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused device-true MiRU recurrence over a precomputed drive.
+
+    drive (B, T, H) from :func:`wbs_input_drive`; u_h (H, H) *raw*
+    logical recurrent weights (divided by ``weight_scale`` once, here);
+    b_h (H,); h0 (B, H) or None for zeros; gains (T, n_bits) or None for
+    ideal ratios. Unlike the reference there is no H limit that silently
+    switches to the plain version: the kernel takes every H its shared
+    memory holds and raises beyond. Where autograd tracks drive, u_h, b_h
+    or h0 the call is differentiable through the straight-through
+    backward (:func:`wbs_miru_scan_bwd`); the forward is the same kernel
+    on detached values. Returns (h_all, h_prev, pre), each (B, T, H) f32.
+    """
+    static = (float(beta), float(lam), n_bits, adc_bits, float(adc_range),
+              float(weight_scale))
+    if tracks_grad(drive, u_h, b_h, h0):
+        if h0 is None:
+            h0 = torch.zeros((drive.shape[0], drive.shape[2]),
+                             dtype=torch.float32, device=drive.device)
+        return _WBSMiRUScan.apply(drive, u_h, b_h, h0, static, gains)
+    return _wbs_miru_scan_fwd(drive, u_h, b_h, h0, *static, gains)
 
 
 def miru_scan(xw: torch.Tensor, u_h: torch.Tensor, h0: torch.Tensor,

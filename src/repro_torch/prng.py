@@ -4,10 +4,12 @@ The reference draws its stochastic physics (WBS plane-gain noise), its
 initial weights and Ψ, and the replay quantizer's rounding from
 ``jax.random`` key chains. This module repeats the parts the port needs:
 :func:`PRNGKey`, :func:`split`, :func:`fold_in`, raw 32-bit :func:`bits`,
-:func:`uniform` (bit-exact) and :func:`normal` (XLA's erfinv polynomial,
+:func:`uniform` (bit-exact), :func:`normal` (XLA's erfinv polynomial,
 evaluated here with a correctly rounded log1p where XLA's CPU log1p has
 its own last bits, so ``normal`` is within 3 ulp and about 99 % of
-draws are bit-exact).
+draws are bit-exact) and :func:`categorical` (the Gumbel-max draw; its
+logs are correctly rounded, so it agrees with jax except where two
+candidates tie to within an ulp).
 
 A key is what ``jax.random.PRNGKey`` returns as raw data: a numpy
 ``uint32`` array of shape (2,). Keys may carry leading batch axes,
@@ -107,12 +109,17 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([y0, y1], axis=-1)
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+def fold_in(key: np.ndarray, data) -> np.ndarray:
     """``jax.random.fold_in``: the key enciphered with the counter pair
-    (0, data)."""
-    y0, y1 = threefry2x32(key, np.zeros(1, _U32),
-                         np.array([int(data) & 0xFFFFFFFF], _U32))
-    return np.concatenate([y0, y1], axis=-1)
+    (0, data). ``data`` may be a 1-D array of integers: then (n, 2) keys,
+    key i folded with data[i], as ``vmap(fold_in)`` gives them."""
+    if np.ndim(data) == 0:
+        y0, y1 = threefry2x32(key, np.zeros(1, _U32),
+                             np.array([int(data) & 0xFFFFFFFF], _U32))
+        return np.concatenate([y0, y1], axis=-1)
+    lo = np.asarray(np.asarray(data, np.int64) & 0xFFFFFFFF, _U32)
+    y0, y1 = threefry2x32(key, np.zeros_like(lo), lo)
+    return np.stack([y0, y1], axis=-1)
 
 
 def bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
@@ -209,3 +216,30 @@ def normal(key: np.ndarray, shape: Sequence[int],
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform_np(key, shape, lo, 1.0)
     return _to_torch(np.float32(np.sqrt(2.0)) * erfinv_np(u), device)
+
+
+def _log_f32(x: np.ndarray) -> np.ndarray:
+    """The float32 natural log, correctly rounded (evaluated in float64,
+    rounded once)."""
+    return np.log(np.asarray(x, np.float64)).astype(np.float32)
+
+
+def gumbel_np(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ("low")
+    mode: −log(−log(u)), u uniform on [tiny, 1) — the uniform bit-exact,
+    each log correctly rounded."""
+    tiny = np.finfo(np.float32).tiny
+    u = uniform_np(key, shape, tiny, 1.0)
+    return -_log_f32(-_log_f32(u))
+
+
+def categorical(key: np.ndarray, logits: torch.Tensor,
+                shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` for 1-D
+    ``logits`` (n,): ``shape`` independent draws, each the arg-max of
+    logits + Gumbel noise drawn for shape + (n,), the first index on a
+    tie (as ``jnp.argmax``). The noise is drawn on the host and moved to
+    the logits' device, so the CPU and the card draw the same indices."""
+    shape = tuple(int(s) for s in shape)
+    g = _to_torch(gumbel_np(key, shape + (logits.shape[-1],)), logits.device)
+    return torch.argmax(g + logits.to(torch.float32), dim=-1)

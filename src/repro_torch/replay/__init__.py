@@ -4,12 +4,17 @@
             select-on-sample) and the name-keyed registry.
 - policies: ``reservoir`` (the paper's hardware sampler, the default),
             ``ring`` (FIFO), ``class_balanced``, ``task_stratified``;
-            ``loss_aware`` is registered but in-graph, and its device
-            buffer is not ported yet (ROADMAP queue A).
+            ``loss_aware`` is in-graph (no host buffer).
+- ingraph:  the device-resident buffer ``loss_aware`` runs on
+            (``ingraph_init``/``insert``/``sample``/``mix``,
+            ``per_example_ce``).
 """
 from repro_torch.replay.base import (ReplayPolicy, available_policies,
                                      get_policy_class, make_policy,
                                      register_policy, unregister_policy)
+from repro_torch.replay.ingraph import (ingraph_init, ingraph_insert,
+                                        ingraph_mix, ingraph_sample,
+                                        per_example_ce)
 from repro_torch.replay.policies import (ClassBalancedPolicy,
                                          LossAwarePolicy, ReservoirPolicy,
                                          RingPolicy, TaskStratifiedPolicy)
@@ -19,4 +24,6 @@ __all__ = [
     "make_policy", "register_policy", "unregister_policy",
     "ReservoirPolicy", "RingPolicy", "ClassBalancedPolicy",
     "TaskStratifiedPolicy", "LossAwarePolicy",
+    "ingraph_init", "ingraph_insert", "ingraph_mix", "ingraph_sample",
+    "per_example_ce",
 ]

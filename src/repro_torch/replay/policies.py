@@ -195,9 +195,10 @@ class TaskStratifiedPolicy(_BalancedPolicy):
 class LossAwarePolicy(ReplayPolicy):
     """Loss-prioritized replay. Its priority is training state, so it
     cannot be materialized into a host schedule (``in_graph = True``):
-    the reference runs it on a scan-carried device buffer
-    (``repro/replay/ingraph.py``), which is not ported yet (ROADMAP queue
-    A). The trainer refuses it; the host hooks raise."""
+    ``run_continual`` runs it on the device-resident buffer of
+    :mod:`repro_torch.replay.ingraph` (class-aware eviction,
+    class-normalized sampling, staleness decay), and the host hooks
+    raise."""
 
     in_graph = True
 
@@ -213,5 +214,6 @@ class LossAwarePolicy(ReplayPolicy):
         return 0
 
 
-_LOSS_AWARE = ("loss_aware is an in-graph replay policy; its device "
-               "buffer (replay/ingraph) is not ported yet (ROADMAP queue A)")
+_LOSS_AWARE = ("loss_aware is an in-graph replay policy with no host "
+               "buffer: run_continual keeps its buffer on the device "
+               "(repro_torch.replay.ingraph)")

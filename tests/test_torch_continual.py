@@ -201,37 +201,30 @@ def test_run_continual_meters_like_the_reference():
 def test_unported_options_raise():
     cfg, _ = _cfgs()
     tasks, _ = _tasks(1, 32)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        continual.run_continual(cfg, continual.TrainerSpec(algo="adam"),
-                                tasks, torch_device="cpu")
     with pytest.raises(ValueError, match="unknown trainer algo"):
         continual.run_continual(cfg, continual.TrainerSpec(algo="sgd"),
                                 tasks, torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="pad"):
-        continual.run_continual(cfg, continual.TrainerSpec(), tasks,
-                                pad=object(), torch_device="cpu")
     with pytest.raises(NotImplementedError, match="obs"):
         continual.run_continual(cfg, continual.TrainerSpec(), tasks,
                                 obs=object(), torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="in-graph"):
+    from repro_torch.data.ragged import PadPolicy
+    with pytest.raises(ValueError, match="in-graph"):
         continual.run_continual(
             cfg, continual.TrainerSpec(), tasks, torch_device="cpu",
-            replay=continual.ReplaySpec(policy="loss_aware"))
-    with pytest.raises(NotImplementedError, match="ContinualConfig"):
-        continual.ContinualConfig(trainer="dfa")
+            replay=continual.ReplaySpec(policy="loss_aware"),
+            pad=PadPolicy())
 
 
-def test_adam_refusal_names_the_slice_that_brings_it():
-    """``algo="adam"`` is ROADMAP queue A's "slice 6" (the MiRU's BPTT +
-    Adam baseline), not slice 4 (the LM zoo, already ported)."""
+def test_obs_refusal_names_the_item_that_brings_it():
+    """``obs=`` is ROADMAP queue A's item 6, ``obs/`` (the runlog, tracer
+    and sinks), the one ``run_continual`` option still refused."""
     cfg, _ = _cfgs()
     tasks, _ = _tasks(1, 32)
     with pytest.raises(NotImplementedError) as err:
         continual.run_continual(cfg, continual.TrainerSpec(algo="adam"),
-                                tasks, torch_device="cpu")
-    assert "queue A, slice 6" in str(err.value)
-    assert "BPTT + Adam" in str(err.value)
-    assert "slice 4" not in str(err.value)
+                                tasks, obs=object(), torch_device="cpu")
+    assert "ROADMAP queue A" in str(err.value)
+    assert "obs/" in str(err.value)
 
 
 def test_run_continual_refuses_cuda_without_card(monkeypatch):

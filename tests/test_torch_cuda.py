@@ -871,3 +871,121 @@ def test_lm_engine_batch_composition_on_the_card(cuda):
     assert all(len(t) == 8 for t in burst)
     for i in (0, 5, 9):
         assert serve([prompts[i]]) == [burst[i]]
+
+
+@pytest.mark.parametrize("B", [64, 32])
+def test_scan_gradients_through_the_kernel_equal_the_plain_forwards(cuda, B):
+    """The fused scan's straight-through gradients with the kernel
+    forward equal, bit for bit, those of the same backward on the plain
+    forward's residuals (which equal the kernel's), at (B, 28, 100)."""
+    rng = np.random.default_rng(B)
+    H, T = 100, 28
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    inp = dict(drive=f(rng.normal(0, 0.6, (B, T, H))),
+               u_h=f(rng.uniform(-0.17, 0.17, (H, H))),
+               h0=f(rng.uniform(-0.5, 0.5, (B, H))),
+               b_h=f(rng.normal(0, 0.1, H)))
+    kw = dict(beta=0.8, lam=0.5, n_bits=8, adc_bits=8, adc_range=4.0,
+              weight_scale=1.5)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+    before = kscan.launches
+    outs = ops.wbs_miru_scan(**leaves, **kw)
+    assert kscan.launches == before + 1
+    cts = [f(rng.normal(size=(B, T, H))) for _ in range(3)]
+    got = torch.autograd.grad(outs, [leaves[k] for k in
+                                     ("drive", "u_h", "h0", "b_h")], cts)
+    with torch.no_grad():
+        plain = ref.wbs_miru_scan_ref(inp["drive"], inp["u_h"] / 1.5,
+                                      inp["h0"], inp["b_h"], 0.8, 0.5, 8, 8,
+                                      4.0, 1.5)
+        want = ops.wbs_miru_scan_bwd(inp["u_h"], plain[1], plain[2], *cts,
+                                     beta=0.8, lam=0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, plain):
+        assert torch.equal(a.detach(), b)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_adam_step_on_wbs_on_the_card_follows_the_cpu(cuda):
+    """One Adam step of the Fig. 4 protocol on ``wbs`` at the paper's
+    width, on the card and on the CPU from the same state (three CPU
+    steps in): the forward is bitwise (kernel == plain), the backward's
+    products cuBLAS's, so loss, params and moments agree at fp32
+    tolerance; the step launches the drive, the scan and the readout
+    once each."""
+    from repro_torch import prng
+    from repro_torch.core import continual
+    from repro_torch.data.synthetic import make_permuted_tasks
+    from repro_torch.utils import tree_to
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    tasks = make_permuted_tasks(0, n_tasks=1, n_train=256, n_test=8)
+    tr = continual.TrainerSpec(algo="adam", batch_size=32)
+    sched = continual.build_batch_schedule(
+        tr, continual.ReplaySpec(capacity=32), tasks)
+    step, _, opt = continual._make_raw_steps(cfg, tr, get_backend("wbs"))
+    key, params, _, _ = continual._init_run(cfg, tr, get_backend("wbs"),
+                                            "cpu")
+    state = opt.init(params)
+    x, y = torch.from_numpy(sched.x[0]), torch.from_numpy(sched.y[0])
+    with torch.no_grad():
+        for s in range(3):
+            key, k = prng.split(key)
+            params, state, _, _, _ = step(params, state, k, x[s], y[s], None)
+        key, k = prng.split(key)
+        cpu = step(params, state, k, x[3], y[3], None)
+        before = (kmatmul.launches, kscan.launches, kreadout.launches)
+        card = step(tree_to(params, cuda), tree_to(state, cuda), k,
+                    x[3].to(cuda), y[3].to(cuda), None)
+        torch.cuda.synchronize()
+    after = (kmatmul.launches, kscan.launches, kreadout.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    np.testing.assert_allclose(float(card[2]), float(cpu[2]), rtol=2e-5)
+    for k_ in cpu[0]:
+        np.testing.assert_allclose(card[0][k_].cpu().numpy(),
+                                   cpu[0][k_].numpy(), rtol=2e-5, atol=1e-6,
+                                   err_msg=k_)
+        np.testing.assert_allclose(card[1][0].mu[k_].cpu().numpy(),
+                                   cpu[1][0].mu[k_].numpy(), rtol=2e-5,
+                                   atol=1e-6, err_msg=k_)
+
+
+@pytest.mark.parametrize("n_classes", [None, 10])
+def test_loss_aware_insert_on_the_card_equals_the_cpu(cuda, n_classes):
+    """The in-graph buffer's inserts on CUDA tensors leave the bits the
+    same inserts leave on CPU tensors: codes, labels, priorities, size."""
+    from repro_torch import prng
+    from repro_torch.replay import ingraph
+    rng = np.random.default_rng(3)
+    states = {d: ingraph.ingraph_init(32, (28, 28), 4, d)
+              for d in ("cpu", cuda)}
+    for r in range(6):
+        xs = rng.uniform(0, 1, (32, 28, 28)).astype(np.float32)
+        ys = rng.integers(0, 10, 32).astype(np.int32)
+        pr = rng.exponential(1.0, 32).astype(np.float32)
+        valid = rng.uniform(size=32) < 0.75
+        for d in states:
+            states[d] = ingraph.ingraph_insert(
+                states[d], prng.PRNGKey(r), torch.from_numpy(xs).to(d),
+                torch.from_numpy(ys).to(d), torch.from_numpy(pr).to(d), 4,
+                valid=torch.from_numpy(valid).to(d), decay=0.9,
+                n_classes=n_classes)
+    torch.cuda.synchronize()
+    for k, v in states["cpu"].items():
+        assert torch.equal(states[cuda][k].cpu(), v), k
+    assert int(states["cpu"]["size"]) == 32
+
+
+@pytest.mark.parametrize("trainer", ["adam", "dfa", "dfa_hw"])
+def test_continual_config_runs_on_the_card(cuda, trainer):
+    """The legacy ``ContinualConfig`` (deprecated, it warns) runs each of
+    its trainer strings on the card."""
+    from repro_torch.core import continual
+    from repro_torch.data.synthetic import make_permuted_tasks
+    tasks = make_permuted_tasks(0, n_tasks=2, n_train=64, n_test=16)
+    ccfg = continual.ContinualConfig(trainer=trainer, batch_size=16,
+                                     replay_capacity=16)
+    with pytest.warns(DeprecationWarning):
+        out = continual.run_continual(MiRUConfig(n_x=28, n_h=100, n_y=10),
+                                      ccfg, tasks, torch_device=cuda)
+    assert np.isfinite(out["losses"]).all() and out["R"].shape == (2, 2)

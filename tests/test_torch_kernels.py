@@ -313,13 +313,21 @@ def test_ops_matmul_ragged_edges_are_exact_zeros(m, k, n):
 
 
 def test_ops_refuse_gradients():
-    drive = torch.zeros(2, 3, 4, requires_grad=True)
+    """The ideal scan and a direct crossbar product have no backward (nor
+    have the reference's Pallas calls); the fused WBS scan has its
+    straight-through one."""
+    xw = torch.zeros(2, 3, 4, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no_grad"):
-        ops.wbs_miru_scan(drive, torch.zeros(4, 4), torch.zeros(4),
-                          **SCAN_KW)
+        ops.miru_scan(xw, torch.zeros(4, 4), torch.zeros(2, 4), 0.8, 0.5)
+    sign, code, w = _matmul_inputs(8, 28, 32, 0)
+    with pytest.raises(NotImplementedError, match="no_grad"):
+        ops.wbs_matmul(sign, code, w.requires_grad_(True), ideal_gains(8))
     with torch.no_grad():
-        ops.wbs_miru_scan(drive, torch.zeros(4, 4), torch.zeros(4),
-                          **SCAN_KW)
+        ops.miru_scan(xw, torch.zeros(4, 4), torch.zeros(2, 4), 0.8, 0.5)
+        ops.wbs_matmul(sign, code, w, ideal_gains(8))
+    h_all, _, _ = ops.wbs_miru_scan(xw, torch.zeros(4, 4), torch.zeros(4),
+                                    **SCAN_KW)
+    assert h_all.requires_grad
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
