@@ -126,6 +126,30 @@ train_loss_aware. ``loss_aware`` replay with Adam on ``ideal`` (the
    device-resident buffer): full after task 0, the permuted stream's
    bands, the metered replay traffic equal to the exact count, R and the
    leading losses against the port's CPU run;
+scenarios. the compiled whole-sequence run (``repro_torch.scenarios``)
+   at the paper's width: 3 permuted tasks of 600/200 examples, DFA,
+   batch 32, reservoir 512, 2 epochs a task. ``run_compiled`` equals
+   ``run_continual`` bit for bit on ``ideal``, ``wbs`` and
+   ``analog_state`` (metered and endurance-tracked there: the write,
+   drift and replay counters, the tracker's maps and update counts
+   equal, the other counters in the ratio of the evaluations); on
+   ``wbs`` the drive, the fused scan and the readout launch once each a
+   train step and an evaluation; ``ObsSpec(cadence=10, tracer=...)``
+   leaves R, losses and params as they were, the loop's RunLog equals the
+   compiled run's, the exported trace holds the schedule, compile and
+   execute spans; ``seeds=[0, 1]``'s first seed is the single-seed run;
+   the ``wbs`` run against its CPU twin (``LOSS_AGREE_STEPS``,
+   ``R_TOLERANCE``); ``run_sweep`` over permuted, class_incremental and
+   keyword_fewshot (the masked steps) × ``wbs``, ``analog_state`` at one
+   epoch and 2 tasks: every cell compiled, MA above chance, power,
+   GOPS/W and a timeline; ms a train step of the loop and the compiled
+   run (no speedup asserted), compile and execute seconds, the busy
+   share of a traced compiled run;
+obs. the recurrent engine serves phase 4's burst with a tracer: the same
+   logits bit for bit, one ``serve.step`` span per engine step; the LM
+   engine serves the serve twin's four requests on the 2-layer fp32
+   model with a tracer and decodes the tokens it decodes without; a run
+   record written through ``JsonlSink`` reads back and names the card;
    then ``ops.kwta`` once at (64, 1024), k 580;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
@@ -308,6 +332,28 @@ LM_TRAIN_TWIN_STEPS = 3
 LM_TRAIN_LOSS_RTOL = 1e-5
 LM_TRAIN_GNORM_RTOL = 1e-4
 LM_TRAIN_PARAMS_REL = 1e-2
+# The scenarios phase: the paper's width (28×100×10) through the compiled
+# whole-sequence run (repro_torch.scenarios.run_compiled): SC_TASKS
+# permuted tasks of SC_TRAIN/SC_TEST examples, DFA, batch CL_BATCH,
+# reservoir CL_CAPACITY, SC_EPOCHS epochs a task; obs windows of
+# SC_CADENCE steps; then run_sweep over SWEEP_SCENARIOS × SWEEP_BACKENDS
+# at one epoch and SWEEP_TASKS tasks.
+SC_TASKS, SC_TRAIN, SC_TEST, SC_EPOCHS, SC_CADENCE = 3, 600, 200, 2, 10
+SWEEP_SCENARIOS = ("permuted", "class_incremental", "keyword_fewshot")
+SWEEP_BACKENDS = ("wbs", "analog_state")
+SWEEP_TASKS = 2
+# The path kernels each substrate's compiled run launches a forward (a
+# train step's or an evaluation's), counted from zero just before it: the
+# readout on every substrate; on wbs the hoisted WBS drive and the fused
+# scan; on analog_state two WBS products a time step (its pair read has
+# no fused path).
+SC_LAUNCHES_A_FORWARD = {
+    "ideal": {"wbs_matmul": 0, "wbs_miru_scan": 0, "miru_scan": 0,
+              "miru_readout": 1},
+    "wbs": {"wbs_matmul": 1, "wbs_miru_scan": 1, "miru_scan": 0,
+            "miru_readout": 1},
+    "analog_state": {"wbs_matmul": 2 * T_SEQ, "wbs_miru_scan": 0,
+                     "miru_scan": 0, "miru_readout": 1}}
 # The kernels: each one's wrapper module and launch counter.
 KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "wbs_matmul_read_noise": ("wbs_matmul", "read_noise_launches"),
@@ -1446,7 +1492,8 @@ def cpu_twin(kind: str) -> dict:
     of one thread: ``software`` (train (a)), ``protocol:<backend>``
     (train (b), (c)), ``read_noise`` (train (d)'s first epoch),
     ``table1:<backend>``, ``lm_prefill`` and ``lm_serve`` (the LM
-    phase's 2-layer fp32 twins), ``lm_train`` (the training twin).
+    phase's 2-layer fp32 twins), ``lm_train`` (the training twin),
+    ``scenarios:wbs`` (the scenarios phase's compiled run on ``wbs``).
     Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -1480,6 +1527,8 @@ def cpu_twin(kind: str) -> dict:
         run = ragged_run(cpu)
     elif kind == "loss_aware":
         run = loss_aware_run(cpu)
+    elif kind == "scenarios:wbs":
+        run = scenario_run(cpu, "wbs")
     else:
         run = protocol_run(cpu, kind.split(":")[1])
     return {k: run[k] for k in ("R", "MA", "losses", "wall_s")}
@@ -1491,7 +1540,7 @@ def cpu_twin(kind: str) -> dict:
 TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "table1:analog_state", "protocol:ideal", "table1:cmos",
          "read_noise", "lm_serve", "lm_prefill", "adam:wbs", "ragged",
-         "loss_aware", "adam:ideal")
+         "loss_aware", "adam:ideal", "scenarios:wbs")
 
 
 def start_twins():
@@ -2086,13 +2135,13 @@ def lm_prefill_twin_logits(cfg, params, dev):
 
 
 def lm_serve(cfg, params, prompts, dev, max_new: int = LM_MAX_NEW,
-             keep_logits: bool = False):
+             keep_logits: bool = False, tracer=None):
     """``prompts`` through a fresh 8-slot ``ServeEngine`` on ``dev``, all
     submitted at once; returns (engine, requests)."""
     from repro_torch.serve import ServeConfig, ServeEngine
     eng = ServeEngine(cfg, ServeConfig(
         batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
-        torch_device=dev, keep_logits=keep_logits), params)
+        torch_device=dev, keep_logits=keep_logits, tracer=tracer), params)
     reqs = [eng.submit(p, max_new) for p in prompts]
     eng.run_until_drained()
     _sync(dev)
@@ -2781,6 +2830,330 @@ def flash_bwd_times(dev, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The scenarios and obs phases: the compiled whole-sequence run, the sweep,
+# and the observability layer's call sites
+# ---------------------------------------------------------------------------
+
+def scenario_setup():
+    """The scenarios phase's stream and network: SC_TASKS permuted tasks,
+    28×100×10."""
+    from repro_torch.scenarios import build_scenario, scenario_miru_config
+    tasks = build_scenario("permuted", 0, n_tasks=SC_TASKS,
+                           n_train=SC_TRAIN, n_test=SC_TEST)
+    return scenario_miru_config(tasks, n_h=N_H), tasks
+
+
+def scenario_run(dev, backend: str, compiled: bool = True, obs=None,
+                 seeds=None, metered: bool = False,
+                 count: bool = False) -> dict:
+    """The scenarios phase's protocol on ``dev``: ``run_compiled`` (or,
+    with ``compiled=False``, ``run_continual``) on ``backend``, with
+    telemetry and endurance tracking under ``metered``. ``wall_s`` is the
+    call's wall time, schedule included (``run_wall_s`` is
+    ``run_compiled``'s own, from its upload on). With ``count``,
+    the launch counters are zeroed just before and read just after."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            run_continual)
+    from repro_torch.scenarios import run_compiled
+    cfg, tasks = scenario_setup()
+    be = get_backend(backend, spec_overrides=dict(track_endurance=metered))
+    if metered:
+        be.telemetry.enable()
+    trainer = TrainerSpec(algo="dfa", epochs_per_task=SC_EPOCHS,
+                          batch_size=CL_BATCH)
+    kw = dict(replay=ReplaySpec(capacity=CL_CAPACITY), device=be, obs=obs,
+              torch_device=dev)
+    _sync(dev)
+    if count:
+        reset_launches()
+    t0 = time.perf_counter()
+    out = (run_compiled(cfg, trainer, tasks, seeds=seeds, **kw) if compiled
+           else run_continual(cfg, trainer, tasks, **kw))
+    _sync(dev)
+    out["run_wall_s"] = out.get("wall_s")
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    out["backend"] = be
+    return out
+
+
+def runs_equal(a: dict, b: dict) -> list:
+    """What differs between two protocol runs (R, losses, params, device
+    state): the names of the parts that are not equal bit for bit."""
+    import numpy as np
+    import torch
+    bad = [k for k in ("R", "losses") if not np.array_equal(
+        np.asarray(a[k]), np.asarray(b[k]))]
+    bad += [f"params/{k}" for k in a["params"]
+            if not torch.equal(a["params"][k], b["params"][k])]
+    sa, sb = a.get("device_state"), b.get("device_state")
+    if (sa is None) != (sb is None):
+        bad.append("device_state")
+    elif sa is not None:
+        bad += [f"device_state/{k}/{leaf}" for k in sa for leaf in sa[k]
+                if not torch.equal(sa[k][leaf], sb[k][leaf])]
+    return bad
+
+
+def runlogs_equal(loop, comp) -> bool:
+    """A loop's RunLog against a compiled run's: every stream bit for bit,
+    and the loop's lower-triangular accuracy matrix the compiled run's
+    lower triangle."""
+    import numpy as np
+    return (loop.cadence == comp.cadence and loop.n_steps == comp.n_steps
+            and all(np.array_equal(getattr(loop, f), getattr(comp, f))
+                    for f in ("steps", "loss", "write_pulses", "dg_mag",
+                              "replay_occupancy", "drift_ticks",
+                              "eval_steps"))
+            and np.array_equal(loop.task_acc, np.tril(comp.task_acc)))
+
+
+def metering_equal(loop: dict, comp: dict) -> dict:
+    """The two metered runs' counters and endurance trackers: the write,
+    drift and replay counters equal; every other counter in the same
+    ratio to ``sample_steps`` (the compiled run evaluates every task
+    after every task and the untrained row, the loop the seen tasks
+    only); the tracker's maps and update counts equal."""
+    import numpy as np
+    a = loop["backend"].telemetry.snapshot()
+    b = comp["backend"].telemetry.snapshot()
+    ss = "sample_steps"
+    exact = [k for k in a if k.startswith(("write_", "drift_", "replay_"))]
+    ta, tb = loop["backend"].tracker, comp["backend"].tracker
+    ca, cb = ta.state_dict()["counts"], tb.state_dict()["counts"]
+    n_steps = len(loop["losses"])
+    B, T, n = CL_BATCH, T_SEQ, SC_TASKS
+    return {
+        "keys_equal": set(a) == set(b),
+        "write_drift_replay_equal": all(a[k] == b.get(k) for k in exact),
+        "write_keys": sorted(exact),
+        "other_counters_in_proportion": all(
+            a[k] * b[ss] == b[k] * a[ss] for k in a if k not in exact),
+        "sample_steps_loop": a[ss], "sample_steps_compiled": b[ss],
+        "sample_steps_as_counted": (
+            a[ss] == n_steps * B * T + n * (n + 1) // 2 * SC_TEST * T
+            and b[ss] == n_steps * B * T + (n * n + n) * SC_TEST * T),
+        "tracker_maps_equal": set(ca) == set(cb) and all(
+            np.array_equal(ca[k], cb[k]) for k in ca),
+        "updates_applied": [ta.updates_applied, tb.updates_applied],
+    }
+
+
+def scenarios_phase(dev, smi: str, twins: dict) -> dict:
+    """The compiled whole-sequence run at the paper's width, and the
+    sweep: (1) ``run_compiled`` == ``run_continual`` bit for bit on
+    ``ideal``, ``wbs`` and ``analog_state`` (metered, endurance tracked:
+    counters and tracker maps too); (2) each substrate's compiled
+    run launches its path kernels SC_LAUNCHES_A_FORWARD times a train
+    step and an evaluation; (3) ObsSpec with a
+    tracer leaves R, losses and params as they were, and the loop's
+    RunLog equals the compiled run's; (4) the exported trace holds the
+    schedule, compile and execute spans; (5) ``seeds=[0, 1]``'s first
+    seed is the single-seed run; (6) ``wbs`` against the CPU twin; (7)
+    ``run_sweep`` over three streams and two substrates; (8) ms a train
+    step, loop and compiled, and the busy share of a traced compiled
+    run. No speedup is asserted."""
+    import json as _json
+    import numpy as np
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import (ReplaySpec, TrainerSpec,
+                                            build_batch_schedule)
+    from repro_torch.data.ragged import needs_masked_program, pad_tasks
+    from repro_torch.obs import ObsSpec, Tracer, timeline
+    from repro_torch.scenarios import (build_scenario, get_scenario,
+                                       run_sweep, scenario_miru_config)
+    from repro_torch.telemetry import format_timeline
+    t_phase = time.perf_counter()
+    n_steps = SC_TASKS * SC_EPOCHS * (SC_TRAIN // CL_BATCH)
+    n_evals = SC_TASKS * SC_TASKS + SC_TASKS
+    n_fwd = n_steps + n_evals
+    runs, timing, metering = {}, {}, None
+    for backend in ("ideal", "wbs", "analog_state"):
+        metered = backend == "analog_state"
+        loop = scenario_run(dev, backend, compiled=False, metered=metered)
+        comp = scenario_run(dev, backend, metered=metered, count=True)
+        bad = runs_equal(loop, comp)
+        if bad or len(comp["losses"]) != n_steps or not comp["compiled"]:
+            raise AssertionError(f"scenarios {backend}: the compiled run "
+                                 f"differs from the loop in {bad}")
+        if metered:
+            metering = metering_equal(loop, comp)
+            if not (metering["keys_equal"]
+                    and metering["write_drift_replay_equal"]
+                    and metering["other_counters_in_proportion"]
+                    and metering["sample_steps_as_counted"]
+                    and metering["tracker_maps_equal"]
+                    and metering["updates_applied"] == [n_steps] * 2):
+                raise AssertionError(f"scenarios analog_state: metering "
+                                     f"differs: {metering}")
+        want = {k: n_fwd * per for k, per in
+                SC_LAUNCHES_A_FORWARD[backend].items()}
+        got = {k: comp["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"scenarios {backend}: the compiled run "
+                                 f"launched {got}, expected {want}")
+        if backend != "ideal":
+            timing[backend] = {
+                "loop_ms_per_step": 1e3 * loop["wall_s"] / n_steps,
+                "compiled_ms_per_step": 1e3 * comp["wall_s"] / n_steps,
+                "loop_wall_s": loop["wall_s"],
+                "compiled_wall_s": comp["wall_s"],
+                "compiled_run_wall_s": comp["run_wall_s"]}
+        runs[backend] = comp
+    wbs = runs["wbs"]
+
+    # obs: inert on the results, the loop's RunLog the compiled run's.
+    tracer = Tracer(process_name="chip_smoke")
+    with_obs = scenario_run(dev, "wbs", obs=ObsSpec(cadence=SC_CADENCE,
+                                                    tracer=tracer))
+    loop_obs = scenario_run(dev, "wbs", compiled=False,
+                            obs=ObsSpec(cadence=SC_CADENCE))
+    bad = runs_equal(wbs, with_obs) + runs_equal(wbs, loop_obs)
+    if bad or not runlogs_equal(loop_obs["runlog"], with_obs["runlog"]):
+        raise AssertionError(f"scenarios obs: results differ ({bad}) or "
+                             f"the loop's RunLog differs from the compiled "
+                             f"run's")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace = tracer.export_chrome(out_dir / "scenarios_trace.json")
+    spans = {e["name"] for e in _json.loads(trace.read_text())["traceEvents"]
+             if e["ph"] == "X"}
+    if not {"schedule", "compile", "execute"} <= spans:
+        raise AssertionError(f"scenarios trace: spans {spans}")
+
+    # Seeds: the first seed's cell is the single-seed run.
+    multi = scenario_run(dev, "wbs", seeds=[0, 1])
+    first = multi["per_seed"][0]
+    if not (np.array_equal(first["R_full"], wbs["R_full"])
+            and first["losses"] == wbs["losses"]):
+        raise AssertionError("scenarios seeds: seed 0 of seeds=[0, 1] is "
+                             "not the single-seed run")
+
+    # Against the CPU twin of the same compiled run.
+    cpu = twins["scenarios:wbs"].result()
+    agree = loss_agree_steps(wbs["losses"], cpu["losses"])
+    if agree < LOSS_AGREE_STEPS["wbs"] or not r_within("wbs", wbs, cpu):
+        raise AssertionError(
+            f"scenarios wbs vs the CPU: {agree} leading losses agree; R "
+            f"{np.asarray(wbs['R']).tolist()} vs "
+            f"{np.asarray(cpu['R']).tolist()}")
+
+    # The sweep.
+    skw = dict(n_tasks=SWEEP_TASKS, n_train=SC_TRAIN, n_test=SC_TEST)
+    trainer = TrainerSpec(algo="dfa", epochs_per_task=1, batch_size=CL_BATCH)
+    t0 = time.perf_counter()
+    grid = run_sweep(SWEEP_SCENARIOS, SWEEP_BACKENDS, trainer,
+                     ReplaySpec(capacity=CL_CAPACITY), n_h=N_H,
+                     scenario_kwargs=skw, obs=ObsSpec(cadence=SC_CADENCE),
+                     torch_device=dev)
+    sweep_wall = time.perf_counter() - t0
+    kw_sc = get_scenario("keyword_fewshot")
+    kw_tasks, eval_padded = pad_tasks(kw_sc.build(0, **skw), kw_sc.pad)
+    masked = needs_masked_program(kw_sc.pad, eval_padded, build_batch_schedule(
+        trainer, ReplaySpec(capacity=CL_CAPACITY), kw_tasks, pad=kw_sc.pad))
+    cells = {}
+    for key, cell in grid["cells"].items():
+        n_y = scenario_miru_config(build_scenario(cell["scenario"], 0, **skw),
+                                   N_H).n_y
+        tl = format_timeline(timeline(cell["runlog"]))
+        ok = (cell["compiled"] and cell["MA"] > 1.0 / n_y
+              and cell["power_mw"] > 0 and cell["gops_per_w"] > 0
+              and tl.startswith("timeline:"))
+        if not ok:
+            raise AssertionError(f"sweep {key}: {cell}")
+        cells[key] = {"MA": cell["MA"], "chance": 1.0 / n_y,
+                      "forgetting": cell["metrics"]["forgetting"],
+                      "power_mw": cell["power_mw"],
+                      "gops_per_w": cell["gops_per_w"],
+                      "wall_s": cell["wall_s"],
+                      "timeline_windows": cell["runlog"].n_windows}
+    if not masked:
+        raise AssertionError("sweep: the keyword stream does not take the "
+                             "masked steps")
+
+    busy = busy_share(lambda: scenario_run(dev, "wbs"), wbs["wall_s"])
+    emit("scenarios", card=smi, steps=n_steps, evaluations=n_evals,
+         loop_equals_compiled=["ideal", "wbs", "analog_state"],
+         metering=metering,
+         launches_compiled={b: {k: r["launches"][k]
+                                for k in SC_LAUNCHES_A_FORWARD[b]}
+                            for b, r in runs.items()},
+         launches_a_forward=SC_LAUNCHES_A_FORWARD,
+         timing=timing, compile_s=with_obs["compile_s"],
+         execute_s=with_obs["execute_s"], obs_inert=True,
+         runlog_loop_equals_compiled=True, trace_spans=sorted(spans),
+         seeds_first_equals_single=True, MA={k: r["MA"]
+                                            for k, r in runs.items()},
+         cpu_MA=cpu["MA"], loss_agree_steps=agree,
+         max_abs_dR=float(np.abs(np.asarray(wbs["R"])
+                                 - np.asarray(cpu["R"])).max()),
+         sweep=cells, sweep_wall_s=sweep_wall, keyword_masked=masked,
+         traced_compiled_wbs=busy,
+         phase_s=time.perf_counter() - t_phase)
+    return {b: r["launches"] for b, r in runs.items()}
+
+
+def obs_phase(dev, smi: str, run: dict) -> None:
+    """The obs layer's call sites on the card: (1) the recurrent engine
+    serves phase 4's burst with a tracer, the same logits bit for bit,
+    a ``serve.step`` span per engine step; (2) the LM engine serves the
+    serve twin's four requests on the 2-layer fp32 model with a tracer and
+    decodes what it decodes without one; (3) a run record through
+    ``JsonlSink``, read back, names the card."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import JsonlSink, Tracer, run_record
+    t_phase = time.perf_counter()
+    tracer = Tracer()
+    eng, reqs = serve(run["cfg"], run["params"], run["arrivals"], dev,
+                      tracer=tracer)
+    served = streams(run["arrivals"], reqs, run["uids"])
+    steps = [e["args"]["step"] for e in tracer.events()
+             if e["name"] == "serve.step"]
+    if not all(np.array_equal(a, b) for a, b in zip(served, run["served"])):
+        raise AssertionError("obs: the traced burst served other logits")
+    if set(steps) != set(range(eng.steps_run + 1)) or \
+            steps != sorted(steps):
+        raise AssertionError(f"obs: serve.step spans {steps[:8]}... for "
+                             f"{eng.steps_run} engine steps")
+
+    cfg, params = lm_twin_model(dev)
+    prompts = lm_twin_prompts(cfg.vocab)
+    lm_tracer = Tracer()
+    _, traced = lm_serve(cfg, params, prompts, dev, LM_TWIN_MAX_NEW,
+                         tracer=lm_tracer)
+    _, plain = lm_serve(cfg, params, prompts, dev, LM_TWIN_MAX_NEW)
+    summary = lm_tracer.summary()
+    if [r.tokens for r in traced] != [r.tokens for r in plain] or \
+            summary.get("serve.prefill", {}).get("count") != len(prompts):
+        raise AssertionError(f"obs: the traced LM engine decoded other "
+                             f"tokens or spans {summary}")
+    del params
+    torch.cuda.empty_cache()
+
+    sink = JsonlSink(ROOT / "chiprun_out" / "run_records.jsonl")
+    rec = run_record("run", "chip_smoke_obs",
+                     {"serve_steps": eng.steps_run,
+                      "lm_requests": len(prompts)},
+                     extra={"card": smi})
+    back = sink.read()
+    sink.emit(rec)
+    read = sink.read()
+    if len(read) != len(back) + 1 or read[-1] != json.loads(
+            json.dumps(rec)) or read[-1]["torch"]["device"] != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"obs: the run record read back as "
+                             f"{read[-1]}")
+    emit("obs", card=smi, serve_steps=eng.steps_run,
+         serve_step_spans=len(steps),
+         serve_step_s=tracer.total_s("serve.step"),
+         lm_spans={k: v["count"] for k, v in summary.items()},
+         run_record_torch=read[-1]["torch"],
+         phase_s=time.perf_counter() - t_phase)
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -2841,6 +3214,8 @@ def main() -> int:
         grad_contract(dev)
         rag = train_ragged(dev, twins)
         la = train_loss_aware(dev, twins)
+        sc = scenarios_phase(dev, smi, twins)
+        obs_phase(dev, smi, run)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -2864,7 +3239,8 @@ def main() -> int:
                "train_adam_ideal": adam["ideal"]["launches"],
                "train_adam_wbs": adam["wbs"]["launches"],
                "train_ragged": rag["launches"],
-               "train_loss_aware": la["launches"], "ops_kwta": kw}
+               "train_loss_aware": la["launches"], "ops_kwta": kw,
+               **{f"scenarios_{b}": c for b, c in sc.items()}}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

@@ -22,7 +22,11 @@ an obvious counterpart:
   replay/     host replay policies and their registry
   data/       the synthetic task streams, the deterministic batcher
   telemetry/  eager activity counters, metered energy, lifetime, Table I
-  obs/        the latency histogram
+  obs/        per-step metric streams (RunLog), span tracer, run-record
+              sinks, the latency histogram
+  scenarios/  the scenario registry, continual-learning metrics, the
+              compiled whole-sequence run and the scenario × backend
+              sweep
   serve/      state slab, traffic generator, continuous-batching engine
               for MiRU streams; the slot-based LM decode engine
 

@@ -28,8 +28,8 @@ through the masked step and eval twins.
 Every random draw follows the reference's key chain
 (:mod:`repro_torch.prng`) and every host draw its numpy generators, so
 batches, replay codes and initial weights equal the reference's bit for
-bit. Not ported yet (ROADMAP queue A): observability streams (``obs``),
-which raise.
+bit. ``obs`` (a :class:`repro_torch.obs.ObsSpec`) records the per-step
+metric streams into a :class:`~repro_torch.obs.RunLog`.
 
 Reported: R[t, i] = accuracy on task i after training through task t;
 MA = mean of the final row (eq. 20).
@@ -160,11 +160,6 @@ class ContinualConfig:
         else:
             dspec = DeviceSpec(track_endurance=self.track_endurance)
         return trainer, replay, get_backend(backend_name, spec=dspec)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, "
-                               f"obs/)")
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +451,41 @@ def _init_run(cfg: MiRUConfig, trainer: TrainerSpec,
     return key, params, psi, dev_state
 
 
+def _initial_state(cfg: MiRUConfig, trainer: TrainerSpec,
+                   backend: DeviceBackend, dev: torch.device,
+                   init: Optional[tuple] = None):
+    """:func:`_init_run` on ``dev``, or ``init`` — (key, params, Ψ) or
+    (key, params, Ψ, device state) — moved there; without a device state
+    the backend programs one from the key."""
+    if init is None:
+        return _init_run(cfg, trainer, backend, dev)
+    key, params, psi = init[:3]
+    params = {k: v.to(dev) for k, v in params.items()}
+    psi = psi.to(dev)
+    if len(init) > 3:
+        dev_state = _to_device(init[3], dev)
+    else:
+        dev_state = backend.init_device_state(params,
+                                              prng.fold_in(key, 0x0DE5))
+    return key, params, psi, dev_state
+
+
+def _drifting(backend: DeviceBackend, dev_state: Any) -> bool:
+    """Whether the run's device state drifts (one drift tick an update)."""
+    cb = backend.spec.crossbar
+    return (dev_state is not None and cb is not None
+            and getattr(cb, "drift_rate", 0.0) > 0)
+
+
+def _obs_streams(stats: list) -> tuple[np.ndarray, ...]:
+    """The per-step :func:`~repro_torch.obs.step_stats` triples read back
+    in one go: (write_pulses int32, dg_mag float32, occupancy int32)."""
+    if not stats:
+        return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                np.zeros(0, np.int32))
+    return tuple(torch.stack(col).cpu().numpy() for col in zip(*stats))
+
+
 # ---------------------------------------------------------------------------
 # Batch schedule — the replay-mixed training stream, materialized
 # ---------------------------------------------------------------------------
@@ -503,6 +533,21 @@ class BatchSchedule:
     @property
     def steps_per_task(self) -> list[int]:
         return [xt.shape[0] for xt in self.x]
+
+    @property
+    def uniform(self) -> bool:
+        """True when every task has the same step count and batch shape —
+        the precondition of the unpadded compiled run."""
+        return len({xt.shape for xt in self.x}) == 1
+
+    def occupancy_stream(self) -> np.ndarray:
+        """The per-step buffer-fill series flattened across tasks,
+        ``(total_steps,)`` int32 (zeros for in-graph fresh-only
+        schedules, which carry no host buffer)."""
+        if not self.occupancy:
+            return np.zeros(sum(self.steps_per_task), np.int32)
+        return np.concatenate(
+            [np.asarray(o, np.int32) for o in self.occupancy])
 
 
 def _stream_context(tasks: list[TaskData]) -> dict[str, int]:
@@ -618,25 +663,179 @@ def build_batch_schedule(trainer: TrainerSpec, replay: ReplaySpec,
                          lengths=ln_all if pad is not None else None)
 
 
-def evaluate_tasks(evaluate, params, key, tasks: list[TaskData],
-                   upto: int, dev_state=None,
-                   device: Union[str, torch.device] = "cuda",
-                   masks: Optional[tuple[np.ndarray, np.ndarray]] = None
-                   ) -> np.ndarray:
-    """Accuracy on the test sets of tasks 0..``upto``, each in one batch
-    on ``device``. ``masks`` — (valid, lengths), each (n_tasks, n_test),
-    from :func:`~repro_torch.data.ragged.eval_masks` — runs the masked
-    ``evaluate``."""
-    dev = resolve_device(device)
-    accs = np.zeros(upto + 1)
-    for i, task in enumerate(tasks[:upto + 1]):
-        extra = () if masks is None else tuple(
-            torch.from_numpy(m[i]).to(dev) for m in masks)
-        accs[i] = float(evaluate(params, key,
-                                 torch.from_numpy(task.x_test).to(dev),
-                                 torch.from_numpy(task.y_test).to(dev),
-                                 dev_state, *extra))
-    return accs
+# ---------------------------------------------------------------------------
+# One seed's run: prepared, uploaded, executed — the loop of run_continual
+# and of repro_torch.scenarios.run_compiled
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SeedRun:
+    """One seed's run before its first step: the schedule, the step
+    closures, the initial state and the whole key chain."""
+    schedule: BatchSchedule
+    train_step: Any
+    evaluate: Any
+    masked: bool
+    in_graph: bool
+    params: dict
+    opt_state: Any
+    dev_state: Any
+    rstate: Any
+    step_keys: list             # per task, one key a real step
+    eval_keys: list             # per task, the key of its evaluation
+    ev_masks: Optional[tuple]   # (valid, lengths) of the test sets
+    replay_traffic: dict
+
+
+def _prepare_run(cfg: MiRUConfig, trainer: TrainerSpec, rspec: ReplaySpec,
+                 backend: DeviceBackend, tasks: list[TaskData],
+                 schedule: BatchSchedule, dev: torch.device, *,
+                 pad=None, eval_padded: bool = False,
+                 init: Optional[tuple] = None) -> _SeedRun:
+    """The seed's initial state, step closures and key chain for
+    ``schedule`` on ``dev``. The key chain is the reference's: per task,
+    one split a real step, then one for the task's evaluation.
+    ``pad``/``eval_padded`` (from :func:`~repro_torch.data.ragged.pad_tasks`)
+    decide whether the masked twins run."""
+    from repro_torch.replay import get_policy_class
+    from repro_torch.replay.ingraph import ingraph_init
+    masked, ev_masks = False, None
+    if pad is not None:
+        from repro_torch.data.ragged import eval_masks, needs_masked_program
+        masked = needs_masked_program(pad, eval_padded, schedule)
+        if masked:
+            ev_masks = eval_masks(tasks)
+    key, params, psi, dev_state = _initial_state(cfg, trainer, backend, dev,
+                                                 init)
+    train_step, evaluate, opt = (_make_masked_steps if masked
+                                 else _make_raw_steps)(cfg, trainer, backend)
+    opt_state = (opt.init(params) if trainer.algo == "adam"
+                 else {"psi": psi})
+    in_graph = get_policy_class(rspec.resolved_policy).in_graph
+    rstate = None
+    if in_graph:
+        T, F = tasks[0].x_train.shape[1:]
+        rstate = ingraph_init(rspec.capacity, (T, F), rspec.bits, dev)
+        train_step = _make_ingraph_replay_step(cfg, trainer, rspec, backend,
+                                               train_step)
+        traffic = _ingraph_replay_traffic(
+            rspec, trainer.batch_size, schedule.steps_per_task, (T, F))
+    else:
+        traffic = schedule.replay_traffic
+    step_keys, eval_keys = [], []
+    for S in schedule.steps_per_task:
+        keys = []
+        for _ in range(S):
+            key, k_step = prng.split(key)
+            keys.append(k_step)
+        step_keys.append(keys)
+        key, k_eval = prng.split(key)
+        eval_keys.append(k_eval)
+    return _SeedRun(schedule=schedule, train_step=train_step,
+                    evaluate=evaluate, masked=masked, in_graph=in_graph,
+                    params=params, opt_state=opt_state, dev_state=dev_state,
+                    rstate=rstate, step_keys=step_keys, eval_keys=eval_keys,
+                    ev_masks=ev_masks, replay_traffic=traffic)
+
+
+def _upload(run: _SeedRun, tasks: list[TaskData],
+            dev: torch.device) -> dict:
+    """The run's batches (and masks) and every task's test set (and
+    masks) on ``dev``, one copy each, per task."""
+    def put(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+    sched = run.schedule
+    data = {"x": put(sched.x), "y": put(sched.y),
+            "test_x": put(t.x_test for t in tasks),
+            "test_y": put(t.y_test for t in tasks)}
+    if run.masked:
+        data["row_valid"] = put(sched.row_valid)
+        data["lengths"] = put(sched.lengths)
+        data["test_masks"] = list(zip(*(put(m) for m in run.ev_masks)))
+    return data
+
+
+def _execute(run: _SeedRun, data: dict, backend: DeviceBackend, *,
+             all_tasks: bool, baseline: bool, obs_on: bool) -> dict:
+    """Every step and evaluation of ``run`` on ``data`` (from
+    :func:`_upload`), with no host read until the end: losses,
+    accuracies and the :func:`~repro_torch.obs.step_stats` scalars stay
+    on the device and are read back once. After each task the seen
+    tasks are evaluated, or with ``all_tasks`` every task (``R`` then has
+    its upper triangle); ``baseline`` first evaluates every task
+    untrained, with task 0's evaluation key. Each task is its own
+    ``evaluate`` call on its own test set. Writes are metered a step
+    (``record_endurance``)."""
+    if obs_on:
+        from repro_torch.obs import step_stats
+    n_tasks = len(data["test_x"])
+    step = run.train_step
+    params, opt_state = run.params, run.opt_state
+    dev_state, rstate = run.dev_state, run.rstate
+
+    def accuracies(p, k_eval, dstate, upto):
+        return [run.evaluate(p, k_eval, data["test_x"][i], data["test_y"][i],
+                             dstate, *(data["test_masks"][i]
+                                       if run.masked else ()))
+                for i in range(upto)]
+
+    losses, stats, accs = [], [], []
+    with torch.no_grad():
+        if baseline:
+            accs += accuracies(params, run.eval_keys[0], dev_state, n_tasks)
+        for t, keys in enumerate(run.step_keys):
+            xs, ys = data["x"][t], data["y"][t]
+            for s, k_step in enumerate(keys):
+                args = (params, opt_state, k_step, xs[s], ys[s], dev_state)
+                if run.in_graph:
+                    (params, opt_state, loss, applied, dev_state,
+                     rstate) = step(*args, rstate, t > 0)
+                elif run.masked:
+                    params, opt_state, loss, applied, dev_state = step(
+                        *args, data["row_valid"][t][s],
+                        data["lengths"][t][s])
+                else:
+                    params, opt_state, loss, applied, dev_state = step(*args)
+                losses.append(loss)
+                if obs_on:
+                    stats.append(step_stats(applied, rstate))
+                backend.record_endurance(applied)
+            accs += accuracies(params, run.eval_keys[t], dev_state,
+                               n_tasks if all_tasks else t + 1)
+
+    # The read-back.
+    flat = (torch.stack(accs).cpu().numpy() if accs
+            else np.zeros(0, np.float32))
+    base_row = None
+    if baseline:
+        base_row, flat = flat[:n_tasks], flat[n_tasks:]
+    R = np.zeros((n_tasks, n_tasks))
+    at = 0
+    for t in range(n_tasks):
+        n = n_tasks if all_tasks else t + 1
+        R[t, :n] = flat[at:at + n]
+        at += n
+    return {"R": R, "baseline_row": base_row,
+            "losses": (torch.stack(losses).cpu().numpy() if losses
+                       else np.zeros(0, np.float32)),
+            "obs": _obs_streams(stats) if obs_on else None,
+            "params": params, "dev_state": dev_state, "rstate": rstate}
+
+
+def _obs_stream_args(run: _SeedRun, raw: dict,
+                     backend: DeviceBackend) -> dict:
+    """One run's per-step streams, as :func:`~repro_torch.obs.build_runlog`
+    takes them. Host policies' buffer fill was recorded when the schedule
+    was built; an in-graph buffer's comes from its step stats."""
+    from repro_torch.obs import drift_stream
+    pulses, dg, occ = raw["obs"]
+    steps = run.schedule.steps_per_task
+    return {"loss": raw["losses"], "write_pulses": pulses, "dg_mag": dg,
+            "replay_occupancy": (occ if run.in_graph
+                                 else run.schedule.occupancy_stream()),
+            "drift_ticks": drift_stream(
+                sum(steps), drifting=_drifting(backend, raw["dev_state"]))}
 
 
 # ---------------------------------------------------------------------------
@@ -681,8 +880,11 @@ def run_continual(cfg: MiRUConfig,
     and the final params, plus ``device_state`` (a stateful substrate's,
     e.g. ``analog_state``'s G⁺/G⁻ pairs), ``endurance`` (the backend's
     tracker, under ``track_endurance``), ``telemetry`` (when the
-    backend's is on) and ``replay_state`` (the device buffer of an
-    in-graph policy).
+    backend's is on), ``replay_state`` (the device buffer of an
+    in-graph policy) and ``runlog`` (under ``obs``, a
+    :class:`repro_torch.obs.ObsSpec`: the per-step streams of
+    :func:`repro_torch.obs.step_stats`, kept on the device and read back
+    once, at the end).
 
     ``spec`` is a :class:`TrainerSpec` (with ``replay`` and ``device`` —
     a registered backend name or instance, default ``"ideal"`` — given
@@ -701,101 +903,52 @@ def run_continual(cfg: MiRUConfig,
     from the key.
 
     The loop runs under ``torch.no_grad()`` (Adam enables autograd
-    around its loss alone); each task's batches move to the card once,
-    and losses are read back once, at the end."""
+    around its loss alone); the batches and test sets move to the card
+    once, and losses and accuracies are read back once, at the end."""
     trainer, rspec, backend = _resolve_specs(spec, replay, device)
-    if obs is not None:
-        raise _not_ported("observability streams (obs=)")
     _check_algo(trainer)
     from repro_torch.replay import get_policy_class
-    from repro_torch.replay.ingraph import ingraph_init
     dev = resolve_device(torch_device)
-    in_graph = get_policy_class(rspec.resolved_policy).in_graph
-    masked = False
-    ev_masks = None
+    eval_padded = False
     if pad is not None:
-        from repro_torch.data.ragged import (eval_masks,
-                                             needs_masked_program, pad_tasks)
-        if in_graph:
+        from repro_torch.data.ragged import pad_tasks
+        if get_policy_class(rspec.resolved_policy).in_graph:
             raise ValueError(
                 "in-graph replay policies (loss_aware) are not supported "
                 "on the padded ragged path; pick a host-materialized "
                 "policy (reservoir/ring/class_balanced/task_stratified)")
         tasks, eval_padded = pad_tasks(tasks, pad)
 
-    if init is None:
-        key, params, psi, dev_state = _init_run(cfg, trainer, backend, dev)
-    else:
-        key, params, psi = init[:3]
-        params = {k: v.to(dev) for k, v in params.items()}
-        psi = psi.to(dev)
-        if len(init) > 3:
-            dev_state = _to_device(init[3], dev)
-        else:
-            dev_state = backend.init_device_state(params,
-                                                  prng.fold_in(key, 0x0DE5))
     schedule = build_batch_schedule(trainer, rspec, tasks, pad=pad)
-    if pad is not None:
-        masked = needs_masked_program(pad, eval_padded, schedule)
-        if masked:
-            ev_masks = eval_masks(tasks)
-    train_step, evaluate, opt = (_make_masked_steps if masked
-                                 else _make_raw_steps)(cfg, trainer, backend)
-    opt_state = (opt.init(params) if trainer.algo == "adam"
-                 else {"psi": psi})
-    rstate = None
-    if in_graph:
-        T, F = tasks[0].x_train.shape[1:]
-        rstate = ingraph_init(rspec.capacity, (T, F), rspec.bits, dev)
-        train_step = _make_ingraph_replay_step(cfg, trainer, rspec, backend,
-                                               train_step)
-        replay_traffic = _ingraph_replay_traffic(
-            rspec, trainer.batch_size, schedule.steps_per_task, (T, F))
-    else:
-        replay_traffic = schedule.replay_traffic
-    if backend.telemetry.enabled and replay_traffic:
-        backend.telemetry.record(replay_traffic)
+    run = _prepare_run(cfg, trainer, rspec, backend, tasks, schedule, dev,
+                       pad=pad, eval_padded=eval_padded, init=init)
+    if backend.telemetry.enabled and run.replay_traffic:
+        backend.telemetry.record(run.replay_traffic)
+    # Observability streams (repro_torch.obs): step_stats a step, kept on
+    # the device.
+    obs_on = obs is not None and getattr(obs, "metrics", False)
+    raw = _execute(run, _upload(run, tasks, dev), backend, all_tasks=False,
+                   baseline=False, obs_on=obs_on)
 
+    R = raw["R"]
     n_tasks = len(tasks)
-    R = np.zeros((n_tasks, n_tasks))
-    losses: list[torch.Tensor] = []
-    with torch.no_grad():
-        for t in range(n_tasks):
-            xs = torch.from_numpy(schedule.x[t]).to(dev)
-            ys = torch.from_numpy(schedule.y[t]).to(dev)
-            if masked:
-                rvs = torch.from_numpy(schedule.row_valid[t]).to(dev)
-                lns = torch.from_numpy(schedule.lengths[t]).to(dev)
-            for s in range(xs.shape[0]):
-                key, k_step = prng.split(key)
-                args = (params, opt_state, k_step, xs[s], ys[s], dev_state)
-                if in_graph:
-                    (params, opt_state, loss, applied, dev_state,
-                     rstate) = train_step(*args, rstate, t > 0)
-                elif masked:
-                    params, opt_state, loss, applied, dev_state = \
-                        train_step(*args, rvs[s], lns[s])
-                else:
-                    params, opt_state, loss, applied, dev_state = \
-                        train_step(*args)
-                losses.append(loss)
-                backend.record_endurance(applied)
-            key, k_eval = prng.split(key)
-            R[t, :t + 1] = evaluate_tasks(evaluate, params, k_eval, tasks,
-                                          t, dev_state, dev, ev_masks)
-
     out: dict[str, Any] = {
         "R": R,
         "MA": float(R[-1, :].mean()),
         "acc_after_each": [float(R[t, :t + 1].mean())
                            for t in range(n_tasks)],
-        "losses": (torch.stack(losses).cpu().tolist() if losses else []),
-        "params": params,
+        "losses": raw["losses"].tolist(),
+        "params": raw["params"],
     }
-    if rstate is not None:
-        out["replay_state"] = rstate
-    if dev_state is not None:
-        out["device_state"] = dev_state
+    if obs_on:
+        from repro_torch.obs import build_runlog
+        out["runlog"] = build_runlog(
+            cadence=obs.cadence, steps_per_task=schedule.steps_per_task,
+            task_acc=R, **_obs_stream_args(run, raw, backend))
+    if raw["rstate"] is not None:
+        out["replay_state"] = raw["rstate"]
+    if raw["dev_state"] is not None:
+        out["device_state"] = raw["dev_state"]
     if backend.tracker is not None:
         out["endurance"] = backend.tracker
     if backend.telemetry.enabled:

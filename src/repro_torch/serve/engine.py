@@ -17,12 +17,15 @@ tokens it would decode alone: the batch-composition contract the MiRU
 engine (``serve/recurrent.py``) holds too.
 
 The engine runs on ``torch_device`` ("cuda" unless the caller asks for
-the CPU). Not ported yet, each raising with its ROADMAP item: a device
-substrate (``device=``, ``meter=``, the ``energy`` block of
-:meth:`ServeEngine.request_stats`) and the ``obs`` tracer (``tracer=``).
+the CPU). A :class:`repro_torch.obs.Tracer` (``tracer=``) gets a
+``serve.step`` span per engine step and a ``serve.prefill`` span per
+admitted prompt. Not ported yet, each raising with its ROADMAP item: a
+device substrate (``device=``, ``meter=``, the ``energy`` block of
+:meth:`ServeEngine.request_stats`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -51,7 +54,9 @@ class ServeConfig:
     device: Any = None
     #: Telemetry on the substrate; not ported yet (raises if True).
     meter: bool = False
-    #: A ``repro.obs.Tracer``; not ported yet (ROADMAP queue A, ``obs/``).
+    #: A :class:`repro_torch.obs.Tracer`: a ``serve.step`` span per engine
+    #: step (entering ``torch.profiler.record_function``) and a
+    #: ``serve.prefill`` span per admitted prompt. None is free.
     tracer: Optional[Any] = None
     #: Injectable wall clock (seconds); every latency reads only this.
     clock: Callable[[], float] = time.perf_counter
@@ -87,14 +92,12 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: dict):
-        for name, unported, item in (
-                ("device", scfg.device is not None, "LM on a substrate"),
-                ("meter", scfg.meter, "LM on a substrate"),
-                ("tracer", scfg.tracer is not None, "obs/")):
+        for name, unported in (("device", scfg.device is not None),
+                               ("meter", scfg.meter)):
             if unported:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is not ported yet (ROADMAP queue "
-                    f"A, {item})")
+                    f"A, LM on a substrate)")
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(scfg.torch_device)
@@ -125,6 +128,11 @@ class ServeEngine:
             self._t_first_submit = req.t_submit
         self.queue.append(req)
         return req
+
+    def _tracer_span(self, name: str, **args):
+        tracer = self.scfg.tracer
+        return tracer.span(name, **args) if tracer is not None \
+            else contextlib.nullcontext()
 
     def _finish(self, req: Request) -> None:
         req.done = True
@@ -170,10 +178,12 @@ class ServeEngine:
                 self.queue_wait.add((req.t_admit - req.t_submit) * 1e3)
                 # Prefill the prompt token by token through the decode
                 # path, as the reference does.
-                for t in req.prompt[:-1]:
-                    self._decode({slot: t}, int(self.slot_pos[slot]))
-                    self.slot_pos[slot] += 1
-                    req.steps += 1
+                with self._tracer_span("serve.prefill", rid=req.rid,
+                                       prompt_len=len(req.prompt)):
+                    for t in req.prompt[:-1]:
+                        self._decode({slot: t}, int(self.slot_pos[slot]))
+                        self.slot_pos[slot] += 1
+                        req.steps += 1
                 req.tokens = []
                 req.pending_token = req.prompt[-1]
 
@@ -197,6 +207,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """Advance every active slot one token. Returns #active slots."""
+        with self._tracer_span("serve.step", step=self.steps_run):
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
         self._admit()
         active = [s for s in range(self.scfg.batch_slots)
                   if self.slot_req[s] is not None]

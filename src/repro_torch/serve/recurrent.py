@@ -94,6 +94,9 @@ class RecurrentServeConfig:
     seed: int = 0
     #: Injectable wall clock (seconds).
     clock: Callable[[], float] = time.perf_counter
+    #: A :class:`repro_torch.obs.Tracer`: a ``serve.step`` span per engine
+    #: step. None is free.
+    tracer: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -279,6 +282,13 @@ class RecurrentServeEngine:
         """Admit, advance every scheduled stream by up to ``chunk``
         frames, retire materialized output. Returns the number of streams
         scheduled into this step's batch."""
+        tracer = self.scfg.tracer
+        if tracer is None:
+            return self._step_inner()
+        with tracer.span("serve.step", step=self.steps_run):
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
         self._admit()
         S, C = self.scfg.batch_slots, self.scfg.chunk
         entries = []

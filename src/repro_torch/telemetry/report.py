@@ -5,9 +5,9 @@ counterpart of ``repro/telemetry/report.py``.
 cost model's so benchmarks and examples can assert agreement;
 ``cmos_comparison`` reproduces the 29× efficiency claim from two metered
 runs of the same workload (analog + cmos backends); ``format_report``
-renders a human-readable block. The fleet and timeline sections
-(``fleet=``, ``runlog=``; ``format_fleet``, ``format_timeline``) wait for
-the port of ``fleet/`` and ``obs/`` and raise.
+renders a human-readable block, with the run's timeline (``runlog=``,
+``format_timeline``) under it. The fleet section (``fleet=``,
+``format_fleet``) waits for the port of ``fleet/`` and raises.
 """
 from __future__ import annotations
 
@@ -29,11 +29,15 @@ def telemetry_report(telemetry: Telemetry,
                      fleet: Optional[dict] = None,
                      runlog: Optional[object] = None) -> dict:
     """Metered Table I numbers (+ lifetime when a tracker is given), side
-    by side with the closed-form cost model for the same geometry."""
-    if fleet is not None or runlog is not None:
+    by side with the closed-form cost model for the same geometry.
+    ``runlog`` (a :class:`repro_torch.obs.RunLog`) attaches the
+    ``timeline`` section — write-rate-over-time next to the lifetime
+    projection, per-task forgetting next to the final scalar. ``fleet``
+    is not ported yet and raises."""
+    if fleet is not None:
         raise NotImplementedError(
-            "the fleet and timeline sections are not ported yet (ROADMAP "
-            "queue A, obs/ and fleet/)")
+            "the fleet section is not ported yet (ROADMAP queue A, "
+            "fleet/)")
     model = model if model is not None else M2RUCostModel()
     energy = MeteredEnergy(model)
     counters = telemetry.snapshot()
@@ -73,6 +77,9 @@ def telemetry_report(telemetry: Telemetry,
     if tracker is not None and tracker.updates_applied:
         out["lifetime"] = project_lifetime(
             tracker, model.hw, update_period_s).as_dict()
+    if runlog is not None:
+        from repro_torch.obs.runlog import timeline
+        out["timeline"] = timeline(runlog)
     return out
 
 
@@ -133,4 +140,38 @@ def format_report(rep: dict) -> str:
                 "  ζ write-rate       "
                 + "  ".join(f"{k} {v:.3f}" for k, v in rp.items())
                 + "  writes/device/update")
+    if "timeline" in rep:
+        lines.append(format_timeline(rep["timeline"]))
+    return "\n".join(lines)
+
+
+#: Timeline streams rendered by :func:`format_timeline`, in display
+#: order: (timeline key, label, formatter for the aggregate column).
+_TIMELINE_ROWS = (
+    ("loss", "loss", lambda v: f"last {v[-1]:.4f}"),
+    ("write_pulses", "write pulses", lambda v: f"Σ {sum(v):.0f}"),
+    ("dg_mag", "Σ|ΔG|", lambda v: f"Σ {sum(v):.3g}"),
+    ("replay_occupancy", "replay fill", lambda v: f"max {max(v):.0f}"),
+    ("drift_ticks", "drift ticks", lambda v: f"Σ {sum(v):.0f}"),
+)
+
+
+def format_timeline(tl: dict) -> str:
+    """Printable timeline block (from :func:`repro_torch.obs.timeline`):
+    sparkline per stream — the *when* next to the report's lifetime
+    aggregates — plus the per-task forgetting trajectory."""
+    from repro_torch.obs.runlog import sparkline
+    lines = [f"timeline: {tl['n_steps']} steps @ cadence "
+             f"{tl['cadence']} ({len(tl['steps'])} windows)"]
+    for key, label, agg in _TIMELINE_ROWS:
+        v = tl.get(key)
+        if not v:
+            continue
+        if key == "drift_ticks" and not any(v):
+            continue
+        lines.append(f"  {label:<18} {sparkline(v):<48} {agg(v)}")
+    fg = tl.get("forgetting_after_task")
+    if fg is not None and len(fg) > 1:
+        lines.append("  forgetting/task    "
+                     + " ".join(f"{v:.3f}" for v in fg))
     return "\n".join(lines)

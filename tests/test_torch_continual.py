@@ -204,27 +204,12 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown trainer algo"):
         continual.run_continual(cfg, continual.TrainerSpec(algo="sgd"),
                                 tasks, torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
-        continual.run_continual(cfg, continual.TrainerSpec(), tasks,
-                                obs=object(), torch_device="cpu")
     from repro_torch.data.ragged import PadPolicy
     with pytest.raises(ValueError, match="in-graph"):
         continual.run_continual(
             cfg, continual.TrainerSpec(), tasks, torch_device="cpu",
             replay=continual.ReplaySpec(policy="loss_aware"),
             pad=PadPolicy())
-
-
-def test_obs_refusal_names_the_item_that_brings_it():
-    """``obs=`` is ROADMAP queue A's item 6, ``obs/`` (the runlog, tracer
-    and sinks), the one ``run_continual`` option still refused."""
-    cfg, _ = _cfgs()
-    tasks, _ = _tasks(1, 32)
-    with pytest.raises(NotImplementedError) as err:
-        continual.run_continual(cfg, continual.TrainerSpec(algo="adam"),
-                                tasks, obs=object(), torch_device="cpu")
-    assert "ROADMAP queue A" in str(err.value)
-    assert "obs/" in str(err.value)
 
 
 def test_run_continual_refuses_cuda_without_card(monkeypatch):
@@ -241,7 +226,8 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "examples" / "continual_learning_torch.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]

@@ -989,3 +989,47 @@ def test_continual_config_runs_on_the_card(cuda, trainer):
         out = continual.run_continual(MiRUConfig(n_x=28, n_h=100, n_y=10),
                                       ccfg, tasks, torch_device=cuda)
     assert np.isfinite(out["losses"]).all() and out["R"].shape == (2, 2)
+
+
+@pytest.mark.parametrize("name,algo", [("ideal", "dfa"), ("wbs", "dfa"),
+                                       ("analog_state", "dfa"),
+                                       ("wbs", "adam")])
+def test_compiled_run_equals_the_loop_on_the_card(cuda, name, algo):
+    """``run_compiled`` on the card: R, losses, params, the RunLog and the
+    write counters bit for bit ``run_continual``'s, each run through its
+    path's kernel: the fused scan on ``wbs``, the per-step WBS product
+    on ``analog_state`` (its pair read has no fused path), the readout
+    on ``ideal``."""
+    from repro_torch.core import continual
+    from repro_torch.obs import ObsSpec
+    from repro_torch.scenarios import (build_scenario, run_compiled,
+                                       scenario_miru_config)
+    tasks = build_scenario("permuted", 0, n_tasks=2, n_train=96, n_test=64)
+    cfg = scenario_miru_config(tasks, n_h=100)
+    trainer = continual.TrainerSpec(algo=algo, epochs_per_task=2,
+                                    batch_size=32)
+    kernel = {"ideal": kreadout, "wbs": kscan, "analog_state": kmatmul}[name]
+    runs, snaps = [], []
+    for run in (continual.run_continual, run_compiled):
+        backend = get_backend(name, spec_overrides=dict(track_endurance=True))
+        backend.telemetry.enable()
+        before = kernel.launches
+        runs.append(run(cfg, trainer, tasks,
+                        replay=continual.ReplaySpec(capacity=64),
+                        device=backend, obs=ObsSpec(cadence=5),
+                        torch_device=cuda))
+        torch.cuda.synchronize()
+        assert kernel.launches > before
+        snaps.append({k: v for k, v in backend.telemetry.snapshot().items()
+                      if k.startswith(("write_", "drift_"))})
+        snaps[-1]["updates"] = backend.tracker.updates_applied
+    loop, comp = runs
+    assert np.array_equal(loop["R"], comp["R"])
+    assert loop["losses"] == comp["losses"]
+    for k in loop["params"]:
+        assert torch.equal(loop["params"][k], comp["params"][k]), k
+    for f in ("loss", "write_pulses", "dg_mag", "replay_occupancy",
+              "drift_ticks"):
+        assert np.array_equal(getattr(loop["runlog"], f),
+                              getattr(comp["runlog"], f)), f
+    assert snaps[0] == snaps[1]

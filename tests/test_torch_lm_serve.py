@@ -148,7 +148,7 @@ def test_deadline_drops_stale_requests(model):
 
 def test_unported_options_raise(model):
     _, _, cfg, tp = model
-    for kw in ({"device": "wbs"}, {"meter": True}, {"tracer": object()}):
+    for kw in ({"device": "wbs"}, {"meter": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(cfg, ServeConfig(torch_device="cpu", **kw), tp)
     eng = ServeEngine(cfg, ServeConfig(torch_device="cpu"), tp)

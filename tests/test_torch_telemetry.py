@@ -184,7 +184,7 @@ def test_lifetime_projection_and_report_equal_the_reference():
         assert rep == jrep
         assert tele.format_report(rep) == jtele.format_report(jrep)
     assert tele.cmos_comparison(t, t) == jtele.cmos_comparison(jt, jt)
-    with pytest.raises(NotImplementedError, match="obs/ and fleet/"):
+    with pytest.raises(NotImplementedError, match="fleet/"):
         tele.telemetry_report(t, fleet={})
 
 
