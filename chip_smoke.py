@@ -151,6 +151,29 @@ obs. the recurrent engine serves phase 4's burst with a tracer: the same
    model with a tracer and decodes the tokens it decodes without; a run
    record written through ``JsonlSink`` reads back and names the card;
    then ``ops.kwta`` once at (64, 1024), k 580;
+faults. the fault model (``repro_torch.faults``) at the paper's width on
+   ``wbs`` (8-bit drive and ADC, |w| ≤ 1.0; 2 permuted tasks of 600/200,
+   2 epochs, through ``run_compiled``): a zero-rate ``FaultSpec`` changes
+   no bit; at 1 % stuck cells (half SA0, half SA1) every forward launches
+   the drive, the fused scan and the readout once, and fused equals
+   per-step bit for bit; read upsets at 1e-3 are keyed and take the
+   per-step path (2·T ``wbs_matmul``, no scan, a forward); the march
+   self-test recovers the exact stuck map (2 launches a tile); clean,
+   faulty and mitigated accuracy (march, remap onto 4 spare columns,
+   bias compensation, 16 recalibration steps) over mask seeds 0-2
+   against the CPU twin; the wear-out run's onset over
+   ``lifespan_years``' projection within [0.5, 1.5]; fault_bench's
+   half-recovery gate at its own setup, against the CPU twin and the
+   reference's figures (the reference fails the gate: no accuracy lost);
+   ms a step and the busy share of the masked run;
+fleet. ``run_fleet`` of 8 chips on ``analog_state`` (metered, endurance
+   tracked, profile "mild", 0.5 % SA0 + 0.5 % SA1 with a rate spread of
+   0.5 and a dead-chip rate of 0.125: two dead chips; 2 permuted tasks of
+   192/200, 1 epoch): every chip reported, the dead ones at chance, the
+   launches a forward, each chip against the CPU twin's, the fleet
+   aggregate and ``format_fleet``; the "none" fleet of 4 chips on
+   ``wbs`` equal to ``run_compiled(seeds=device_seeds)`` bit for bit; ms
+   a chip-step and the busy share of each;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -354,6 +377,51 @@ SC_LAUNCHES_A_FORWARD = {
             "miru_readout": 1},
     "analog_state": {"wbs_matmul": 2 * T_SEQ, "wbs_miru_scan": 0,
                      "miru_scan": 0, "miru_readout": 1}}
+# The faults phase (repro_torch.faults), at the paper's width on ``wbs``
+# with benchmarks/fault_bench.py's knobs (FT_WBS: 8-bit drive and ADC,
+# |w| ≤ 1.0): FT_TASKS permuted tasks of FT_TRAIN/FT_TEST, FT_EPOCHS
+# epochs, DFA, batch CL_BATCH, reservoir CL_CAPACITY, through
+# run_compiled. FT_STUCK stuck cells (half SA0, half SA1), read upsets at
+# FT_UPSET, FT_SPARES spare columns for the march → remap → compensate →
+# FT_RECAL_STEPS recalibration steps over FT_MASK_SEEDS; faulty and
+# mitigated accuracies held to the CPU twin's (which trains its own clean
+# model: the two drift apart after a few steps, as train (b) ``wbs``'s
+# do) within FT_ACC_TOL.
+FT_TASKS, FT_TRAIN, FT_TEST, FT_EPOCHS = 2, 600, 200, 2
+FT_WBS = dict(input_bits=8, adc_bits=8, weight_clip=1.0)
+FT_STUCK, FT_UPSET, FT_SPARES, FT_RECAL_STEPS = 0.01, 1e-3, 4, 16
+FT_MASK_SEEDS = (0, 1, 2)
+FT_ACC_TOL = 0.05
+# The clean run against its twin: R within 4 test examples, MA within
+# 0.02 (two tasks: the port's CPU runs at 3 threads and at 1 lie 3
+# examples and MA 0.015 apart, 50 leading losses agreeing).
+FT_R_TOLERANCE = (4, 0.02)
+# The wear-out run (fault_bench.bench_wearout at this width): paper-scale
+# endurance, one write standing for WEAR_ENDURANCE / 30 physical writes,
+# at most WEAR_UPDATES updates; the age at which half the cells are worn
+# over lifespan_years' projection, against the reference's band.
+WEAR_ENDURANCE, WEAR_UPDATES, WEAR_BAND = 1e9, 100, (0.5, 1.5)
+# fault_bench's half-recovery gate at its own setup (_easy_setup, not
+# fast: 2 prototype tasks of 256/128, 16 features × 8 frames, 8 classes,
+# n_h 30, 6 epochs; 1 % stuck, 4 spares, 16 recalibration steps). The
+# reference fails its own gate on the CPU: its faulty model is more
+# accurate than its clean one (benchmarks/fault_bench.py's
+# bench_degradation(fast=False) under jax 0.9.0, mean of mask seeds 0-2):
+GATE_REF = {"clean": 0.5703125, "faulty": 0.59375,
+            "mitigated": 0.6302083333333334}
+# The fleet phase (repro_torch.fleet): FLEET_CHIPS chips on
+# ``analog_state`` (metered, endurance tracked), profile "mild", under
+# FLEET_FAULTS (FLEET_SEED's draw kills two chips), FLEET_TASKS permuted
+# tasks of FLEET_TRAIN/FLEET_TEST, 1 epoch (6 steps a task: the host
+# draws every chip's read noise, 278-415 ms a chip-step on an H100's
+# host, so the rows are cut to keep the phase near a minute); then the
+# "none" fleet of FLEET_PARITY_CHIPS chips on ``wbs`` against
+# run_compiled(seeds=).
+FLEET_CHIPS, FLEET_TASKS, FLEET_TRAIN, FLEET_TEST = 8, 2, 192, 200
+FLEET_FAULTS = dict(sa0_rate=0.005, sa1_rate=0.005, rate_spread=0.5,
+                    dead_chip_rate=0.125)
+FLEET_SEED, FLEET_PARITY_CHIPS = 0, 4
+FLEET_DEAD_MAX_ACC = 0.2       # a dead chip's accuracy; chance is 0.1
 # The kernels: each one's wrapper module and launch counter.
 KERNELS = {"wbs_matmul": ("wbs_matmul", "launches"),
            "wbs_matmul_read_noise": ("wbs_matmul", "read_noise_launches"),
@@ -1493,7 +1561,10 @@ def cpu_twin(kind: str) -> dict:
     (train (b), (c)), ``read_noise`` (train (d)'s first epoch),
     ``table1:<backend>``, ``lm_prefill`` and ``lm_serve`` (the LM
     phase's 2-layer fp32 twins), ``lm_train`` (the training twin),
-    ``scenarios:wbs`` (the scenarios phase's compiled run on ``wbs``).
+    ``scenarios:wbs`` (the scenarios phase's compiled run on ``wbs``),
+    ``faults`` (the faults phase's clean run and its mitigation),
+    ``fault_gate`` (fault_bench's gate at its own setup) and ``fleet``
+    (the fleet phase's eight chips).
     Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -1529,6 +1600,18 @@ def cpu_twin(kind: str) -> dict:
         run = loss_aware_run(cpu)
     elif kind == "scenarios:wbs":
         run = scenario_run(cpu, "wbs")
+    elif kind == "faults":
+        run = faults_mitigation_run(cpu)
+        return {k: run[k] for k in ("R", "MA", "losses", "wall_s",
+                                    "mitigation")}
+    elif kind == "fault_gate":
+        return fault_gate(cpu)
+    elif kind == "fleet":
+        run = fleet_run(cpu)
+        return {"R_full": [p["R_full"] for p in run["per_device"]],
+                "MA": run["MA"], "seeds": run["device_seeds"],
+                "dead": run["faults"]["dead_chips"].tolist(),
+                "wall_s": run["wall_s"]}
     else:
         run = protocol_run(cpu, kind.split(":")[1])
     return {k: run[k] for k in ("R", "MA", "losses", "wall_s")}
@@ -1536,11 +1619,14 @@ def cpu_twin(kind: str) -> dict:
 
 #: Every twin, longest first (measured on the CPU of the card's host),
 #: those of the phases after the LM's last: the pool takes them in this
-#: order, so an early phase never waits behind a later one's twin.
+#: order, so an early phase never waits behind a later one's twin. The
+#: fleet's, eight chips of host-drawn read noise, goes in with the
+#: first, so that it is done when its phase, near the end, asks for it.
 TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
-         "table1:analog_state", "protocol:ideal", "table1:cmos",
+         "fleet", "table1:analog_state", "protocol:ideal", "table1:cmos",
          "read_noise", "lm_serve", "lm_prefill", "adam:wbs", "ragged",
-         "loss_aware", "adam:ideal", "scenarios:wbs")
+         "loss_aware", "adam:ideal", "scenarios:wbs", "faults",
+         "fault_gate")
 
 
 def start_twins():
@@ -3154,6 +3240,548 @@ def obs_phase(dev, smi: str, run: dict) -> None:
          phase_s=time.perf_counter() - t_phase)
 
 
+def faults_backend(fspec=None):
+    """The faults phase's substrate: ``wbs`` with FT_WBS and ``fspec``."""
+    from repro_torch.backends import DeviceSpec, get_backend
+    return get_backend("wbs", spec=DeviceSpec(**FT_WBS, faults=fspec))
+
+
+def stuck_spec(rate: float = FT_STUCK, **kw):
+    """``rate`` stuck cells, half SA0 and half SA1 (fault_bench's)."""
+    from repro_torch.faults import FaultSpec
+    return FaultSpec(sa0_rate=rate / 2, sa1_rate=rate / 2, **kw)
+
+
+def faults_setup():
+    """(cfg, trainer, tasks) of the faults phase: the paper's network."""
+    from repro_torch.core.continual import TrainerSpec
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.scenarios import build_scenario
+    tasks = build_scenario("permuted", 0, n_tasks=FT_TASKS,
+                           n_train=FT_TRAIN, n_test=FT_TEST)
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    return cfg, TrainerSpec(algo="dfa", epochs_per_task=FT_EPOCHS,
+                            batch_size=CL_BATCH), tasks
+
+
+def faults_run(dev, fspec=None, count: bool = False) -> dict:
+    """``run_compiled`` of the faults phase's stream on ``faults_backend(
+    fspec)``; with ``count`` the launch counters are zeroed just before
+    and read just after."""
+    from repro_torch.core.continual import ReplaySpec
+    from repro_torch.scenarios import run_compiled
+    cfg, trainer, tasks = faults_setup()
+    be = faults_backend(fspec)
+    _sync(dev)
+    if count:
+        reset_launches()
+    t0 = time.perf_counter()
+    out = run_compiled(cfg, trainer, tasks,
+                       replay=ReplaySpec(capacity=CL_CAPACITY), device=be,
+                       torch_device=dev)
+    _sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    return out
+
+
+def mean_accuracy(cfg, trainer, backend, params, state, tasks, dev) -> float:
+    """fault_bench's ``_evaluate``: the mean test accuracy over ``tasks``
+    through ``backend`` and ``state`` (the deployed, faulty forward),
+    evaluation key PRNGKey(99)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.continual import _make_raw_steps
+    _, evaluate, _ = _make_raw_steps(cfg, trainer, backend)
+    with torch.no_grad():
+        accs = [evaluate(params, prng.PRNGKey(99),
+                         torch.from_numpy(t.x_test).to(dev),
+                         torch.from_numpy(t.y_test).to(dev), state)
+                for t in tasks]
+    return float(np.mean([float(a) for a in accs]))
+
+
+def mitigation(dev, cfg, trainer, tasks, params, spec) -> dict:
+    """fault_bench's mitigation at ``spec`` (with spares) over
+    FT_MASK_SEEDS, from the clean model's ``params``: the faulty model's
+    accuracy, the march's map against the masks, remap, bias
+    compensation on a calibration batch (32 training rows a task) and
+    FT_RECAL_STEPS recalibration steps on task 0, then the mitigated
+    accuracy."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.faults import (calibration_drives, compensate_bias,
+                                    effective_masks, march_recover,
+                                    recalibrate, remap_columns)
+    seeds = []
+    for seed in FT_MASK_SEEDS:
+        be = faults_backend(spec)
+        st = be.init_device_state(params, prng.PRNGKey(seed))
+        a_faulty = mean_accuracy(cfg, trainer, be, params, st, tasks, dev)
+        rec = march_recover(be, params, st)
+        exact = all(torch.equal(rec[n]["stuck"], effective_masks(t)[0])
+                    for n, t in st["_faults"].items())
+        st = {**st, "_faults": remap_columns(st["_faults"])}
+        x_cal = np.concatenate([t.x_train[:32] for t in tasks])
+        drives = calibration_drives(be, params, cfg,
+                                    torch.from_numpy(x_cal).to(dev),
+                                    prng.PRNGKey(11), state=st)
+        p_m = compensate_bias(params, st["_faults"], drives)
+        p_m, st = recalibrate(cfg, trainer, be, p_m, st, tasks[0],
+                              steps=FT_RECAL_STEPS, seed=seed)
+        seeds.append({"seed": seed, "faulty": a_faulty,
+                      "mitigated": mean_accuracy(cfg, trainer, be, p_m, st,
+                                                 tasks, dev),
+                      "march_exact": bool(exact)})
+    return {"per_seed": seeds,
+            "faulty": float(np.mean([m["faulty"] for m in seeds])),
+            "mitigated": float(np.mean([m["mitigated"] for m in seeds])),
+            "march_exact": all(m["march_exact"] for m in seeds)}
+
+
+def faults_mitigation_run(dev) -> dict:
+    """The clean model of the faults phase (``faults_run``) and the
+    mitigation stack at FT_STUCK with FT_SPARES spares on it."""
+    cfg, trainer, tasks = faults_setup()
+    clean = faults_run(dev)
+    clean["clean_accuracy"] = float(clean["R"][-1].mean())
+    clean["mitigation"] = mitigation(dev, cfg, trainer, tasks,
+                                     clean["params"],
+                                     stuck_spec(n_spare_cols=FT_SPARES))
+    return clean
+
+
+def wearout_run(dev) -> dict:
+    """fault_bench's ``bench_wearout`` at the paper's width: DFA on task 0
+    of the faults stream with per-cell endurance limits (mean
+    WEAR_ENDURANCE, spread 0.3, one write WEAR_ENDURANCE / 30 physical
+    ones), batches drawn by ``prng.choice``; the stuck fraction a step,
+    the accuracy every 10; the virtual age at which half the cells are
+    worn over ``lifespan_years`` for the mean write rate of the first 5
+    steps."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.analog.endurance import lifespan_years
+    from repro_torch.core.continual import _init_run, _make_raw_steps
+    from repro_torch.faults import FaultSpec, stuck_fraction
+    cfg, trainer, tasks = faults_setup()
+    scale = WEAR_ENDURANCE / 30.0
+    be = faults_backend(FaultSpec(wearout=True,
+                                  wearout_endurance=WEAR_ENDURANCE,
+                                  wearout_spread=0.3, wearout_scale=scale))
+    train_step, evaluate, _ = _make_raw_steps(cfg, trainer, be)
+    key, params, psi, _ = _init_run(cfg, trainer, be, dev)
+    state = be.init_device_state(params, prng.PRNGKey(0))
+    opt_state = {"psi": psi}
+    task = tasks[0]
+    n = task.x_train.shape[0]
+    B = min(trainer.batch_size, 32)
+    year_per_update = scale * 1e-3 / (365.25 * 24 * 3600)
+    x_te = torch.from_numpy(task.x_test).to(dev)
+    y_te = torch.from_numpy(task.y_test).to(dev)
+    rates, fracs, traj = [], [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for step in range(WEAR_UPDATES):
+            key, k_step, k_batch = prng.split(key, 3)
+            idx = prng.choice(k_batch, n, (B,))
+            params, opt_state, _, applied, state = train_step(
+                params, opt_state, k_step,
+                torch.from_numpy(task.x_train[idx]).to(dev),
+                torch.from_numpy(task.y_train[idx]).to(dev), state)
+            if step < 5:
+                rates.append(float(np.mean([
+                    float((a != 0).float().mean())
+                    for a in applied.values()])))
+            frac = stuck_fraction(state["_faults"])
+            fracs.append(frac)
+            if step % 10 == 0 or frac > 0.95:
+                traj.append({"update": step + 1, "stuck_fraction": frac,
+                             "accuracy": float(evaluate(
+                                 params, prng.PRNGKey(7), x_te, y_te,
+                                 state))})
+            if frac > 0.95:
+                break
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    zeta = float(np.mean(rates))
+    proj = lifespan_years(zeta, endurance=WEAR_ENDURANCE)
+    onset = next(((i + 1) * year_per_update for i, f in enumerate(fracs)
+                  if f >= 0.5), None)
+    return {"mean_write_rate": zeta, "projected_lifespan_years": proj,
+            "onset_age_years": onset,
+            "onset_over_projection": onset / proj if onset else None,
+            "updates": len(fracs), "ms_a_step": 1e3 * wall / len(fracs),
+            "trajectory": traj}
+
+
+def gate_setup():
+    """fault_bench's ``_easy_setup(fast=False)``, data and all: two
+    prototype-sequence tasks the small MiRU masters, n_h 30, 6 epochs."""
+    import numpy as np
+    from repro_torch.core.continual import TrainerSpec
+    from repro_torch.data.synthetic import TaskData
+    from repro_torch.scenarios import scenario_miru_config
+    rng = np.random.default_rng(0)
+    n_classes, F, T = 8, 16, 8
+    tasks = []
+    for t in range(2):
+        protos = rng.uniform(0.1, 0.9,
+                             size=(n_classes, F)).astype(np.float32)
+
+        def draw(n):
+            y = rng.integers(0, n_classes, size=n)
+            x = protos[y][:, None, :] + 0.02 * rng.standard_normal(
+                (n, T, F)).astype(np.float32)
+            return np.clip(x, 0, 1).astype(np.float32), y.astype(np.int32)
+
+        x_tr, y_tr = draw(256)
+        x_te, y_te = draw(128)
+        tasks.append(TaskData(x_tr, y_tr, x_te, y_te, task_id=t))
+    return (scenario_miru_config(tasks, n_h=30),
+            TrainerSpec(algo="dfa", epochs_per_task=6), tasks)
+
+
+def fault_gate(dev) -> dict:
+    """fault_bench's mitigation gate at its own setup: the clean model
+    (``run_compiled``, reservoir 64), its accuracy, then
+    :func:`mitigation` at 1 % stuck with 4 spares; the accuracy lost and
+    recovered, and the gate (recovered ≥ half of lost, lost > 0)."""
+    from repro_torch.core.continual import ReplaySpec
+    from repro_torch.scenarios import run_compiled
+    cfg, trainer, tasks = gate_setup()
+    trained = run_compiled(cfg, trainer, tasks, replay=ReplaySpec(
+        capacity=64), device=faults_backend(), torch_device=dev)
+    params = trained["params"]
+    clean = mean_accuracy(cfg, trainer, faults_backend(), params, None,
+                          tasks, dev)
+    mit = mitigation(dev, cfg, trainer, tasks, params,
+                     stuck_spec(0.01, n_spare_cols=4))
+    lost = clean - mit["faulty"]
+    rec = mit["mitigated"] - mit["faulty"]
+    return {"clean": clean, "faulty": mit["faulty"],
+            "mitigated": mit["mitigated"], "lost": lost, "recovered": rec,
+            "gate": bool(lost > 0 and rec >= 0.5 * lost),
+            "march_exact": mit["march_exact"], "per_seed": mit["per_seed"]}
+
+
+def fleet_setup():
+    """(cfg, trainer, tasks) of the fleet phase: the paper's network, 1
+    epoch."""
+    from repro_torch.core.continual import TrainerSpec
+    from repro_torch.core.miru import MiRUConfig
+    from repro_torch.scenarios import build_scenario
+    tasks = build_scenario("permuted", 0, n_tasks=FLEET_TASKS,
+                           n_train=FLEET_TRAIN, n_test=FLEET_TEST)
+    cfg = MiRUConfig(n_x=N_X, n_h=N_H, n_y=N_Y, beta=BETA, lam=LAM)
+    return cfg, TrainerSpec(algo="dfa", epochs_per_task=1,
+                            batch_size=CL_BATCH), tasks
+
+
+def fleet_run(dev, n_devices: int = FLEET_CHIPS,
+              count: bool = False) -> dict:
+    """``run_fleet``: ``n_devices`` chips on ``analog_state``, metered and
+    endurance tracked, profile "mild", under FLEET_FAULTS; with
+    ``count`` the launch counters are zeroed just before and read just
+    after."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import ReplaySpec
+    from repro_torch.faults import FaultSpec
+    from repro_torch.fleet import FleetSpec, run_fleet
+    cfg, trainer, tasks = fleet_setup()
+    be = get_backend("analog_state", spec_overrides=dict(
+        track_endurance=True, faults=FaultSpec(**FLEET_FAULTS)))
+    be.telemetry.enable()
+    _sync(dev)
+    if count:
+        reset_launches()
+    t0 = time.perf_counter()
+    out = run_fleet(cfg, trainer, tasks,
+                    FleetSpec(n_devices=n_devices, het_profile="mild",
+                              seed=FLEET_SEED),
+                    replay=ReplaySpec(capacity=CL_CAPACITY), device=be,
+                    torch_device=dev)
+    _sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    out["backend"] = be
+    return out
+
+
+def results_equal(a: dict, b: dict) -> list:
+    """The parts of two compiled runs that differ bit for bit: R_full,
+    losses, params."""
+    import numpy as np
+    import torch
+    bad = [k for k in ("R_full", "losses") if not np.array_equal(
+        np.asarray(a[k]), np.asarray(b[k]))]
+    return bad + [f"params/{k}" for k in a["params"]
+                  if not torch.equal(a["params"][k], b["params"][k])]
+
+
+def faults_phase(dev, smi: str, twins: dict) -> dict:
+    """The fault model on the card, at the paper's width on ``wbs``: (1)
+    a zero-rate FaultSpec leaves the compiled run's R, losses and params
+    bit for bit; (2) at FT_STUCK stuck cells each forward launches the
+    drive and the scan once (the masks do not push it off the fused
+    path), and fused == per-step bit for bit on a test set; (3) read
+    upsets at FT_UPSET are keyed and never fused (2·T ``wbs_matmul`` a
+    forward); (4) the march's map is the masks', 2 launches a tile; (5)
+    the mitigation stack over FT_MASK_SEEDS against the CPU twin; (6) the
+    wear-out run's onset over its projection; (7) fault_bench's
+    half-recovery gate at its own setup, against the CPU twin and the
+    reference's figures; ms a step and the busy share of the masked
+    run."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.faults import FaultSpec, effective_masks, march_recover
+    t_phase = time.perf_counter()
+    cfg, trainer, tasks = faults_setup()
+    n_steps = FT_TASKS * FT_EPOCHS * (FT_TRAIN // CL_BATCH)
+    n_fwd = n_steps + FT_TASKS * FT_TASKS + FT_TASKS
+
+    clean = faults_mitigation_run(dev)
+    zero = faults_run(dev, FaultSpec())
+    bad = results_equal(clean, zero)
+    if bad:
+        raise AssertionError(f"faults: a zero-rate FaultSpec changed {bad}")
+
+    masked = faults_run(dev, stuck_spec(), count=True)
+    want = {"wbs_matmul": n_fwd, "wbs_miru_scan": n_fwd,
+            "miru_readout": n_fwd}
+    got = {k: masked["launches"][k] for k in want}
+    if got != want or not np.isfinite(masked["losses"]).all():
+        raise AssertionError(f"faults masked run: launches {got}, expected "
+                             f"{want}")
+
+    be = faults_backend(stuck_spec())
+    st = be.init_device_state(clean["params"], prng.PRNGKey(5))
+    x = torch.from_numpy(tasks[0].x_test).to(dev)
+    T = x.shape[1]
+    with torch.no_grad():
+        reset_launches()
+        fused = be.device_recurrence(clean["params"], cfg, x,
+                                     prng.PRNGKey(3), state=st)
+        _sync(dev)
+        l_fused = read_launches()
+        reset_launches()
+        step = be.device_recurrence(clean["params"], cfg, x,
+                                    prng.PRNGKey(3), state=st, fused=False)
+        _sync(dev)
+        l_step = read_launches()
+    if not all(torch.equal(a, b) for a, b in zip(fused, step)) or \
+            (l_fused["wbs_miru_scan"], l_fused["wbs_matmul"],
+             l_step["wbs_miru_scan"], l_step["wbs_matmul"]) != (1, 1, 0,
+                                                               2 * T):
+        raise AssertionError(f"faults: fused != per-step under masks, or "
+                             f"launches {l_fused} / {l_step}")
+
+    ub = faults_backend(FaultSpec(upset_rate=FT_UPSET))
+    su = ub.init_device_state(clean["params"], prng.PRNGKey(0))
+    with torch.no_grad():
+        reset_launches()
+        u1 = ub.device_recurrence(clean["params"], cfg, x, prng.PRNGKey(3),
+                                  state=su)
+        _sync(dev)
+        l_up = read_launches()
+        u2 = ub.device_recurrence(clean["params"], cfg, x, prng.PRNGKey(3),
+                                  state=su)
+        u3 = ub.device_recurrence(clean["params"], cfg, x, prng.PRNGKey(4),
+                                  state=su)
+        c0 = faults_backend().device_recurrence(clean["params"], cfg, x,
+                                                prng.PRNGKey(3))
+    upset_frac = float((u1[2] != c0[2]).float().mean())
+    if not (torch.equal(u1[0], u2[0]) and not torch.equal(u1[0], u3[0])
+            and l_up["wbs_miru_scan"] == 0
+            and l_up["wbs_matmul"] == 2 * T and upset_frac > 0):
+        raise AssertionError(f"faults: upsets not keyed or fused "
+                             f"({l_up})")
+    upsets = faults_run(dev, FaultSpec(upset_rate=FT_UPSET), count=True)
+    if (upsets["launches"]["wbs_miru_scan"], upsets["launches"][
+            "wbs_matmul"]) != (0, 2 * T * n_fwd):
+        raise AssertionError(f"faults upsets run: launches "
+                             f"{upsets['launches']}")
+
+    mb = faults_backend(stuck_spec(n_spare_cols=FT_SPARES))
+    sm = mb.init_device_state(clean["params"], prng.PRNGKey(0))
+    reset_launches()
+    rec = march_recover(mb, clean["params"], sm)
+    _sync(dev)
+    l_march = read_launches()
+    exact = {n: bool(torch.equal(rec[n]["stuck"], effective_masks(t)[0]))
+             for n, t in sm["_faults"].items()}
+    if not all(exact.values()) or l_march["wbs_matmul"] != 2 * len(rec):
+        raise AssertionError(f"faults march: exact {exact}, launches "
+                             f"{l_march}")
+
+    cpu = twins["faults"].result()
+    agree = loss_agree_steps(clean["losses"], cpu["losses"])
+    dR = float(np.abs(np.asarray(clean["R"]) - np.asarray(cpu["R"])).max())
+    mit, cmit = clean["mitigation"], cpu["mitigation"]
+    d_acc = {k: abs(mit[k] - cmit[k]) for k in ("faulty", "mitigated")}
+    n_ex, ma_tol = FT_R_TOLERANCE
+    if (agree < LOSS_AGREE_STEPS["wbs"] or dR > n_ex / FT_TEST + 1e-9
+            or abs(clean["MA"] - cpu["MA"]) > ma_tol + 1e-9
+            or not mit["march_exact"]
+            or max(d_acc.values()) > FT_ACC_TOL):
+        raise AssertionError(
+            f"faults vs the CPU: {agree} leading losses agree, dR {dR}, MA "
+            f"{clean['MA']} vs {cpu['MA']}, mitigation {mit} vs {cmit}")
+
+    wear = wearout_run(dev)
+    ratio = wear["onset_over_projection"]
+    if ratio is None or not WEAR_BAND[0] <= ratio <= WEAR_BAND[1]:
+        raise AssertionError(f"faults wear-out: onset/projection {ratio} "
+                             f"outside {WEAR_BAND}")
+
+    gate = fault_gate(dev)
+    cgate = twins["fault_gate"].result()
+    d_gate = {k: abs(gate[k] - cgate[k])
+              for k in ("clean", "faulty", "mitigated")}
+    d_ref = {k: abs(gate[k] - GATE_REF[k]) for k in GATE_REF}
+    if not gate["march_exact"] or max(d_gate.values()) > FT_ACC_TOL \
+            or max(d_ref.values()) > FT_ACC_TOL \
+            or (gate["lost"] > 0 and not gate["gate"]):
+        raise AssertionError(f"faults gate: {gate} vs the CPU's {cgate}")
+
+    busy = busy_share(lambda: faults_run(dev, stuck_spec()),
+                      masked["wall_s"])
+    emit("faults", card=smi, steps=n_steps, forwards=n_fwd,
+         zero_rate_bitwise=True, launches_masked=got,
+         fused_equals_per_step=True,
+         launches_fused_forward={k: l_fused[k] for k in want},
+         launches_per_step_forward={k: l_step[k] for k in want},
+         upsets={"launches_a_forward": {k: l_up[k] for k in want},
+                 "keyed": True, "pre_changed_share": upset_frac,
+                 "run_launches": {k: upsets["launches"][k] for k in want},
+                 "MA": upsets["MA"]},
+         march_exact=exact, march_launches=l_march["wbs_matmul"],
+         clean_MA=clean["MA"], cpu_MA=cpu["MA"], loss_agree_steps=agree,
+         max_abs_dR=dR, mitigation=mit, cpu_mitigation=cmit,
+         wearout={k: v for k, v in wear.items()},
+         wear_band=WEAR_BAND, gate=gate, cpu_gate=cgate,
+         gate_reference=GATE_REF,
+         gate_reference_lost=GATE_REF["clean"] - GATE_REF["faulty"],
+         ms_a_step={"clean": 1e3 * clean["wall_s"] / n_steps,
+                    "masked": 1e3 * masked["wall_s"] / n_steps,
+                    "upsets": 1e3 * upsets["wall_s"] / n_steps},
+         traced_masked=busy, phase_s=time.perf_counter() - t_phase)
+    return {"faults_masked": masked["launches"],
+            "faults_upsets": upsets["launches"],
+            "faults_march": l_march}
+
+
+def fleet_phase(dev, smi: str, twins: dict) -> dict:
+    """The fleet on one card: (1) FLEET_CHIPS chips on ``analog_state``
+    (mild, FLEET_FAULTS, metered): every chip reported, the dead chips at
+    chance, 2·T ``wbs_matmul`` and a readout a forward on every chip, each
+    chip against the CPU twin's; ``fleet_aggregate``, ``format_fleet``
+    and ``telemetry_report(fleet=)``; (2) the "none" fleet of
+    FLEET_PARITY_CHIPS chips on ``wbs`` == ``run_compiled(seeds=
+    device_seeds)`` bit for bit, one scan a forward; ms a chip-step and
+    the busy share of each (a one-chip fleet traced for the first)."""
+    import numpy as np
+    import torch
+    from repro_torch.analog.costmodel import M2RUCostModel
+    from repro_torch.backends import get_backend
+    from repro_torch.core.continual import ReplaySpec
+    from repro_torch.fleet import (FleetSpec, device_seeds, fleet_aggregate,
+                                   run_fleet)
+    from repro_torch.scenarios import run_compiled
+    from repro_torch.telemetry import format_fleet, telemetry_report
+    t_phase = time.perf_counter()
+    cfg, trainer, tasks = fleet_setup()
+    steps = FLEET_TASKS * (FLEET_TRAIN // CL_BATCH)
+    n_fwd = steps + FLEET_TASKS * FLEET_TASKS + FLEET_TASKS
+    T = tasks[0].x_train.shape[1]
+
+    fl = fleet_run(dev, count=True)
+    D = FLEET_CHIPS
+    want = {"wbs_matmul": D * n_fwd * 2 * T, "wbs_miru_scan": 0,
+            "miru_readout": D * n_fwd}
+    got = {k: fl["launches"][k] for k in want}
+    dead = np.asarray(fl["faults"]["dead_chips"])
+    accs = [p["metrics"]["average_accuracy"] for p in fl["per_device"]]
+    if (len(fl["per_device"]) != D or got != want or not dead.any()
+            or max(accs[i] for i in np.flatnonzero(dead))
+            > FLEET_DEAD_MAX_ACC or not all(
+                np.isfinite(p["losses"]).all() for p in fl["per_device"])):
+        raise AssertionError(f"fleet: launches {got} (expected {want}), "
+                             f"dead {dead.tolist()}, accuracies {accs}")
+    cpu = twins["fleet"].result()
+    dR = [float(np.abs(p["R_full"] - c).max())
+          for p, c in zip(fl["per_device"], cpu["R_full"])]
+    n_ex, ma_tol = R_TOLERANCE["analog"]
+    if (cpu["dead"] != dead.tolist() or cpu["seeds"] != fl["device_seeds"]
+            or max(dR) > n_ex / FLEET_TEST + 1e-9
+            or abs(fl["MA"] - cpu["MA"]) > ma_tol + 1e-9):
+        raise AssertionError(f"fleet vs the CPU: dR {dR}, MA {fl['MA']} vs "
+                             f"{cpu['MA']}")
+    agg = fleet_aggregate(fl, model=M2RUCostModel(n_h=N_H))
+    be = fl["backend"]
+    rep = telemetry_report(be.telemetry, model=M2RUCostModel(n_h=N_H),
+                           tracker=be.tracker, fleet=agg)
+    block = format_fleet(agg)
+    print(block, flush=True)
+    # One chip traced, against the untraced fleet's wall a chip.
+    busy = busy_share(lambda: fleet_run(dev, n_devices=1), fl["wall_s"] / D)
+
+    be_w = get_backend("wbs")
+    spec = FleetSpec(n_devices=FLEET_PARITY_CHIPS, het_profile="none",
+                     seed=FLEET_SEED)
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    par = run_fleet(cfg, trainer, tasks, spec,
+                    replay=ReplaySpec(capacity=CL_CAPACITY), device=be_w,
+                    torch_device=dev)
+    _sync(dev)
+    par_wall = time.perf_counter() - t0
+    l_par = read_launches()
+    rc = run_compiled(cfg, trainer, tasks,
+                      replay=ReplaySpec(capacity=CL_CAPACITY),
+                      device=get_backend("wbs"), seeds=device_seeds(spec),
+                      torch_device=dev)
+    same = all(np.array_equal(a["R_full"], b["R_full"])
+               and a["losses"] == b["losses"]
+               for a, b in zip(par["per_device"], rc["per_seed"])) and all(
+        torch.equal(par["params"][k], v) for k, v in rc["params"].items())
+    want_w = {"wbs_matmul": FLEET_PARITY_CHIPS * n_fwd,
+              "wbs_miru_scan": FLEET_PARITY_CHIPS * n_fwd,
+              "miru_readout": FLEET_PARITY_CHIPS * n_fwd}
+    got_w = {k: l_par[k] for k in want_w}
+    if not same or got_w != want_w:
+        raise AssertionError(f"fleet parity: equal {same}, launches "
+                             f"{got_w} (expected {want_w})")
+    busy_w = busy_share(lambda: run_fleet(
+        cfg, trainer, tasks, spec, replay=ReplaySpec(capacity=CL_CAPACITY),
+        device=get_backend("wbs"), torch_device=dev), par_wall)
+    emit("fleet", card=smi, chips=D, steps_a_chip=steps,
+         forwards_a_chip=n_fwd, device_seeds=fl["device_seeds"],
+         het={k: v.tolist() for k, v in fl["het"].items()},
+         rate_scale=fl["faults"]["rate_scale"].tolist(),
+         dead_chips=dead.tolist(), accuracy=accs,
+         MA=fl["MA"], cpu_MA=cpu["MA"], max_abs_dR=dR,
+         launches=got, aggregate={k: agg[k] for k in (
+             "average_accuracy", "forgetting", "power_mw", "gops_per_w",
+             "lifetime_years", "faults", "hot_tail") if k in agg},
+         report_power_mw=rep["metered"]["power_mw"],
+         format_fleet=block.splitlines(),
+         ms_a_chip_step=1e3 * fl["wall_s"] / (D * steps),
+         wall_s=fl["wall_s"], traced_one_chip=busy,
+         parity={"chips": FLEET_PARITY_CHIPS, "bitwise": True,
+                 "launches": got_w,
+                 "ms_a_chip_step": 1e3 * par_wall
+                 / (FLEET_PARITY_CHIPS * steps), "traced": busy_w},
+         phase_s=time.perf_counter() - t_phase)
+    return {"fleet_analog_state": fl["launches"], "fleet_wbs": l_par}
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -3216,6 +3844,8 @@ def main() -> int:
         la = train_loss_aware(dev, twins)
         sc = scenarios_phase(dev, smi, twins)
         obs_phase(dev, smi, run)
+        ft = faults_phase(dev, smi, twins)
+        flt = fleet_phase(dev, smi, twins)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -3240,7 +3870,7 @@ def main() -> int:
                "train_adam_wbs": adam["wbs"]["launches"],
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
-               **{f"scenarios_{b}": c for b, c in sc.items()}}
+               **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

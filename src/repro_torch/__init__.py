@@ -29,6 +29,11 @@ an obvious counterpart:
               sweep
   serve/      state slab, traffic generator, continuous-batching engine
               for MiRU streams; the slot-based LM decode engine
+  faults/     stuck cells, dead lines, read upsets, wear-out, and the
+              mitigation stack (march self-test, column remap, bias
+              compensation, recalibration)
+  fleet/      a fleet of heterogeneous chips through one stream, and its
+              population distributions
 
 It imports torch and numpy only — never jax and never ``repro``. Entry
 points run on ``cuda`` unless the caller asks for the CPU; on a CPU

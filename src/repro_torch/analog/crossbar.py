@@ -18,7 +18,10 @@ reaches every weight: each scalar the reference writes as a Python float
 (which JAX folds as a weakly typed float32) is computed here in Python,
 rounded once to float32 (:func:`f32`) and applied in the reference's
 operation order. The fleet's per-chip overrides (``prog_sigma=``,
-``write_sigma=``, ``drift_rate=``) are not ported and raise.
+``write_sigma=``, ``drift_rate=``) are float32 scalars (0-d tensors on
+the pair's device, or numbers rounded to float32) that replace the
+spec's value; with an override the noise or drift is applied even at a
+zero value, as the reference's traced overrides are.
 """
 from __future__ import annotations
 
@@ -36,12 +39,10 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _refuse_override(**overrides) -> None:
-    given = [k for k, v in overrides.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"per-chip overrides {given} (fleet heterogeneity) are not "
-            "ported yet (ROADMAP queue A, fleet/)")
+def _scalar(x):
+    """A float32 scalar operand: a tensor as it is, a number rounded
+    once to float32."""
+    return x if isinstance(x, torch.Tensor) else f32(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,9 +104,10 @@ def _target_conductance(w: torch.Tensor, spec: CrossbarSpec) -> torch.Tensor:
 
 def noise_factor(key: np.ndarray, sigma: float, like: torch.Tensor
                  ) -> torch.Tensor:
-    """1 + σ·N(0, 1) of ``like``'s shape, drawn from ``key``."""
+    """1 + σ·N(0, 1) of ``like``'s shape, drawn from ``key``; ``sigma`` a
+    number or a float32 scalar tensor."""
     z = prng.normal(key, like.shape, device=like.device)
-    return 1.0 + f32(sigma) * z
+    return 1.0 + _scalar(sigma) * z
 
 
 def program(key: np.ndarray, w: torch.Tensor, spec: CrossbarSpec
@@ -158,17 +160,18 @@ def program_pair(key: Optional[np.ndarray], w: torch.Tensor,
                  prog_sigma: Optional[float] = None) -> Pair:
     """Initial programming of logical weights onto G⁺/G⁻ pairs, with
     ``spec.prog_sigma`` device-to-device programming variability (none
-    when ``key`` is None: the exact mirror of ``w``)."""
-    _refuse_override(prog_sigma=prog_sigma)
+    when ``key`` is None: the exact mirror of ``w``). ``prog_sigma``
+    overrides the spec's value (a fleet chip's own)."""
     wn = torch.clamp(w / f32(spec.w_clip), -1.0, 1.0)
     g_range = f32(spec.g_on - spec.g_off)
     g_off = f32(spec.g_off)
     g_pos = g_off + torch.clamp(wn, min=0.0) * g_range
     g_neg = g_off + torch.clamp(-wn, min=0.0) * g_range
-    if key is not None and spec.prog_sigma > 0:
+    sigma = prog_sigma if prog_sigma is not None else spec.prog_sigma
+    if key is not None and (prog_sigma is not None or spec.prog_sigma > 0):
         kp, kn = prng.split(key)
-        g_pos = g_pos * noise_factor(kp, spec.prog_sigma, g_pos)
-        g_neg = g_neg * noise_factor(kn, spec.prog_sigma, g_neg)
+        g_pos = g_pos * noise_factor(kp, sigma, g_pos)
+        g_neg = g_neg * noise_factor(kn, sigma, g_neg)
     return {"g_pos": torch.clamp(g_pos, g_off, f32(spec.g_on)),
             "g_neg": torch.clamp(g_neg, g_off, f32(spec.g_on))}
 
@@ -180,10 +183,11 @@ def update_pair(key: np.ndarray, pair: Pair, dw: torch.Tensor,
     logical delta potentiates G⁺, a negative one G⁻; only nonzero deltas
     cost pulses. Each landed delta carries multiplicative write noise,
     optionally snaps to the programming grid, and saturates at the
-    window — repeated one-sided updates lose magnitude at the rails."""
-    _refuse_override(write_sigma=write_sigma)
+    window — repeated one-sided updates lose magnitude at the rails.
+    ``write_sigma`` overrides the spec's value (a fleet chip's own)."""
+    sigma = write_sigma if write_sigma is not None else spec.write_sigma
     dg = torch.abs(dw) / f32(spec.w_clip) * f32(spec.g_on - spec.g_off)
-    dg = dg * noise_factor(key, spec.write_sigma, dw)
+    dg = dg * noise_factor(key, sigma, dw)
     g_pos = torch.where(dw > 0, pair["g_pos"] + dg, pair["g_pos"])
     g_neg = torch.where(dw < 0, pair["g_neg"] + dg, pair["g_neg"])
     if spec.write_levels is not None:
@@ -198,11 +202,18 @@ def drift_pair(pair: Pair, spec: CrossbarSpec, n_ticks: int = 1, *,
                drift_rate: Optional[float] = None) -> Pair:
     """Conductance relaxation toward G_off between updates: each tick
     shrinks the programmed excess by ``spec.drift_rate`` (retention
-    loss). A zero rate returns the pair unchanged."""
-    _refuse_override(drift_rate=drift_rate)
-    if spec.drift_rate <= 0:
-        return pair
-    keep = f32((1.0 - spec.drift_rate) ** n_ticks)
+    loss). A zero rate returns the pair unchanged. ``drift_rate``
+    overrides the spec's value (a fleet chip's own, in float32: ``1 −
+    rate`` is rounded to float32 before the power, and a zero rate
+    multiplies through)."""
+    if drift_rate is None:
+        if spec.drift_rate <= 0:
+            return pair
+        keep = f32((1.0 - spec.drift_rate) ** n_ticks)
+    else:
+        rate = torch.as_tensor(drift_rate, dtype=torch.float32,
+                               device=pair["g_pos"].device)
+        keep = (1.0 - rate) ** n_ticks
     g_off = f32(spec.g_off)
     return {k: g_off + (g - g_off) * keep for k, g in pair.items()}
 

@@ -24,8 +24,14 @@ opaque dict through the train loop: ``init_device_state`` creates it,
 ``device_vmm`` reads through it, ``device_apply_update`` advances it;
 stateless substrates return and ignore None. ``track_endurance``
 attaches an :class:`~repro_torch.analog.endurance.EnduranceTracker`.
-Fault injection (``FaultSpec``) is not ported yet: a spec that asks for
-it raises.
+
+Fault injection (``DeviceSpec(faults=FaultSpec(...))``,
+:mod:`repro_torch.faults`): the sampled masks ride the device state
+under ``"_faults"``; ``device_vmm`` reads the logical weights through
+them, ``device_apply_update`` rejects the writes aimed at stuck cells and
+advances wear-out, and transient read upsets corrupt the per-step
+readout (on a 4-way key split a step, the reference's). ``faults=None``
+builds no masks and runs the program it always ran.
 """
 from __future__ import annotations
 
@@ -39,6 +45,10 @@ import torch
 from repro_torch import prng
 from repro_torch.analog.crossbar import CrossbarSpec
 from repro_torch.analog.endurance import EnduranceTracker
+from repro_torch.faults.model import (FaultSpec, advance_wear,
+                                      apply_cell_faults, apply_read_upsets,
+                                      fault_state, mask_updates,
+                                      sample_fault_state)
 from repro_torch.kernels.ref import tanh_f32
 from repro_torch.telemetry.meters import Telemetry
 
@@ -57,7 +67,9 @@ class DeviceSpec:
       crossbar     device physics (read/write/programming noise, levels,
                    drift) of the analog substrates.
       track_endurance  attach an :class:`EnduranceTracker`.
-      faults       a fault model; only None is ported.
+      faults       a :class:`~repro_torch.faults.FaultSpec`: stuck cells,
+                   dead lines, read upsets, endurance wear-out. None (the
+                   default) builds no masks.
     """
     input_bits: Optional[int] = None
     adc_bits: Optional[int] = None
@@ -66,7 +78,7 @@ class DeviceSpec:
     weight_clip: Optional[float] = None
     crossbar: Optional[CrossbarSpec] = None
     track_endurance: bool = False
-    faults: Optional[Any] = None
+    faults: Optional[FaultSpec] = None
 
 
 class DeviceBackend(abc.ABC):
@@ -76,10 +88,6 @@ class DeviceBackend(abc.ABC):
 
     def __init__(self, spec: Optional[DeviceSpec] = None):
         self.spec = spec if spec is not None else self.default_spec()
-        if self.spec.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP queue A, "
-                "faults/); use faults=None")
         self.tracker: Optional[EnduranceTracker] = \
             EnduranceTracker() if self.spec.track_endurance else None
         self.telemetry = Telemetry(enabled=False)
@@ -123,10 +131,23 @@ class DeviceBackend(abc.ABC):
 
     def init_device_state(self, params: Params,
                           key: Optional[np.ndarray] = None) -> Any:
-        """The substrate's physical state for ``params``; None for the
-        stateless substrates."""
-        del params, key
-        return None
+        """The substrate's physical state for ``params``: None for the
+        stateless substrates, unless the spec carries a
+        :class:`FaultSpec`: then ``{"_faults": masks}``, sampled from
+        ``key`` (``PRNGKey(0)`` without one)."""
+        if self.spec.faults is None:
+            return None
+        return {"_faults": self._sample_faults(params, key)}
+
+    def _sample_faults(self, params: Params,
+                       key: Optional[np.ndarray]) -> dict:
+        fkey = key if key is not None else prng.PRNGKey(0)
+        return sample_fault_state(params, fkey, self.spec.faults,
+                                  sa1_value=self._fault_value_scale())
+
+    def _fault_value_scale(self) -> float:
+        """Logical magnitude a stuck-at-G_on (SA1) cell reads as."""
+        return self.spec.weight_clip or 1.0
 
     def device_apply_update(self, params: Params, updates: Params,
                             key: Optional[np.ndarray] = None,
@@ -134,7 +155,24 @@ class DeviceBackend(abc.ABC):
                             ) -> tuple[Params, Params, Optional[Any]]:
         """``apply_update`` that also advances the device state (the
         stateless substrates carry it through). Write pulses are metered
-        afterwards, in :meth:`record_endurance`."""
+        afterwards, in :meth:`record_endurance`. Under fault masks the
+        writes aimed at stuck cells are zeroed before they reach the
+        substrate (no pulse, no endurance cost), and with wear-out on the
+        per-cell counters advance on the applied updates."""
+        fspec = self.spec.faults
+        fstate = fault_state(state)
+        if fstate is not None:
+            updates = mask_updates(updates, fstate)
+        new_params, applied, state = self._apply_update_impl(
+            params, updates, key, state)
+        if fstate is not None and fspec is not None and fspec.wearout:
+            state = dict(state)
+            state["_faults"] = advance_wear(
+                fstate, applied, fspec, new_params,
+                sa1_value=self._fault_value_scale())
+        return new_params, applied, state
+
+    def _apply_update_impl(self, params, updates, key, state):
         new_params, applied = self.apply_update(params, updates, key)
         return new_params, applied, state
 
@@ -159,7 +197,13 @@ class DeviceBackend(abc.ABC):
                    ) -> torch.Tensor:
         """``vmm`` + activity metering + the device-state read. ``tag``
         names the crossbar tile; ``prepared`` is a
-        :meth:`prepare_weights` result for the same params and state."""
+        :meth:`prepare_weights` result for the same params and state.
+        Under fault masks the logical weights are read through the tile's
+        stuck-cell mask here: one masked tensor feeds the product and the
+        straight-through gradient, so gradients at stuck cells vanish."""
+        fstate = fault_state(state)
+        if fstate is not None and tag in fstate:
+            weights = apply_cell_faults(weights, fstate[tag])
         y = self._vmm_impl(drive, weights, key, state, tag, prepared)
         self.telemetry.meter_vmm(drive, weights, self.spec.input_bits, tag)
         return y
@@ -176,17 +220,43 @@ class DeviceBackend(abc.ABC):
             self.telemetry.meter_adc(pre, tag)
         return q
 
-    def step_keys(self, key: Optional[np.ndarray], T: int
+    def forward_draws(self, state: Optional[Any] = None) -> bool:
+        """Whether the forward's products consume their keys under
+        ``state`` (:attr:`draws_noise`, or a per-chip overlay's read
+        noise on the substrates that take one)."""
+        return self.draws_noise
+
+    def upset_rate(self, state: Optional[Any] = None) -> float:
+        """The read-upset rate of a forward through ``state``: the spec's
+        ``upset_rate`` when the state carries fault masks, else 0."""
+        fspec = self.spec.faults
+        if fspec is None or fault_state(state) is None:
+            return 0.0
+        return fspec.upset_rate
+
+    def step_keys(self, key: Optional[np.ndarray], T: int,
+                  state: Optional[Any] = None
                   ) -> list[tuple[Optional[np.ndarray], ...]]:
-        """The per-step keys (k1, k2) of the reference's per-step scan,
-        which splits its carried key three ways every step; all None when
-        no key is given or the forward draws no noise."""
-        if key is None or not self.draws_noise:
-            return [(None, None)] * T
+        """The per-step keys (k1, k2, k3) of the reference's per-step
+        scan, which splits its carried key three ways every step, or four
+        under read upsets (k3 draws the upsets; None otherwise). k1 and
+        k2 are None when the products draw no noise; nothing is derived
+        when neither they nor the upsets consume a key. Upsets need a
+        key."""
+        upsets = self.upset_rate(state) > 0
+        if upsets and key is None:
+            raise ValueError("read upsets (FaultSpec.upset_rate > 0) need "
+                             "a PRNG key")
+        draws = self.forward_draws(state)
+        if key is None or not (draws or upsets):
+            return [(None, None, None)] * T
         out = []
         for _ in range(T):
-            key, k1, k2 = prng.split(key, 3)
-            out.append((k1, k2))
+            if upsets:
+                key, k1, k2, k3 = prng.split(key, 4)
+            else:
+                (key, k1, k2), k3 = prng.split(key, 3), None
+            out.append((k1, k2, k3) if draws else (None, None, k3))
         return out
 
     def device_recurrence(self, params: Params, cfg, x_seq: torch.Tensor,
@@ -209,16 +279,18 @@ class DeviceBackend(abc.ABC):
         override this; ``fused`` lets a caller force the per-step path
         (False) and is otherwise ignored here. Metering happens once per
         step, so a fused override that meters once under ``scaled(T)``
-        reaches the same totals."""
+        reaches the same totals. Read upsets (``FaultSpec.upset_rate``)
+        corrupt each step's readout after the ADC."""
         del fused
         B, T, _ = x_seq.shape
         prepared = self.prepare_weights(params, state=state)
-        keys = self.step_keys(key, T)
+        keys = self.step_keys(key, T, state)
+        upset_rate = self.upset_rate(state)
         h = h0 if h0 is not None else torch.zeros(
             (B, cfg.n_h), dtype=cfg.dtype, device=x_seq.device)
         h_all, h_prev, pre_all = [], [], []
         for t in range(T):
-            k1, k2 = keys[t]
+            k1, k2, k3 = keys[t]
             pre = self.device_vmm(x_seq[:, t], params["w_h"], k1,
                                   state=state, tag="w_h",
                                   prepared=prepared) \
@@ -227,6 +299,9 @@ class DeviceBackend(abc.ABC):
                                   prepared=prepared) \
                 + params["b_h"]
             pre = self.device_readout(pre)
+            if upset_rate > 0:
+                pre = apply_read_upsets(pre, k3, upset_rate,
+                                        self.spec.adc_range)
             h_new = cfg.lam * h + (1.0 - cfg.lam) * tanh_f32(pre)
             h_all.append(h_new)
             h_prev.append(h)

@@ -15,7 +15,13 @@ step. The two are bitwise equal wherever the ADC is on.
 :mod:`repro_torch.prng` key, on the reference's per-step chain; the fused
 path replays that chain up front and hands the scan its (T, n_bits)
 gains. ``vmm(read_sigma=, read_key=)`` carries the analog substrate's
-per-access read noise into the kernel. Not ported: fault masks.
+per-access read noise into the kernel.
+
+Fault masks (``state["_faults"]``) apply to the logical weights before
+the scale division, on both paths: the fused recurrence reads ``w_h`` and
+``u_h`` through them before the drive and the scan, so fused and
+per-step stay bitwise equal under static faults. Read upsets draw a
+fresh corruption every step and take the per-step path.
 
 The quantizers round, so their gradient is zero almost everywhere. Under
 autograd (BPTT + Adam) the products and the ADC are straight-through
@@ -37,6 +43,7 @@ from repro_torch.analog.adc import adc_quantize
 from repro_torch.analog.wbs import ideal_gains
 from repro_torch.backends.base import DeviceBackend, DeviceSpec, Params
 from repro_torch.backends.registry import register_backend
+from repro_torch.faults.model import apply_cell_faults, fault_state
 from repro_torch.kernels import ops as kops
 
 
@@ -102,6 +109,10 @@ class WBSBackend(DeviceBackend):
     def _weight_scale(self) -> float:
         return self.spec.weight_clip if self.spec.weight_clip else 1.0
 
+    def _fault_value_scale(self) -> float:
+        # SA1 cells saturate at the logical dynamic range.
+        return self._weight_scale()
+
     @property
     def draws_noise(self) -> bool:
         return self.spec.gain_sigma > 0
@@ -122,11 +133,17 @@ class WBSBackend(DeviceBackend):
                         ) -> Optional[dict]:
         """Hoist the once-per-forward logical-scale division of every ≥2-D
         weight out of the per-step loop. Each entry has the bits of the
-        per-call division."""
-        del state
+        per-call division; fault masks apply before it, as
+        ``device_vmm`` applies them per call."""
+        fstate = fault_state(state)
         scale = self._weight_scale()
-        prepared = {name: p / scale for name, p in params.items()
-                    if p.ndim >= 2}
+        prepared = {}
+        for name, p in params.items():
+            if p.ndim < 2:
+                continue
+            if fstate is not None and name in fstate:
+                p = apply_cell_faults(p, fstate[name])
+            prepared[name] = p / scale
         return prepared or None
 
     def _vmm_impl(self, drive, weights, key, state, tag, prepared):
@@ -157,8 +174,14 @@ class WBSBackend(DeviceBackend):
         """The fused scan needs a WBS drive and the output ADC: the ADC
         re-quantizes the integrator every step, which is what makes the
         fused kernel bitwise equal to the per-step loop. It reads the
-        logical weights, so a device state rules it out."""
-        return (state is None and self.spec.input_bits is not None
+        logical weights, so a device state rules it out, except one that
+        carries only fault masks (they apply to the weights before either
+        path reads them). Read upsets draw inside the loop and rule it
+        out."""
+        masks_only = state is None or (isinstance(state, dict)
+                                       and not set(state) - {"_faults"})
+        return (masks_only and self.upset_rate(state) == 0
+                and self.spec.input_bits is not None
                 and self.spec.adc_bits is not None)
 
     def device_recurrence(self, params, cfg, x_seq, key=None, *, state=None,
@@ -172,12 +195,18 @@ class WBSBackend(DeviceBackend):
         if fused is False or not self._fused_recurrence_ok(state):
             return super().device_recurrence(params, cfg, x_seq, key,
                                              state=state, fused=fused, h0=h0)
+        fstate = fault_state(state)
+        if fstate is not None:
+            # The masked weights the per-step path reads, up front.
+            params = {n: (apply_cell_faults(p, fstate[n]) if n in fstate
+                          else p) for n, p in params.items()}
         T = x_seq.shape[1]
         n_bits = self.spec.input_bits
         scale = self._weight_scale()
         gains_w = gains_u = None
         if key is not None and self.draws_noise:
-            k1s, k2s = (np.stack(ks) for ks in zip(*self.step_keys(key, T)))
+            k1s, k2s, _ = (list(ks) for ks in zip(*self.step_keys(key, T)))
+            k1s, k2s = np.stack(k1s), np.stack(k2s)
             gains_w = self._sample_gains(k1s, x_seq.device)
             gains_u = self._sample_gains(k2s, x_seq.device)
         drive = kops.wbs_input_drive(x_seq.detach(), params["w_h"].detach(),

@@ -471,10 +471,13 @@ def _initial_state(cfg: MiRUConfig, trainer: TrainerSpec,
 
 
 def _drifting(backend: DeviceBackend, dev_state: Any) -> bool:
-    """Whether the run's device state drifts (one drift tick an update)."""
+    """Whether the run's device state drifts (one drift tick an update):
+    the spec's drift rate, or a fleet chip's own (``"_het"``)."""
     cb = backend.spec.crossbar
+    het = dev_state.get("_het") if isinstance(dev_state, dict) else None
     return (dev_state is not None and cb is not None
-            and getattr(cb, "drift_rate", 0.0) > 0)
+            and (getattr(cb, "drift_rate", 0.0) > 0
+                 or (het is not None and "drift_rate" in het)))
 
 
 def _obs_streams(stats: list) -> tuple[np.ndarray, ...]:

@@ -6,8 +6,7 @@ rebuild any step, which is what makes checkpoint/restart correct without
 data-loader state transfer. The generator runs on the host in numpy (the
 reference's draws, bit for bit); ``device=`` moves each batch there as
 tensors, in place of the reference's ``sharding=``. ``shard_tasks``
-(the fleet's per-chip task shards) is not ported yet: it comes with
-``fleet/`` (ROADMAP queue A).
+cuts a task stream into the fleet's per-chip training shards.
 """
 from __future__ import annotations
 
@@ -96,3 +95,32 @@ class ShardedBatcher:
 
     def load_state_dict(self, d: dict[str, int]) -> None:
         self.state = DataState(step=int(d["step"]), seed=int(d["seed"]))
+
+
+def shard_tasks(tasks, n_shards: int, index: int):
+    """Per-chip training shard of a task stream (the fleet's data
+    loading): shard ``index`` of ``n_shards`` takes the strided slice
+    ``index::n_shards`` of every task's training rows, truncated to
+    ``n_train // n_shards`` rows so every shard has one shape. Shards are
+    pairwise disjoint; test sets are shared untouched (every chip
+    evaluates the full protocol). Needs at least one training row per
+    shard."""
+    from repro_torch.data.synthetic import TaskData
+    if not 0 <= index < n_shards:
+        raise ValueError(f"shard index {index} out of range for "
+                         f"{n_shards} shards")
+    out = []
+    for t in tasks:
+        n = t.x_train.shape[0] // n_shards
+        if n == 0:
+            raise ValueError(
+                f"task {t.task_id} has {t.x_train.shape[0]} training "
+                f"rows — fewer than {n_shards} shards")
+        sl = slice(index, index + n * n_shards, n_shards)
+        out.append(TaskData(
+            x_train=t.x_train[sl], y_train=t.y_train[sl],
+            x_test=t.x_test, y_test=t.y_test, task_id=t.task_id,
+            train_lengths=(None if t.train_lengths is None
+                           else t.train_lengths[sl]),
+            test_lengths=t.test_lengths, test_valid=t.test_valid))
+    return out

@@ -140,12 +140,32 @@ def _to_torch(a: np.ndarray, device: Union[str, torch.device]
 def fma_f32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     """a·b + c on float32 operands, rounded once to float32, as a fused
     multiply-add does (XLA contracts ``a*b + c`` so on the CPU). The
-    product is exact in float64; the float64 sum's rounding error is
-    kept (TwoSum) and decides the one case where rounding twice would
-    differ: a float64 sum that lies exactly halfway between two floats."""
-    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
-    c = np.asarray(c, np.float64)
+    product is exact in float64, so the float64 sum is rounded once and
+    then again to float32; the two roundings can differ from one only
+    where the float64 sum lies exactly halfway between two floats (the
+    low 29 bits of its mantissa 1 then 0s) or is subnormal in float32.
+    Those rare elements are redone with the sum's rounding error kept
+    (TwoSum)."""
+    a, b, c = np.broadcast_arrays(np.asarray(a, np.float32),
+                                  np.asarray(b, np.float32),
+                                  np.asarray(c, np.float32))
+    p = a.astype(np.float64) * b
     s = p + c
+    r = s.astype(np.float32)
+    low = s.view(np.int64) & np.int64(0x1FFFFFFF)
+    maybe = (low == np.int64(0x10000000)) | (np.abs(s) < 1.1754943508e-38)
+    if not maybe.any():
+        return r
+    idx = np.nonzero(maybe)
+    r = np.array(r, copy=True)
+    r[idx] = _fma_f32_exact(p[idx], c[idx].astype(np.float64), s[idx])
+    return r
+
+
+def _fma_f32_exact(p: np.ndarray, c: np.ndarray, s: np.ndarray
+                   ) -> np.ndarray:
+    """The once-rounded float32 of p + c (float64 operands, ``s`` their
+    float64 sum), through the sum's rounding error."""
     v = s - p
     err = (p - (s - v)) + (c - v)
     r = s.astype(np.float32)
@@ -243,3 +263,31 @@ def categorical(key: np.ndarray, logits: torch.Tensor,
     shape = tuple(int(s) for s in shape)
     g = _to_torch(gumbel_np(key, shape + (logits.shape[-1],)), logits.device)
     return torch.argmax(g + logits.to(torch.float32), dim=-1)
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)`` as
+    an int32 numpy array, bit for bit. jax sorts by fresh 32-bit keys
+    ⌈3·ln n / ln(2³² − 1)⌉ times, each round splitting its key once and
+    drawing one key an element; the sort is stable, so a tie keeps the
+    earlier element first."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n, dtype=np.int32)
+    key = np.asarray(key, _U32)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace=False)``: the first
+    prod(shape) entries of :func:`permutation`, in ``shape``."""
+    shape = tuple(int(s) for s in shape)
+    draws = math.prod(shape)
+    if draws > n:
+        raise ValueError(f"cannot take {draws} samples from {n} without "
+                         "replacement")
+    return permutation(key, n)[:draws].reshape(shape)

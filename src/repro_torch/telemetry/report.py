@@ -5,9 +5,9 @@ counterpart of ``repro/telemetry/report.py``.
 cost model's so benchmarks and examples can assert agreement;
 ``cmos_comparison`` reproduces the 29× efficiency claim from two metered
 runs of the same workload (analog + cmos backends); ``format_report``
-renders a human-readable block, with the run's timeline (``runlog=``,
-``format_timeline``) under it. The fleet section (``fleet=``,
-``format_fleet``) waits for the port of ``fleet/`` and raises.
+renders a human-readable block, with the fleet's distributions
+(``fleet=``, ``format_fleet``) and the run's timeline (``runlog=``,
+``format_timeline``) under it.
 """
 from __future__ import annotations
 
@@ -30,14 +30,11 @@ def telemetry_report(telemetry: Telemetry,
                      runlog: Optional[object] = None) -> dict:
     """Metered Table I numbers (+ lifetime when a tracker is given), side
     by side with the closed-form cost model for the same geometry.
+    ``fleet`` (a :func:`repro_torch.fleet.fleet_aggregate` dict) attaches
+    the population-distribution section ``format_report`` renders;
     ``runlog`` (a :class:`repro_torch.obs.RunLog`) attaches the
     ``timeline`` section — write-rate-over-time next to the lifetime
-    projection, per-task forgetting next to the final scalar. ``fleet``
-    is not ported yet and raises."""
-    if fleet is not None:
-        raise NotImplementedError(
-            "the fleet section is not ported yet (ROADMAP queue A, "
-            "fleet/)")
+    projection, per-task forgetting next to the final scalar."""
     model = model if model is not None else M2RUCostModel()
     energy = MeteredEnergy(model)
     counters = telemetry.snapshot()
@@ -77,6 +74,8 @@ def telemetry_report(telemetry: Telemetry,
     if tracker is not None and tracker.updates_applied:
         out["lifetime"] = project_lifetime(
             tracker, model.hw, update_period_s).as_dict()
+    if fleet is not None:
+        out["fleet"] = fleet
     if runlog is not None:
         from repro_torch.obs.runlog import timeline
         out["timeline"] = timeline(runlog)
@@ -140,6 +139,8 @@ def format_report(rep: dict) -> str:
                 "  ζ write-rate       "
                 + "  ".join(f"{k} {v:.3f}" for k, v in rp.items())
                 + "  writes/device/update")
+    if "fleet" in rep:
+        lines.append(format_fleet(rep["fleet"]))
     if "timeline" in rep:
         lines.append(format_timeline(rep["timeline"]))
     return "\n".join(lines)
@@ -174,4 +175,41 @@ def format_timeline(tl: dict) -> str:
     if fg is not None and len(fg) > 1:
         lines.append("  forgetting/task    "
                      + " ".join(f"{v:.3f}" for v in fg))
+    return "\n".join(lines)
+
+
+#: Fleet distributions rendered by :func:`format_fleet`, in display
+#: order: (result key, label, unit).
+_FLEET_ROWS = (
+    ("average_accuracy", "accuracy", ""),
+    ("forgetting", "forgetting", ""),
+    ("power_mw", "power", " mW"),
+    ("gops_per_w", "efficiency", " GOPS/W"),
+    ("pj_per_op", "energy/op", " pJ"),
+    ("lifetime_years", "lifetime", " years"),
+    ("lifetime_hot_tail_years", "lifetime hot-tail", " years"),
+    ("writes_per_device_update", "ζ write rate", ""),
+)
+
+
+def format_fleet(agg: dict) -> str:
+    """Printable fleet-distribution block (from
+    :func:`repro_torch.fleet.fleet_aggregate`): one row per figure with
+    the population p50/p95/p99 — the tail chip, not the mean."""
+    prof = agg.get("het_profile") or "none"
+    lines = [f"fleet: {agg['n_devices']} devices over "
+             f"{agg.get('n_shards', 1)} shard(s), heterogeneity "
+             f"'{prof}'"]
+    for key, label, unit in _FLEET_ROWS:
+        if key not in agg:
+            continue
+        d = agg[key]
+        lines.append(
+            f"  {label:<18} p50 {d['p50']:10.4g}  p95 {d['p95']:10.4g}  "
+            f"p99 {d['p99']:10.4g}{unit}")
+    hot = agg.get("hot_tail") or {}
+    if hot:
+        lines.append("  worst chips        "
+                     + "  ".join(f"{k.replace('_device', '')}: #{v}"
+                                 for k, v in sorted(hot.items())))
     return "\n".join(lines)

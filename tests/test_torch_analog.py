@@ -112,8 +112,17 @@ def test_pair_program_roundtrip_is_exact_enough_and_bounded():
                               spec)
     assert float(xb.pair_weights(pair, spec)[0]) == pytest.approx(
         1.0, abs=1e-6)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        xb.drift_pair(pair, spec, drift_rate=0.1)
+    # A fleet chip's drift rate (a float32 scalar) overrides the spec's,
+    # also where the spec's is zero, as the reference's traced override.
+    jpair = {k: jnp.asarray(v.numpy()) for k, v in pair.items()}
+    for rate in (0.1, torch.tensor(1e-4)):
+        got = xb.drift_pair(pair, spec, drift_rate=rate)
+        want = jxb.drift_pair(jpair, jxb.CrossbarSpec(
+            write_sigma=0.0, prog_sigma=0.0, w_clip=1.0),
+            drift_rate=jnp.float32(float(rate)))
+        for k in got:
+            np.testing.assert_array_equal(got[k].numpy(),
+                                          np.asarray(want[k]))
 
 
 def test_crossbar_scalars_are_the_reference_float32_constants():

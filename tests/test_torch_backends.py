@@ -152,12 +152,16 @@ def test_unported_substrate_options_raise():
     assert get_backend("wbs", spec_overrides=dict(
         track_endurance=True)).tracker is not None
     assert get_backend("wbs").tracker is None
-    with pytest.raises(NotImplementedError, match="fault"):
-        get_backend("ideal", spec=DeviceSpec(faults=object()))
-    with pytest.raises(NotImplementedError, match="het"):
-        get_backend("analog_state").init_device_state(
-            {"w": torch.zeros(2, 2)}, prng.PRNGKey(0),
-            het={"prog_sigma": 0.1})
+    # Fault injection and the fleet's per-chip overlay are ported now:
+    # a FaultSpec attaches masks, ``het=`` rides the state as "_het".
+    from repro_torch.faults import FaultSpec
+    st = get_backend("ideal", spec=DeviceSpec(
+        faults=FaultSpec())).init_device_state({"w": torch.zeros(2, 2)})
+    assert set(st) == {"_faults"} and not st["_faults"]["w"]["stuck"].any()
+    st = get_backend("analog_state").init_device_state(
+        {"w": torch.zeros(2, 2)}, prng.PRNGKey(0), het={"prog_sigma": 0.1})
+    assert st["_het"]["prog_sigma"].dtype == torch.float32
+    assert float(st["_het"]["prog_sigma"]) == np.float32(0.1)
 
 
 def test_registry():

@@ -1033,3 +1033,88 @@ def test_compiled_run_equals_the_loop_on_the_card(cuda, name, algo):
         assert np.array_equal(getattr(loop["runlog"], f),
                               getattr(comp["runlog"], f)), f
     assert snaps[0] == snaps[1]
+
+
+@pytest.mark.parametrize("name", ["ideal", "wbs", "analog_state"])
+def test_zero_rate_faults_change_no_bit_on_the_card(cuda, name):
+    """A zero-rate FaultSpec through ``run_compiled`` on the card: R,
+    losses and params bit for bit the run without one."""
+    from repro_torch.core import continual
+    from repro_torch.faults import FaultSpec
+    from repro_torch.scenarios import (build_scenario, run_compiled,
+                                       scenario_miru_config)
+    tasks = build_scenario("permuted", 0, n_tasks=2, n_train=96, n_test=64)
+    cfg = scenario_miru_config(tasks, n_h=100)
+    trainer = continual.TrainerSpec(algo="dfa", epochs_per_task=1)
+    runs = [run_compiled(cfg, trainer, tasks,
+                         replay=continual.ReplaySpec(capacity=64),
+                         device=get_backend(name, spec_overrides=dict(
+                             faults=f)), torch_device=cuda)
+            for f in (None, FaultSpec())]
+    assert np.array_equal(runs[0]["R_full"], runs[1]["R_full"])
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for k, v in runs[0]["params"].items():
+        assert torch.equal(v, runs[1]["params"][k]), k
+
+
+def test_fused_equals_per_step_under_masks_on_the_card(cuda):
+    """At 1 % stuck cells the masked forward stays on the fused scan (one
+    launch), bit for bit the per-step path (2·T ``wbs_matmul``) and the
+    CPU's forward from the same masks."""
+    from repro_torch import prng
+    from repro_torch.backends import DeviceSpec
+    from repro_torch.faults import FaultSpec
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    be = get_backend("wbs", spec=DeviceSpec(
+        input_bits=8, adc_bits=8, weight_clip=1.0,
+        faults=FaultSpec(sa0_rate=0.005, sa1_rate=0.005)))
+    params = init_miru_params(prng.PRNGKey(0), cfg, cuda)
+    st = be.init_device_state(params, prng.PRNGKey(5))
+    x = torch.rand(32, 28, 28, generator=torch.Generator().manual_seed(0))
+    xd = x.to(cuda)
+    with torch.no_grad():
+        s0 = kscan.launches
+        fused = be.device_recurrence(params, cfg, xd, prng.PRNGKey(3),
+                                     state=st)
+        torch.cuda.synchronize()
+        assert kscan.launches == s0 + 1
+        m0 = kmatmul.launches
+        step = be.device_recurrence(params, cfg, xd, prng.PRNGKey(3),
+                                    state=st, fused=False)
+        torch.cuda.synchronize()
+        assert kmatmul.launches == m0 + 2 * 28 and kscan.launches == s0 + 1
+        cpu = be.device_recurrence(
+            {k: v.cpu() for k, v in params.items()}, cfg, x,
+            prng.PRNGKey(3), state={"_faults": {
+                n: {k: v.cpu() for k, v in t.items()}
+                for n, t in st["_faults"].items()}})
+    for a, b, c in zip(fused, step, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_march_recovers_the_stuck_map_on_the_card(cuda):
+    """The march self-test on the card: the exact effective stuck map of
+    every tile (spares remapped), two ``wbs_matmul`` launches a tile,
+    the values the CPU's."""
+    from repro_torch import prng
+    from repro_torch.backends import DeviceSpec
+    from repro_torch.faults import (FaultSpec, effective_masks,
+                                    march_recover, remap_columns)
+    cfg = MiRUConfig(n_x=28, n_h=100, n_y=10)
+    be = get_backend("wbs", spec=DeviceSpec(
+        input_bits=8, adc_bits=8, weight_clip=1.0, faults=FaultSpec(
+            sa0_rate=0.02, sa1_rate=0.02, dead_row_rate=0.02,
+            dead_col_rate=0.02, n_spare_cols=4)))
+    params = init_miru_params(prng.PRNGKey(0), cfg, cuda)
+    st = be.init_device_state(params, prng.PRNGKey(7))
+    st = {"_faults": remap_columns(st["_faults"])}
+    before = kmatmul.launches
+    rec = march_recover(be, params, st)
+    torch.cuda.synchronize()
+    assert kmatmul.launches == before + 2 * len(rec)
+    cpu = march_recover(be, {k: v.cpu() for k, v in params.items()},
+                        {"_faults": {n: {k: v.cpu() for k, v in t.items()}
+                                     for n, t in st["_faults"].items()}})
+    for n, tile in st["_faults"].items():
+        assert torch.equal(rec[n]["stuck"], effective_masks(tile)[0]), n
+        assert torch.equal(rec[n]["value"].cpu(), cpu[n]["value"]), n

@@ -184,8 +184,17 @@ def test_lifetime_projection_and_report_equal_the_reference():
         assert rep == jrep
         assert tele.format_report(rep) == jtele.format_report(jrep)
     assert tele.cmos_comparison(t, t) == jtele.cmos_comparison(jt, jt)
-    with pytest.raises(NotImplementedError, match="fleet/"):
-        tele.telemetry_report(t, fleet={})
+    # The fleet section rides the report as given, and renders as the
+    # reference's (the distributions of a small fleet aggregate).
+    from repro.fleet import distribution as jdist
+    agg = {"n_devices": 2, "n_shards": 1, "het_profile": "mild",
+           "average_accuracy": jdist([0.5, 0.7]),
+           "lifetime_years": jdist([11.0, 13.5]),
+           "hot_tail": {"min_accuracy_device": 0}}
+    rep = tele.telemetry_report(t, tracker=tr, fleet=agg)
+    jrep = jtele.telemetry_report(jt, tracker=jtr, fleet=agg)
+    assert rep == jrep and rep["fleet"] is agg
+    assert tele.format_report(rep) == jtele.format_report(jrep)
 
 
 def test_write_counts_stay_on_the_masks_device_until_read():
