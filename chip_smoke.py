@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
-substrates, the Table I metering and the LM zoo's dense serving and
-training paths on one NVIDIA GPU, and check them.
+substrates, the Table I metering and the LM zoo's serving and training
+paths (dense, MoE, SSM, hybrid) on one NVIDIA GPU, and check them.
 
 Run from the repository root with no arguments:
 
@@ -174,6 +174,30 @@ fleet. ``run_fleet`` of 8 chips on ``analog_state`` (metered, endurance
    aggregate and ``format_fleet``; the "none" fleet of 4 chips on
    ``wbs`` equal to ``run_compiled(seeds=device_seeds)`` bit for bit; ms
    a chip-step and the busy share of each;
+lm_zoo. the LM zoo's MoE, SSM and hybrid families: (i)
+   granite-moe-3b-a800m at its published config in bf16 (32 layers, 40
+   experts top-8, 3.37 B parameters drawn on the card): a 2,048-token
+   prefill with one launch of the bf16 tensor-core flash forward a layer
+   and no other kernel, run twice bit for bit (the MoE combine sums in a
+   fixed order), its busy share; the lm phase's 32-request burst through
+   the 8-slot ``ServeEngine`` (its decode one CUDA graph a call): ms a
+   decode call and an engine step, tokens/s, the busy share of an
+   8-request window; (ii) its 2-layer fp32 twin on 1,100 tokens against
+   the CPU's: each MoE layer's routing (a token's experts may differ only
+   at a CPU near-tie, ``ZOO_ROUTE_GAP``), then the logits before the
+   first differing token within ``LM_PREFILL_ATOL``; two training steps
+   of the twin against the CPU's (``LM_TRAIN_LOSS_RTOL``,
+   ``LM_TRAIN_GNORM_RTOL``); (iii) mamba2-370m at its published config
+   in bf16: the prefill through the chunked SSD (no kernel), the burst,
+   four of its requests alone decoding the burst's tokens, the fp32 twin
+   against the CPU, the twin's token-by-token decode against its prefill
+   on the card within 1e-4, its training twin; (iv) jamba's smoke config
+   with its int8 cache in fp32 and bf16: a 1,100-token prefill through
+   the dtype's flash forward (one launch), one request served, in fp32
+   against the CPU's tokens (tie-aware, ``LM_SERVE_ATOL``); (v) one
+   train step each (granite at 4 layers on 2,048 tokens: 8 flash
+   forward, 4 dq, 4 dk/dv launches; mamba2 at 4 layers; jamba), finite,
+   and jamba's training twin; the phase's seconds;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -202,6 +226,7 @@ line; without a CUDA device the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -355,6 +380,36 @@ LM_TRAIN_TWIN_STEPS = 3
 LM_TRAIN_LOSS_RTOL = 1e-5
 LM_TRAIN_GNORM_RTOL = 1e-4
 LM_TRAIN_PARAMS_REL = 1e-2
+# The lm_zoo phase: granite-moe-3b-a800m (configs/granite_moe_3b_a800m.py
+# CONFIG: 32 layers, d 1,536, 24 query heads over 8 KV heads of 64, 40
+# experts top-8 of d_ff 512, vocab 49,155) and mamba2-370m
+# (configs/mamba2_370m.py CONFIG: 48 layers, d 1,024, state 128, heads of
+# 64, vocab 50,280) at their published configs in bf16, weights drawn on
+# the card from seed 0; jamba-1.5-large-398b at its smoke config (one
+# superblock of 4 layers, d 32) with its int8 cache: at its published
+# widths one superblock holds 45.2 B parameters, more than the card's
+# memory. Each prefill takes one ZOO_PREFILL_S-token prompt; serving
+# takes the lm phase's burst. The twins: the published width in fp32 cut
+# to ZOO_TWIN_LAYERS (jamba: its smoke config), weights drawn on the CPU
+# from seed 1, the prefill on LM_TWIN_S tokens (the flash branch). A
+# token's MoE routing may differ from the CPU's only where the CPU's gap
+# between its k-th and (k+1)-th router probability is below
+# ZOO_ROUTE_GAP. mamba2's token-by-token decode of ZOO_DECODE_S tokens on
+# the twin model equals its prefill within the reference's own
+# ZOO_DECODE_ATOL (tests/test_models.py). One train step each at
+# ZOO_TRAIN_LAYERS (granite's on ZOO_PREFILL_S tokens launches its flash
+# backward), and the fp32 twins ZOO_TRAIN_TWIN_STEPS steps on
+# ZOO_TRAIN_TWIN_S tokens against the CPU at lm_train's twin tolerances.
+# The phase aims to stay within ZOO_BUDGET_S (printed, not asserted).
+ZOO_GRANITE, ZOO_MAMBA2 = "granite-moe-3b-a800m", "mamba2-370m"
+ZOO_JAMBA = "jamba-1.5-large-398b"
+ZOO_PREFILL_S, ZOO_TWIN_LAYERS, ZOO_ROUTE_GAP = 2048, 2, 1e-5
+ZOO_DECODE_S, ZOO_DECODE_ATOL = 300, 1e-4
+ZOO_TRAIN_LAYERS, ZOO_TRAIN_TWIN_S, ZOO_TRAIN_TWIN_STEPS = 4, 256, 2
+ZOO_BUDGET_S = 150
+# The serve paths' traced window: the burst's first 8 prompts cut to
+# ZOO_TRACE_PROMPT tokens, ZOO_TRACE_NEW new tokens each.
+ZOO_TRACE_PROMPT, ZOO_TRACE_NEW = 2, 2
 # The scenarios phase: the paper's width (28×100×10) through the compiled
 # whole-sequence run (repro_torch.scenarios.run_compiled): SC_TASKS
 # permuted tasks of SC_TRAIN/SC_TEST examples, DFA, batch CL_BATCH,
@@ -1588,6 +1643,8 @@ def cpu_twin(kind: str) -> dict:
                 "logits": [torch.stack(r.logits) for r in reqs]}
     if kind == "lm_train":
         return lm_train_twin_run(cpu)
+    if kind.startswith("zoo:"):
+        return zoo_twin(kind[4:])
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -1626,7 +1683,8 @@ TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "fleet", "table1:analog_state", "protocol:ideal", "table1:cmos",
          "read_noise", "lm_serve", "lm_prefill", "adam:wbs", "ragged",
          "loss_aware", "adam:ideal", "scenarios:wbs", "faults",
-         "fault_gate")
+         "fault_gate", f"zoo:{ZOO_GRANITE}", f"zoo:{ZOO_MAMBA2}",
+         f"zoo:{ZOO_JAMBA}")
 
 
 def start_twins():
@@ -2306,9 +2364,8 @@ def lm_path(dev, twins: dict) -> dict:
     # untraced and then traced: the burst's first 8 prompts cut to 8
     # tokens, 8 new tokens each — 56 one-slot prefill calls and 8 decode
     # calls of all 8 slots, as the burst mixes one-slot prefills with
-    # grouped decodes. The profiler spends about a second a call
-    # collecting the events of its about 3,100 PyTorch ops, so the whole
-    # burst would take over half an hour.
+    # grouped decodes. The window includes its engine's CUDA-graph
+    # capture, whose eager warm-up step the profiler traces op by op.
     wave = [p[:LM_PROMPT_MIN] for p in prompts[:LM_SLOTS]]
     t0 = time.perf_counter()
     weng, _ = lm_serve(cfg, params, wave, dev, LM_TWIN_MAX_NEW)
@@ -3782,6 +3839,454 @@ def fleet_phase(dev, smi: str, twins: dict) -> dict:
     return {"fleet_analog_state": fl["launches"], "fleet_wbs": l_par}
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_zoo: the MoE, SSM and hybrid families (slice 9)
+# ---------------------------------------------------------------------------
+
+def zoo_model(name: str, dev, layers: Optional[int] = None, dtype=None,
+              seed: int = 0, smoke: bool = False, **kw):
+    """``name``'s published config (or its smoke config), depth cut to
+    ``layers``, in ``dtype``, with ``kw`` replaced; its weights drawn from
+    ``seed``: on the card for a published config at full depth, else on
+    the CPU and moved to ``dev``, so that a CPU twin holds the same
+    bits."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg = (get_smoke_config if smoke else get_config)(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype, **kw)
+    if smoke or layers:
+        params = lm.init_params(torch.Generator().manual_seed(seed), cfg,
+                                "cpu")
+        return cfg, tree_to(params, dev)
+    return cfg, lm.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                               dev)
+
+
+def zoo_twin_model(name: str, dev):
+    """A twin's model: the published width in fp32, 2 layers (jamba: its
+    smoke config, one superblock, with its int8 cache), weights from the
+    CPU with seed 1."""
+    import torch
+    if name == ZOO_JAMBA:
+        return zoo_model(name, dev, dtype=torch.float32, seed=1,
+                         smoke=True, kv_cache_dtype="int8")
+    return zoo_model(name, dev, ZOO_TWIN_LAYERS, torch.float32, seed=1)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Record each ``moe_ffn`` call's routing while the block runs: per
+    call the (T, K) expert ids, which of them kept their slot, and each
+    token's gap between its k-th and (k+1)-th router probability, all on
+    the CPU."""
+    import torch
+    from repro_torch.models import moe
+    rec: list = []
+    route, dispatch = moe.route, moe.dispatch
+
+    def recording_route(router, xt, k):
+        probs, w, e = route(router, xt, k)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        rec.append({"top_e": e.cpu(), "gap": (top[:, k - 1]
+                                              - top[:, k]).cpu()})
+        return probs, w, e
+
+    def recording_dispatch(top_e, E, C):
+        out = dispatch(top_e, E, C)
+        rec[-1]["kept"] = out["kept"].reshape(top_e.shape).cpu()
+        return out
+    moe.route, moe.dispatch = recording_route, recording_dispatch
+    try:
+        yield rec
+    finally:
+        moe.route, moe.dispatch = route, dispatch
+
+
+def zoo_prefill_logits(cfg, params, S: int = LM_TWIN_S, seed: int = 2):
+    """One seeded S-token prompt's prefill logits at LM_TWIN_ROWS (fp32,
+    on the CPU), and the routing of each MoE layer."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, S)))
+    with recorded_routing() as routes:
+        logits = lm.prefill(params, cfg, {"tokens": toks})
+    return logits[0, list(LM_TWIN_ROWS)].to(torch.float32).cpu(), routes
+
+
+def zoo_train_twin_run(name: str, dev) -> dict:
+    """The fp32 twin model through ``Trainer`` (warmup 0),
+    ZOO_TRAIN_TWIN_STEPS steps on 1 × ZOO_TRAIN_TWIN_S tokens: losses and
+    grad norms."""
+    from repro_torch.train import TrainConfig, Trainer
+    cfg, params = zoo_twin_model(name, dev)
+    tr = Trainer(cfg, TrainConfig(warmup_steps=0),
+                 lm_train_batcher(cfg, 1, ZOO_TRAIN_TWIN_S, seed=3),
+                 params=params, device=dev)
+    hist = tr.run(steps=ZOO_TRAIN_TWIN_STEPS)
+    return {"losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist]}
+
+
+def zoo_jamba_serve(cfg, params, dev, keep_logits: bool = False):
+    """jamba's single request (the burst's first prompt at the smoke
+    vocab) through an 8-slot engine."""
+    _, reqs = lm_serve(cfg, params, lm_prompts(cfg.vocab)[:1], dev,
+                       LM_TWIN_MAX_NEW, keep_logits=keep_logits)
+    return reqs[0]
+
+
+def zoo_twin(name: str) -> dict:
+    """The CPU side of the lm_zoo twins of ``name``: the prefill logits
+    and routing (granite, mamba2), the single request's tokens and logits
+    (jamba), and the training twin's losses."""
+    import torch
+    cpu = torch.device("cpu")
+    cfg, params = zoo_twin_model(name, cpu)
+    out = {"train": zoo_train_twin_run(name, cpu)}
+    if name == ZOO_JAMBA:
+        req = zoo_jamba_serve(cfg, params, cpu, keep_logits=True)
+        out.update(tokens=req.tokens, logits=torch.stack(req.logits))
+    else:
+        out["logits"], out["routes"] = zoo_prefill_logits(cfg, params)
+    return out
+
+
+def routing_agreement(card: list, cpu: list) -> dict:
+    """Compare two runs' MoE routing layer by layer: per token, the set of
+    its top-k experts and the set of those that kept their slot. Causal
+    attention and the capacity (earlier tokens first) carry a difference
+    only to later tokens, so each layer is compared on the tokens before
+    the first one that differed in an earlier layer, and the logits on
+    the rows before the first that differed anywhere. A token whose
+    expert set differs must sit at a near-tie on the CPU: its gap between
+    the k-th and (k+1)-th probability below ZOO_ROUTE_GAP."""
+    import numpy as np
+    first, n_diff, unexplained = None, 0, []
+    for layer, (a, b) in enumerate(zip(card, cpu)):
+        ea, eb = a["top_e"].numpy(), b["top_e"].numpy()
+        same = (np.sort(ea, 1) == np.sort(eb, 1)).all(1)
+        kept = (np.sort(np.where(a["kept"].numpy(), ea, -1), 1)
+                == np.sort(np.where(b["kept"].numpy(), eb, -1), 1)).all(1)
+        diff = np.nonzero(~(same & kept))[0]
+        if first is not None:
+            diff = diff[diff < first]
+        n_diff += len(diff)
+        gap = b["gap"].numpy()
+        unexplained += [(layer, int(t), float(gap[t])) for t in diff
+                        if not same[t] and gap[t] >= ZOO_ROUTE_GAP]
+        if len(diff):
+            first = int(diff[0])
+    return {"layers": len(card),
+            "tokens_routed": int(card[0]["top_e"].shape[0]) if card else 0,
+            "differing_tokens": n_diff, "first_differing_token": first,
+            "unexplained": unexplained,
+            "min_cpu_gap": min(float(b["gap"].min()) for b in cpu)
+            if cpu else None}
+
+
+def zoo_serve(cfg, params, dev, part: str) -> tuple:
+    """The lm phase's 32-request burst through an 8-slot engine on the
+    full model, after a warm-up; then a short window served by an engine
+    whose CUDA graph is already captured, untraced and traced: the
+    steady state's busy share and device ms a decode call. Returns the
+    burst's requests and launches."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    prompts = lm_prompts(cfg.vocab)
+    lm_serve(cfg, params, prompts[:2], dev, max_new=4)  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, reqs = lm_serve(cfg, params, prompts, dev, LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = eng.request_stats()
+    if stats["requests"] != LM_REQUESTS or \
+            any(len(r.tokens) != LM_MAX_NEW for r in reqs):
+        raise AssertionError(f"lm_zoo {part}: served {stats['requests']}")
+    # A graph replay is thousands of kernel events to the profiler, so
+    # the window is short: every slot filled, one-slot prefill calls and
+    # grouped decodes, as in the burst.
+    wave = [p[:ZOO_TRACE_PROMPT] for p in prompts[:LM_SLOTS]]
+    weng = ServeEngine(cfg, ServeConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
+        torch_device=dev), params)
+
+    def window():
+        for p in wave:
+            weng.submit(p, ZOO_TRACE_NEW)
+        weng.run_until_drained()
+        _sync(dev)
+    window()                                           # the capture
+    calls = weng.decode_calls
+    t0 = time.perf_counter()
+    window()
+    busy = busy_share(window, time.perf_counter() - t0)
+    calls = weng.decode_calls - calls
+    busy["window"] = (f"{len(wave)} requests of {ZOO_TRACE_PROMPT} prompt "
+                      f"tokens, {ZOO_TRACE_NEW} new each, {LM_SLOTS} "
+                      f"slots, {calls // 2} decode calls, the engine's "
+                      "CUDA graph captured before")
+    busy["device_ms_a_decode_call"] = busy["device_busy_s"] * 1e3 \
+        / (calls // 2)
+    emit("lm_zoo", part=part, config=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), slots=LM_SLOTS, max_len=LM_MAX_LEN,
+         requests=stats["requests"], max_new=LM_MAX_NEW,
+         prompt_tokens=sum(len(p) for p in prompts), wall_s=wall,
+         ms_a_decode_call=wall * 1e3 / stats["decode_calls"],
+         ms_an_engine_step=wall * 1e3 / stats["steps_run"],
+         launches=launches, traced_run=busy,
+         **{k: stats[k] for k in ("steps_run", "decode_calls", "latency_ms",
+                                  "decode_ms", "tokens_per_s",
+                                  "tokens_generated")})
+    return reqs, launches
+
+
+def zoo_prefill(cfg, params, dev, part: str) -> dict:
+    """One ZOO_PREFILL_S-token prompt through ``lm.prefill`` twice (the
+    second timed, its launches counted; the two logits bit for bit equal:
+    the MoE combine and the SSD scan are fixed-order), finite logits of
+    the right shape; its busy share. Returns the timed run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, ZOO_PREFILL_S)))
+
+    def prefill():
+        out = lm.prefill(params, cfg, {"tokens": toks})
+        _sync(dev)
+        return out
+    first = prefill()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    same = bool(torch.equal(first, logits))
+    finite = bool(torch.isfinite(logits).all())
+    del first, logits
+    emit("lm_zoo", part=part, config=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), tokens=[1, ZOO_PREFILL_S], wall_ms=wall * 1e3,
+         tokens_per_s=ZOO_PREFILL_S / wall, launches=launches,
+         two_runs_bitwise_equal=same, finite=finite,
+         traced_run=busy_share(prefill, wall))
+    if not (same and finite):
+        raise AssertionError(f"lm_zoo {part}: finite {finite}, two runs "
+                             f"equal {same}")
+    return launches
+
+
+def zoo_prefill_twin(name: str, dev, cpu: dict, part: str) -> dict:
+    """The fp32 twin's prefill on the card against the CPU's: the MoE
+    routing (:func:`routing_agreement`) and the logits of LM_TWIN_ROWS
+    before the first differing token within LM_PREFILL_ATOL. Returns
+    the card's launches and the twin model (cfg, params)."""
+    cfg, params = zoo_twin_model(name, dev)
+    reset_launches()
+    got, routes = zoo_prefill_logits(cfg, params)
+    launches = read_launches()
+    agree = routing_agreement(routes, cpu["routes"])
+    end = agree["first_differing_token"]
+    rows = [i for i, r in enumerate(LM_TWIN_ROWS) if end is None or r < end]
+    d = float((got[rows] - cpu["logits"][rows]).abs().max())
+    emit("lm_zoo", part=part, config=name, layers=cfg.n_layers,
+         tokens=LM_TWIN_S, rows_compared=len(rows), routing=agree,
+         launches=launches, max_abs_d_logits=d,
+         max_abs_logit=float(cpu["logits"].abs().max()),
+         atol=LM_PREFILL_ATOL)
+    if agree["unexplained"] or d > LM_PREFILL_ATOL or \
+            len(rows) < len(LM_TWIN_ROWS) // 2:
+        raise AssertionError(f"lm_zoo {part}: logits {d:.3g} from the "
+                             f"CPU's (atol {LM_PREFILL_ATOL}), routing "
+                             f"{agree}")
+    return launches, cfg, params
+
+
+def zoo_train(name: str, dev, layers: Optional[int], S: int, part: str,
+              want: dict, **kw) -> dict:
+    """One Trainer step on ``name`` (bf16, depth ``layers``, 1 × S
+    tokens): a finite loss and grad norm, and exactly the flash launches
+    in ``want``. Returns the launches."""
+    import math
+    from repro_torch.train import TrainConfig, Trainer
+    cfg, params = zoo_model(name, dev, layers, **kw)
+    tr = Trainer(cfg, TrainConfig(), lm_train_batcher(cfg, 1, S),
+                 params=params, device=dev)
+    del params
+    reset_launches()
+    t0 = time.perf_counter()
+    h = tr.run(steps=1)[-1]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    exact = all(launches[k] == n for k, n in want.items()) and all(
+        c == 0 for k, c in launches.items() if k not in want)
+    finite = math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+    emit("lm_zoo", part=part, config=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), tokens=[1, S], n_params=tr.n_params,
+         loss=h["loss"], grad_norm=h["grad_norm"], step_ms=wall * 1e3,
+         launches=launches, launches_exact=exact, finite=finite)
+    if not (finite and exact):
+        raise AssertionError(f"lm_zoo {part}: finite {finite}, launches "
+                             f"{launches} (want {want})")
+    return launches
+
+
+def zoo_train_twin(name: str, dev, cpu: dict, part: str) -> None:
+    """The fp32 training twin on the card against the CPU's: every loss
+    within LM_TRAIN_LOSS_RTOL, every grad norm within
+    LM_TRAIN_GNORM_RTOL."""
+    import numpy as np
+    run = zoo_train_twin_run(name, dev)
+    rel = lambda a, b: float(np.max(np.abs(np.subtract(a, b))
+                                    / np.abs(b)))
+    d_loss = rel(run["losses"], cpu["losses"])
+    d_gn = rel(run["grad_norms"], cpu["grad_norms"])
+    ok = d_loss <= LM_TRAIN_LOSS_RTOL and d_gn <= LM_TRAIN_GNORM_RTOL
+    emit("lm_zoo", part=part, config=name, steps=ZOO_TRAIN_TWIN_STEPS,
+         tokens=ZOO_TRAIN_TWIN_S, losses=run["losses"],
+         cpu_losses=cpu["losses"], grad_norms=run["grad_norms"],
+         cpu_grad_norms=cpu["grad_norms"], loss_max_rel_d=d_loss,
+         grad_norm_max_rel_d=d_gn, ok=ok,
+         tolerances={"loss_rtol": LM_TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": LM_TRAIN_GNORM_RTOL})
+    if not ok:
+        raise AssertionError(f"lm_zoo {part}: losses {d_loss:.3g}, grad "
+                             f"norms {d_gn:.3g} from the CPU's")
+
+
+def lm_zoo_phase(dev, twins: dict) -> dict:
+    """(i) granite-moe-3b-a800m at its published config: a 2,048-token
+    prefill (one bf16 flash forward a layer), two runs bit for bit, the
+    serve burst; (ii) its 2-layer fp32 twin against the CPU (routing,
+    then logits); (iii) mamba2-370m at its published config: the prefill
+    through the chunked SSD, the burst, the batch-composition contract,
+    the fp32 twin against the CPU and token-by-token decode against the
+    prefill on the card; (iv) jamba's smoke config with its int8 cache in
+    fp32 and bf16: a 1,100-token prefill through the flash forward, a
+    single request against the CPU twin's tokens; (v) one train step each
+    (granite at 4 layers with its flash backward, mamba2 at 4 layers,
+    jamba), and the fp32 training twins against the CPU. Returns each
+    path's launches."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    out = {}
+    bf16 = "torch.bfloat16"
+
+    # (i) granite at its published config.
+    cfg, params = zoo_model(ZOO_GRANITE, dev)
+    out["lm_zoo_granite_prefill"] = zoo_prefill(cfg, params, dev,
+                                                "granite_prefill")
+    pl = out["lm_zoo_granite_prefill"]
+    if pl[FLASH_FWD[bf16]] != cfg.n_layers or sum(pl.values()) != \
+            cfg.n_layers:
+        raise AssertionError(f"granite prefill: launches {pl}, want "
+                             f"{cfg.n_layers} of {FLASH_FWD[bf16]}")
+    _, out["lm_zoo_granite_serve"] = zoo_serve(cfg, params, dev,
+                                               "granite_serve")
+    del params
+
+    # (ii) the granite twin.
+    cpu = twins[f"zoo:{ZOO_GRANITE}"].result()
+    out["lm_zoo_granite_twin"], *_ = zoo_prefill_twin(
+        ZOO_GRANITE, dev, cpu, "granite_twin")
+    zoo_train_twin(ZOO_GRANITE, dev, cpu["train"], "granite_train_twin")
+
+    # (iii) mamba2 at its published config.
+    cfg, params = zoo_model(ZOO_MAMBA2, dev)
+    out["lm_zoo_mamba2_prefill"] = zoo_prefill(cfg, params, dev,
+                                               "mamba2_prefill")
+    if any(out["lm_zoo_mamba2_prefill"].values()):
+        raise AssertionError(f"mamba2 prefill launched "
+                             f"{out['lm_zoo_mamba2_prefill']}: it has no "
+                             "attention")
+    reqs, out["lm_zoo_mamba2_serve"] = zoo_serve(cfg, params, dev,
+                                                 "mamba2_serve")
+    prompts = lm_prompts(cfg.vocab)
+    alone = {i: lm_serve(cfg, params, [prompts[i]], dev,
+                         LM_MAX_NEW)[1][0].tokens for i in LM_CONTRACT}
+    same = {i: alone[i] == reqs[i].tokens for i in LM_CONTRACT}
+    emit("lm_zoo", part="mamba2_contract", requests=list(LM_CONTRACT),
+         alone_equals_burst=same)
+    if not all(same.values()):
+        raise AssertionError(f"mamba2: batch composition changed tokens: "
+                             f"{same}")
+    del params
+    cpu = twins[f"zoo:{ZOO_MAMBA2}"].result()
+    _, tcfg, tparams = zoo_prefill_twin(ZOO_MAMBA2, dev, cpu, "mamba2_twin")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, tcfg.vocab, (1, ZOO_DECODE_S)))
+    full = lm.prefill(tparams, tcfg, {"tokens": toks})
+    cache = lm.init_cache(tcfg, 1, ZOO_DECODE_S, dev)
+    steps = []
+    for t in range(ZOO_DECODE_S):
+        step, cache = lm.decode_step(tparams, tcfg, cache, toks[:, t:t + 1],
+                                     t)
+        steps.append(step[:, 0])
+    d = float((full - torch.stack(steps, 1)).abs().max())
+    emit("lm_zoo", part="mamba2_decode_equals_prefill", layers=tcfg.n_layers,
+         tokens=ZOO_DECODE_S, max_abs_d=d, atol=ZOO_DECODE_ATOL)
+    if d > ZOO_DECODE_ATOL:
+        raise AssertionError(f"mamba2: decode {d:.3g} from the prefill")
+    zoo_train_twin(ZOO_MAMBA2, dev, cpu["train"], "mamba2_train_twin")
+
+    # (iv) jamba at its smoke config, int8 cache, fp32 and bf16.
+    cpu = twins[f"zoo:{ZOO_JAMBA}"].result()
+    for dtype in (torch.float32, torch.bfloat16):
+        jcfg, jparams = zoo_model(ZOO_JAMBA, dev, dtype=dtype, seed=1,
+                                  smoke=True, kv_cache_dtype="int8")
+        reset_launches()
+        logits, _ = zoo_prefill_logits(jcfg, jparams)
+        launches = read_launches()
+        n_attn = jcfg.n_layers // jcfg.attn_every
+        kern = FLASH_FWD[str(dtype)]
+        req = zoo_jamba_serve(jcfg, jparams, dev, keep_logits=True)
+        line = dict(part=f"jamba_{str(dtype)[6:]}", config=jcfg.name,
+                    kv_cache_dtype=jcfg.kv_cache_dtype, tokens=LM_TWIN_S,
+                    launches=launches,
+                    finite=bool(torch.isfinite(logits).all()),
+                    served_tokens=req.tokens)
+        ok = line["finite"] and launches[kern] == n_attn and \
+            sum(launches.values()) == n_attn and \
+            len(req.tokens) == LM_TWIN_MAX_NEW
+        if dtype == torch.float32:
+            rep = testing.compare_tokens([req.tokens], [cpu["tokens"]],
+                                         [req.logits], [cpu["logits"]],
+                                         atol=LM_SERVE_ATOL)
+            line.update(cpu_tokens=cpu["tokens"], atol=LM_SERVE_ATOL,
+                        tokens_equal=req.tokens == cpu["tokens"],
+                        **rep.as_dict())
+        out[f"lm_zoo_jamba_prefill_{str(dtype)[6:]}"] = launches
+        emit("lm_zoo", ok=ok, **line)
+        if not ok:
+            raise AssertionError(f"jamba {dtype}: {line}")
+
+    # (v) one train step each, and the jamba training twin.
+    out["lm_zoo_granite_train"] = zoo_train(
+        ZOO_GRANITE, dev, ZOO_TRAIN_LAYERS, ZOO_PREFILL_S, "granite_train",
+        {FLASH_FWD[bf16]: 2 * ZOO_TRAIN_LAYERS,
+         FLASH_DQ[bf16]: ZOO_TRAIN_LAYERS,
+         FLASH_DKV[bf16]: ZOO_TRAIN_LAYERS})
+    out["lm_zoo_mamba2_train"] = zoo_train(
+        ZOO_MAMBA2, dev, ZOO_TRAIN_LAYERS, ZOO_PREFILL_S, "mamba2_train", {})
+    out["lm_zoo_jamba_train"] = zoo_train(
+        ZOO_JAMBA, dev, None, LM_TWIN_S, "jamba_train",
+        {FLASH_FWD[bf16]: 2, FLASH_DQ[bf16]: 1, FLASH_DKV[bf16]: 1},
+        dtype=torch.bfloat16, smoke=True, kv_cache_dtype="int8")
+    zoo_train_twin(ZOO_JAMBA, dev, cpu["train"], "jamba_train_twin")
+    emit("lm_zoo", part="seconds", seconds=time.perf_counter() - t_phase,
+         budget_s=ZOO_BUDGET_S)
+    return out
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -3846,6 +4351,7 @@ def main() -> int:
         obs_phase(dev, smi, run)
         ft = faults_phase(dev, smi, twins)
         flt = fleet_phase(dev, smi, twins)
+        zoo = lm_zoo_phase(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -3870,7 +4376,8 @@ def main() -> int:
                "train_adam_wbs": adam["wbs"]["launches"],
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
-               **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt}
+               **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
+               **zoo}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

@@ -12,8 +12,10 @@ an obvious counterpart:
   kernels/    hand-written CUDA kernels (``csrc/``), their plain PyTorch
               versions (``ref.py``) and the padded wrappers (``ops.py``)
   configs/    the model configs (``ModelConfig``, one module each)
-  models/     the LM zoo's dense family: layers, GQA attention and the
-              KV cache, the layer stacks, the top-level model
+  models/     the LM zoo's dense, moe, ssm and hybrid families: layers,
+              GQA attention and the bf16/int8 KV caches, the MoE FFN, the
+              mamba2 SSD mixer, the layer stacks and jamba's superblocks,
+              the top-level model
   optim/      the optax-style optimizers (AdamW), ζ sparsification and
               top-k compression
   train/      the LM trainer, checkpoint/restart, fault tolerance

@@ -3,8 +3,8 @@
 Counterpart of ``repro/configs/base.py``, with torch dtypes. One file per
 architecture lives next to this module; each exports ``CONFIG`` (full
 size) and ``smoke_config()`` (reduced, runs a real forward on the CPU).
-The port's model code runs the dense family; the others are data here
-until their slices land (ROADMAP queue A).
+The port's model code runs the dense, moe, ssm and hybrid families; the
+others are data here until their slices land (ROADMAP queue A).
 """
 from __future__ import annotations
 

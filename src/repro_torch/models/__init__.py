@@ -1,2 +1,3 @@
-"""The LM zoo, the dense family: primitive layers, GQA attention and the
-KV cache, the layer stacks and the top-level model."""
+"""The LM zoo's dense, moe, ssm and hybrid families: primitive layers,
+GQA attention and the KV caches, the MoE FFN, the mamba2 SSD mixer, the
+layer stacks and superblocks, and the top-level model."""

@@ -1,6 +1,6 @@
 """Attention, the GQA half: full, chunked and flash attention, the GQA
-block with qk-norm and biases, and the bf16 KV cache — counterpart of
-``repro/models/attention.py``.
+block with qk-norm and biases, and the bf16 and int8 KV caches —
+counterpart of ``repro/models/attention.py``.
 
 The flash branch (KV longer than ``cfg.attn_chunk``) runs the
 hand-written flash-attention forward kernel through
@@ -16,10 +16,20 @@ behind a ``torch.autograd.Function``, where the reference's model
 differentiates its ``_flash`` custom VJP (which, in bf16, also rounds p
 and ds to bf16).
 
-Not ported with this half: MLA (``init_mla_params`` …), the int8
-stochastic-rounding cache and the Ulysses/sharding-context branches of
-``gqa_attention`` (the port has no distributed context yet; the
-reference's ``act_constraint`` is the identity here).
+Not ported with this half: MLA (``init_mla_params`` …) and the
+Ulysses/sharding-context branches of ``gqa_attention`` (the port has no
+distributed context yet; the reference's ``act_constraint`` is the
+identity here).
+
+The int8 cache (``CacheSpec(dtype="int8")``, jamba's
+``kv_cache_dtype``) stores each token's K and V as int8 codes with one
+fp32 scale a token, stochastically rounded (:func:`_quantize_kv`). The
+reference's decode passes no rng, so every insert draws from
+``PRNGKey(0)`` split in two: the draws depend only on the (B, 1, kvd)
+shape, and the port draws them once per shape and device
+(:func:`_kv_draws`, ``prng.uniform``, bit for bit ``jax.random``'s) and
+keeps them there. Codes, scales and the dequantised bf16 K/V are the
+reference's bit for bit on the same inputs.
 
 JAX promotes mixed bf16/fp32 einsums implicitly (an fp32 model's queries
 against the bf16 cache); every einsum here casts both operands to their
@@ -28,30 +38,26 @@ promoted dtype, which is the same dtype.
 The decode path writes the cache in place: :func:`cache_insert` updates
 the cache tensors it is given and returns the same dict. ``write_rows``
 picks the batch rows it writes; None writes every row, as the reference
-does.
+does. The position may be a 0-d tensor and the rows a bool mask, and the
+write reads nothing back to the host, so the serve engine captures the
+whole decode in a CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope, dense, rms_norm
+from repro_torch.models.layers import (apply_rope, dense, pos_index,
+                                      promote, rms_norm, select_rows)
 from repro_torch.utils import Seed, split_seed, truncated_normal_init as tn
-
-
-def _common(*ts: torch.Tensor) -> list[torch.Tensor]:
-    """The operands cast to their promoted dtype (JAX's implicit
-    promotion, made explicit)."""
-    dt = ts[0].dtype
-    for t in ts[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return [t.to(dt) for t in ts]
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +80,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, dh = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, Kh, H // Kh, dh)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", *_common(qg, k)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", *promote(qg, k)
                           ).to(torch.float32) * dh ** -0.5
     si = torch.arange(Sk, device=q.device)
     if causal:
@@ -84,7 +90,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = si[None, :] < kv_len.to(q.device)[:, None]       # (B, Sk)
         scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", *_common(probs, v))
+    out = torch.einsum("bkgqs,bskd->bqkgd", *promote(probs, v))
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
@@ -108,7 +114,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j in range(k.shape[1] // chunk):
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
-        scores = torch.einsum("bqhd,bkhd->bhqk", *_common(q, kj)
+        scores = torch.einsum("bqhd,bkhd->bhqk", *promote(q, kj)
                               ).to(torch.float32) * dh ** -0.5
         ki = j * chunk + torch.arange(chunk, device=q.device)[None, :]
         valid = ki < Sk
@@ -120,7 +126,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", *_common(p.to(q.dtype), vj)).to(torch.float32)
+            "bhqk,bkhd->bhqd", *promote(p.to(q.dtype), vj)).to(torch.float32)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                    # (B,Sq,H,dv)
@@ -227,49 +233,96 @@ def gqa_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 class CacheSpec:
     batch: int
     max_len: int
-    dtype: str = "bf16"     # bf16 (int8 is not ported yet)
+    dtype: str = "bf16"     # bf16 | int8
 
 
 def init_kv_cache(cfg: ModelConfig, spec: CacheSpec,
                   device: Union[str, torch.device] = "cuda") -> dict:
-    """Zeroed (batch, max_len, Kh·hd) K and V, bf16 whatever the model's
+    """Zeroed (batch, max_len, Kh·hd) K and V: bf16 whatever the model's
     dtype (as the reference: an fp32 model's decode reads K/V rounded to
-    bf16)."""
-    if spec.dtype != "bf16":
-        raise NotImplementedError(
-            f"KV cache dtype {spec.dtype!r}: the int8 stochastic-rounding "
-            "cache is not ported yet (ROADMAP queue A, LM zoo); use 'bf16'")
+    bf16), or int8 codes with (batch, max_len, 1) fp32 scales."""
+    if spec.dtype not in ("bf16", "int8"):
+        raise ValueError(f"KV cache dtype {spec.dtype!r}: bf16 or int8")
     shape = (spec.batch, spec.max_len, cfg.n_kv_heads * cfg.hd())
+    if spec.dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:2] + (1,), dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:2] + (1,), dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
+@functools.lru_cache(maxsize=None)
+def _kv_draws(shape: tuple[int, ...], device: torch.device
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The uniform draws of K's and V's stochastic rounding at ``shape``:
+    ``jax.random.uniform`` of ``split(PRNGKey(0))``'s two keys, the keys
+    the reference's rng-less insert takes. Drawn once per shape and
+    device and kept there. Do not modify."""
+    r1, r2 = prng.split(prng.PRNGKey(0))
+    return (prng.uniform(r1, shape, device=device),
+            prng.uniform(r2, shape, device=device))
+
+
+def _quantize_kv(x: torch.Tensor, r: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 with stochastic rounding (the paper's replay-buffer
+    quantizer, eq. 4-6): fp32 ``x`` (…, kvd) and its uniform draws ``r``
+    → int8 codes and (…, 1) fp32 scales."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    # A tensor divisor: CUDA turns division by a Python scalar into a
+    # product with its reciprocal, which is not the reference's rounding.
+    scale = amax / torch.full_like(amax, 127.0)
+    z = x / torch.where(scale == 0, 1.0, scale)
+    fl = torch.floor(z)
+    q = torch.where(r < z - fl, fl + 1.0, fl)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
 def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int, write_rows: Optional[torch.Tensor] = None
-                 ) -> dict:
-    """Write one token's k/v (B, 1, kvd) at position ``pos``, in place, in
-    the rows ``write_rows`` (indices or a bool mask over B; None: every
-    row, as the reference). Returns ``cache``."""
-    for name, new in (("k", k_new), ("v", v_new)):
+                 pos, write_rows: Optional[torch.Tensor] = None) -> dict:
+    """Write one token's k/v (B, 1, kvd) at position ``pos`` (an int or a
+    0-d tensor), in place, in the rows ``write_rows`` (indices or a bool
+    mask over B; None: every row, as the reference); the other rows keep
+    what they held there. An int8 cache takes the codes and the scales of
+    :func:`_quantize_kv`, each row with the reference's draws for that
+    row. Returns ``cache``."""
+    if "k_scale" in cache:
+        rk, rv = _kv_draws(tuple(k_new.shape), k_new.device)
+        kq, ks = _quantize_kv(k_new.to(torch.float32), rk)
+        vq, vs = _quantize_kv(v_new.to(torch.float32), rv)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k_new, "v": v_new}
+    idx = pos_index(pos, k_new.device)
+    for name, val in new.items():
         buf = cache[name]
-        new = new[:, 0].to(buf.dtype)
-        if write_rows is None:
-            buf[:, pos] = new
-        else:
-            buf[write_rows, pos] = new[write_rows]
+        val = select_rows(write_rows, val.to(buf.dtype),
+                          buf.index_select(1, idx))
+        buf.index_copy_(1, idx, val)
     return cache
 
 
 def cache_read(cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and V as bf16: an int8 cache's codes times their scales, each
+    rounded to bf16 first, as the reference."""
+    if "k_scale" in cache:
+        return tuple(cache[n].to(torch.bfloat16)
+                     * cache[f"{n}_scale"].to(torch.bfloat16)
+                     for n in ("k", "v"))
     return cache["k"], cache["v"]
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-               pos: int, angles: tuple[torch.Tensor, torch.Tensor],
+               pos, angles: tuple[torch.Tensor, torch.Tensor],
                write_rows: Optional[torch.Tensor] = None
                ) -> tuple[torch.Tensor, dict]:
-    """One-token decode: x (B,1,D) at position ``pos``, cache over
-    max_len (written in place at ``pos`` in ``write_rows``). ``angles``:
+    """One-token decode: x (B,1,D) at position ``pos`` (an int or a 0-d
+    tensor), cache over max_len (written in place at ``pos`` in
+    ``write_rows``). ``angles``:
     the rope (cos, sin) of ``pos`` (``layers.rope_angles``), computed once
     by the caller for every layer. Returns (out, cache)."""
     B, S, _ = x.shape
@@ -283,7 +336,7 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     L = k_all.shape[1]
     out = full_attention(q, k_all.reshape(B, L, cfg.n_kv_heads, hd),
                          v_all.reshape(B, L, cfg.n_kv_heads, hd),
-                         causal=False, kv_len=torch.full(
-                             (B,), int(pos) + 1, device=x.device))
+                         causal=False,
+                         kv_len=(pos_index(pos, x.device) + 1).expand(B))
     return dense(out.reshape(B, S, cfg.n_heads * hd), p["wo"],
                  quant_mode=cfg.quant_mode), cache

@@ -1,18 +1,28 @@
-"""Layer blocks and stacks, the dense part — counterpart of
+"""Layer blocks, stacks and the hybrid superblock — counterpart of
 ``repro/models/blocks.py``.
 
-Layer = pre-norm GQA attention + pre-norm SwiGLU FFN. The layers' tensors
-are stacked along a leading L axis, so the parameter tree is the
-reference's; where the reference scans over that axis, the port loops
-over it in Python (eager PyTorch has no scan to compile). With
-``cfg.remat`` (the default) a layer run under autograd saves only its
-input and recomputes its forward in the backward
-(``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint`` around the scan body).
+Layer = pre-norm mixer (GQA attention or the mamba2 SSD mixer) + pre-norm
+FFN (SwiGLU, or the MoE of ``models/moe.py``). The layers' tensors are
+stacked along a leading L axis, so the parameter tree is the reference's;
+where the reference scans over that axis, the port loops over it in
+Python (eager PyTorch has no scan to compile). With ``cfg.remat`` (the
+default) a layer run under autograd saves only its input and recomputes
+its forward in the backward (``torch.utils.checkpoint``, the counterpart
+of the reference's ``jax.checkpoint`` around the scan body).
+
+Hybrid (jamba): superblocks of ``attn_every`` layers whose slot structure
+is static (SSD mixers, one attention slot mid-period, MoE on the slots
+``cfg.is_moe_layer`` names), stacked along a leading axis; under remat a
+whole superblock is recomputed in the backward, as the reference's
+checkpoint around the superblock body.
+
+Decode writes the caches in place, the KV caches and the SSM states
+alike, in the rows ``write_rows`` (None: every row, the reference's
+behaviour).
 
 Not ported yet, each raising with its ROADMAP item (queue A, LM zoo):
-MoE FFNs, MLA, SSM (mamba2) and hybrid (jamba) layers, cross-attention
-(encoder-decoder) and the ``miru`` mixer.
+MLA, cross-attention (encoder-decoder), the modality frontends, the
+``miru`` mixer and ``quant_mode != "none"``.
 """
 from __future__ import annotations
 
@@ -23,31 +33,32 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import rms_norm, rope_angles, swiglu
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (pos_index, rms_norm, rope_angles,
+                                      swiglu)
 from repro_torch.utils import (Seed, split_seed, tree_leaves,
                                truncated_normal_init as tn)
 
 PyTree = Any
 
 
-def require_dense(cfg: ModelConfig, is_ssm: bool = False,
-                  is_moe: bool = False, cross_attn: bool = False) -> None:
+def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
     """Raise for every layer kind the port does not run yet."""
     missing = [name for name, on in (
-        ("SSM (mamba2) layers", is_ssm or cfg.layer_pattern == "ssm"),
-        ("hybrid (jamba) superblocks", cfg.layer_pattern == "hybrid"),
-        ("MoE FFNs", is_moe or cfg.n_experts > 0),
-        ("MLA attention", cfg.use_mla),
-        ("encoder-decoder cross-attention",
+        ("MLA attention (item 11a)", cfg.use_mla),
+        ("encoder-decoder cross-attention (item 11b)",
          cross_attn or cfg.is_encoder_decoder),
-        ("modality frontends", cfg.frontend != "none"),
-        ("the miru mixer", cfg.mixer == "miru"),
-        (f"quant_mode={cfg.quant_mode!r}", cfg.quant_mode != "none"),
+        ("modality frontends (items 11b, 11c)", cfg.frontend != "none"),
+        ("the miru mixer (item 11d)", cfg.mixer == "miru"),
+        (f"quant_mode={cfg.quant_mode!r} (item 11e)",
+         cfg.quant_mode != "none"),
     ) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue A, LM zoo); the port runs the dense family")
+            "queue A, LM zoo); the port runs the dense, moe, ssm and "
+            "hybrid families")
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +67,8 @@ def require_dense(cfg: ModelConfig, is_ssm: bool = False,
 
 def init_ffn_params(key: Seed, cfg: ModelConfig, is_moe: bool = False,
                     device: Union[str, torch.device] = "cuda") -> dict:
-    require_dense(cfg, is_moe=is_moe)
+    if is_moe:
+        return moe_mod.init_moe_params(key, cfg, device)
     D, Fd = cfg.d_model, cfg.d_ff
     k1, k2, k3 = split_seed(key, 3)
     return {"w_gate": tn(k1, (D, Fd), D ** -0.5, cfg.dtype, device),
@@ -67,22 +79,26 @@ def init_ffn_params(key: Seed, cfg: ModelConfig, is_moe: bool = False,
 def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
                       is_moe: bool = False, cross_attn: bool = False,
                       device: Union[str, torch.device] = "cuda") -> dict:
-    require_dense(cfg, is_ssm, is_moe, cross_attn)
+    require_ported(cfg, cross_attn)
     ks = split_seed(key, 4)
     D = cfg.d_model
     p: dict = {"norm1": torch.ones((D,), dtype=cfg.dtype, device=device),
-               "mixer": attn.init_gqa_params(ks[0], cfg, device)}
-    if cfg.d_ff > 0:
+               "mixer": ssm_mod.init_ssm_params(ks[0], cfg, device) if is_ssm
+               else attn.init_gqa_params(ks[0], cfg, device)}
+    if cfg.d_ff > 0 or is_moe:
         p["norm2"] = torch.ones((D,), dtype=cfg.dtype, device=device)
-        p["ffn"] = init_ffn_params(ks[2], cfg, device=device)
+        p["ffn"] = init_ffn_params(ks[2], cfg, is_moe, device)
     return p
 
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The residual FFN: MoE where the layer has a router, else SwiGLU."""
     if "ffn" not in p:
         return x
     h = rms_norm(x, p["norm2"], cfg.rmsnorm_eps)
     f = p["ffn"]
+    if "router" in f:
+        return x + moe_mod.moe_ffn(f, cfg, h).to(x.dtype)
     return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"],
                       cfg.quant_mode).to(x.dtype)
 
@@ -93,11 +109,21 @@ def layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   memory: Optional[torch.Tensor] = None,
                   memory_positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    require_dense(cfg, is_ssm, is_moe, cross_attn=memory is not None)
+    require_ported(cfg, cross_attn=memory is not None)
     h = rms_norm(x, p["norm1"], cfg.rmsnorm_eps)
-    x = x + attn.gqa_attention(p["mixer"], cfg, h, positions,
-                               causal).to(x.dtype)
-    return _ffn(p, cfg, x)
+    mixed = ssm_mod.mamba2_forward(p["mixer"], cfg, h) if is_ssm \
+        else attn.gqa_attention(p["mixer"], cfg, h, positions, causal)
+    return _ffn(p, cfg, x + mixed.to(x.dtype))
+
+
+def _decode_mixer(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
+                  pos, angles, is_ssm: bool,
+                  write_rows: Optional[torch.Tensor]) -> torch.Tensor:
+    if is_ssm:
+        return ssm_mod.mamba2_decode(lp["mixer"], cfg, h, cache,
+                                     write_rows)[0]
+    return attn.gqa_decode(lp["mixer"], cfg, h, cache, pos, angles,
+                           write_rows)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +158,13 @@ def init_stack(key: Seed, cfg: ModelConfig, n_layers: int,
                                      device) for k in keys])
 
 
+def _recompute(cfg: ModelConfig, x: torch.Tensor, p: PyTree) -> bool:
+    """Whether a layer (or superblock) runs under checkpoint: remat on and
+    autograd recording through it."""
+    return cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
+
+
 def stack_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, is_ssm: bool = False,
                   is_moe: bool = False, causal: bool = True, memory=None,
@@ -140,29 +173,113 @@ def stack_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
         lp = layer_slice(stacked, i)
         args = (lp, cfg, x, positions, is_ssm, is_moe, causal, memory,
                 memory_positions)
-        if cfg.remat and torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for t in tree_leaves(lp))):
+        if _recompute(cfg, x, lp):
             x = checkpoint(layer_forward, *args, use_reentrant=False)
         else:
             x = layer_forward(*args)
     return x
 
 
+def _angles(cfg: ModelConfig, x: torch.Tensor, pos):
+    """The rope (cos, sin) of ``pos`` (an int or a 0-d tensor): every
+    attention layer of a decode rotates by the same position, so once a
+    step."""
+    return rope_angles(pos_index(pos, x.device).expand(x.shape[0], 1),
+                       cfg.hd(), cfg.rope_theta)
+
+
 def stack_decode(stacked: PyTree, caches: PyTree, cfg: ModelConfig,
-                 x: torch.Tensor, pos: int, is_ssm: bool = False,
+                 x: torch.Tensor, pos, is_ssm: bool = False,
                  write_rows: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, PyTree]:
     """One-token decode through the stack; caches are stacked (L, …) and
-    written in place (``write_rows`` as in ``attention.cache_insert``)."""
-    require_dense(cfg, is_ssm)
-    # Every layer rotates by the same position: its rope angles once.
-    angles = rope_angles(torch.full((x.shape[0], 1), pos, device=x.device),
-                         cfg.hd(), cfg.rope_theta)
+    written in place (``write_rows`` as in ``attention.cache_insert`` and
+    ``ssm.mamba2_decode``)."""
+    require_ported(cfg)
+    angles = None if is_ssm else _angles(cfg, x, pos)
     for i in range(n_stacked(stacked)):
         lp = layer_slice(stacked, i)
         h = rms_norm(x, lp["norm1"], cfg.rmsnorm_eps)
-        mixed, _ = attn.gqa_decode(lp["mixer"], cfg, h,
-                                   layer_slice(caches, i), pos, angles,
-                                   write_rows)
+        mixed = _decode_mixer(lp, cfg, h, layer_slice(caches, i), pos,
+                              angles, is_ssm, write_rows)
         x = _ffn(lp, cfg, x + mixed.to(x.dtype))
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (jamba) superblock
+# ---------------------------------------------------------------------------
+
+def init_superblock(key: Seed, cfg: ModelConfig,
+                    device: Union[str, torch.device] = "cuda") -> dict:
+    """One period of ``attn_every`` layers with a static slot structure."""
+    ks = split_seed(key, cfg.attn_every)
+    return {f"slot{j}": init_layer_params(
+        ks[j], cfg, is_ssm=cfg.is_ssm_layer(j), is_moe=cfg.is_moe_layer(j),
+        device=device) for j in range(cfg.attn_every)}
+
+
+def init_hybrid_stack(key: Seed, cfg: ModelConfig,
+                      device: Union[str, torch.device] = "cuda") -> PyTree:
+    if cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of attn_every {cfg.attn_every}")
+    keys = split_seed(key, cfg.n_layers // cfg.attn_every)
+    return _stack([init_superblock(k, cfg, device) for k in keys])
+
+
+def _superblock_forward(sb: dict, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    for j in range(cfg.attn_every):
+        x = layer_forward(sb[f"slot{j}"], cfg, x, positions,
+                          is_ssm=cfg.is_ssm_layer(j),
+                          is_moe=cfg.is_moe_layer(j))
+    return x
+
+
+def hybrid_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    for i in range(n_stacked(stacked)):
+        sb = layer_slice(stacked, i)
+        if _recompute(cfg, x, sb):
+            x = checkpoint(_superblock_forward, sb, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _superblock_forward(sb, cfg, x, positions)
+    return x
+
+
+def init_hybrid_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       device: Union[str, torch.device] = "cuda") -> dict:
+    """Each slot's cache (the SSM state, or the KV cache in
+    ``cfg.kv_cache_dtype``), stacked over the superblocks, zeroed."""
+    n_super = cfg.n_layers // cfg.attn_every
+    spec = attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype)
+    caches = {}
+    for j in range(cfg.attn_every):
+        one = ssm_mod.init_ssm_cache(cfg, batch, device) \
+            if cfg.is_ssm_layer(j) else attn.init_kv_cache(cfg, spec, device)
+        caches[f"slot{j}"] = {k: torch.zeros((n_super,) + v.shape,
+                                             dtype=v.dtype, device=device)
+                              for k, v in one.items()}
+    return caches
+
+
+def hybrid_decode(stacked: PyTree, caches: dict, cfg: ModelConfig,
+                  x: torch.Tensor, pos,
+                  write_rows: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """One-token decode through the superblocks, the caches written in
+    place in the rows ``write_rows``."""
+    require_ported(cfg)
+    angles = _angles(cfg, x, pos)
+    for i in range(n_stacked(stacked)):
+        sb = layer_slice(stacked, i)
+        for j in range(cfg.attn_every):
+            lp = sb[f"slot{j}"]
+            h = rms_norm(x, lp["norm1"], cfg.rmsnorm_eps)
+            mixed = _decode_mixer(lp, cfg, h,
+                                  layer_slice(caches[f"slot{j}"], i), pos,
+                                  angles, cfg.is_ssm_layer(j), write_rows)
+            x = _ffn(lp, cfg, x + mixed.to(x.dtype))
     return x, caches

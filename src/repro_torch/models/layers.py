@@ -56,6 +56,41 @@ def init_dense(key: Seed, d_in: int, d_out: int, dtype: torch.dtype,
     return p
 
 
+def promote(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands cast to their promoted dtype (JAX's implicit
+    promotion in a mixed einsum, made explicit)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def pos_index(pos, device: Union[str, torch.device]) -> torch.Tensor:
+    """A decode position as a (1,) int64 tensor on ``device``: an int, or
+    a tensor already there (the serve engine's, which a captured CUDA
+    graph reads)."""
+    if torch.is_tensor(pos):
+        return pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(pos), dtype=torch.long, device=device)
+
+
+def select_rows(write_rows: Optional[torch.Tensor], new: torch.Tensor,
+                old: torch.Tensor) -> torch.Tensor:
+    """``new`` in the batch rows ``write_rows`` (indices or a bool mask
+    over the first axis; None: every row) and ``old`` elsewhere. The
+    shapes stay static and nothing is read back to the host, so a decode
+    that writes its caches through this can be captured in a CUDA
+    graph."""
+    if write_rows is None:
+        return new
+    if write_rows.dtype != torch.bool:
+        write_rows = torch.zeros(new.shape[0], dtype=torch.bool,
+                                 device=new.device).index_fill_(
+            0, write_rows.to(new.device), True)
+    return torch.where(write_rows.reshape((-1,) + (1,) * (new.ndim - 1)),
+                       new, old)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
-"""Top-level language models, the dense family: init, loss value,
-prefill, decode — counterpart of ``repro/models/lm.py``.
+"""Top-level language models: init, loss value, prefill, decode —
+counterpart of ``repro/models/lm.py`` for the dense, moe, ssm and hybrid
+families.
 
-A dense model is a decoder-only transformer: token embedding, a stack of
-GQA + SwiGLU layers, a final RMSNorm and a tied or separate LM head. The
+A decoder-only model: token embedding, a stack of layers, a final
+RMSNorm and a tied or separate LM head. The stack is GQA + SwiGLU
+(dense), GQA + MoE (moe, after ``first_dense_layers`` dense layers), the
+mamba2 SSD mixer with no FFN (ssm) or jamba's superblocks (hybrid). The
 prefill's attention takes the flash-attention kernel when the prompt is
-longer than ``cfg.attn_chunk``; decode reads a bf16 KV cache through
-full attention. The other families (MoE, MLA, SSM, hybrid,
-encoder-decoder, modality frontends, the ``miru`` mixer) and
+longer than ``cfg.attn_chunk``; decode reads a bf16 or int8 KV cache
+through full attention and steps the SSM state. MLA, encoder-decoder
+models, modality frontends, the ``miru`` mixer and
 ``quant_mode != "none"`` raise with their ROADMAP item.
 
 Parameters are a dict of tensors with the reference's tree (layers
-stacked along a leading L axis); ``convert.lm_params_from_numpy`` brings
-the reference's across. :func:`loss_fn` differentiates (``train/trainer``
-takes its gradients), through the flash kernels on the flash branch and
-with each layer recomputed in the backward when ``cfg.remat`` is set;
+stacked along a leading L axis, superblocks along theirs);
+``convert.lm_params_from_numpy`` brings the reference's across.
+:func:`loss_fn` differentiates (``train/trainer`` takes its gradients),
+through the flash kernels on the flash branch and with each layer (each
+superblock) recomputed in the backward when ``cfg.remat`` is set;
 prefill and decode run without autograd.
 """
 from __future__ import annotations
@@ -25,9 +29,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense, rms_norm
-from repro_torch.utils import (Seed, resolve_device, softmax_cross_entropy_masked,
-                               split_seed, truncated_normal_init as tn)
+from repro_torch.utils import (Seed, resolve_device,
+                               softmax_cross_entropy_masked, split_seed,
+                               tree_leaves, truncated_normal_init as tn)
 
 PyTree = Any
 
@@ -42,7 +48,7 @@ def init_params(key: Seed, cfg: ModelConfig,
     are the reference's (fp32: within a few ulp) and take seconds per
     million parameters on the host; from a ``torch.Generator`` they are
     drawn on its device (use one on the card for a full-size model)."""
-    blocks.require_dense(cfg)
+    blocks.require_ported(cfg)
     dev = device if torch.device(device).type == "meta" \
         else resolve_device(device)
     ks = split_seed(key, 8)
@@ -51,7 +57,21 @@ def init_params(key: Seed, cfg: ModelConfig,
                "final_norm": torch.ones((D,), dtype=cfg.dtype, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = tn(ks[1], (D, cfg.vocab), D ** -0.5, cfg.dtype, dev)
-    p["layers"] = blocks.init_stack(ks[3], cfg, cfg.n_layers, device=dev)
+    if cfg.layer_pattern == "hybrid":
+        p["layers"] = blocks.init_hybrid_stack(ks[3], cfg, dev)
+    elif cfg.layer_pattern == "ssm":
+        p["layers"] = blocks.init_stack(ks[3], cfg, cfg.n_layers,
+                                        is_ssm=True, device=dev)
+    elif cfg.n_experts > 0:
+        if cfg.first_dense_layers:
+            p["dense_layers"] = blocks.init_stack(
+                ks[3], cfg, cfg.first_dense_layers, device=dev)
+        p["layers"] = blocks.init_stack(
+            ks[4], cfg, cfg.n_layers - cfg.first_dense_layers, is_moe=True,
+            device=dev)
+    else:
+        p["layers"] = blocks.init_stack(ks[3], cfg, cfg.n_layers,
+                                        device=dev)
     return p
 
 
@@ -82,10 +102,17 @@ def _lm_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch {"tokens": (B, S) int}. Returns logits (B, S, V)."""
-    blocks.require_dense(cfg)
+    blocks.require_ported(cfg)
     x = _embed_tokens(p, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
-    x = blocks.stack_forward(p["layers"], cfg, x, pos)
+    if cfg.layer_pattern == "hybrid":
+        x = blocks.hybrid_forward(p["layers"], cfg, x, pos)
+    else:
+        if "dense_layers" in p:
+            x = blocks.stack_forward(p["dense_layers"], cfg, x, pos)
+        x = blocks.stack_forward(p["layers"], cfg, x, pos,
+                                 is_ssm=cfg.layer_pattern == "ssm",
+                                 is_moe=cfg.n_experts > 0)
     return _lm_logits(p, cfg, x)
 
 
@@ -110,28 +137,65 @@ def prefill(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> PyTree:
-    """Stacked (L, batch, max_len, Kh·hd) bf16 K/V caches, zeroed."""
-    blocks.require_dense(cfg)
+    """The decode caches, zeroed: stacked (L, batch, max_len, Kh·hd) K/V
+    in ``cfg.kv_cache_dtype`` (bf16, or int8 with its scales), the SSM
+    states (L, batch, …) of an ssm model, each superblock slot's of a
+    hybrid one, and ``{"dense", "moe"}`` where an MoE model has
+    ``first_dense_layers``."""
+    blocks.require_ported(cfg)
     dev = resolve_device(device)
-    one = attn.init_kv_cache(cfg, attn.CacheSpec(batch, max_len,
-                                                 cfg.kv_cache_dtype), dev)
-    return {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype,
-                           device=dev) for k, v in one.items()}
+    if cfg.layer_pattern == "hybrid":
+        return blocks.init_hybrid_caches(cfg, batch, max_len, dev)
+    one = ssm_mod.init_ssm_cache(cfg, batch, dev) \
+        if cfg.layer_pattern == "ssm" else attn.init_kv_cache(
+            cfg, attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype), dev)
+
+    def stacked(n):
+        return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
+                for k, v in one.items()}
+    if cfg.n_experts > 0 and cfg.first_dense_layers:
+        return {"dense": stacked(cfg.first_dense_layers),
+                "moe": stacked(cfg.n_layers - cfg.first_dense_layers)}
+    return stacked(cfg.n_layers)
+
+
+def clear_cache_rows(caches: PyTree, rows) -> PyTree:
+    """Zero the batch rows ``rows`` of every cache tensor (batch is each
+    tensor's second axis), in place: a slot given to a new request
+    starts from a fresh cache's state. The SSM state needs it (a decode
+    reads all of it); a KV cache's stale entries are masked by position
+    anyway. Returns ``caches``."""
+    for t in tree_leaves(caches):
+        t[:, rows] = 0
+    return caches
 
 
 def decode_step(p: dict, cfg: ModelConfig, caches: PyTree,
-                tokens: torch.Tensor, pos: int,
+                tokens: torch.Tensor, pos,
                 write_rows: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, PyTree]:
     """One new token for every sequence: tokens (B, 1) at write position
-    ``pos`` (the same for every row, as in the reference). The caches are
-    written in place, in the rows ``write_rows`` (None: every row, the
-    reference's behaviour). Returns (logits (B, 1, V), caches)."""
-    blocks.require_dense(cfg)
+    ``pos`` (an int or a 0-d tensor; the same for every row, as in the
+    reference). The caches (K/V and SSM state) are written in place, in
+    the rows ``write_rows`` (indices or a bool mask; None: every row, the
+    reference's behaviour). With a tensor ``pos`` and a mask the step
+    reads nothing back to the host and can be captured in a CUDA graph.
+    Returns (logits (B, 1, V), caches)."""
+    blocks.require_ported(cfg)
     with torch.no_grad():
         x = _embed_tokens(p, tokens)
-        x, caches = blocks.stack_decode(p["layers"], caches, cfg, x, int(pos),
-                                        write_rows=write_rows)
+        if cfg.layer_pattern == "hybrid":
+            x, caches = blocks.hybrid_decode(p["layers"], caches, cfg, x,
+                                             pos, write_rows)
+        elif "dense_layers" in p:
+            x, _ = blocks.stack_decode(p["dense_layers"], caches["dense"],
+                                       cfg, x, pos, write_rows=write_rows)
+            x, _ = blocks.stack_decode(p["layers"], caches["moe"], cfg, x,
+                                       pos, write_rows=write_rows)
+        else:
+            x, caches = blocks.stack_decode(
+                p["layers"], caches, cfg, x, pos,
+                is_ssm=cfg.layer_pattern == "ssm", write_rows=write_rows)
         return _lm_logits(p, cfg, x), caches
 
 

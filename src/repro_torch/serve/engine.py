@@ -7,14 +7,32 @@ through the decode path; each engine step decodes one token for every
 active slot, slots grouped by their position; finished sequences (EOS,
 ``max_new`` or ``max_len``) free their slot for the next queued request.
 
-One difference from the reference, by design: the reference writes every
-slot's cache row at the position it steps (``cache_insert`` over all B
-rows), so a request admitted later overwrites the history of the slots
-already decoding at those positions, and a slot's tokens depend on what
-else is being served. Here every decode writes only the rows of the slots
-it steps (``decode_step(write_rows=...)``), so each request decodes the
-tokens it would decode alone: the batch-composition contract the MiRU
-engine (``serve/recurrent.py``) holds too.
+Two differences from the reference, by design. The reference writes
+every slot's cache row at the position it steps (``cache_insert`` over
+all B rows) and advances every slot's SSM state in every decode, so a
+request admitted later overwrites the history of the slots already
+decoding, or moves their state, and a slot's tokens depend on what else
+is being served. Here every decode writes only the rows of the slots it
+steps (``decode_step(write_rows=...)``), the KV caches and the SSM
+states alike. And the reference hands a freed slot to the next request
+with the last request's SSM state in it; here admission zeroes the
+slot's cache rows (``lm.clear_cache_rows``). So each request of the
+dense, ssm and (without MoE) hybrid families decodes the tokens it would
+decode alone: the batch-composition contract the MiRU engine
+(``serve/recurrent.py``) holds too.
+
+The MoE families keep the reference's semantics and do not hold that
+contract: every decode routes all B rows through ``moe_ffn``, idle rows
+(token 0) included, and an expert takes at most
+``C = max(1, int(ceil(B·K / E) · capacity_factor))`` of them (granite at
+8 slots: 2), earlier rows first. So which other requests share a decode
+can change a request's tokens; only slot 0 is never dropped.
+
+On the card the decode step is captured once as a CUDA graph (at the
+engine's first decode) and replayed for every call with the tokens, the
+position and the row mask copied into its input buffers: the same
+kernels on the same inputs as the eager step, without its host cost a
+launch. The CPU runs the step eagerly.
 
 The engine runs on ``torch_device`` ("cuda" unless the caller asks for
 the CPU). A :class:`repro_torch.obs.Tracer` (``tracer=``) gets a
@@ -104,6 +122,14 @@ class ServeEngine:
         self.params = tree_to(params, self.device)
         self.caches = lm.init_cache(cfg, scfg.batch_slots, scfg.max_len,
                                     self.device)
+        B = scfg.batch_slots
+        # The decode step's inputs (the CUDA graph's, on the card).
+        self._tokens = torch.zeros((B, 1), dtype=torch.int64,
+                                   device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._rows = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._logits: Optional[torch.Tensor] = None
         self.slot_req: list[Optional[Request]] = [None] * scfg.batch_slots
         self.slot_pos = np.zeros(scfg.batch_slots, dtype=np.int64)
         self.queue: deque[Request] = deque()
@@ -142,19 +168,53 @@ class ServeEngine:
         self.decode.add((req.t_done - req.t_admit) * 1e3)
         self._finished.append(req)
 
+    def _decode_inputs(self) -> torch.Tensor:
+        """The decode step on the engine's input buffers (logits (B, 1,
+        V)); the caches are written in place."""
+        return lm.decode_step(self.params, self.cfg, self.caches,
+                              self._tokens, self._pos,
+                              write_rows=self._rows)[0]
+
+    def _capture(self) -> None:
+        """Capture the decode step in a CUDA graph, after one eager run on
+        a side stream (which builds what the step caches: the rope
+        frequencies, the int8 cache's draws). Both write no row: the
+        capture runs with an empty row mask."""
+        self._rows.zero_()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._decode_inputs()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph):
+            self._logits = self._decode_inputs()
+
     def _decode(self, tokens: dict[int, int], pos: int) -> torch.Tensor:
         """One decode at ``pos`` of the slots in ``tokens`` ({slot: token};
         idle rows get token 0, and their cache rows are not written).
-        Returns the (len(tokens), V) last-position logits, slot order."""
+        Returns the (len(tokens), V) last-position logits, slot order.
+        On the card the step is a CUDA graph, captured at the first call
+        and replayed with the tokens, the position and the row mask
+        copied into its input buffers."""
         slots = list(tokens)
-        toks = np.zeros((self.scfg.batch_slots, 1), np.int64)
+        B = self.scfg.batch_slots
+        toks = np.zeros((B, 1), np.int64)
         toks[slots, 0] = [tokens[s] for s in slots]
-        rows = torch.tensor(slots, dtype=torch.int64, device=self.device)
-        logits, self.caches = lm.decode_step(
-            self.params, self.cfg, self.caches,
-            torch.from_numpy(toks).to(self.device), pos, write_rows=rows)
+        mask = np.zeros(B, np.bool_)
+        mask[slots] = True
+        if self.device.type == "cuda" and self._graph is None:
+            self._capture()
+        self._tokens.copy_(torch.from_numpy(toks))
+        self._pos.fill_(int(pos))
+        self._rows.copy_(torch.from_numpy(mask))
+        if self._graph is not None:
+            self._graph.replay()
+            logits = self._logits
+        else:
+            logits = self._decode_inputs()
         self.decode_calls += 1
-        return logits[rows, -1, :]
+        return logits[torch.tensor(slots, device=self.device), -1, :]
 
     def _admit(self) -> None:
         if self.scfg.deadline_s is not None and self.queue:
@@ -174,6 +234,7 @@ class ServeEngine:
                 req = self.queue.popleft()
                 self.slot_req[slot] = req
                 self.slot_pos[slot] = 0
+                lm.clear_cache_rows(self.caches, slot)
                 req.t_admit = self.scfg.clock()
                 self.queue_wait.add((req.t_admit - req.t_submit) * 1e3)
                 # Prefill the prompt token by token through the decode

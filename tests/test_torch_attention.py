@@ -362,6 +362,15 @@ def test_cache_insert_writes_only_the_given_rows():
 
 
 def test_int8_cache_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="int8"):
-        attn.init_kv_cache(get_smoke_config("qwen2-0.5b"),
-                           attn.CacheSpec(1, 4, "int8"))
+    """The int8 cache is ported now (``tests/test_torch_hybrid.py`` holds
+    it to the reference bit for bit): the spec gives int8 codes with fp32
+    scales a token; a dtype that is neither raises."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    c = attn.init_kv_cache(cfg, attn.CacheSpec(1, 4, "int8"), "cpu")
+    kvd = cfg.n_kv_heads * cfg.hd()
+    assert {k: (tuple(v.shape), v.dtype) for k, v in c.items()} == {
+        "k": ((1, 4, kvd), torch.int8), "v": ((1, 4, kvd), torch.int8),
+        "k_scale": ((1, 4, 1), torch.float32),
+        "v_scale": ((1, 4, 1), torch.float32)}
+    with pytest.raises(ValueError, match="fp8"):
+        attn.init_kv_cache(cfg, attn.CacheSpec(1, 4, "fp8"), "cpu")

@@ -1118,3 +1118,102 @@ def test_march_recovers_the_stuck_map_on_the_card(cuda):
     for n, tile in st["_faults"].items():
         assert torch.equal(rec[n]["stuck"], effective_masks(tile)[0]), n
         assert torch.equal(rec[n]["value"].cpu(), cpu[n]["value"]), n
+
+
+# ---------------------------------------------------------------------------
+# The moe, ssm and hybrid families on the card
+# ---------------------------------------------------------------------------
+
+def test_moe_ffn_on_the_card_is_run_to_run_bitwise_and_follows_the_cpu(
+        cuda):
+    """The MoE combine gathers each token's K slots and sums them in a
+    fixed order: two calls give the same bits; against the CPU at fp32
+    tolerance (rtol 2e-5, atol 1e-6), with a capacity that drops slots."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.utils import tree_to
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              dtype=torch.float32)
+    p = moe.init_moe_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn(2, 300, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    pc = tree_to(p, cuda)
+    a, b = (moe.moe_ffn(pc, cfg, x.to(cuda)) for _ in range(2))
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(),
+                               moe.moe_ffn(p, cfg, x).numpy(), rtol=2e-5,
+                               atol=1e-6)
+
+
+def test_int8_cache_on_the_card_equals_the_cpu(cuda):
+    """Codes, scales and the dequantised K/V bit for bit the CPU's on the
+    same k/v (the draws are the same bits, kept on the card)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as attn
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    gen = torch.Generator().manual_seed(2)
+    kvd = cfg.n_kv_heads * cfg.hd()
+    caches = {d: attn.init_kv_cache(cfg, attn.CacheSpec(4, 6, "int8"), d)
+              for d in ("cpu", cuda)}
+    for pos in range(3):
+        k, v = (torch.randn(4, 1, kvd, generator=gen) for _ in range(2))
+        for d, c in caches.items():
+            attn.cache_insert(c, k.to(d), v.to(d), pos,
+                              write_rows=torch.tensor([0, 3], device=d))
+    for key, t in caches[cuda].items():
+        assert torch.equal(t.cpu(), caches["cpu"][key]), key
+    for a, b in zip(attn.cache_read(caches[cuda]),
+                    attn.cache_read(caches["cpu"])):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("granite-moe-3b-a800m", {}), ("mamba2-370m", {}),
+    ("jamba-1.5-large-398b", {"kv_cache_dtype": "int8"})])
+def test_engine_cuda_graph_follows_the_cpu(cuda, name, kw):
+    """The engine's decode, captured once as a CUDA graph and replayed,
+    against the CPU's eager engine on the same burst: tokens tie-aware,
+    logits within 1e-4 (fp32)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg, params = _lm("cpu", name, **kw)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, rng.integers(2, 10)).tolist()
+               for _ in range(6)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServeEngine(cfg, ServeConfig(batch_slots=3, max_len=32,
+                                           eos_token=-1, torch_device=dev,
+                                           keep_logits=True), params)
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run_until_drained()
+        runs[dev.type] = reqs
+        if dev.type == "cuda":
+            assert eng._graph is not None
+    testing.compare_tokens([r.tokens for r in runs["cuda"]],
+                           [r.tokens for r in runs["cpu"]],
+                           [r.logits for r in runs["cuda"]],
+                           [r.logits for r in runs["cpu"]], atol=1e-4)
+
+
+def test_mamba2_engine_batch_composition_on_the_card(cuda):
+    """A mamba2 request decodes the same tokens alone as in a burst, on
+    the card (``write_rows`` keeps the other slots' SSM state; admission
+    clears a reused slot's)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg, params = _lm(cuda, "mamba2-370m", dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, rng.integers(2, 12)).tolist()
+               for _ in range(8)]
+
+    def serve(traffic):
+        eng = ServeEngine(cfg, ServeConfig(batch_slots=3, max_len=32,
+                                           eos_token=-1, torch_device=cuda),
+                          params)
+        reqs = [eng.submit(p, max_new=6) for p in traffic]
+        eng.run_until_drained()
+        return [r.tokens for r in reqs]
+
+    burst = serve(prompts)
+    for i in (0, 4, 7):
+        assert serve([prompts[i]]) == [burst[i]]

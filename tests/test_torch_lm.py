@@ -288,9 +288,8 @@ def test_layers_match_reference():
         rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "granite-moe-3b-a800m",
-                                  "mamba2-370m", "jamba-1.5-large-398b",
-                                  "seamless-m4t-medium", "llava-next-34b"])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "seamless-m4t-medium",
+                                  "llava-next-34b"])
 def test_unported_families_raise(name):
     cfg = configs.get_smoke_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -305,9 +304,10 @@ def test_unported_options_raise():
                 dataclasses.replace(cfg, mixer="miru")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.forward(tp, bad, toks)
-    with pytest.raises(NotImplementedError, match="int8"):
-        lm.init_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"), 1, 4,
-                      "cpu")
+    int8 = lm.init_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                         1, 4, "cpu")
+    assert int8["k"].dtype == torch.int8 and "k_scale" in int8
+    assert attn.CacheSpec(1, 4, "int8").dtype == "int8"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.dense(torch.zeros(1, 2), torch.zeros(2, 2), quant_mode="wbs")
     assert attn.CacheSpec(1, 4).dtype == "bf16"
