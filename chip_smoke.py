@@ -198,6 +198,39 @@ lm_zoo. the LM zoo's MoE, SSM and hybrid families: (i)
    train step each (granite at 4 layers on 2,048 tokens: 8 flash
    forward, 4 dq, 4 dk/dv launches; mamba2 at 4 layers; jamba), finite,
    and jamba's training twin; the phase's seconds;
+lm_quant. the LM zoo on the paper's crossbar (``quant_mode="wbs"``):
+   every projection of qwen2-0.5B at its published widths in bf16 (seed
+   0, drawn on the card) one launch of the WBS product. (i) A prefill of
+   1 × 1,100 tokens (past the 1,024 attention chunk: the flash branch):
+   exactly 168 ``wbs_matmul`` (7 a layer; the tied head stays the float
+   einsum) and 24 bf16 flash-forward launches, finite logits, two runs
+   bit for bit, the distance from the float model on the same weights
+   and the argmax agreement (printed, not gated: the reference's bands
+   are for its 2-layer smoke config), the busy share; (ii) the 2-layer
+   fp32 twin on 1 × 256 tokens against the CPU's (``LMQ_TWIN_ATOL``,
+   ``LMQ_TWIN_MEAN_ATOL``; its attention chunk cut to 200 so that it
+   takes the fp32 flash forward, 2 launches), and the same twin with a
+   planted fault (a 7-bit drive) failing that check; (iii) a metered 8-slot
+   ``ServeEngine`` (``device="wbs"``, ``meter=True``, decode replayed as
+   a CUDA graph) serving 16 seeded requests of 8-64 prompt tokens, 16
+   new tokens each: its counters equal the hand count exactly, the same
+   traffic at the smoke width on the card (its decode a CUDA graph too)
+   equals the CPU's eager engine exactly in its counters and, tie-aware
+   at ``LMQ_SERVE_ATOL``, in its tokens, the ``energy`` block of
+   ``request_stats``, ms a decode call, the busy share of a window on a
+   captured engine, and one request
+   alone in slot 0 decoding the same tokens twice; (iv) the ``miru``
+   mixer at full width: float on 1 × 1,024 tokens (24 ``miru_scan``
+   launches at H 896, no other kernel) and quantized on 1 × 128 (exactly
+   24 × (2·128 + 4) ``wbs_matmul``), finite, and their 2-layer fp32
+   twins against the CPU (float on 256 tokens at ``LM_PREFILL_ATOL``,
+   quantized on 64 at the twin tolerances); (v) one quantized
+   ``Trainer`` step at 4 layers on 1 × 1,100 tokens (bf16: exactly 56
+   ``wbs_matmul``, 8 flash forwards, 4 dq and 4 dk/dv), finite, and the
+   2-layer fp32 training twin on 256 tokens (chunk 200: exactly 28
+   ``wbs_matmul``, 4 fp32 flash forwards, 2 dq and 2 dk/dv) against the
+   CPU's step (``LMQ_TRAIN_LOSS_RTOL``, ``LMQ_TRAIN_GNORM_RTOL``); the
+   phase's seconds;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -214,7 +247,9 @@ lm_zoo. the LM zoo's MoE, SSM and hybrid families: (i)
    its plane sums' FMAs, its bytes' and a model of its serial floor
    (``serial_floor_model_ms``, not a measurement); the fp32 route's flash
    forward, dq and dk/dv on fp32 inputs beside
-   ``scaled_dot_product_attention`` on the same fp32 inputs (TF32 off).
+   ``scaled_dot_product_attention`` on the same fp32 inputs (TF32 off);
+   the WBS product also at the quantized LM's decode and prefill shapes
+   (``lm_shapes``) beside ``torch.matmul`` of the float product.
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -407,6 +442,71 @@ ZOO_PREFILL_S, ZOO_TWIN_LAYERS, ZOO_ROUTE_GAP = 2048, 2, 1e-5
 ZOO_DECODE_S, ZOO_DECODE_ATOL = 300, 1e-4
 ZOO_TRAIN_LAYERS, ZOO_TRAIN_TWIN_S, ZOO_TRAIN_TWIN_STEPS = 4, 256, 2
 ZOO_BUDGET_S = 150
+# The lm_quant phase: qwen2-0.5B (the lm phase's model, LM) with
+# quant_mode="wbs". The prefill takes LMQ_PREFILL_S tokens, past the
+# config's 1,024-token attention chunk, so attention takes the flash
+# branch. Its twins (the published width in fp32, LM_TWIN_LAYERS layers,
+# the lm phase's twin weights) take LMQ_TWIN_S tokens with an attention
+# chunk of LMQ_TWIN_CHUNK, so that their attention takes the flash branch
+# too (the keys padded to 400 and masked by their true length, as the
+# prefill's are). On the CPU every quantized product is the bit-plane
+# plain version, one pass over K a tile: a 256-token 2-layer forward
+# takes about 40 s of one thread, the training step more.
+LMQ_PREFILL_S, LMQ_TWIN_S, LMQ_TWIN_CHUNK = 1100, 256, 200
+# The twins' logit tolerances, from one flip of a code: on the card the
+# WBS products are the CPU's bits, but a last-bit difference elsewhere
+# (a norm's reduction, the attention, the tied head) moves an input of
+# some product across a rounding boundary of its 8-bit quantizer, and
+# that step of 1/255 of the absmax, carried through the later
+# quantizers, moves the logits (up to about 3). Measured on the CPU at
+# the twin's width and depth: on 64 tokens one input code moved by one
+# step, in four places, moves them by 0.029-0.040 at most (mean |d|
+# 0.0040-0.0054), one ulp on every norm weight of a layer by 0.021-0.053
+# (mean 0.0010-0.0051); on 256 tokens one code by 0.038-0.048, one ulp
+# on the weights of one norm of one layer (chunk 200) by 0.007-0.045
+# (mean at most 0.0049). A 7-bit drive, the planted fault, moves them
+# 0.24 (mean 0.028) on 64 tokens and 0.34 (mean 0.040) on 256; the
+# drive's planes joined LSB first 3.97 (mean 0.59) on 64. The tolerances
+# lie about twice above the one-step moves and below the fault. The ulp
+# and fault moves: ``tools/lmq_tolerances.py prefill``.
+LMQ_TWIN_ATOL, LMQ_TWIN_MEAN_ATOL = 0.1, 0.012
+LMQ_FAULT_BITS = 7
+# The metered engine: LM_SLOTS slots, LM_MAX_LEN, the burst's first
+# LMQ_REQUESTS prompts, LMQ_MAX_NEW new tokens each, greedy, no EOS.
+LMQ_REQUESTS, LMQ_MAX_NEW = 16, 16
+# The same traffic at qwen2's smoke width (fp32) on the card and on the
+# CPU: tokens tie-aware, logits within LMQ_SERVE_ATOL. The products are
+# the CPU's bits, but a last-bit difference elsewhere can flip an input
+# code; one flipped code moves smoke logits (|logit| < 0.4) by up to
+# 2.6e-3, and one ulp on every norm weight of a layer moves this
+# traffic's by 1.3e-3-2.4e-3 with no token changed (both measured on the
+# CPU; the latter by ``tools/lmq_tolerances.py serve``). The tolerance
+# lies about four such moves above.
+LMQ_SERVE_ATOL = 1e-2
+# The WBS product at the quantized LM's shapes, held bit for bit to its
+# plain version and timed: a decode call's (LM_SLOTS rows) and the
+# prefill's (LMQ_PREFILL_S rows) SwiGLU gate (d_model 896 → d_ff 4,864)
+# and down projection (4,864 → 896).
+LMQ_D, LMQ_FF = 896, 4864
+LMQ_WBS_SHAPES = {"decode": (LM_SLOTS, LMQ_D, LMQ_FF),
+                  "decode_down": (LM_SLOTS, LMQ_FF, LMQ_D),
+                  "prefill": (LMQ_PREFILL_S, LMQ_D, LMQ_FF),
+                  "prefill_down": (LMQ_PREFILL_S, LMQ_FF, LMQ_D)}
+# The miru mixer: the float prefill on LMQ_MIRU_S tokens, the quantized
+# one (per-step: two WBS products a step) on LMQ_MIRU_Q_S; their twins on
+# LMQ_MIRU_TWIN_S and LMQ_MIRU_Q_TWIN_S tokens.
+LMQ_MIRU_S, LMQ_MIRU_Q_S = 1024, 128
+LMQ_MIRU_TWIN_S, LMQ_MIRU_Q_TWIN_S = 256, 64
+# One quantized train step at LMQ_TRAIN_LAYERS layers on LMQ_PREFILL_S
+# tokens (bf16), and the fp32 training twin's one step on LMQ_TWIN_S
+# tokens against the CPU's. Measured on the CPU (relative): one ulp on
+# every norm weight of a layer moves the loss by 4.2e-6 and the grad
+# norm by 1.2e-5 on 64 tokens, by 4.4e-5 and 2.5e-4 on 256; the 7-bit
+# drive by 4.1e-4 and 3.9e-3 on 64, by 3.0e-4 and 2.4e-3 on 256
+# (``tools/lmq_tolerances.py train``).
+LMQ_TRAIN_LAYERS = 4
+LMQ_TRAIN_LOSS_RTOL, LMQ_TRAIN_GNORM_RTOL = 1e-4, 1e-3
+LMQ_BUDGET_S = 150
 # The serve paths' traced window: the burst's first 8 prompts cut to
 # ZOO_TRACE_PROMPT tokens, ZOO_TRACE_NEW new tokens each.
 ZOO_TRACE_PROMPT, ZOO_TRACE_NEW = 2, 2
@@ -794,6 +894,23 @@ def check_kernels(dev) -> dict:
                 emit("kernels", kernel="wbs_matmul", case=name,
                      shape=[M, K, N], adc_bits=adc,
                      bitwise=bool(torch.equal(got, want)), **rep.as_dict())
+        # The quantized LM's shapes (lm_quant), no ADC as its inference
+        # spec has none: bit for bit.
+        for name, (M, K, N) in LMQ_WBS_SHAPES.items():
+            inp = matmul_inputs(rng, dev, M, K, N)
+            got = ops.wbs_matmul(**inp)
+            want = ref.wbs_matmul_ref(**inp)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got, want))
+            rep = testing.compare_matmul(got, want, **inp)
+            err["wbs_matmul"] = max(err["wbs_matmul"], rep.max_abs_err)
+            emit("kernels", kernel="wbs_matmul", case=f"lm_{name}",
+                 shape=[M, K, N], adc_bits=None, bitwise=bitwise,
+                 **rep.as_dict())
+            if not bitwise:
+                raise AssertionError(f"wbs_matmul at {[M, K, N]}: not the "
+                                     "plain version's bits")
+            del inp, got, want
         err["wbs_miru_scan"] = check_scan(dev, rng)
         err["miru_scan"] = check_miru_scan(dev, rng)
         err["miru_readout"] = check_readout(dev, rng)
@@ -1618,8 +1735,9 @@ def cpu_twin(kind: str) -> dict:
     phase's 2-layer fp32 twins), ``lm_train`` (the training twin),
     ``scenarios:wbs`` (the scenarios phase's compiled run on ``wbs``),
     ``faults`` (the faults phase's clean run and its mitigation),
-    ``fault_gate`` (fault_bench's gate at its own setup) and ``fleet``
-    (the fleet phase's eight chips).
+    ``fault_gate`` (fault_bench's gate at its own setup), ``fleet``
+    (the fleet phase's eight chips), ``zoo:<name>`` (the lm_zoo twins)
+    and ``lmq:<part>`` (the lm_quant twins).
     Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -1645,6 +1763,8 @@ def cpu_twin(kind: str) -> dict:
         return lm_train_twin_run(cpu)
     if kind.startswith("zoo:"):
         return zoo_twin(kind[4:])
+    if kind.startswith("lmq:"):
+        return lmq_twin(kind[4:])
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -1684,7 +1804,8 @@ TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "read_noise", "lm_serve", "lm_prefill", "adam:wbs", "ragged",
          "loss_aware", "adam:ideal", "scenarios:wbs", "faults",
          "fault_gate", f"zoo:{ZOO_GRANITE}", f"zoo:{ZOO_MAMBA2}",
-         f"zoo:{ZOO_JAMBA}")
+         f"zoo:{ZOO_JAMBA}", "lmq:train", "lmq:prefill", "lmq:miru",
+         "lmq:serve")
 
 
 def start_twins():
@@ -2601,6 +2722,39 @@ def kwta_path(dev) -> dict:
 # Phase 8: times
 # ---------------------------------------------------------------------------
 
+def wbs_lm_times(dev, rng) -> dict:
+    """The WBS product at the quantized LM's shapes (lm_quant,
+    ``LMQ_WBS_SHAPES``): a decode call's SwiGLU gate and down projection,
+    LM_SLOTS rows, and the prefill's, LMQ_PREFILL_S rows. Its bound as
+    the kernels line's (by linearity: one product of the decoded operand)
+    and beside it the plane sums' fp32 FMAs that the bits fix
+    (``bound_plane_fmas_ms``); the plain version (``ref.wbs_matmul_ref``,
+    a loop over K: timed by events around 3 calls, not in a graph); and
+    ``torch.matmul`` of the float product (fp32, TF32 off)."""
+    import torch
+    from repro_torch.kernels import ref, wbs_matmul
+    out = {}
+    with torch.no_grad():
+        for key, (M, K, N) in LMQ_WBS_SHAPES.items():
+            inp = matmul_inputs(rng, dev, M, K, N)
+            x = inp["sign"].float() * inp["code"].float() / 255.0
+            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS
+            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
+            b, by = bound_ms(flops, n_bytes)
+            out[key] = dict(
+                shape=[M, K, N],
+                ms=time_graph(lambda: wbs_matmul.wbs_matmul(
+                    inp["sign"], inp["code"], inp["w"], inp["gains"])),
+                plain_ms=time_events(lambda: ref.wbs_matmul_ref(**inp),
+                                     reps=3),
+                library_ms=time_graph(lambda: torch.matmul(x, inp["w"])),
+                library="torch.matmul of the float product (fp32, TF32 "
+                        "off)", bound_ms=b, bound_by=by,
+                bound_plane_fmas_ms=2.0 * M * K * N * N_BITS
+                / PEAK_FP32_FLOPS * 1e3)
+    return out
+
+
 def times(dev) -> dict:
     """Each kernel's wrapper on inputs prepared as the main path hands them
     over, so ``ms`` is the launch alone."""
@@ -2633,6 +2787,7 @@ def times(dev) -> dict:
                 library_ms=time_graph(lambda: torch.matmul(deq, inp["w"])),
                 library="torch.matmul of the dequantized operand",
                 bound_ms=b, bound_by=by)
+        out["wbs_matmul"]["lm_shapes"] = wbs_lm_times(dev, rng)
         # The read-noise variant at train (d)'s two shapes, the per-step
         # recurrent product (the kernels line) and the step's input drive:
         # the product as above plus, per weight element, one Box–Muller
@@ -4108,10 +4263,11 @@ def zoo_prefill_twin(name: str, dev, cpu: dict, part: str) -> dict:
 
 
 def zoo_train(name: str, dev, layers: Optional[int], S: int, part: str,
-              want: dict, **kw) -> dict:
+              want: dict, phase: str = "lm_zoo", **kw) -> dict:
     """One Trainer step on ``name`` (bf16, depth ``layers``, 1 × S
-    tokens): a finite loss and grad norm, and exactly the flash launches
-    in ``want``. Returns the launches."""
+    tokens): a finite loss and grad norm, and exactly the launches in
+    ``want`` (none of any other kernel); its line under ``phase``.
+    Returns the launches."""
     import math
     from repro_torch.train import TrainConfig, Trainer
     cfg, params = zoo_model(name, dev, layers, **kw)
@@ -4127,12 +4283,12 @@ def zoo_train(name: str, dev, layers: Optional[int], S: int, part: str,
     exact = all(launches[k] == n for k, n in want.items()) and all(
         c == 0 for k, c in launches.items() if k not in want)
     finite = math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-    emit("lm_zoo", part=part, config=cfg.name, layers=cfg.n_layers,
+    emit(phase, part=part, config=cfg.name, layers=cfg.n_layers,
          dtype=str(cfg.dtype), tokens=[1, S], n_params=tr.n_params,
          loss=h["loss"], grad_norm=h["grad_norm"], step_ms=wall * 1e3,
          launches=launches, launches_exact=exact, finite=finite)
     if not (finite and exact):
-        raise AssertionError(f"lm_zoo {part}: finite {finite}, launches "
+        raise AssertionError(f"{phase} {part}: finite {finite}, launches "
                              f"{launches} (want {want})")
     return launches
 
@@ -4287,6 +4443,383 @@ def lm_zoo_phase(dev, twins: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_quant: the LM zoo on the crossbar (quant_mode="wbs")
+# ---------------------------------------------------------------------------
+
+LMQ_MIRU_ROWS = tuple(range(0, LMQ_MIRU_TWIN_S, 10)) + (LMQ_MIRU_TWIN_S - 1,)
+
+
+def lmq_twin_model(dev, **kw):
+    """The twins' model (qwen2-0.5B's widths in fp32, LM_TWIN_LAYERS
+    layers, attention chunk LMQ_TWIN_CHUNK, weights drawn on the CPU from
+    seed 1) with ``kw`` replaced."""
+    import torch
+    return zoo_model(LM, dev, LM_TWIN_LAYERS, torch.float32, seed=1,
+                     attn_chunk=LMQ_TWIN_CHUNK, **kw)
+
+
+def lmq_logits(cfg, params, S: int, rows=None, seed: int = 2):
+    """One seeded S-token prompt's prefill logits (fp32, on the CPU), at
+    ``rows`` or all of them."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, S)))
+    logits = lm.prefill(params, cfg, {"tokens": toks})[0]
+    if rows is not None:
+        logits = logits[list(rows)]
+    return logits.to(torch.float32).cpu()
+
+
+def lmq_serve(cfg, params, dev, prompts, max_new: int, meter: bool = True,
+              keep_logits: bool = False):
+    """``prompts`` through a fresh 8-slot engine on the ``wbs`` substrate
+    (its telemetry on, from zero, when ``meter``); returns (engine,
+    requests)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, ServeConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
+        torch_device=dev, device="wbs", meter=meter,
+        keep_logits=keep_logits), params)
+    eng.telemetry.reset()
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run_until_drained()
+    _sync(dev)
+    return eng, reqs
+
+
+def lmq_hand_count(cfg, decode_calls: int) -> dict:
+    """The ``dense`` counters of ``decode_calls`` decode calls, by hand
+    (``tests/test_serve_telemetry.py``'s count): per layer wq, wk, wv, wo
+    and the SwiGLU gate, up and down, LM_SLOTS rows each (idle slots
+    stream pad tokens), 8-bit drives; the tied head is not quantized."""
+    D, Fd, hd = cfg.d_model, cfg.d_ff, cfg.hd()
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    denses = [(D, q), (D, kv), (D, kv), (q, D), (D, Fd), (D, Fd), (Fd, D)]
+    rows = LM_SLOTS * cfg.n_layers * decode_calls
+    return {"vmm_rows/dense": rows * len(denses),
+            "macs/dense": rows * sum(i * o for i, o in denses),
+            "bit_pulses/dense": rows * 8 * sum(i for i, _ in denses),
+            "wbs_phases/dense": rows * 8 * len(denses)}
+
+
+def lmq_smoke_serve(dev) -> tuple:
+    """The metered engine's traffic (the same prompt lengths, new tokens
+    and slots) on qwen2's smoke config in fp32, each token's logits kept:
+    (engine, requests)."""
+    import torch
+    cfg, params = zoo_model(LM, dev, dtype=torch.float32, seed=1,
+                            smoke=True)
+    return lmq_serve(cfg, params, dev,
+                     lm_prompts(cfg.vocab)[:LMQ_REQUESTS], LMQ_MAX_NEW,
+                     keep_logits=True)
+
+
+def lmq_train_twin_run(dev) -> dict:
+    """One quantized Trainer step (warmup 0) of the twin model on 1 ×
+    LMQ_TWIN_S tokens: its loss and grad norm."""
+    from repro_torch.train import TrainConfig, Trainer
+    cfg, params = lmq_twin_model(dev, quant_mode="wbs")
+    tr = Trainer(cfg, TrainConfig(warmup_steps=0),
+                 lm_train_batcher(cfg, 1, LMQ_TWIN_S, seed=3),
+                 params=params, device=dev)
+    h = tr.run(steps=1)[-1]
+    return {"loss": h["loss"], "grad_norm": h["grad_norm"]}
+
+
+def lmq_twin(part: str) -> dict:
+    """The CPU side of the lm_quant twins: ``prefill`` (the quantized twin
+    model's logits), ``miru`` (the float and the quantized miru twins'),
+    ``serve`` (the smoke-width engine's counters, tokens and logits) and
+    ``train``."""
+    import dataclasses
+    import torch
+    cpu = torch.device("cpu")
+    if part == "prefill":
+        cfg, params = lmq_twin_model(cpu, quant_mode="wbs")
+        return {"logits": lmq_logits(cfg, params, LMQ_TWIN_S)}
+    if part == "miru":
+        cfg, params = lmq_twin_model(cpu, mixer="miru")
+        return {"float": lmq_logits(cfg, params, LMQ_MIRU_TWIN_S,
+                                    LMQ_MIRU_ROWS),
+                "wbs": lmq_logits(dataclasses.replace(cfg, quant_mode="wbs"),
+                                  params, LMQ_MIRU_Q_TWIN_S)}
+    if part == "serve":
+        eng, reqs = lmq_smoke_serve(cpu)
+        return {"counters": eng.telemetry.snapshot(),
+                "decode_calls": eng.decode_calls,
+                "steps_run": eng.steps_run,
+                "tokens": [r.tokens for r in reqs],
+                "logits": [torch.stack(r.logits) for r in reqs]}
+    return lmq_train_twin_run(cpu)
+
+
+def lmq_distance(got, cpu) -> dict:
+    """Max and mean |Δ logit| of two logit tensors, and whether both lie
+    within the twins' tolerances."""
+    d = (got - cpu).abs()
+    out = {"max_abs_d": float(d.max()), "mean_abs_d": float(d.mean())}
+    out["within"] = out["max_abs_d"] <= LMQ_TWIN_ATOL and \
+        out["mean_abs_d"] <= LMQ_TWIN_MEAN_ATOL
+    return out
+
+
+def lmq_exact(launches: dict, want: dict) -> bool:
+    """Exactly ``want``'s launches, and none of any other kernel."""
+    return all(c == want.get(k, 0) for k, c in launches.items())
+
+
+def lm_quant_phase(dev, twins: dict) -> dict:
+    """(i) qwen2-0.5B at its published widths with every projection on
+    the ``wbs`` crossbar: the prefill's launches, bits run to run, the
+    distance from the float model; (ii) its 2-layer fp32 twin against the
+    CPU, and a planted fault against the same check; (iii) the metered
+    engine: counters against the hand count and, at the smoke width on
+    the same traffic, against the CPU's engine; the energy block; slot 0
+    twice; (iv) the miru mixer, float and quantized, and their twins;
+    (v) one quantized train step and the training twin. Returns each
+    path's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    t_phase = time.perf_counter()
+    bf16, f32 = "torch.bfloat16", "torch.float32"
+    out = {}
+
+    # (i) the quantized prefill at full width.
+    cfg, params = lm_full_model(dev)
+    cfg = dataclasses.replace(cfg, quant_mode="wbs")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LMQ_PREFILL_S)))
+
+    def prefill(c=cfg):
+        logits = lm.prefill(params, c, {"tokens": toks})
+        _sync(dev)
+        return logits
+    first = prefill()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"wbs_matmul": 7 * cfg.n_layers, FLASH_FWD[bf16]: cfg.n_layers}
+    same = bool(torch.equal(first, logits))
+    finite = bool(torch.isfinite(logits).all())
+    del first
+    flt = prefill(dataclasses.replace(cfg, quant_mode="none"))
+    rel = float((logits.float() - flt.float()).abs().max()
+                / flt.float().abs().max())
+    agree = float((logits.argmax(-1) == flt.argmax(-1)).float().mean())
+    del flt, logits
+    emit("lm_quant", part="prefill", config=LM, quant_mode=cfg.quant_mode,
+         layers=cfg.n_layers, dtype=str(cfg.dtype),
+         tokens=[1, LMQ_PREFILL_S], wall_ms=wall * 1e3,
+         tokens_per_s=LMQ_PREFILL_S / wall, launches=launches,
+         launches_exact=lmq_exact(launches, want), finite=finite,
+         two_runs_bitwise_equal=same, rel_d_from_float=rel,
+         argmax_agreement_with_float=agree,
+         traced_run=busy_share(prefill, wall))
+    if not (lmq_exact(launches, want) and same and finite):
+        raise AssertionError(f"lm_quant prefill: launches {launches} (want "
+                             f"{want}), finite {finite}, equal {same}")
+    out["lm_quant_prefill"] = launches
+
+    # (ii) the twin against the CPU, then with a planted fault.
+    tcfg, tparams = lmq_twin_model(dev, quant_mode="wbs")
+    reset_launches()
+    got = lmq_logits(tcfg, tparams, LMQ_TWIN_S)
+    twin_launches = read_launches()
+    cpu = twins["lmq:prefill"].result()["logits"]
+    dist = lmq_distance(got, cpu)
+    wbs_dense = ops.wbs_dense
+
+    def fewer_bits(x, w, n_bits=8, **kw):
+        return wbs_dense(x, w, LMQ_FAULT_BITS, **kw)
+    ops.wbs_dense = fewer_bits
+    try:
+        fault = lmq_distance(lmq_logits(tcfg, tparams, LMQ_TWIN_S), cpu)
+    finally:
+        ops.wbs_dense = wbs_dense
+    ok = dist["within"] and not fault["within"] and bool(
+        torch.isfinite(got).all()) and lmq_exact(
+        twin_launches, {"wbs_matmul": 7 * tcfg.n_layers,
+                        FLASH_FWD[f32]: tcfg.n_layers})
+    emit("lm_quant", part="prefill_twin", layers=tcfg.n_layers,
+         tokens=LMQ_TWIN_S, attn_chunk=tcfg.attn_chunk,
+         launches=twin_launches, **dist,
+         max_abs_logit=float(cpu.abs().max()), atol=LMQ_TWIN_ATOL,
+         mean_atol=LMQ_TWIN_MEAN_ATOL,
+         planted_fault={"drive_bits": LMQ_FAULT_BITS, **fault,
+                        "caught": not fault["within"]}, ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_quant prefill twin: {dist}, planted "
+                             f"fault {fault}, launches {twin_launches}")
+    del tparams
+
+    # (iii) the metered engine, its counters and energy; slot 0 twice.
+    prompts = lm_prompts(cfg.vocab)[:LMQ_REQUESTS]
+    lmq_serve(cfg, params, dev, prompts[:2], 4)                # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, reqs = lmq_serve(cfg, params, dev, prompts, LMQ_MAX_NEW)
+    wall = time.perf_counter() - t0
+    serve_launches = read_launches()
+    counters = eng.telemetry.snapshot()
+    hand = lmq_hand_count(cfg, eng.decode_calls)
+    stats = eng.request_stats()
+    energy = stats["energy"]
+    seng, sreqs = lmq_smoke_serve(dev)
+    smoke = seng.telemetry.snapshot()
+    cpu = twins["lmq:serve"].result()
+    # The smoke-width engine's tokens (its decode replayed as a CUDA
+    # graph) against the CPU's eager engine's, tie-aware.
+    rep = testing.compare_tokens([r.tokens for r in sreqs], cpu["tokens"],
+                                 [r.logits for r in sreqs], cpu["logits"],
+                                 atol=LMQ_SERVE_ATOL)
+    smoke_tokens = dict(graph=seng._graph is not None,
+                        tokens_equal=[r.tokens for r in sreqs]
+                        == cpu["tokens"], atol=LMQ_SERVE_ATOL,
+                        **rep.as_dict())
+    traffic = [(e.decode_calls, e.steps_run) for e in (eng, seng)] + \
+        [(cpu["decode_calls"], cpu["steps_run"])]
+    eng.telemetry.disable()
+    # The busy share of a short window on an engine whose graph is
+    # captured, as in lm_zoo.
+    wave = [p[:ZOO_TRACE_PROMPT] for p in prompts[:LM_SLOTS]]
+    weng = ServeEngine(cfg, ServeConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
+        torch_device=dev), params)
+
+    def window():
+        for p in wave:
+            weng.submit(p, ZOO_TRACE_NEW)
+        weng.run_until_drained()
+        _sync(dev)
+    window()                                           # the capture
+    calls = weng.decode_calls
+    t0 = time.perf_counter()
+    window()
+    busy = busy_share(window, time.perf_counter() - t0)
+    calls = (weng.decode_calls - calls) // 2
+    busy["window"] = (f"{len(wave)} requests of {ZOO_TRACE_PROMPT} prompt "
+                      f"tokens, {ZOO_TRACE_NEW} new each, {LM_SLOTS} slots, "
+                      f"{calls} decode calls, the graph captured before")
+    busy["device_ms_a_decode_call"] = busy["device_busy_s"] * 1e3 / calls
+    alone = [lmq_serve(cfg, params, dev, prompts[:1], LMQ_MAX_NEW,
+                       meter=False)[1][0].tokens for _ in range(2)]
+    ok = (counters == hand and smoke == cpu["counters"]
+          == lmq_hand_count(seng.cfg, seng.decode_calls)
+          and smoke_tokens["graph"]
+          and len(set(traffic)) == 1 and alone[0] == alone[1]
+          and len(alone[0]) == LMQ_MAX_NEW
+          and all(len(r.tokens) == LMQ_MAX_NEW for r in reqs))
+    emit("lm_quant", part="serve", device="wbs", meter=True,
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=stats["requests"],
+         max_new=LMQ_MAX_NEW, prompt_tokens=sum(len(p) for p in prompts),
+         wall_s=wall, ms_a_decode_call=wall * 1e3 / stats["decode_calls"],
+         launches_outside_the_graph=serve_launches, counters=counters,
+         counters_equal_hand_count=counters == hand,
+         smoke_counters_equal_cpu_engine=smoke == cpu["counters"],
+         smoke_tokens_against_cpu_engine=smoke_tokens,
+         decode_calls_and_steps=traffic,
+         energy={k: energy[k] for k in ("power_mw", "gops_per_w",
+                                         "pj_per_op", "total_j")},
+         pj_per_request=energy["pj_per_request"], traced_run=busy,
+         slot0_alone_twice_equal=alone[0] == alone[1], ok=ok,
+         **{k: stats[k] for k in ("steps_run", "decode_calls", "latency_ms",
+                                  "tokens_per_s", "tokens_generated")})
+    if not ok:
+        raise AssertionError(f"lm_quant serve: counters {counters} (hand "
+                             f"{hand}), smoke {smoke} vs CPU "
+                             f"{cpu['counters']}, traffic {traffic}, alone "
+                             f"{alone}, smoke tokens {smoke_tokens}")
+    out["lm_quant_serve"] = serve_launches
+    del params, eng, seng, weng
+
+    # (iv) the miru mixer, float and quantized, and their twins.
+    mcfg, mparams = zoo_model(LM, dev, mixer="miru")
+    lines = {}
+    for quant, S, want in (
+            ("none", LMQ_MIRU_S, {"miru_scan": mcfg.n_layers}),
+            ("wbs", LMQ_MIRU_Q_S,
+             {"wbs_matmul": mcfg.n_layers * (2 * LMQ_MIRU_Q_S + 4)})):
+        c = dataclasses.replace(mcfg, quant_mode=quant)
+        mtoks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, c.vocab, (1, S)))
+        reset_launches()
+        t0 = time.perf_counter()
+        ml = lm.prefill(mparams, c, {"tokens": mtoks})
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        lines[quant] = dict(tokens=[1, S], wall_ms=wall * 1e3,
+                            launches=launches,
+                            launches_exact=lmq_exact(launches, want),
+                            finite=bool(torch.isfinite(ml).all()))
+        out[f"lm_quant_miru_{quant}"] = launches
+        del ml
+    del mparams
+    tm_cfg, tm_params = lmq_twin_model(dev, mixer="miru")
+    cpu = twins["lmq:miru"].result()
+    d_float = float((lmq_logits(tm_cfg, tm_params, LMQ_MIRU_TWIN_S,
+                                LMQ_MIRU_ROWS) - cpu["float"]).abs().max())
+    d_wbs = lmq_distance(lmq_logits(dataclasses.replace(
+        tm_cfg, quant_mode="wbs"), tm_params, LMQ_MIRU_Q_TWIN_S), cpu["wbs"])
+    ok = all(v["launches_exact"] and v["finite"] for v in lines.values()) \
+        and d_float <= LM_PREFILL_ATOL and d_wbs["within"]
+    emit("lm_quant", part="miru", config=mcfg.name, mixer="miru",
+         layers=mcfg.n_layers, dtype=str(mcfg.dtype), float=lines["none"],
+         wbs=lines["wbs"], twin_float={"tokens": LMQ_MIRU_TWIN_S,
+                                       "rows": len(LMQ_MIRU_ROWS),
+                                       "max_abs_d": d_float,
+                                       "atol": LM_PREFILL_ATOL},
+         twin_wbs={"tokens": LMQ_MIRU_Q_TWIN_S, **d_wbs}, ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_quant miru: {lines}, twins {d_float:.3g}, "
+                             f"{d_wbs}")
+    del tm_params
+
+    # (v) one quantized train step, and the training twin.
+    L = LMQ_TRAIN_LAYERS
+    out["lm_quant_train"] = zoo_train(
+        LM, dev, L, LMQ_PREFILL_S, "train",
+        {"wbs_matmul": 2 * 7 * L, FLASH_FWD[bf16]: 2 * L,
+         FLASH_DQ[bf16]: L, FLASH_DKV[bf16]: L}, phase="lm_quant",
+        quant_mode="wbs")
+    reset_launches()
+    run = lmq_train_twin_run(dev)
+    launches = read_launches()
+    L = LM_TWIN_LAYERS
+    want = {"wbs_matmul": 2 * 7 * L, FLASH_FWD[f32]: 2 * L,
+            FLASH_DQ[f32]: L, FLASH_DKV[f32]: L}
+    cpu = twins["lmq:train"].result()
+    d_loss = abs(run["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    d_gn = abs(run["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
+    ok = d_loss <= LMQ_TRAIN_LOSS_RTOL and d_gn <= LMQ_TRAIN_GNORM_RTOL \
+        and lmq_exact(launches, want)
+    emit("lm_quant", part="train_twin", layers=L, tokens=LMQ_TWIN_S,
+         attn_chunk=LMQ_TWIN_CHUNK, launches=launches,
+         launches_exact=lmq_exact(launches, want),
+         loss=run["loss"], cpu_loss=cpu["loss"],
+         grad_norm=run["grad_norm"], cpu_grad_norm=cpu["grad_norm"],
+         loss_rel_d=d_loss, grad_norm_rel_d=d_gn,
+         tolerances={"loss_rtol": LMQ_TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": LMQ_TRAIN_GNORM_RTOL}, ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_quant train twin: loss {d_loss:.3g}, "
+                             f"grad norm {d_gn:.3g} from the CPU's, "
+                             f"launches {launches} (want {want})")
+    emit("lm_quant", part="seconds", seconds=time.perf_counter() - t_phase,
+         budget_s=LMQ_BUDGET_S)
+    return out
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -4352,6 +4885,7 @@ def main() -> int:
         ft = faults_phase(dev, smi, twins)
         flt = fleet_phase(dev, smi, twins)
         zoo = lm_zoo_phase(dev, twins)
+        lmq = lm_quant_phase(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
     finally:
@@ -4377,7 +4911,7 @@ def main() -> int:
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
                **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
-               **zoo}
+               **zoo, **lmq}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",
@@ -4429,7 +4963,7 @@ def main() -> int:
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
          "library_ms": t[k]["library_ms"], "library": t[k]["library"],
          **{f: t[k][f] for f in ("bound_split_ms", "bound_cuda_cores_ms",
-                                 "note") if f in t[k]}}
+                                 "note", "lm_shapes") if f in t[k]}}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Union
 
 from repro_torch.backends.base import DeviceBackend, DeviceSpec
@@ -20,9 +21,12 @@ _REGISTRY: dict[str, Callable[..., DeviceBackend]] = {}
 def register_backend(name: str,
                      factory: Optional[Callable[..., DeviceBackend]] = None):
     """Register a backend factory (usable as a class decorator). The
-    factory is called as ``factory(spec=..., **kwargs)``."""
+    factory is called as ``factory(spec=..., **kwargs)``. Re-registering
+    a name overwrites it and drops its shared :func:`inference_backend`
+    instance."""
     def _do(f):
         _REGISTRY[name] = f
+        inference_backend.cache_clear()
         return f
     return _do if factory is None else _do(factory)
 
@@ -59,6 +63,21 @@ def get_backend(name: Union[str, DeviceBackend],
     return factory(spec=spec, **kwargs)
 
 
+@functools.lru_cache(maxsize=None)
+def inference_backend(name: str) -> DeviceBackend:
+    """The shared backend instance of a registered name for inference-mode
+    model layers (``models/layers.dense``, the miru mixer, the LM serve
+    engine): the substrate's own spec with the inference overrides, an
+    8-bit quantized drive, no readout ADC and a unit weight scale (the
+    layers normalise their activations instead); gain noise and crossbar
+    physics stay the backend's. One instance per name keeps one
+    telemetry accumulator across every projection of a serving run."""
+    return get_backend(name, spec_overrides=dict(input_bits=8,
+                                                 adc_bits=None,
+                                                 weight_clip=None))
+
+
 def unregister_backend(name: str) -> None:
     """Remove a registered backend (test teardown helper)."""
     _REGISTRY.pop(name, None)
+    inference_backend.cache_clear()

@@ -137,3 +137,14 @@ def miru_apply_readout(params: dict[str, torch.Tensor], cfg: MiRUConfig,
         mask = kwta_mask(logits, cfg.readout_k, by_magnitude=False)
         logits = torch.where(mask, logits, torch.full_like(logits, -30.0))
     return logits
+
+
+def miru_param_count(cfg: MiRUConfig) -> int:
+    """Trainable parameter count (excludes the fixed Ψ)."""
+    return (cfg.n_x * cfg.n_h + cfg.n_h * cfg.n_h + cfg.n_h
+            + cfg.n_h * cfg.n_y + cfg.n_y)
+
+
+def gru_param_count(n_x: int, n_h: int, n_y: int) -> int:
+    """Reference GRU parameter count (3 gates) for the compactness claim."""
+    return 3 * (n_x * n_h + n_h * n_h + n_h) + n_h * n_y + n_y

@@ -4,7 +4,7 @@ generators, ``ragged`` (the padding contract of ragged streams),
 an offline surrogate, and the few-shot keyword stream) and ``pipeline``
 (the deterministic batcher, and ``shard_tasks``: the fleet's per-chip
 training shards)."""
-from repro_torch.data.pipeline import shard_tasks
+from repro_torch.data.pipeline import DataState, ShardedBatcher, shard_tasks
 from repro_torch.data.ragged import (PadPolicy, bucket_size, eval_masks,
                                      needs_masked_program, pad_tasks)
 from repro_torch.data.real import (load_cifar10, load_mnist,
@@ -27,4 +27,4 @@ __all__ = ["TaskData", "lm_token_batch", "make_class_incremental_tasks",
            "needs_masked_program", "pad_tasks",
            "load_mnist", "load_cifar10", "make_seq_mnist_tasks",
            "make_seq_cifar10_tasks", "make_keyword_fewshot_tasks",
-           "shard_tasks"]
+           "ShardedBatcher", "DataState", "shard_tasks"]

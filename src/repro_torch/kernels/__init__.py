@@ -16,3 +16,6 @@
   forward and the LM's attention call; the flash forward's autograd
   Function, whose gradient is the backward's kernels.
 """
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

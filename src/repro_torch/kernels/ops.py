@@ -73,6 +73,14 @@ def read_key_words(read_key: np.ndarray) -> tuple[int, int]:
     return int(k0), int(k1)
 
 
+def quantize_inputs(x: torch.Tensor, n_bits: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sign-magnitude digitization of x ∈ [-1, 1] (the host-side buffer
+    write that precedes WBS streaming). Alias of the canonical
+    :func:`repro_torch.analog.wbs.quantize_signed`."""
+    return quantize_signed(x, n_bits)
+
+
 def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
                gains: torch.Tensor, adc_bits: Optional[int] = None,
                adc_range: float = 4.0, read_sigma: float = 0.0,
@@ -121,6 +129,18 @@ def wbs_dense(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
     y = wbs_matmul(sign, code, w, gains, adc_bits, adc_range,
                    read_sigma=read_sigma, read_key=read_key)
     return y.reshape(*lead, w.shape[-1])
+
+
+def device_vmm(x: torch.Tensor, w: torch.Tensor, backend="wbs",
+               key: Optional[np.ndarray] = None, **backend_kwargs
+               ) -> torch.Tensor:
+    """Registry-dispatched VMM: x @ w through a registered device backend
+    ("ideal" | "wbs" | "analog" | any registration). ``backend`` is a
+    name or a DeviceBackend instance; extra keyword arguments (``spec``,
+    ``spec_overrides``, …) go to ``get_backend``. Activity lands on the
+    backend's telemetry when it is enabled."""
+    from repro_torch.backends import get_backend
+    return get_backend(backend, **backend_kwargs).device_vmm(x, w, key)
 
 
 def wbs_input_drive(x_seq: torch.Tensor, w_h: torch.Tensor, n_bits: int,

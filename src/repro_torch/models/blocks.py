@@ -20,9 +20,17 @@ Decode writes the caches in place, the KV caches and the SSM states
 alike, in the rows ``write_rows`` (None: every row, the reference's
 behaviour).
 
+The ``miru`` mixer (``cfg.mixer == "miru"``, the paper's cell as a
+sequence mixer) runs in the forward only, as in the reference, whose
+decode has no miru branch. With ``cfg.quant_mode != "none"`` every
+projection runs on that device substrate (``layers.dense``) and the
+miru mixer's recurrence through the substrate's ``device_recurrence``;
+each layer meters on the shared instance's telemetry as it runs, which
+is what the reference's scanned stack reaches by scaling one traced
+layer's counts by the layer count.
+
 Not ported yet, each raising with its ROADMAP item (queue A, LM zoo):
-MLA, cross-attention (encoder-decoder), the modality frontends, the
-``miru`` mixer and ``quant_mode != "none"``.
+MLA, cross-attention (encoder-decoder) and the modality frontends.
 """
 from __future__ import annotations
 
@@ -31,12 +39,16 @@ from typing import Any, Optional, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
+from repro_torch.backends.registry import inference_backend
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.miru import MiRUConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (pos_index, rms_norm, rope_angles,
-                                      swiglu)
+from repro_torch.models.layers import (dense, pos_index, rms_norm,
+                                      rope_angles, swiglu)
 from repro_torch.utils import (Seed, split_seed, tree_leaves,
                                truncated_normal_init as tn)
 
@@ -50,15 +62,73 @@ def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
         ("encoder-decoder cross-attention (item 11b)",
          cross_attn or cfg.is_encoder_decoder),
         ("modality frontends (items 11b, 11c)", cfg.frontend != "none"),
-        ("the miru mixer (item 11d)", cfg.mixer == "miru"),
-        (f"quant_mode={cfg.quant_mode!r} (item 11e)",
-         cfg.quant_mode != "none"),
     ) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
             "queue A, LM zoo); the port runs the dense, moe, ssm and "
             "hybrid families")
+
+
+def require_decodable(cfg: ModelConfig) -> None:
+    """Raise for a model the port cannot decode: one not ported yet
+    (:func:`require_ported`), or one with the miru mixer, which the
+    reference does not decode either (its ``stack_decode`` has no miru
+    branch and would run ``gqa_decode`` on the mixer's parameters)."""
+    require_ported(cfg)
+    if cfg.mixer == "miru":
+        raise NotImplementedError(
+            f"{cfg.name}: the miru mixer has no decode; the reference has "
+            "none either (its stack_decode has no miru branch), so the "
+            "port runs mixer='miru' in the forward and prefill only")
+
+
+# ---------------------------------------------------------------------------
+# MiRU mixer
+# ---------------------------------------------------------------------------
+
+def init_miru_mixer(key: Seed, cfg: ModelConfig,
+                    device: Union[str, torch.device] = "cuda") -> dict:
+    D = cfg.d_model
+    k1, k2, k3 = split_seed(key, 3)
+    return {"w_h": tn(k1, (D, D), D ** -0.5, cfg.dtype, device),
+            "u_h": tn(k2, (D, D), D ** -0.5, cfg.dtype, device),
+            "b_h": torch.zeros((D,), dtype=cfg.dtype, device=device),
+            "w_out": tn(k3, (D, D), D ** -0.5, cfg.dtype, device)}
+
+
+def miru_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MiRU recurrence (β 0.8, λ 0.5, h0 = 0) over the sequence of x
+    (B, S, D), then the ``w_out`` projection.
+
+    Float (``quant_mode == "none"``): the hoisted x @ w_h + b_h, then the
+    ideal fused scan (``kops.miru_scan``: the CUDA kernel on the card, at
+    H = D) in fp32; forward values only, as the reference's Pallas scan.
+    Quantized: the whole recurrence through the shared inference
+    backend's ``device_recurrence`` (on ``wbs`` without an ADC, the
+    per-step path: two crossbar products a step), on x / s with ``w_h``
+    pre-scaled by the absmax s, so that the drive stays in the crossbar's
+    [-1, 1] range (β·h is tanh-bounded and needs no rescale); the key is
+    pinned to ``PRNGKey(0)``, so a stochastic spec draws the reference's
+    fixed realisation."""
+    B, S, D = x.shape
+    if cfg.quant_mode != "none":
+        backend = inference_backend(cfg.quant_mode)
+        mcfg = MiRUConfig(n_x=D, n_h=D, n_y=2, beta=0.8, lam=0.5)
+        s = torch.clamp_min(torch.max(torch.abs(x)), 1e-6).to(torch.float32)
+        mp = {"w_h": p["w_h"].to(torch.float32) * s,
+              "u_h": p["u_h"].to(torch.float32),
+              "b_h": p["b_h"].to(torch.float32)}
+        h_all, _, _ = backend.device_recurrence(
+            mp, mcfg, x.to(torch.float32) / s, prng.PRNGKey(0))
+    else:
+        xw = (x.reshape(-1, D) @ p["w_h"].to(x.dtype)).reshape(B, S, D) \
+            + p["b_h"].to(x.dtype)
+        h0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+        h_all, _ = kops.miru_scan(xw.to(torch.float32),
+                                  p["u_h"].to(torch.float32), h0,
+                                  beta=0.8, lam=0.5)
+    return dense(h_all.to(x.dtype), p["w_out"], quant_mode=cfg.quant_mode)
 
 
 # ---------------------------------------------------------------------------
@@ -68,12 +138,17 @@ def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
 def init_ffn_params(key: Seed, cfg: ModelConfig, is_moe: bool = False,
                     device: Union[str, torch.device] = "cuda") -> dict:
     if is_moe:
-        return moe_mod.init_moe_params(key, cfg, device)
+        return init_moe(key, cfg, device)
     D, Fd = cfg.d_model, cfg.d_ff
     k1, k2, k3 = split_seed(key, 3)
     return {"w_gate": tn(k1, (D, Fd), D ** -0.5, cfg.dtype, device),
             "w_up": tn(k2, (D, Fd), D ** -0.5, cfg.dtype, device),
             "w_down": tn(k3, (Fd, D), Fd ** -0.5, cfg.dtype, device)}
+
+
+def init_moe(key: Seed, cfg: ModelConfig,
+             device: Union[str, torch.device] = "cuda") -> dict:
+    return moe_mod.init_moe_params(key, cfg, device)
 
 
 def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
@@ -82,9 +157,14 @@ def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
     require_ported(cfg, cross_attn)
     ks = split_seed(key, 4)
     D = cfg.d_model
+    if is_ssm:
+        mixer = ssm_mod.init_ssm_params(ks[0], cfg, device)
+    elif cfg.mixer == "miru":
+        mixer = init_miru_mixer(ks[0], cfg, device)
+    else:
+        mixer = attn.init_gqa_params(ks[0], cfg, device)
     p: dict = {"norm1": torch.ones((D,), dtype=cfg.dtype, device=device),
-               "mixer": ssm_mod.init_ssm_params(ks[0], cfg, device) if is_ssm
-               else attn.init_gqa_params(ks[0], cfg, device)}
+               "mixer": mixer}
     if cfg.d_ff > 0 or is_moe:
         p["norm2"] = torch.ones((D,), dtype=cfg.dtype, device=device)
         p["ffn"] = init_ffn_params(ks[2], cfg, is_moe, device)
@@ -111,8 +191,12 @@ def layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   ) -> torch.Tensor:
     require_ported(cfg, cross_attn=memory is not None)
     h = rms_norm(x, p["norm1"], cfg.rmsnorm_eps)
-    mixed = ssm_mod.mamba2_forward(p["mixer"], cfg, h) if is_ssm \
-        else attn.gqa_attention(p["mixer"], cfg, h, positions, causal)
+    if is_ssm:
+        mixed = ssm_mod.mamba2_forward(p["mixer"], cfg, h)
+    elif cfg.mixer == "miru":
+        mixed = miru_mixer(p["mixer"], cfg, h)
+    else:
+        mixed = attn.gqa_attention(p["mixer"], cfg, h, positions, causal)
     return _ffn(p, cfg, x + mixed.to(x.dtype))
 
 
@@ -195,7 +279,7 @@ def stack_decode(stacked: PyTree, caches: PyTree, cfg: ModelConfig,
     """One-token decode through the stack; caches are stacked (L, …) and
     written in place (``write_rows`` as in ``attention.cache_insert`` and
     ``ssm.mamba2_decode``)."""
-    require_ported(cfg)
+    require_decodable(cfg)
     angles = None if is_ssm else _angles(cfg, x, pos)
     for i in range(n_stacked(stacked)):
         lp = layer_slice(stacked, i)
@@ -271,7 +355,7 @@ def hybrid_decode(stacked: PyTree, caches: dict, cfg: ModelConfig,
                   ) -> tuple[torch.Tensor, dict]:
     """One-token decode through the superblocks, the caches written in
     place in the rows ``write_rows``."""
-    require_ported(cfg)
+    require_decodable(cfg)
     angles = _angles(cfg, x, pos)
     for i in range(n_stacked(stacked)):
         sb = layer_slice(stacked, i)

@@ -1,10 +1,11 @@
 """Primitive layers shared by every architecture — counterpart of
 ``repro/models/layers.py``.
 
-``dense`` runs at ``quant_mode="none"`` only: a projection on a device
-substrate (the reference resolves any other mode through its backend
-registry) waits for the LM-on-substrate item (ROADMAP queue A) and
-raises here.
+``dense`` with a ``quant_mode`` other than ``"none"`` runs the
+projection on a device substrate: the registered backend of that name,
+through its shared inference instance (``backends.inference_backend``).
+On ``"wbs"`` that is one launch of the bit-plane crossbar kernel
+(``kernels/ops.wbs_dense``) a projection on the card.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.backends.registry import inference_backend
 from repro_torch.utils import Seed, truncated_normal_init
 
 
@@ -26,19 +28,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ).to(x.dtype)
 
 
-def require_unquantized(quant_mode: str) -> None:
-    if quant_mode != "none":
-        raise NotImplementedError(
-            f"quant_mode={quant_mode!r}: LM projections on a device "
-            "substrate are not ported yet (ROADMAP queue A, LM on a "
-            "substrate); use quant_mode='none'")
-
-
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           quant_mode: str = "none") -> torch.Tensor:
-    """Linear layer x @ w (+ b) in x's dtype."""
-    require_unquantized(quant_mode)
-    y = x @ w.to(x.dtype)
+    """Linear layer x @ w (+ b) in x's dtype. Any ``quant_mode`` other
+    than ``"none"`` names a registered device backend: the activations
+    are normalised into the crossbar's [-1, 1] drive range by their
+    absmax ``s`` over the whole tensor (every row shares it), streamed
+    through the backend's ``device_vmm`` in fp32 (tag ``"dense"``,
+    metered on the shared instance's telemetry when it is on) and scaled
+    back by ``s``. No PRNG key is threaded: reads are the deterministic
+    expectation. Under autograd the product's gradient is the
+    straight-through one of the backend (``backends/wbs.ste_matmul``),
+    and ``s`` is differentiated as autograd takes it."""
+    if quant_mode != "none":
+        backend = inference_backend(quant_mode)
+        s = torch.clamp_min(torch.max(torch.abs(x)), 1e-6)
+        y = backend.device_vmm((x / s).to(torch.float32),
+                               w.to(torch.float32), tag="dense") * s
+        y = y.to(x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

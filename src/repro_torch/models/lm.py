@@ -8,9 +8,13 @@ RMSNorm and a tied or separate LM head. The stack is GQA + SwiGLU
 mamba2 SSD mixer with no FFN (ssm) or jamba's superblocks (hybrid). The
 prefill's attention takes the flash-attention kernel when the prompt is
 longer than ``cfg.attn_chunk``; decode reads a bf16 or int8 KV cache
-through full attention and steps the SSM state. MLA, encoder-decoder
-models, modality frontends, the ``miru`` mixer and
-``quant_mode != "none"`` raise with their ROADMAP item.
+through full attention and steps the SSM state. With
+``cfg.quant_mode`` naming a device backend every projection but the
+router and a tied head runs on that substrate (``layers.dense``); with
+``cfg.mixer == "miru"`` the layers' mixer is the MiRU recurrence
+(``blocks.miru_mixer``), which has no decode, as in the reference. MLA,
+encoder-decoder models and modality frontends raise with their ROADMAP
+item.
 
 Parameters are a dict of tensors with the reference's tree (layers
 stacked along a leading L axis, superblocks along theirs);
@@ -141,8 +145,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     in ``cfg.kv_cache_dtype`` (bf16, or int8 with its scales), the SSM
     states (L, batch, …) of an ssm model, each superblock slot's of a
     hybrid one, and ``{"dense", "moe"}`` where an MoE model has
-    ``first_dense_layers``."""
-    blocks.require_ported(cfg)
+    ``first_dense_layers``. A ``mixer="miru"`` model has no decode
+    (:func:`blocks.require_decodable`)."""
+    blocks.require_decodable(cfg)
     dev = resolve_device(device)
     if cfg.layer_pattern == "hybrid":
         return blocks.init_hybrid_caches(cfg, batch, max_len, dev)
@@ -181,7 +186,7 @@ def decode_step(p: dict, cfg: ModelConfig, caches: PyTree,
     reference's behaviour). With a tensor ``pos`` and a mask the step
     reads nothing back to the host and can be captured in a CUDA graph.
     Returns (logits (B, 1, V), caches)."""
-    blocks.require_ported(cfg)
+    blocks.require_decodable(cfg)
     with torch.no_grad():
         x = _embed_tokens(p, tokens)
         if cfg.layer_pattern == "hybrid":

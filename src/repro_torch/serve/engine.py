@@ -28,18 +28,35 @@ contract: every decode routes all B rows through ``moe_ffn``, idle rows
 8 slots: 2), earlier rows first. So which other requests share a decode
 can change a request's tokens; only slot 0 is never dropped.
 
+A quantized model (``ServeConfig.device``, or a ``cfg.quant_mode`` that
+names a device backend) keeps the reference's semantics too and does not
+hold that contract either: every projection normalises its input by one
+absmax over all B rows, idle rows included (``layers.dense``), so the
+other rows of a decode move a request's quantization and can change its
+tokens. One request in slot 0 of an otherwise idle engine decodes the
+reference engine's tokens.
+
 On the card the decode step is captured once as a CUDA graph (at the
 engine's first decode) and replayed for every call with the tokens, the
 position and the row mask copied into its input buffers: the same
 kernels on the same inputs as the eager step, without its host cost a
 launch. The CPU runs the step eagerly.
 
+The execution substrate resolves through ``repro_torch.backends``:
+``ServeConfig.device`` (a registered backend name) overrides the model's
+``quant_mode``, and either way the engine holds the name's shared
+inference instance (``backends.inference_backend``), validated at
+construction; ``ServeConfig.meter`` turns on its telemetry. The eager
+step meters as it runs; a replayed graph runs no host code, so the
+engine records one decode call's counts at the capture (they depend on
+the shapes alone), meters neither the capture nor its warm-up run, and
+adds those counts on every replay: the reference's one flush per
+compiled execution.
+
 The engine runs on ``torch_device`` ("cuda" unless the caller asks for
 the CPU). A :class:`repro_torch.obs.Tracer` (``tracer=``) gets a
 ``serve.step`` span per engine step and a ``serve.prefill`` span per
-admitted prompt. Not ported yet, each raising with its ROADMAP item: a
-device substrate (``device=``, ``meter=``, the ``energy`` block of
-:meth:`ServeEngine.request_stats`).
+admitted prompt.
 """
 from __future__ import annotations
 
@@ -53,9 +70,12 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.analog.costmodel import DenseCostModel
+from repro_torch.backends import DeviceBackend, inference_backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.obs import Histogram
+from repro_torch.telemetry.energy import MeteredEnergy
 from repro_torch.utils import resolve_device, tree_to
 
 
@@ -67,10 +87,15 @@ class ServeConfig:
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
-    #: A device substrate for the projections (a backend name); not ported
-    #: yet (ROADMAP queue A, LM on a substrate): anything but None raises.
-    device: Any = None
-    #: Telemetry on the substrate; not ported yet (raises if True).
+    #: The device substrate of the quantized projections: a registry
+    #: *name* (``repro_torch.backends``); None keeps the model config's
+    #: ``quant_mode``. The layers resolve one shared inference instance a
+    #: name, so a built :class:`DeviceBackend` cannot be honoured and
+    #: raises: register a configured backend under its own name instead.
+    device: Union[str, DeviceBackend, None] = None
+    #: Turn on the substrate's telemetry. Counters accumulate on the
+    #: process-wide shared instance of the name: engines serving one name
+    #: share one accumulator; use distinct names to meter apart.
     meter: bool = False
     #: A :class:`repro_torch.obs.Tracer`: a ``serve.step`` span per engine
     #: step (entering ``torch.profiler.record_function``) and a
@@ -110,12 +135,29 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: dict):
-        for name, unported in (("device", scfg.device is not None),
-                               ("meter", scfg.meter)):
-            if unported:
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is not ported yet (ROADMAP queue "
-                    f"A, LM on a substrate)")
+        # The substrate resolves here: an unknown name fails at
+        # construction, not mid-decode.
+        if scfg.device is not None:
+            if isinstance(scfg.device, DeviceBackend):
+                raise TypeError(
+                    "ServeConfig.device takes a registry name, not a "
+                    "DeviceBackend instance: the model layers resolve a "
+                    "shared per-name inference instance, so a built "
+                    "instance's spec would be silently ignored. Register "
+                    "the configured backend (register_backend) and pass "
+                    "its name.")
+            self.backend: Optional[DeviceBackend] = \
+                inference_backend(scfg.device)
+            cfg = dataclasses.replace(cfg, quant_mode=scfg.device)
+        elif cfg.quant_mode != "none":
+            self.backend = inference_backend(cfg.quant_mode)
+        else:
+            self.backend = None
+        if scfg.meter:
+            if self.backend is None:
+                raise ValueError("ServeConfig.meter requires a quantized "
+                                 "substrate (device= or quant_mode)")
+            self.backend.telemetry.enable()
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(scfg.torch_device)
@@ -130,6 +172,8 @@ class ServeEngine:
         self._rows = torch.zeros((B,), dtype=torch.bool, device=self.device)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._logits: Optional[torch.Tensor] = None
+        # One decode call's telemetry counts, recorded at the capture.
+        self._graph_counts: dict = {}
         self.slot_req: list[Optional[Request]] = [None] * scfg.batch_slots
         self.slot_pos = np.zeros(scfg.batch_slots, dtype=np.int64)
         self.queue: deque[Request] = deque()
@@ -144,6 +188,11 @@ class ServeEngine:
         self._finished: list[Request] = []
         self._t_first_submit: Optional[float] = None
         self._t_last_done: Optional[float] = None
+
+    @property
+    def telemetry(self):
+        """The substrate's activity accumulator (None when unquantized)."""
+        return self.backend.telemetry if self.backend is not None else None
 
     # ------------------------------------------------------------------
     def submit(self, prompt: list[int], max_new: int = 32) -> Request:
@@ -179,16 +228,21 @@ class ServeEngine:
         """Capture the decode step in a CUDA graph, after one eager run on
         a side stream (which builds what the step caches: the rope
         frequencies, the int8 cache's draws). Both write no row: the
-        capture runs with an empty row mask."""
+        capture runs with an empty row mask. Neither is metered: the
+        capture's counts, one decode call's, are kept for the replays."""
+        tele = self.telemetry
+        metering = tele.diverted if tele is not None \
+            else contextlib.nullcontext
         self._rows.zero_()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), metering():
             self._decode_inputs()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
+        with torch.cuda.graph(self._graph), metering() as counts:
             self._logits = self._decode_inputs()
+        self._graph_counts = dict(counts or {})
 
     def _decode(self, tokens: dict[int, int], pos: int) -> torch.Tensor:
         """One decode at ``pos`` of the slots in ``tokens`` ({slot: token};
@@ -210,6 +264,8 @@ class ServeEngine:
         self._rows.copy_(torch.from_numpy(mask))
         if self._graph is not None:
             self._graph.replay()
+            if self.telemetry is not None:
+                self.telemetry.record(self._graph_counts)
             logits = self._logits
         else:
             logits = self._decode_inputs()
@@ -313,13 +369,18 @@ class ServeEngine:
         ``requests``, ``timed_out``, ``steps_run``, ``decode_calls``,
         ``latency_ms`` / ``queue_wait_ms`` / ``decode_ms`` summaries and,
         once a request finished, ``sequences_per_s``, ``tokens_per_s``
-        and ``tokens_generated`` over first submit → last done. The
-        metered ``energy`` block needs a substrate (not ported yet):
-        ``model`` raises."""
-        if model is not None:
-            raise NotImplementedError(
-                "the metered energy block needs an LM on a substrate, not "
-                "ported yet (ROADMAP queue A, LM on a substrate)")
+        and ``tokens_generated`` over first submit → last done.
+
+        On a metered substrate, adds ``energy``: the run's metered joules
+        (``total_j``) and a pJ/request distribution (``pj_per_request``),
+        each finished request charged its share of the total by its
+        decode dispatches (prefill + generated tokens). ``model`` picks
+        the energy model: None is the served architecture's
+        :class:`~repro_torch.analog.costmodel.DenseCostModel` (adding
+        ``power_mw``, ``gops_per_w`` and ``pj_per_op``); an
+        :class:`~repro_torch.analog.costmodel.M2RUCostModel` charges the
+        M2RU chip's geometry, or its per-op energy where the LM's meter
+        tags do not map onto it."""
         out: dict[str, Any] = {
             "requests": len(self._finished),
             "timed_out": self.timed_out,
@@ -336,4 +397,42 @@ class ServeEngine:
                 if span > 0 else float("inf")
             out["tokens_per_s"] = n_tok / span if span > 0 else float("inf")
             out["tokens_generated"] = n_tok
+        tele = self.telemetry
+        if tele is not None and tele.enabled and self._finished:
+            energy = self._energy(tele.snapshot(), model)
+            if energy is not None:
+                out["energy"] = energy
         return out
+
+    def _energy(self, counters: dict, model: Optional[Any]
+                ) -> Optional[dict]:
+        """The ``energy`` block of :meth:`request_stats` from the
+        substrate's counters, as the reference computes it; None when
+        nothing was charged."""
+        kind = "cmos" if self.cfg.quant_mode == "cmos" else "analog"
+        en = MeteredEnergy() if model is None else MeteredEnergy(model)
+        extra: dict[str, Any] = {}
+        if model is None or isinstance(model, DenseCostModel):
+            dm = model if model is not None \
+                else DenseCostModel.from_model_config(self.cfg)
+            rep = en.dense_report(counters, dm)
+            total_j = rep.energy_j
+            extra = {"power_mw": rep.power_w * 1e3,
+                     "gops_per_w": rep.gops_per_w,
+                     "pj_per_op": rep.pj_per_op}
+        else:
+            try:
+                total_j = en.report(counters, kind=kind).energy_j
+            except ValueError:
+                # The LM's meter tags do not map onto the M2RU chip's
+                # cycle model: charge the metered ops at its per-op energy.
+                pj_op = model.digital_pj_per_op() if kind == "cmos" \
+                    else model.pj_per_op()
+                total_j = en.ops(counters) * pj_op * 1e-12
+        total_steps = sum(r.steps for r in self._finished)
+        if total_j <= 0 or total_steps <= 0:
+            return None
+        pj = Histogram()
+        for r in self._finished:
+            pj.add(total_j * r.steps / total_steps * 1e12)
+        return {"total_j": total_j, "pj_per_request": pj.summary(), **extra}

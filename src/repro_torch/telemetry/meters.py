@@ -93,6 +93,21 @@ class Telemetry:
         finally:
             self._scale = prev
 
+    @contextlib.contextmanager
+    def diverted(self):
+        """Count what is metered inside the scope into a Counter of its
+        own, yielded, as if the telemetry were on and unscaled; the
+        accumulator's counters, switch and scale are left as they were.
+        For work the host runs once and the device then replays without
+        it (a CUDA graph): its static deltas are recorded here at the
+        capture and added with :meth:`record` on every replay."""
+        saved = self.counters, self.enabled, self._scale
+        self.counters, self.enabled, self._scale = Counter(), True, 1
+        try:
+            yield self.counters
+        finally:
+            self.counters, self.enabled, self._scale = saved
+
     def record(self, deltas: Mapping[str, int]) -> None:
         """Count static deltas now, times the active ``scaled`` scopes."""
         if not self.enabled:

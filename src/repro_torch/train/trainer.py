@@ -6,7 +6,9 @@ One device: the parameters, the optimizer state and each batch live on
 each batch there, so the batcher needs no ``device`` of its own. A step takes
 ``torch.autograd.grad`` of ``lm.loss_fn`` — through the flash kernels on
 the flash branch, each layer recomputed in the backward under
-``cfg.remat`` — and applies ``optim.adamw(warmup_cosine(...))``, with ζ
+``cfg.remat``; on a quantized model (``cfg.quant_mode``) through the
+substrate's straight-through products — and applies
+``optim.adamw(warmup_cosine(...))``, with ζ
 sparsification and top-k compression as the reference offers them. The
 step is functional, as the reference's jitted step: new parameter and
 state trees replace the old ones (no in-place updates).
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch import optim as optim_mod
 from repro_torch import prng
+from repro_torch.backends import get_backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import ShardedBatcher
 from repro_torch.models import lm
@@ -54,11 +57,11 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  batcher: ShardedBatcher, params: Optional[PyTree] = None,
                  device: Union[str, torch.device] = "cuda"):
+        # The quantized mode resolves through the backend registry up
+        # front: an unknown name fails here, not in the first step
+        # (models/layers.dense builds the shared inference instance).
         if cfg.quant_mode != "none":
-            raise NotImplementedError(
-                f"quant_mode={cfg.quant_mode!r}: an LM on a device "
-                "substrate is not ported yet (ROADMAP queue A, the rest of "
-                "the LM zoo)")
+            get_backend(cfg.quant_mode)
         self.cfg = cfg
         self.tcfg = tcfg
         self.batcher = batcher

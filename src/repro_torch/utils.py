@@ -136,6 +136,38 @@ def tree_size(tree) -> int:
     return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
 
 
+def tree_bytes(tree) -> int:
+    """Total bytes across the leaves."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """√(Σ over the leaves of Σ x²), each leaf squared in fp32."""
+    return torch.sqrt(torch.sum(torch.stack(
+        [torch.sum(torch.square(x.to(torch.float32)))
+         for x in tree_leaves(tree)])))
+
+
+def tree_cast(tree, dtype: torch.dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def count_params(params) -> int:
+    return tree_size(params)
+
+
 def flatten_dict(d: Mapping[str, Any], prefix: str = "",
                  sep: str = "/") -> dict[str, Any]:
     """Flatten a nested dict-of-dicts of arrays into {path: array}."""
@@ -160,6 +192,14 @@ def unflatten_dict(flat: Mapping[str, Any], sep: str = "/"
             cur = cur.setdefault(k, {})
         cur[keys[-1]] = v
     return out
+
+
+def onehot(labels: torch.Tensor, num_classes: int,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., num_classes) one-hot rows of integer ``labels``; a label
+    outside [0, num_classes) gives a row of zeros, as ``jax.nn.one_hot``."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels[..., None] == classes).to(dtype)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

@@ -1217,3 +1217,99 @@ def test_mamba2_engine_batch_composition_on_the_card(cuda):
     burst = serve(prompts)
     for i in (0, 4, 7):
         assert serve([prompts[i]]) == [burst[i]]
+
+
+def _metered_engine(dev, cfg, params, name, **kw):
+    from repro_torch.serve import ServeConfig, ServeEngine
+    return ServeEngine(cfg, ServeConfig(batch_slots=3, max_len=32,
+                                        eos_token=-1, torch_device=dev,
+                                        device=name, meter=True, **kw),
+                       params)
+
+
+def test_metered_graph_engine_counts_as_the_eager_engine(cuda):
+    """A quantized engine's decode as a CUDA graph: the capture (and its
+    warm-up run) meters nothing, each replay adds one call's counts, and
+    the burst's counters equal the CPU's eager engine's on the same
+    traffic, and the hand count (7 quantized projections a layer, 3
+    rows each, a decode call). Its tokens follow the CPU's, tie-aware at
+    1e-2: the products are bitwise, but a last-bit difference elsewhere
+    can flip an input code, and one flipped code moves these logits (up
+    to 0.45) by up to 2.6e-3 (measured on the CPU)."""
+    from repro_torch.backends import register_backend, unregister_backend
+    from repro_torch.backends.wbs import WBSBackend
+    name = "wbs_graph_meter_test"
+    cfg, params = _lm("cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, rng.integers(2, 10)).tolist()
+               for _ in range(6)]
+    register_backend(name, WBSBackend)
+    try:
+        eng = _metered_engine(cuda, cfg, params, name)
+        eng.telemetry.reset()
+        eng._capture()
+        assert eng.telemetry.snapshot() == {}
+        D, Fd, hd = cfg.d_model, cfg.d_ff, cfg.hd()
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        macs = 3 * cfg.n_layers * (D * q + 2 * D * kv + q * D + 3 * D * Fd)
+        assert eng._graph_counts["macs/dense"] == macs
+        runs, counts = {}, {}
+        for dev in (cuda, torch.device("cpu")):
+            eng = _metered_engine(dev, cfg, params, name, keep_logits=True)
+            eng.telemetry.reset()
+            reqs = [eng.submit(p, max_new=6) for p in prompts]
+            eng.run_until_drained()
+            runs[dev.type], counts[dev.type] = reqs, eng.telemetry.snapshot()
+            assert counts[dev.type]["macs/dense"] == eng.decode_calls * macs
+        assert counts["cuda"] == counts["cpu"]
+        testing.compare_tokens([r.tokens for r in runs["cuda"]],
+                               [r.tokens for r in runs["cpu"]],
+                               [r.logits for r in runs["cuda"]],
+                               [r.logits for r in runs["cpu"]], atol=1e-2)
+    finally:
+        unregister_backend(name)
+
+
+@pytest.mark.parametrize("name,extra", [("qwen2-0.5b", 0),
+                                        ("internlm2-1.8b", 1)])
+def test_quantized_prefill_launches_the_crossbar_kernel_a_projection(
+        cuda, name, extra):
+    """Every quantized projection one ``wbs_matmul`` launch: seven a
+    layer, plus the head where it is untied (internlm2); the logits
+    follow the CPU's within a few flipped input codes' moves (one moves
+    smoke logits by up to 2.6e-3)."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg, params = _lm(cuda, name, quant_mode="wbs")
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    before = kmatmul.launches
+    logits = lm.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kmatmul.launches == before + 7 * cfg.n_layers + extra
+    cpu = lm.prefill(tree_to(params, "cpu"), cfg, {"tokens": toks})
+    np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(), rtol=0,
+                               atol=1e-2)
+
+
+def test_miru_mixer_launches_its_kernels(cuda):
+    """The float miru mixer: one ``miru_scan`` launch a layer at H =
+    d_model; the quantized one: two ``wbs_matmul`` a step and four more a
+    layer (w_out, the SwiGLU three)."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    for quant, S in (("none", 9), ("wbs", 5)):
+        cfg, params = _lm(cuda, mixer="miru", quant_mode=quant)
+        toks = torch.randint(0, cfg.vocab, (1, S),
+                             generator=torch.Generator().manual_seed(2))
+        before = (kmiru.launches, kmatmul.launches)
+        logits = lm.prefill(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        want = (cfg.n_layers, 0) if quant == "none" \
+            else (0, cfg.n_layers * (2 * S + 4))
+        assert (kmiru.launches - before[0],
+                kmatmul.launches - before[1]) == want
+        cpu = lm.prefill(tree_to(params, "cpu"), cfg, {"tokens": toks})
+        np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(),
+                                   rtol=0, atol=1e-4 if quant == "none"
+                                   else 1e-2)

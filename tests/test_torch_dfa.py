@@ -23,8 +23,9 @@ from repro.kernels import ops as jops  # noqa: E402
 
 # repro.core re-exports the function ``kwta`` under the module's name.
 jkwta = importlib.import_module("repro.core.kwta")
+kwta = importlib.import_module("repro_torch.core.kwta")
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.core import dfa, kwta, miru  # noqa: E402
+from repro_torch.core import dfa, miru  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 RTOL, ATOL = 2e-5, 1e-6

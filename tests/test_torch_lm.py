@@ -297,19 +297,35 @@ def test_unported_families_raise(name):
 
 
 def test_unported_options_raise():
+    """MLA, encoder-decoder models and the modality frontends still raise,
+    each naming its ROADMAP item; ``quant_mode``, the int8 cache and the
+    ``miru`` mixer run (against the reference in
+    ``tests/test_torch_lm_quant.py``), the mixer without a decode, as in
+    the reference."""
     cfg = configs.get_smoke_config("qwen2-0.5b")
+    for bad, item in ((dataclasses.replace(cfg, use_mla=True), "11a"),
+                      (dataclasses.replace(cfg, is_encoder_decoder=True),
+                       "11b"),
+                      (dataclasses.replace(cfg, frontend="vision"), "11c")):
+        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
+            lm.init_params(prng.PRNGKey(0), bad, "cpu")
     tp = lm.init_params(prng.PRNGKey(0), cfg, "cpu")
     toks = {"tokens": torch.zeros(1, 4, dtype=torch.int64)}
-    for bad in (dataclasses.replace(cfg, quant_mode="wbs"),
-                dataclasses.replace(cfg, mixer="miru")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.forward(tp, bad, toks)
+    assert torch.isfinite(lm.forward(
+        tp, dataclasses.replace(cfg, quant_mode="wbs"), toks)).all()
+    miru = dataclasses.replace(cfg, mixer="miru")
+    mp = lm.init_params(prng.PRNGKey(0), miru, "cpu")
+    assert torch.isfinite(lm.forward(mp, miru, toks)).all()
+    with pytest.raises(NotImplementedError, match="no decode"):
+        lm.init_cache(miru, 1, 4, "cpu")
     int8 = lm.init_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"),
                          1, 4, "cpu")
     assert int8["k"].dtype == torch.int8 and "k_scale" in int8
     assert attn.CacheSpec(1, 4, "int8").dtype == "int8"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.dense(torch.zeros(1, 2), torch.zeros(2, 2), quant_mode="wbs")
+    y = layers.dense(torch.ones(1, 2), torch.eye(2), quant_mode="wbs")
+    assert torch.allclose(y, torch.ones(1, 2))
+    with pytest.raises(ValueError, match="unknown device backend"):
+        layers.dense(torch.zeros(1, 2), torch.zeros(2, 2), quant_mode="nope")
     assert attn.CacheSpec(1, 4).dtype == "bf16"
 
 

@@ -147,13 +147,23 @@ def test_deadline_drops_stale_requests(model):
 
 
 def test_unported_options_raise(model):
+    """The substrate options run (against the reference in
+    ``tests/test_torch_lm_quant.py``); what still raises is the
+    reference's refusals: a built backend for ``device``, an unknown
+    name, ``meter`` without a substrate. An unmetered engine has no
+    energy block, whatever ``model``."""
     _, _, cfg, tp = model
-    for kw in ({"device": "wbs"}, {"meter": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    eng = ServeEngine(cfg, ServeConfig(torch_device="cpu", device="wbs",
+                                       meter=True), tp)
+    assert eng.cfg.quant_mode == "wbs" and eng.telemetry.enabled
+    eng.telemetry.disable()
+    for kw, err in (({"device": eng.backend}, TypeError),
+                    ({"device": "nope"}, ValueError),
+                    ({"meter": True}, ValueError)):
+        with pytest.raises(err):
             ServeEngine(cfg, ServeConfig(torch_device="cpu", **kw), tp)
     eng = ServeEngine(cfg, ServeConfig(torch_device="cpu"), tp)
-    with pytest.raises(NotImplementedError, match="substrate"):
-        eng.request_stats(model=object())
+    assert "energy" not in eng.request_stats(model=object())
 
 
 def test_the_engine_asks_for_the_card_by_default(model, monkeypatch):

@@ -4,6 +4,8 @@ Inputs are made once with numpy and handed to both packages. Integer
 quantities (sign-magnitude codes, bit planes, ADC codes, k-WTA masks)
 must match exactly; float tensors at fp32 tolerance.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,10 +24,14 @@ from repro.telemetry.meters import Telemetry as JTelemetry  # noqa: E402
 from repro_torch import testing  # noqa: E402
 from repro_torch.analog import adc, wbs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.core import kwta, miru  # noqa: E402
+from repro_torch.core import miru  # noqa: E402
 from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 from repro_torch.utils import ceil_div, glorot_uniform, round_up  # noqa: E402
+
+# repro_torch.core exports the function kwta over its module's name, as
+# repro.core does.
+kwta = importlib.import_module("repro_torch.core.kwta")
 
 RTOL = ATOL = 2e-5
 

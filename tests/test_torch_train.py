@@ -353,8 +353,16 @@ def test_kwta_and_compression_in_trainer(tmp_path):
 
 
 def test_quantized_models_are_not_ported():
+    """A quantized model trains (against the reference in
+    ``tests/test_torch_lm_quant.py``); its mode is validated by name
+    when the Trainer is built, as in the reference."""
     cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
                               quant_mode="wbs")
-    with pytest.raises(NotImplementedError, match="LM zoo"):
-        Trainer(cfg, TrainConfig(), ShardedBatcher(lambda r, s: {}),
-                device="cpu")
+    t = Trainer(cfg, _tcfg(TrainConfig, steps=2), ShardedBatcher(
+        lambda rng, s: lm_token_batch(rng, 2, 8, cfg.vocab)), device="cpu")
+    hist = t.run(steps=2)
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
+    with pytest.raises(ValueError, match="unknown device backend"):
+        Trainer(dataclasses.replace(cfg, quant_mode="nope"), TrainConfig(),
+                ShardedBatcher(lambda r, s: {}), device="cpu")
