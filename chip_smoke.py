@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
 substrates, the Table I metering and the LM zoo's serving and training
-paths (dense, MoE, SSM, hybrid) on one NVIDIA GPU, and check them.
+paths (dense, MoE, SSM, hybrid, MLA) on one NVIDIA GPU, and check them.
 
 Run from the repository root with no arguments:
 
@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: the eleven CUDA libraries compiled by nvcc for sm_90a from
+2. build: the twelve CUDA libraries compiled by nvcc for sm_90a from
    ``src/repro_torch/kernels/csrc/``, one nvcc each, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: bitwise for the recurrences, the readout, the
@@ -231,6 +231,26 @@ lm_quant. the LM zoo on the paper's crossbar (``quant_mode="wbs"``):
    ``wbs_matmul``, 4 fp32 flash forwards, 2 dq and 2 dk/dv) against the
    CPU's step (``LMQ_TRAIN_LOSS_RTOL``, ``LMQ_TRAIN_GNORM_RTOL``); the
    phase's seconds;
+lm_mla. MLA and deepseek-v3 with 8-bit Adam: (i) the (192, 128) flash
+   kernels (the bf16 tensor-core forward, dq and dk/dv, and the fp32
+   route's) against their plain versions at B·H 16, Sq = Sk = 2,048,
+   causal and not, and causal with sk_true 1,900 (the flash checks'
+   bounds, each kernel launched once a call, the backward twice bit for
+   bit); (ii) deepseek-v3-671b at its published widths in bf16, depth cut
+   to 2 layers (1 dense, 1 MoE: 13.94 B parameters drawn on the card): a
+   1 × 2,048 prefill with one launch of the bf16 (192, 128) forward a
+   layer and no other kernel, two runs bit for bit, its busy share; (iii)
+   an 8-slot ``ServeEngine`` at max_len 4,096 on the burst's first 16
+   prompts, 32 new tokens each (decode one CUDA graph a call): ms a
+   decode call, the latent cache's bytes beside a per-head bf16 KV
+   cache's; a decode stepping half the slots leaves every latent row of
+   the others the same bits; (iv) one ``adam_8bit`` step of one dense MLA
+   layer (2.44 B parameters) on 1 × 2,048 tokens: 2 forwards, 1 dq and 1
+   dk/dv of the bf16 (192, 128) kernels, the loss, ms, peak memory, the
+   moments int8; (v) the fp32 twins (``MLA_TWIN_CUT``, 256 tokens,
+   chunk 200: the fp32 (192, 128) kernels) against the CPU's: the
+   routing and the prefill's logits (``LM_PREFILL_ATOL``), one step's
+   loss, grad norm and every gradient; the phase's seconds;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -249,7 +269,11 @@ lm_quant. the LM zoo on the paper's crossbar (``quant_mode="wbs"``):
    forward, dq and dk/dv on fp32 inputs beside
    ``scaled_dot_product_attention`` on the same fp32 inputs (TF32 off);
    the WBS product also at the quantized LM's decode and prefill shapes
-   (``lm_shapes``) beside ``torch.matmul`` of the float product.
+   (``lm_shapes``) beside ``torch.matmul`` of the float product; the
+   (192, 128) flash kernels of each dtype at the deepseek prefill's shape
+   (1 × 2,048, 128 heads, causal) beside their plain versions and
+   ``scaled_dot_product_attention`` under the backend that takes
+   dh != dv, with bounds from each product's width.
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -510,6 +534,43 @@ LMQ_BUDGET_S = 150
 # The serve paths' traced window: the burst's first 8 prompts cut to
 # ZOO_TRACE_PROMPT tokens, ZOO_TRACE_NEW new tokens each.
 ZOO_TRACE_PROMPT, ZOO_TRACE_NEW = 2, 2
+# The lm_mla phase: deepseek-v3-671b (configs/deepseek_v3_671b.py CONFIG:
+# d 7,168, 128 heads of MLA (q_lora 1,536, kv_lora 512, nope 128, rope
+# 64, v 128: attention at (dh, dv) = (192, 128)), 256 routed experts top-8
+# plus 1 shared of d_ff 2,048, dense d_ff 18,432, vocab 129,280) at its
+# published widths in bf16, weights drawn on the card from seed 0, depth
+# cut to MLA_LAYERS with MLA_DENSE dense (13.94 B parameters, 27.9 GB; 61
+# layers, 671 B, fit no card). A 1 × MLA_PREFILL_S prefill (past the
+# 1,024 chunk: the bf16 (192, 128) flash forward once a layer); the
+# 8-slot engine at MLA_MAX_LEN on the burst's first MLA_REQUESTS prompts,
+# MLA_MAX_NEW new tokens each, its decode one CUDA graph a call; one
+# adam_8bit step at MLA_TRAIN_LAYERS (one dense MLA layer: 2.44 B
+# parameters; with the MoE layer, 13.94 B, bf16 params, grads and two
+# int8 moments would take 83.6 GB) on 1 × MLA_PREFILL_S tokens.
+MLA = "deepseek-v3-671b"
+MLA_LAYERS, MLA_DENSE, MLA_PREFILL_S = 2, 1, 2048
+MLA_MAX_LEN, MLA_REQUESTS, MLA_MAX_NEW = 4096, 16, 32
+MLA_TRAIN_LAYERS = 1
+# Its fp32 twins, on the card and on the CPU: the published head dims
+# (nope 128, rope 64, v 128: the fp32 (192, 128) flash kernels), the rest
+# cut (MLA_TWIN_CUT), weights drawn on the CPU from seed 1; MLA_TWIN_S
+# tokens with the attention chunk cut to MLA_TWIN_CHUNK so that they take
+# the flash branch. The prefill's logits within LM_PREFILL_ATOL (routing
+# by routing_agreement), one step's loss and grad norm within
+# LM_TRAIN_LOSS_RTOL / LM_TRAIN_GNORM_RTOL and each gradient tensor within
+# MLA_TWIN_GRAD_REL of its largest entry (a dropped scale or a mask
+# moves a tensor by O(1) of it).
+MLA_TWIN_CUT = dict(d_model=512, n_heads=4, n_kv_heads=4, q_lora_rank=128,
+                    kv_lora_rank=64, n_experts=8, top_k=2, moe_d_ff=256,
+                    d_ff=1024, vocab=1024, n_layers=2, first_dense_layers=1)
+MLA_TWIN_S, MLA_TWIN_CHUNK, MLA_TWIN_GRAD_REL = 256, 200, 1e-2
+# The (192, 128) kernels against their plain versions: B·H = 16 heads
+# (MLA's K/V are per head: rep 1), Sq = Sk = 2,048, causal and not, and
+# once with sk_true below Sk; timed at the deepseek prefill's shape (1 ×
+# 2,048, 128 heads).
+MLA_CHECK_H, MLA_CHECK_S, MLA_CHECK_SKT = 16, 2048, 1900
+MLA_TIME_H = 128
+MLA_BUDGET_S = 150
 # The scenarios phase: the paper's width (28×100×10) through the compiled
 # whole-sequence run (repro_torch.scenarios.run_compiled): SC_TASKS
 # permuted tasks of SC_TRAIN/SC_TEST examples, DFA, batch CL_BATCH,
@@ -1736,8 +1797,9 @@ def cpu_twin(kind: str) -> dict:
     ``scenarios:wbs`` (the scenarios phase's compiled run on ``wbs``),
     ``faults`` (the faults phase's clean run and its mitigation),
     ``fault_gate`` (fault_bench's gate at its own setup), ``fleet``
-    (the fleet phase's eight chips), ``zoo:<name>`` (the lm_zoo twins)
-    and ``lmq:<part>`` (the lm_quant twins).
+    (the fleet phase's eight chips), ``zoo:<name>`` (the lm_zoo twins),
+    ``lmq:<part>`` (the lm_quant twins) and ``mla:<part>`` (the lm_mla
+    twins).
     Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -1765,6 +1827,8 @@ def cpu_twin(kind: str) -> dict:
         return zoo_twin(kind[4:])
     if kind.startswith("lmq:"):
         return lmq_twin(kind[4:])
+    if kind.startswith("mla:"):
+        return mla_twin(kind[4:])
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -1805,7 +1869,7 @@ TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "loss_aware", "adam:ideal", "scenarios:wbs", "faults",
          "fault_gate", f"zoo:{ZOO_GRANITE}", f"zoo:{ZOO_MAMBA2}",
          f"zoo:{ZOO_JAMBA}", "lmq:train", "lmq:prefill", "lmq:miru",
-         "lmq:serve")
+         "lmq:serve", "mla:prefill", "mla:train")
 
 
 def start_twins():
@@ -4061,9 +4125,10 @@ def recorded_routing():
         moe.route, moe.dispatch = route, dispatch
 
 
-def zoo_prefill_logits(cfg, params, S: int = LM_TWIN_S, seed: int = 2):
-    """One seeded S-token prompt's prefill logits at LM_TWIN_ROWS (fp32,
-    on the CPU), and the routing of each MoE layer."""
+def zoo_prefill_logits(cfg, params, S: int = LM_TWIN_S, seed: int = 2,
+                       rows=LM_TWIN_ROWS):
+    """One seeded S-token prompt's prefill logits at ``rows`` (fp32, on
+    the CPU), and the routing of each MoE layer."""
     import numpy as np
     import torch
     from repro_torch.models import lm
@@ -4071,7 +4136,7 @@ def zoo_prefill_logits(cfg, params, S: int = LM_TWIN_S, seed: int = 2):
         0, cfg.vocab, (1, S)))
     with recorded_routing() as routes:
         logits = lm.prefill(params, cfg, {"tokens": toks})
-    return logits[0, list(LM_TWIN_ROWS)].to(torch.float32).cpu(), routes
+    return logits[0, list(rows)].to(torch.float32).cpu(), routes
 
 
 def zoo_train_twin_run(name: str, dev) -> dict:
@@ -4201,7 +4266,7 @@ def zoo_serve(cfg, params, dev, part: str) -> tuple:
     return reqs, launches
 
 
-def zoo_prefill(cfg, params, dev, part: str) -> dict:
+def zoo_prefill(cfg, params, dev, part: str, phase: str = "lm_zoo") -> dict:
     """One ZOO_PREFILL_S-token prompt through ``lm.prefill`` twice (the
     second timed, its launches counted; the two logits bit for bit equal:
     the MoE combine and the SSD scan are fixed-order), finite logits of
@@ -4225,13 +4290,13 @@ def zoo_prefill(cfg, params, dev, part: str) -> dict:
     same = bool(torch.equal(first, logits))
     finite = bool(torch.isfinite(logits).all())
     del first, logits
-    emit("lm_zoo", part=part, config=cfg.name, layers=cfg.n_layers,
+    emit(phase, part=part, config=cfg.name, layers=cfg.n_layers,
          dtype=str(cfg.dtype), tokens=[1, ZOO_PREFILL_S], wall_ms=wall * 1e3,
          tokens_per_s=ZOO_PREFILL_S / wall, launches=launches,
          two_runs_bitwise_equal=same, finite=finite,
          traced_run=busy_share(prefill, wall))
     if not (same and finite):
-        raise AssertionError(f"lm_zoo {part}: finite {finite}, two runs "
+        raise AssertionError(f"{phase} {part}: finite {finite}, two runs "
                              f"equal {same}")
     return launches
 
@@ -4820,6 +4885,519 @@ def lm_quant_phase(dev, twins: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_mla: MLA and deepseek-v3 with 8-bit Adam
+# ---------------------------------------------------------------------------
+
+#: The (192, 128) instantiations in the kernels line: name → the kernel
+#: whose counter they move (each wrapper counts all its pairs; the lm_mla
+#: paths run this pair alone).
+MLA_KERNELS = {f"{k}@192x128": k for k in (
+    "flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
+    "flash_attention_bwd_dkv_sm90", "flash_attention_fwd_f32_sm90",
+    "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+MLA_TWIN_ROWS = tuple(range(0, MLA_TWIN_S, 8)) + (MLA_TWIN_S - 1,)
+
+
+def mla_qkv(rng, dev, B, S, H, dtype):
+    """q, k (192 columns), v and dO (128), MLA's head dims, rep 1."""
+    import numpy as np
+    import torch
+    return [torch.from_numpy(rng.normal(0, 1, (B, S, H, d)).astype(
+        np.float32)).to(dev, dtype) for d in (192, 192, 128, 128)]
+
+
+def check_mla_kernels(dev) -> dict:
+    """The (192, 128) forward, dq and dk/dv of each dtype against their
+    plain versions at B·H MLA_CHECK_H, Sq = Sk = MLA_CHECK_S, causal and
+    not, and causal with sk_true MLA_CHECK_SKT: out at the flash checks'
+    bounds (fp32 rtol 2e-5 / atol 2e-6, bf16 ``testing.bf16_within``),
+    lse at atol 1e-5, the gradients at ``testing.grads_close``, keys past
+    sk_true with no gradient, each kernel launched once a call, the
+    backward twice bit for bit. Returns the largest error of each."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(27)
+    err = {k: 0.0 for k in MLA_KERNELS}
+    S, H = MLA_CHECK_S, MLA_CHECK_H
+    heads = lambda t: t.float().transpose(1, 2).reshape(H, S, t.shape[3])
+    for causal, skt in ((True, None), (False, None), (True, MLA_CHECK_SKT)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, dout = mla_qkv(rng, dev, 1, S, H, dt)
+            fwd, dq_k, dkv_k = (FLASH_FWD[str(dt)], FLASH_DQ[str(dt)],
+                                FLASH_DKV[str(dt)])
+            before = read_launches()
+            out, lse = ops.flash_attention_fwd(q, k, v, causal, skt)
+            f_once = launched_once((fwd,), before)
+            want, want_lse = ref.flash_attention_fwd_ref(
+                heads(q), heads(k), heads(v), causal, skt, H, H)
+            want = want.reshape(1, H, S, 128).transpose(1, 2)
+            before = read_launches()
+            got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                          skt)
+            b_once = launched_once((dq_k, dkv_k), before)
+            want_g = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal,
+                                             skt)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                            skt)
+            torch.cuda.synchronize()
+            e = {"out": float((out.float() - want).abs().max()),
+                 "lse": float((lse.reshape(H, S) - want_lse).abs().max())}
+            e.update({n: float((g.float() - w).abs().max())
+                      for n, g, w in zip(("dq", "dk", "dv"), got, want_g)})
+            out_ok = bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)) \
+                if dt == torch.float32 else testing.bf16_within(out, want)[0]
+            grads_ok = all(testing.grads_close(g, w)
+                           for g, w in zip(got, want_g))
+            masked_ok = skt is None or not (got[1][:, skt:].any()
+                                            or got[2][:, skt:].any())
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = out_ok and e["lse"] <= 1e-5 and grads_ok and masked_ok \
+                and same and f_once and b_once
+            err[f"{fwd}@192x128"] = max(err[f"{fwd}@192x128"], e["out"])
+            err[f"{dq_k}@192x128"] = max(err[f"{dq_k}@192x128"], e["dq"])
+            err[f"{dkv_k}@192x128"] = max(err[f"{dkv_k}@192x128"], e["dk"],
+                                          e["dv"])
+            emit("kernels", kernel=f"{fwd} + {dq_k} + {dkv_k}",
+                 head_dims=[192, 128], shape=[1, S, S, H, H], causal=causal,
+                 sk_true=skt, dtype=str(dt), max_abs_err=e,
+                 max_abs_grad={n: float(w.abs().max()) for n, w in
+                               zip(("dq", "dk", "dv"), want_g)},
+                 launched_once={"forward": f_once, "backward": b_once},
+                 backward_bitwise_run_to_run=same, ok=ok)
+            if not ok:
+                raise AssertionError(f"(192, 128) flash kernels != plain at "
+                                     f"{dt}, causal {causal}, sk_true {skt}")
+            del q, k, v, dout, out, lse, got, want_g, again
+    return err
+
+
+def flash_widths(kind: str, dh: int, dv: int, split: bool = False) -> int:
+    """The summed inner widths of a flash kernel's products: each product
+    of a query-key tile costs 2·(its width) FLOPs a (query, key) pair.
+    The forward q·kᵀ (dh) and p·V (dv); dq s, dO·Vᵀ, ds·K; dk/dv s,
+    dO·Vᵀ, pᵀ·dO, dsᵀ·Q. ``split``: the bf16 kernels' products on split
+    terms (p·V in three, ds·K, pᵀ·dO, dsᵀ·Q in two)."""
+    x = 1 + int(split)
+    return {"fwd": dh + (1 + 2 * int(split)) * dv,
+            "dq": dh + dv + x * dh,
+            "dkv": dh + dv + x * (dv + dh)}[kind]
+
+
+def sdpa_at_mla_dims(q, k, v, dout):
+    """``F.scaled_dot_product_attention`` (causal) on (B, S, H, ·) q, k at
+    192 and v at 128, under the first backend of flash, cuDNN, memory-
+    efficient and math that takes it: (forward call, forward-and-backward
+    call, the backend's name), or (None, None, "none") when none does.
+    Timed here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    g = dout.transpose(1, 2).contiguous()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        except RuntimeError:
+            continue
+
+        def fwd(b=backend):
+            with sdpa_kernel(b), torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+
+        def both(b=backend):
+            with sdpa_kernel(b):
+                o = F.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=True)
+                return torch.autograd.grad(o, (qh, kh, vh), g)
+        return fwd, both, backend.name
+    return None, None, "none"
+
+
+def mla_times(dev) -> dict:
+    """The (192, 128) kernels at the deepseek prefill's and train step's
+    shape (1 × MLA_PREFILL_S, MLA_TIME_H heads, causal; bf16 through the
+    tensor-core kernels, fp32 through the fp32 route's), each beside its
+    plain version (CUDA events over 3 calls: its score tensors are GBs)
+    and ``F.scaled_dot_product_attention`` on the same inputs with the
+    backend that took dh != dv (the forward; for dq and dk/dv the whole
+    forward and backward, CUDA events), and the least time for the work:
+    2·(S²/2)·H·(its product widths, :func:`flash_widths`) FLOPs, q, k,
+    v (and dO, lse, delta) read once and the outputs written once."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    S, H, dh, dv = MLA_PREFILL_S, MLA_TIME_H, 192, 128
+    rng = np.random.default_rng(28)
+    kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=H,
+              scale=dh ** -0.5)
+    pairs = S * S / 2 * H
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, dout = mla_qkv(rng, dev, 1, S, H, dt)
+        heads = lambda t: t.transpose(1, 2).reshape(H, S, t.shape[3]
+                                                    ).contiguous()
+        qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(dout)
+        size = qt.element_size()
+        bf = dt == torch.bfloat16
+        fwd = kf.flash_attention_fwd_sm90 if bf else kf.flash_attention_fwd
+        dq_fn = kf.flash_attention_bwd_dq_sm90 if bf \
+            else kf.flash_attention_bwd_dq
+        dkv_fn = kf.flash_attention_bwd_dkv_sm90 if bf \
+            else kf.flash_attention_bwd_dkv
+        ot, lse = fwd(qt, kt, vt, **kw)
+        delta = torch.sum(dot.float() * ot.float(), -1)
+        lib_fwd, lib_both, backend = sdpa_at_mla_dims(q, k, v, dout)
+        lib_f = time_events(lib_fwd, reps=5) if lib_fwd else None
+        lib_b = time_events(lib_both, reps=5) if lib_both else None
+        lib = (f"F.scaled_dot_product_attention(is_causal), {dt}, backend "
+               f"{backend}")
+        rows = S * H * size
+        io = {"fwd": rows * (2 * dh + 2 * dv) + 4 * S * H,
+              "dq": rows * (2 * dh + 2 * dv) + 8 * S * H,
+              "dkv": rows * (3 * dh + 3 * dv) + 8 * S * H}
+        plain_f = time_events(lambda: ref.flash_attention_fwd_ref(
+            qt, kt, vt, True, S, H, H), reps=3)
+        plain_b = time_events(lambda: ref.flash_attention_bwd_ref(
+            qt, kt, vt, ot, lse, dot, True, S, H, H), reps=3)
+        args = (qt, kt, vt, dot, lse, delta)
+        for kind, fn, call, plain, lib_ms in (
+                ("fwd", fwd, lambda: fwd(qt, kt, vt, **kw), plain_f, lib_f),
+                ("dq", dq_fn, lambda: dq_fn(*args, **kw), plain_b, lib_b),
+                ("dkv", dkv_fn, lambda: dkv_fn(*args, **kw), plain_b,
+                 lib_b)):
+            name = {"fwd": FLASH_FWD, "dq": FLASH_DQ,
+                    "dkv": FLASH_DKV}[kind][str(dt)] + "@192x128"
+            flops = 2 * pairs * flash_widths(kind, dh, dv)
+            if bf:
+                b, by = bound_ms(0.0, io[kind], flops_bf16_tc=flops)
+                extra = {"bound_split_ms": bound_ms(
+                    0.0, io[kind], flops_bf16_tc=2 * pairs * flash_widths(
+                        kind, dh, dv, split=True))[0]}
+            else:
+                b, by = bound_ms(0.0, io[kind], flops_bf16_tc=6 * flops)
+                extra = {"bound_cuda_cores_ms": bound_ms(flops,
+                                                         io[kind])[0]}
+            out[name] = dict(
+                shape=[1, S, H, H, dh, dv], dtype=str(dt), causal=True,
+                ms=time_graph(call), plain_ms=plain,
+                plain="ref.flash_attention_fwd_ref" if kind == "fwd" else
+                "ref.flash_attention_bwd_ref: dq, dk and dv together",
+                library_ms=lib_ms, library=lib + (
+                    "" if kind == "fwd" else ": forward and backward "
+                    "together, CUDA events"), bound_ms=b, bound_by=by,
+                **extra)
+        del q, k, v, dout, qt, kt, vt, dot, ot, lse, delta, args
+        torch.cuda.empty_cache()
+    for name, t in out.items():
+        emit("times", kernel=name, **t)
+    return out
+
+
+def mla_model(dev, layers: int = MLA_LAYERS, dense: int = MLA_DENSE, **kw):
+    """deepseek-v3 at its published widths in bf16, depth cut to
+    ``layers`` (``dense`` of them dense), weights drawn on the card from
+    seed 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(MLA), n_layers=layers,
+                              first_dense_layers=dense, **kw)
+    return cfg, lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+
+
+def mla_twin_model(dev):
+    """The twins' model: deepseek-v3's head dims with MLA_TWIN_CUT, fp32,
+    chunk MLA_TWIN_CHUNK, weights drawn on the CPU from seed 1."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg = dataclasses.replace(get_config(MLA), dtype=torch.float32,
+                              attn_chunk=MLA_TWIN_CHUNK, **MLA_TWIN_CUT)
+    params = lm.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    return cfg, tree_to(params, dev)
+
+
+def mla_value_and_grad(cfg, params, batch: dict):
+    """The loss and every gradient (a tree like ``params``), as
+    ``train.Trainer`` takes them."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves, tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = lm.loss_fn(p, cfg, batch)
+    leaves = tree_leaves(p)
+    by_id = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    return loss.detach(), tree_map(lambda t: by_id[id(t)], p)
+
+
+def mla_batch(cfg, S: int, dev, seed: int = 3) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_token_batch
+    b = lm_token_batch(np.random.default_rng(seed), 1, S, cfg.vocab)
+    return {k: torch.from_numpy(np.asarray(a)).to(dev) for k, a in b.items()}
+
+
+def mla_twin_train(dev) -> dict:
+    """One fp32 twin step's loss, grad norm and gradients (on the CPU)."""
+    import torch
+    from repro_torch.utils import flatten_dict
+    cfg, params = mla_twin_model(dev)
+    loss, grads = mla_value_and_grad(cfg, params,
+                                     mla_batch(cfg, MLA_TWIN_S, dev))
+    flat = {k: g.cpu() for k, g in flatten_dict(grads).items()}
+    gn = torch.sqrt(sum(torch.sum(torch.square(g)) for g in flat.values()))
+    return {"loss": float(loss), "grad_norm": float(gn), "grads": flat}
+
+
+def mla_twin(part: str) -> dict:
+    """The CPU side of the lm_mla twins: ``prefill`` (logits at
+    MLA_TWIN_ROWS and routing) and ``train`` (one step)."""
+    import torch
+    cpu = torch.device("cpu")
+    if part == "prefill":
+        cfg, params = mla_twin_model(cpu)
+        logits, routes = zoo_prefill_logits(cfg, params, MLA_TWIN_S,
+                                            rows=MLA_TWIN_ROWS)
+        return {"logits": logits, "routes": routes}
+    return mla_twin_train(cpu)
+
+
+def mla_serve(cfg, params, dev) -> dict:
+    """The burst's first MLA_REQUESTS prompts, MLA_MAX_NEW new tokens
+    each, through an 8-slot engine at MLA_MAX_LEN on the latent cache
+    (after a warm-up engine's two requests): ms a decode call, tokens/s,
+    the cache's bytes; then the write_rows check on the same model: a
+    decode that steps half the slots leaves every latent row of the
+    others the same bits. Returns the burst's launches."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.utils import tree_bytes, tree_leaves
+    prompts = lm_prompts(cfg.vocab)[:MLA_REQUESTS]
+
+    def engine():
+        return ServeEngine(cfg, ServeConfig(
+            batch_slots=LM_SLOTS, max_len=MLA_MAX_LEN, eos_token=-1,
+            torch_device=dev), params)
+    warm = engine()
+    for p in prompts[:2]:
+        warm.submit(p, 4)
+    warm.run_until_drained()
+    del warm
+    eng = engine()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, MLA_MAX_NEW) for p in prompts]
+    eng.run_until_drained()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = eng.request_stats()
+    cache_bytes = tree_bytes(eng.caches)
+    kv_bytes = 2 * cfg.n_layers * LM_SLOTS * MLA_MAX_LEN * cfg.n_heads * (
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+    served = all(r.done and len(r.tokens) == MLA_MAX_NEW for r in reqs)
+    emit("lm_mla", part="serve", config=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), slots=LM_SLOTS, max_len=MLA_MAX_LEN,
+         requests=stats["requests"], max_new=MLA_MAX_NEW,
+         prompt_tokens=sum(len(p) for p in prompts), wall_s=wall,
+         ms_a_decode_call=wall * 1e3 / stats["decode_calls"],
+         decode_calls=stats["decode_calls"], steps_run=stats["steps_run"],
+         tokens_per_s=stats["tokens_per_s"], latency_ms=stats["latency_ms"],
+         latent_cache_bytes=cache_bytes,
+         latent_cache_bytes_a_layer=cache_bytes // cfg.n_layers,
+         per_head_bf16_kv_cache_bytes_a_layer=kv_bytes // cfg.n_layers,
+         launches=launches, all_served=served)
+    del eng
+    # write_rows: random latent rows everywhere, a decode at position 5
+    # stepping the even slots.
+    caches = lm.init_cache(cfg, LM_SLOTS, 64, dev)
+    g = torch.Generator(dev).manual_seed(5)
+    for t in tree_leaves(caches):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    before = [t.clone() for t in tree_leaves(caches)]
+    rows = torch.arange(LM_SLOTS, device=dev) % 2 == 0
+    toks = torch.randint(0, cfg.vocab, (LM_SLOTS, 1), generator=g,
+                         device=dev)
+    logits, _ = lm.decode_step(params, cfg, caches, toks,
+                               torch.tensor(5, device=dev), write_rows=rows)
+    _sync(dev)
+    kept = all(torch.equal(a[:, ~rows], b[:, ~rows])
+               for a, b in zip(tree_leaves(caches), before))
+    wrote = all(not torch.equal(a[:, rows, 5], b[:, rows, 5])
+                for a, b in zip(tree_leaves(caches), before))
+    others = all(torch.equal(torch.cat([a[:, rows, :5], a[:, rows, 6:]], 2),
+                             torch.cat([b[:, rows, :5], b[:, rows, 6:]], 2))
+                 for a, b in zip(tree_leaves(caches), before))
+    finite = bool(torch.isfinite(logits).all())
+    emit("lm_mla", part="write_rows", slots=LM_SLOTS,
+         stepped_slots=rows.nonzero().flatten().tolist(),
+         other_slots_bitwise_unchanged=kept, stepped_slots_written=wrote,
+         stepped_slots_other_positions_unchanged=others, finite=finite)
+    if not (served and kept and wrote and others and finite):
+        raise AssertionError(f"lm_mla serve: served {served}, write_rows "
+                             f"kept {kept}, wrote {wrote}, others {others}")
+    return launches
+
+
+def mla_train(dev) -> dict:
+    """One adam_8bit step at MLA_TRAIN_LAYERS (one dense MLA layer, bf16)
+    on 1 × MLA_PREFILL_S tokens: the loss, ms a step, peak memory, the
+    moments int8; exactly 2 bf16 flash forwards (the forward and its
+    recompute), 1 dq and 1 dk/dv a layer. Returns the launches."""
+    import math
+    import torch
+    from repro_torch import optim
+    from repro_torch.optim.qstate import Adam8bitState, QMoment
+    from repro_torch.utils import tree_bytes, tree_leaves
+    cfg, params = mla_model(dev, MLA_TRAIN_LAYERS, 0, n_experts=0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = optim.adam_8bit(3e-4)
+    state = opt.init(params)
+    batch = mla_batch(cfg, MLA_PREFILL_S, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = mla_value_and_grad(cfg, params, batch)
+    updates, state = opt.update(grads, state, params)
+    params = optim.apply_updates(params, updates)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    adam = next(s for s in state if isinstance(s, Adam8bitState))
+    moments = [m for m in tree_leaves(adam.mu) + tree_leaves(adam.nu)]
+    int8 = all(m.dtype in (torch.int8, torch.float32) for m in moments) \
+        and any(m.dtype == torch.int8 for m in moments)
+    moment_bytes = tree_bytes((adam.mu, adam.nu))
+    bf16 = "torch.bfloat16"
+    want = {FLASH_FWD[bf16]: 2 * cfg.n_layers, FLASH_DQ[bf16]: cfg.n_layers,
+            FLASH_DKV[bf16]: cfg.n_layers}
+    exact = all(launches[k] == want.get(k, 0) for k in launches)
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    emit("lm_mla", part="train", config=cfg.name, layers=cfg.n_layers,
+         n_experts=cfg.n_experts, dtype=str(cfg.dtype),
+         tokens=[1, MLA_PREFILL_S], n_params=n_params,
+         optimizer="adam_8bit(3e-4)", loss=float(loss), step_ms=wall * 1e3,
+         peak_memory_bytes=peak, moments_int8=int8,
+         moment_bytes=moment_bytes, qmoment_leaves=isinstance(
+             adam.mu["embed"], QMoment), launches=launches,
+         launches_exact=exact, finite=finite)
+    if not (finite and exact and int8):
+        raise AssertionError(f"lm_mla train: finite {finite}, int8 {int8}, "
+                             f"launches {launches} (want {want})")
+    return launches
+
+
+def lm_mla_phase(dev, twins: dict) -> dict:
+    """(i) the (192, 128) flash kernels against their plain versions;
+    (ii) deepseek-v3 at its published widths, 2 layers: a 2,048-token
+    prefill through the bf16 (192, 128) forward (one launch a layer and no
+    other kernel), two runs bit for bit; (iii) the 16-request burst from
+    the latent cache, the write_rows check; (iv) one adam_8bit step of a
+    dense MLA layer (the bf16 (192, 128) dq and dk/dv); (v) the fp32
+    twins (the fp32 (192, 128) kernels) against the CPU: the prefill's
+    routing and logits, one step's loss, grad norm and gradients.
+    Returns (each path's launches, the kernels' errors)."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    t_phase = time.perf_counter()
+    out = {}
+    bf16, f32 = "torch.bfloat16", "torch.float32"
+    err = check_mla_kernels(dev)
+
+    cfg, params = mla_model(dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    emit("lm_mla", part="model", config=cfg.name, layers=cfg.n_layers,
+         dense_layers=cfg.first_dense_layers, n_params=n,
+         param_bytes=2 * n, dtype=str(cfg.dtype),
+         cut="61 layers (first 3 dense) to 2 (first 1 dense); widths "
+             "published")
+    out["lm_mla_prefill"] = zoo_prefill(cfg, params, dev, "prefill",
+                                        phase="lm_mla")
+    pl = out["lm_mla_prefill"]
+    if pl[FLASH_FWD[bf16]] != cfg.n_layers or sum(pl.values()) != \
+            cfg.n_layers:
+        raise AssertionError(f"deepseek prefill: launches {pl}, want "
+                             f"{cfg.n_layers} of {FLASH_FWD[bf16]}")
+    out["lm_mla_serve"] = mla_serve(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    out["lm_mla_train"] = mla_train(dev)
+    torch.cuda.empty_cache()
+
+    # (v) the fp32 twins.
+    cut = {**MLA_TWIN_CUT, "dtype": "float32", "attn_chunk": MLA_TWIN_CHUNK,
+           "tokens": MLA_TWIN_S,
+           "kept": "qk_nope 128, qk_rope 64, v 128 (the (192, 128) pair)"}
+    cpu = twins["mla:prefill"].result()
+    tcfg, tparams = mla_twin_model(dev)
+    reset_launches()
+    got, routes = zoo_prefill_logits(tcfg, tparams, MLA_TWIN_S,
+                                     rows=MLA_TWIN_ROWS)
+    out["lm_mla_prefill_twin"] = launches = read_launches()
+    agree = routing_agreement(routes, cpu["routes"])
+    end = agree["first_differing_token"]
+    rows = [i for i, r in enumerate(MLA_TWIN_ROWS) if end is None or r < end]
+    d = float((got[rows] - cpu["logits"][rows]).abs().max())
+    ok = not agree["unexplained"] and d <= LM_PREFILL_ATOL and \
+        len(rows) >= len(MLA_TWIN_ROWS) // 2 and \
+        launches[FLASH_FWD[f32]] == tcfg.n_layers and \
+        sum(launches.values()) == tcfg.n_layers
+    emit("lm_mla", part="prefill_twin", cut=cut, rows_compared=len(rows),
+         routing=agree, launches=launches, max_abs_d_logits=d,
+         max_abs_logit=float(cpu["logits"].abs().max()),
+         atol=LM_PREFILL_ATOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_mla prefill twin: logits {d:.3g} from the "
+                             f"CPU's, routing {agree}, launches {launches}")
+    del tparams
+    cpu = twins["mla:train"].result()
+    reset_launches()
+    run = mla_twin_train(dev)
+    out["lm_mla_train_twin"] = launches = read_launches()
+    rel = lambda a, b: abs(a - b) / abs(b)
+    d_grads = {k: float((g - cpu["grads"][k]).abs().max()
+                        / cpu["grads"][k].abs().max().clamp_min(1e-30))
+               for k, g in run["grads"].items()}
+    worst = max(d_grads, key=d_grads.get)
+    want = {FLASH_FWD[f32]: 2 * tcfg.n_layers, FLASH_DQ[f32]: tcfg.n_layers,
+            FLASH_DKV[f32]: tcfg.n_layers}
+    ok = rel(run["loss"], cpu["loss"]) <= LM_TRAIN_LOSS_RTOL and \
+        rel(run["grad_norm"], cpu["grad_norm"]) <= LM_TRAIN_GNORM_RTOL and \
+        d_grads[worst] <= MLA_TWIN_GRAD_REL and \
+        all(launches[k] == want.get(k, 0) for k in launches)
+    emit("lm_mla", part="train_twin", cut=cut, loss=run["loss"],
+         cpu_loss=cpu["loss"], grad_norm=run["grad_norm"],
+         cpu_grad_norm=cpu["grad_norm"],
+         loss_rel_d=rel(run["loss"], cpu["loss"]),
+         grad_norm_rel_d=rel(run["grad_norm"], cpu["grad_norm"]),
+         worst_grad=worst, worst_grad_rel_d=d_grads[worst],
+         tolerances={"loss_rtol": LM_TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": LM_TRAIN_GNORM_RTOL,
+                     "grad_rel": MLA_TWIN_GRAD_REL},
+         launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError(f"lm_mla train twin off the CPU's: {run['loss']}"
+                             f" vs {cpu['loss']}, {worst} {d_grads[worst]}")
+    emit("lm_mla", part="seconds", seconds=time.perf_counter() - t_phase,
+         budget_s=MLA_BUDGET_S)
+    return out, err
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -4886,8 +5464,10 @@ def main() -> int:
         flt = fleet_phase(dev, smi, twins)
         zoo = lm_zoo_phase(dev, twins)
         lmq = lm_quant_phase(dev, twins)
+        mla, mla_err = lm_mla_phase(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
+        t.update(mla_times(dev))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -4911,7 +5491,7 @@ def main() -> int:
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
                **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
-               **zoo, **lmq}
+               **zoo, **lmq, **mla}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",
@@ -4955,16 +5535,32 @@ def main() -> int:
                 "flash_attention_bwd_dq_sm90": "src/repro/kernels/"
                                                "flash_attention.py:161 "
                                                "(pallas_call :185), bf16"}
+    # The (192, 128) instantiations: their launches in the lm_mla path
+    # that runs each (the prefill for the bf16 forward, the adam_8bit step
+    # for the bf16 dq and dk/dv, the fp32 twins for the fp32 ones), which
+    # runs that pair alone; launches_by_path has the lm_mla paths' counts.
+    mla_own = {"flash_attention_fwd_sm90": "lm_mla_prefill",
+               "flash_attention_bwd_dq_sm90": "lm_mla_train",
+               "flash_attention_bwd_dkv_sm90": "lm_mla_train",
+               "flash_attention_fwd_f32_sm90": "lm_mla_prefill_twin",
+               "flash_attention_bwd_dq": "lm_mla_train_twin",
+               "flash_attention_bwd_dkv": "lm_mla_train_twin"}
+    err.update(mla_err)
+    for m, k in MLA_KERNELS.items():
+        source[m], own[m] = source[k], mla_own[k]
+        replaces[m] = replaces[k] + ", (dh, dv) = (192, 128)"
+    count = lambda k, c: c[MLA_KERNELS.get(k, k)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
-         "replaces": replaces[k], "launches": by_path[own[k]][k],
-         "launches_by_path": {p: c[k] for p, c in by_path.items()},
+         "replaces": replaces[k], "launches": count(k, by_path[own[k]]),
+         "launches_by_path": {p: count(k, c) for p, c in by_path.items()
+                              if k in KERNELS or p in mla},
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
          "library_ms": t[k]["library_ms"], "library": t[k]["library"],
          **{f: t[k][f] for f in ("bound_split_ms", "bound_cuda_cores_ms",
                                  "note", "lm_shapes") if f in t[k]}}
-        for k in KERNELS]}), flush=True)
+        for k in (*KERNELS, *MLA_KERNELS)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

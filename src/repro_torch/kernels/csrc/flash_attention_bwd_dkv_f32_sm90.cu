@@ -14,7 +14,9 @@
 //   ds_ij = p_ij * (v_j . dO_i - delta_i)
 //   dv_j  = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
 //
-// summed over the rep = H / Kh query heads of the group, all in fp32.
+// summed over the rep = H / Kh query heads of the group, all in fp32. q,
+// k and dk have DQK columns, v, dO and dv DV: the pairs (64, 64), (128,
+// 128) and MLA's (192, 128) are instantiated.
 //
 // Design: flash_attention_bwd_dkv_sm90.cu's, on fp32 operands carried as
 // three bf16 terms each (flash_f32_sm90.cuh). One C call splits q, k, v
@@ -24,24 +26,25 @@
 // and its dK and dV in fp32 registers, and streams the query head's Q and
 // dO term tiles of 64 rows, with their lse and delta, through one
 // cp.async stage, from the diagonal tile on under the causal mask. One
-// stage (98 KB at D 64) lets two blocks share an SM, which hides a
+// stage (98 KB at (64, 64)) lets two blocks share an SM, which hides a
 // block's loads behind the other's products: in a trial on the card at
 // the training shape that was faster than two stages in one block. Per
 // query tile:
 //  - S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory, each the
 //    six cross terms of the operands' terms (24 m64n64k16 a product at
-//    D 64);
+//    (64, 64));
 //  - P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) in registers
 //    (masks only on a tile that crosses the diagonal, sk_true or Sq);
 //  - dV += P^T dO and dK += dS^T Q by wgmma with P^T and dS^T split into
 //    three terms in registers and dO, Q (MN-major) from shared memory, the
 //    six cross terms into a tile sum that is then added to the running
 //    one, so no tensor-core sum runs longer than one tile.
-// At D 128 each 64-column panel of dK and of dV has blocks of its own
+// Past (64, 64) each 64-column panel of dK and of dV has blocks of its own
 // (two launches, dV's and dK's, each block recomputing S^T, dK's also
 // dP^T): the registers of two outputs' sums, the split and the tile sum
-// spilled there. Each block writes its query head's partial, dK * scale
-// and dV in fp32, to a scratch tensor (B*H, Sk, D); a second kernel sums
+// spilled at (128, 128). Each block writes its query head's partial, dK *
+// scale and dV in fp32, to scratch tensors (B*H, Sk, DQK) and (B*H, Sk,
+// DV); a second kernel sums
 // the rep partials of each KV head in a fixed order (query head 0 first)
 // in fp32, so the result is the same bits from run to run (no atomics).
 // Key tiles at or past sk_true write zeros. Blocks are issued heaviest
@@ -69,43 +72,62 @@ constexpr int kBK = 64;                  // keys a block
 constexpr int kBQ = 64;                  // query rows a tile
 constexpr int kThreads = 128;            // one warpgroup
 
-template <int D>
-struct Cfg {
-  static constexpr int kTile = 64 * D * 2;          // bytes of a 64 x D tile
-  static constexpr int kSet = kTerms * kTile;       // one operand's terms
-  // The terms of K, V, Q and dO; lse and delta.
-  static constexpr int kBytes = 4 * kSet + 2 * 64 * 4 + 1024;
-};
-
-// What a block computes: dK and dV (D 64), or at D 128 one of them, so
-// that a thread holds one panel's sum (two panels' and two outputs' sums,
-// the split and the tile sum do not fit in 255 registers).
+// What a block computes: dK and dV (at (64, 64)), or one of them (one
+// 64-column panel a block), so that a thread holds one panel's sum (two
+// panels' and two outputs' sums, the split and the tile sum do not fit in
+// 255 registers).
 enum Role : int { kBoth = 0, kDV = 1, kDK = 2 };
 
-template <int D, int ROLE>
+template <int DQK, int DV, int ROLE>
+struct Cfg {
+  static constexpr bool kWantDV = ROLE != kDK, kWantDK = ROLE != kDV;
+  static constexpr int kTileQK = 64 * DQK * 2;      // a 64 x DQK tile
+  static constexpr int kTileV = 64 * DV * 2;        // a 64 x DV tile
+  static constexpr int kSetQK = kTerms * kTileQK;   // one operand's terms
+  static constexpr int kSetV = kTerms * kTileV;
+  static constexpr int kRows = 2 * 64 * 4;          // lse and delta
+  // The terms of K, V (dK blocks), Q and dO; lse and delta. A dK block at
+  // (192, 128) would need 240 KB, past the 227 KB a block may hold: there
+  // dO's and Q's terms share one region, dO's loaded for dP^T, then Q's
+  // over them for S^T and dS^T Q (193 KB; each load waits for the
+  // products before it).
+  static constexpr int kVBytes = kWantDK ? kSetV : 0;
+  static constexpr bool kShareQDO =
+      kSetQK + kVBytes + kSetQK + kSetV + kRows + 1024 > 227 * 1024;
+  static constexpr int kQDOBytes = kShareQDO ? kSetQK : kSetQK + kSetV;
+  static constexpr int kBytes = kSetQK + kVBytes + kQDOBytes + kRows + 1024;
+  // Blocks a KV head's key tile: one a panel of its output.
+  static constexpr int kPanels = ROLE == kDK ? DQK / 64 : DV / 64;
+};
+
+template <int DQK, int DV, int ROLE>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
-                         const float* __restrict__ lse,
+flash_bwd_dkv_f32_kernel(TermPlanes in, const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk_part,
                          float* __restrict__ dv_part, int H, int Kh, int Sq,
                          int Sk, int sk_true, int causal, float scale) {
-  constexpr bool kWantDV = ROLE != kDK, kWantDK = ROLE != kDV;
-  constexpr int kTile = Cfg<D>::kTile, kSet = Cfg<D>::kSet;
+  using C = Cfg<DQK, DV, ROLE>;
+  constexpr bool kWantDV = C::kWantDV, kWantDK = C::kWantDK;
+  constexpr int kTileQK = C::kTileQK, kTileV = C::kTileV;
+  // The query loads pinned (flash_sm90.cuh) at (192, 128) and at (64, 64):
+  // the latter kept 8 bytes of stack without (its time 4 % up, NVIDIA H100
+  // 80GB HBM3, 700 W).
+  constexpr bool kPin = DQK == 192 || ROLE == kBoth;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sV = sK + kSet;
-  const uint32_t sQ = sV + kSet;
-  const uint32_t sDO = sQ + kSet;
-  const uint32_t sRow = sDO + kSet;                    // lse[64], delta[64]
+  const uint32_t sV = sK + C::kSetQK;
+  const uint32_t sQ = sV + C::kVBytes;
+  const uint32_t sDO = C::kShareQDO ? sQ : sQ + C::kSetQK;
+  const uint32_t sRow = sQ + C::kQDOBytes;             // lse[64], delta[64]
   const float* lse_t = reinterpret_cast<const float*>(
       smem_raw + (sRow - smem_u32(smem_raw)));
   const float* del_t = lse_t + 64;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int bq = blockIdx.x / (D / 64);                // query batch-head
-  const int panel = blockIdx.x % (D / 64);             // columns 64 panel..
+  const int bq = blockIdx.x / C::kPanels;              // query batch-head
+  const int panel = blockIdx.x % C::kPanels;           // columns 64 panel..
   const int k0 = blockIdx.y * kBK;                     // heaviest first
   const int rep = H / Kh;
   const size_t kvb = static_cast<size_t>(bq / H) * Kh + (bq % H) / rep;
@@ -124,34 +146,42 @@ flash_bwd_dkv_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
   const int qstart = causal ? k0 : 0;
   const int n_q = k0 < sk_true && qstart < Sq ? (Sq - qstart + kBQ - 1) / kBQ
                                                : 0;
-  const size_t qoff = static_cast<size_t>(bq) * Sq * D;
+  const size_t qoff = static_cast<size_t>(bq) * Sq * DQK;
+  const size_t dooff = static_cast<size_t>(bq) * Sq * DV;
   const float* lb = lse + static_cast<size_t>(bq) * Sq;
   const float* deb = delta + static_cast<size_t>(bq) * Sq;
 
-  // Query tile q0's Q and dO terms, lse and delta.
-  auto load_queries = [&](int q0) {
+  // Query tile q0's Q terms; its dO terms, lse and delta.
+  auto load_q = [&](int q0) {
+    const int lt = pinned_int<kPin>(tid);
 #pragma unroll
-    for (int m = 0; m < kTerms; ++m) {
-      load_tile<kBQ, D, kThreads>(sQ + m * kTile, in.q + m * q_plane + qoff,
-                                  q0, Sq, tid);
-      load_tile<kBQ, D, kThreads>(sDO + m * kTile,
-                                  in.dout + m * q_plane + qoff, q0, Sq, tid);
-    }
-    load_row_values(sRow, lb, q0, Sq, tid);
-    load_row_values(sRow + 64 * 4, deb, q0, Sq, tid);
-    cp_async_commit();
+    for (int m = 0; m < kTerms; ++m)
+      load_tile<kBQ, DQK, kThreads>(sQ + m * kTileQK, in.q[m] + qoff, q0, Sq,
+                                    lt);
+  };
+  auto load_do = [&](int q0) {
+    const int lt = pinned_int<kPin>(tid);
+#pragma unroll
+    for (int m = 0; m < kTerms; ++m)
+      load_tile<kBQ, DV, kThreads>(sDO + m * kTileV, in.dout[m] + dooff, q0,
+                                   Sq, lt);
+    load_row_values(sRow, lb, q0, Sq, lt);
+    load_row_values(sRow + 64 * 4, deb, q0, Sq, lt);
   };
 
   if (n_q > 0) {
-    const size_t kvoff = kvb * Sk * D;
+    const size_t koff = kvb * Sk * DQK, voff = kvb * Sk * DV;
 #pragma unroll
     for (int m = 0; m < kTerms; ++m) {
-      load_tile<kBK, D, kThreads>(sK + m * kTile, in.k + m * kv_plane + kvoff,
-                                  k0, Sk, tid);
-      load_tile<kBK, D, kThreads>(sV + m * kTile, in.v + m * kv_plane + kvoff,
-                                  k0, Sk, tid);
+      load_tile<kBK, DQK, kThreads>(sK + m * kTileQK, in.k[m] + koff, k0,
+                                    Sk, tid);
+      if constexpr (kWantDK)
+        load_tile<kBK, DV, kThreads>(sV + m * kTileV, in.v[m] + voff, k0,
+                                     Sk, tid);
     }
-    load_queries(qstart);
+    if (!C::kShareQDO) load_q(qstart);
+    load_do(qstart);
+    cp_async_commit();
   }
   // Masks: a tile needs them where it crosses the diagonal, sk_true or Sq.
   const bool key_edge = k0 + kBK > sk_true;
@@ -163,13 +193,34 @@ flash_bwd_dkv_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
     __syncthreads();
 
     float s[32], dp[kWantDK ? 32 : 1];
-    wgmma_fence();
-    product_ss<kBK, kBQ, D, kTile, kFirstScorePair>(s, sK, sQ);
-    if constexpr (kWantDK) product_ss<kBK, kBQ, D, kTile, 0>(dp, sV, sDO);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    if constexpr (kWantDK) fence_regs(dp);
+    if constexpr (C::kShareQDO) {
+      // dP^T from dO's terms, then Q's terms over them for S^T.
+      wgmma_fence();
+      product_ss<kBK, kBQ, DV, kTileV, 0>(dp, sV, sDO);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dp);
+      __syncthreads();
+      load_q(q0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_shared();
+      __syncthreads();
+      wgmma_fence();
+      product_ss<kBK, kBQ, DQK, kTileQK, kFirstScorePair>(s, sK, sQ);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+    } else {
+      wgmma_fence();
+      product_ss<kBK, kBQ, DQK, kTileQK, kFirstScorePair>(s, sK, sQ);
+      if constexpr (kWantDK)
+        product_ss<kBK, kBQ, DV, kTileV, 0>(dp, sV, sDO);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (kWantDK) fence_regs(dp);
+    }
 
     const bool masked = key_edge || q0 + kBQ > Sq ||
                         (causal && q0 < k0 + kBK - 1);
@@ -200,103 +251,122 @@ flash_bwd_dkv_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
     float o[32];
     if constexpr (kWantDV) {
       split_terms(s, t);
-      product_rs<kBQ, kTile>(o, t, sDO, panel);
+      product_rs<kBQ, kTileV>(o, t, sDO, panel);
 #pragma unroll
       for (int r = 0; r < 32; ++r) dv[r] += o[r];
     }
     if constexpr (kWantDK) {
       split_terms(dp, t);
-      product_rs<kBQ, kTile>(o, t, sQ, panel);
+      product_rs<kBQ, kTileQK>(o, t, sQ, panel);
 #pragma unroll
       for (int r = 0; r < 32; ++r) dk[r] += o[r];
     }
     __syncthreads();                     // the stage is free for reuse
-    if (i + 1 < n_q) load_queries(q0 + kBQ);
+    if (i + 1 < n_q) {
+      if (!C::kShareQDO) load_q(q0 + kBQ);
+      load_do(q0 + kBQ);
+      cp_async_commit();
+    }
   }
 
   // This query head's partial of the panel, rows below Sk (zeros for a
   // masked tile).
-  const size_t base = static_cast<size_t>(bq) * Sk * D;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int col = 64 * panel + 8 * j + c0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {                      // rows ka, kb
       const int key = h ? kb : ka;
       if (key >= Sk) continue;
-      const size_t o = base + static_cast<size_t>(key) * D + col;
+      const size_t row = static_cast<size_t>(bq) * Sk + key;
+      const int col = 64 * panel + 8 * j + c0;
       if constexpr (kWantDK)
-        *reinterpret_cast<float2*>(dk_part + o) = make_float2(
+        *reinterpret_cast<float2*>(dk_part + row * DQK + col) = make_float2(
             dk[4 * j + 2 * h] * scale, dk[4 * j + 2 * h + 1] * scale);
       if constexpr (kWantDV)
-        *reinterpret_cast<float2*>(dv_part + o) =
+        *reinterpret_cast<float2*>(dv_part + row * DV + col) =
             make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// dk, dv (B*Kh, Sk, D) fp32 = the sum over the rep query heads of each KV
-// head of the partials (B*H, Sk, D), query head 0 first.
+// dk (B*Kh, Sk, DQK) and dv (B*Kh, Sk, DV) fp32 = the sums over the rep
+// query heads of each KV head of the partials (B*H, Sk, DQK) and (B*H, Sk,
+// DV), query head 0 first: dk's n_k elements, per_head_k a head, and dv's
+// likewise; SAME (DQK == DV) folds both in one pass over the elements.
+template <bool SAME>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkv_f32_fold_kernel(const float* __restrict__ dk_part,
                               const float* __restrict__ dv_part,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int H, int Kh, size_t per_head, size_t n) {
+                              int H, int Kh, size_t per_head_k, size_t n_k,
+                              size_t per_head_v, size_t n_v) {
   const int rep = H / Kh;
-  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       e < n; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t c = e / per_head, r = e % per_head;
-    const size_t first = ((c / Kh) * H + (c % Kh) * rep) * per_head + r;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t e0 = blockIdx.x * static_cast<size_t>(blockDim.x) +
+                    threadIdx.x;
+  for (size_t e = e0; e < n_k; e += stride) {
+    const size_t c = e / per_head_k, r = e % per_head_k;
+    const size_t first = ((c / Kh) * H + (c % Kh) * rep) * per_head_k + r;
     float a = 0.0f, b = 0.0f;
     for (int i = 0; i < rep; ++i) {
-      a += dk_part[first + i * per_head];
-      b += dv_part[first + i * per_head];
+      a += dk_part[first + i * per_head_k];
+      if constexpr (SAME) b += dv_part[first + i * per_head_k];
     }
     dk[e] = a;
-    dv[e] = b;
+    if constexpr (SAME) dv[e] = b;
+  }
+  if constexpr (!SAME) {
+    for (size_t e = e0; e < n_v; e += stride) {
+      const size_t c = e / per_head_v, r = e % per_head_v;
+      const size_t first = ((c / Kh) * H + (c % Kh) * rep) * per_head_v + r;
+      float b = 0.0f;
+      for (int i = 0; i < rep; ++i) b += dv_part[first + i * per_head_v];
+      dv[e] = b;
+    }
   }
 }
 
-template <int D, int ROLE>
-cudaError_t launch_role(const TermPlanes& planes, size_t nq, size_t nk,
-                        const void* lse, const void* delta, void* dk_part,
-                        void* dv_part, int BH, int H, int Kh, int Sq, int Sk,
-                        int sk_true, int causal, float scale,
-                        cudaStream_t stream) {
+template <int DQK, int DV, int ROLE>
+cudaError_t launch_role(const TermPlanes& planes, const void* lse,
+                        const void* delta, void* dk_part, void* dv_part,
+                        int BH, int H, int Kh, int Sq, int Sk, int sk_true,
+                        int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<DQK, DV, ROLE>;
   static smem_optin::SmemOptin optin;
-  const auto kernel = flash_bwd_dkv_f32_kernel<D, ROLE>;
+  const auto kernel = flash_bwd_dkv_f32_kernel<DQK, DV, ROLE>;
   int dev = 0, limit = 0;
   cudaError_t err = smem_optin::device_limit(optin, &dev, &limit);
   if (err != cudaSuccess) return err;
-  if (Cfg<D>::kBytes > limit) return cudaErrorInvalidConfiguration;
+  if (C::kBytes > limit) return cudaErrorInvalidConfiguration;
   err = smem_optin::grant(optin, reinterpret_cast<const void*>(kernel), dev,
-                          Cfg<D>::kBytes);
+                          C::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH * (D / 64), (Sk + kBK - 1) / kBK);
-  kernel<<<grid, kThreads, Cfg<D>::kBytes, stream>>>(
-      planes, nq, nk, static_cast<const float*>(lse),
+  const dim3 grid(BH * C::kPanels, (Sk + kBK - 1) / kBK);
+  kernel<<<grid, kThreads, C::kBytes, stream>>>(
+      planes, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk_part),
       static_cast<float*>(dv_part), H, Kh, Sq, Sk, sk_true, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* terms, void* dk_part, void* dv_part, void* dk,
                    void* dv, int BH, int H, int Kh, int Sq, int Sk,
                    int sk_true, int causal, float scale,
                    cudaStream_t stream) {
-  const size_t nq = static_cast<size_t>(BH) * Sq * D;
-  const size_t nk = static_cast<size_t>(BH / H) * Kh * Sk * D;
+  const size_t q_rows = static_cast<size_t>(BH) * Sq;
+  const size_t kv_rows = static_cast<size_t>(BH / H) * Kh * Sk;
   TermPlanes planes;
-  cudaError_t err = split_inputs(q, k, v, dout, terms, nq, nk, &planes,
-                                 stream);
+  cudaError_t err = split_inputs(q, k, v, dout, terms, q_rows * DQK,
+                                 kv_rows * DQK, kv_rows * DV, q_rows * DV,
+                                 &planes, stream);
   if (err != cudaSuccess) return err;
 #define RUN(R)                                                               \
-  launch_role<D, R>(planes, nq, nk, lse, delta, dk_part, dv_part, BH, H, Kh, \
-                    Sq, Sk, sk_true, causal, scale, stream)
-  if constexpr (D == 64) {
+  launch_role<DQK, DV, R>(planes, lse, delta, dk_part, dv_part, BH, H, Kh,   \
+                          Sq, Sk, sk_true, causal, scale, stream)
+  if constexpr (DQK == 64 && DV == 64) {
     err = RUN(kBoth);
   } else {
     err = RUN(kDV);
@@ -304,40 +374,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 #undef RUN
   if (err != cudaSuccess) return err;
-  const size_t per_head = static_cast<size_t>(Sk) * D;
-  const size_t blocks = (nk + 255) / 256;
-  flash_bwd_dkv_f32_fold_kernel<<<static_cast<int>(blocks < 4096 ? blocks
-                                                                  : 4096),
-                                  256, 0, stream>>>(
+  const size_t blocks = (kv_rows * DQK + 255) / 256;
+  flash_bwd_dkv_f32_fold_kernel<DQK == DV>
+      <<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
       static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Kh, per_head, nk);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Kh,
+      static_cast<size_t>(Sk) * DQK, kv_rows * DQK,
+      static_cast<size_t>(Sk) * DV, kv_rows * DV);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q and dout (BH, Sq, D), k and v (BH / H * Kh, Sk, D), lse and delta
-// (BH, Sq), all f32; terms (3 * (2 * BH * Sq * D + 2 * BH / H * Kh * Sk *
-// D)) bf16 scratch for the inputs' term planes; dk_part and dv_part (BH,
-// Sk, D) f32 scratch; dk and dv (BH / H * Kh, Sk, D) f32, each KV head's
+// q (BH, Sq, DQK), dout (BH, Sq, DV), k (BH / H * Kh, Sk, DQK), v (BH / H
+// * Kh, Sk, DV), lse and delta (BH, Sq), all f32; terms (3 * (BH * Sq *
+// (DQK + DV) + BH / H * Kh * Sk * (DQK + DV))) bf16 scratch for the
+// inputs' term planes; dk_part (BH, Sk, DQK) and dv_part (BH, Sk, DV) f32
+// scratch; dk and dv (BH / H * Kh, Sk, DQK / DV) f32, each KV head's
 // gradient summed over the rep query heads that read it. All contiguous on
-// the current device, 16-byte aligned. D is 64 or 128. Launches the split,
-// the dk/dv kernel and the fold; returns the first cudaError_t (0 on
-// success).
+// the current device, 16-byte aligned. (DQK, DV) is (64, 64), (128, 128)
+// or (192, 128). Launches the split, the dk/dv kernel and the fold;
+// returns the first cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_dkv_f32_sm90_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* terms, void* dk_part,
     void* dv_part, void* dk, void* dv, int BH, int H, int Kh, int Sq, int Sk,
-    int sk_true, int D, int causal, float scale, void* stream) {
+    int sk_true, int DQK, int DV, int causal, float scale, void* stream) {
   if (BH < 1 || H < 1 || Kh < 1 || H % Kh != 0 || BH % H != 0 || Sq < 1 ||
       Sk < 1 || sk_true < 1 || sk_true > Sk || (Sk + kBK - 1) / kBK > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV(DD)                                                            \
-  launch<DD>(q, k, v, dout, lse, delta, terms, dk_part, dv_part, dk, dv,   \
-             BH, H, Kh, Sq, Sk, sk_true, causal, scale, s)
-  if (D == 64) return static_cast<int>(DKV(64));
-  if (D == 128) return static_cast<int>(DKV(128));
+#define DKV(A, B)                                                          \
+  launch<A, B>(q, k, v, dout, lse, delta, terms, dk_part, dv_part, dk, dv, \
+               BH, H, Kh, Sq, Sk, sk_true, causal, scale, s)
+  if (DQK == 64 && DV == 64) return static_cast<int>(DKV(64, 64));
+  if (DQK == 128 && DV == 128) return static_cast<int>(DKV(128, 128));
+  if (DQK == 192 && DV == 128) return static_cast<int>(DKV(192, 128));
 #undef DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

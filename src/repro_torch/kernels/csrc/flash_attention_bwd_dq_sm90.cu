@@ -13,11 +13,14 @@
 //   ds_ij = p_ij * (dO_i . v_j - delta_i)
 //   dq_i  = scale * sum_j ds_ij k_j,  written in bf16.
 //
+// q, k and dq have DQK columns, v and dO DV: the pairs (64, 64), (128,
+// 128) and MLA's (192, 128) are instantiated.
+//
 // Design (flash_sm90.cuh has the tile layout and the wgmma helpers). One
 // block of one warpgroup (128 threads) per (query head, 64-row query
 // tile): it keeps the tile's Q and dO in shared memory and its lse and
 // delta in registers, accumulates dQ in fp32 registers (32 floats a thread
-// at D 64, 64 at D 128), and streams the KV head's K and V tiles of 64 keys
+// a 64-column panel), and streams the KV head's K and V tiles of 64 keys
 // through a two-stage cp.async ring, from key tile 0 up to sk_true and,
 // under the causal mask, up to the diagonal tile. Per key tile:
 //  - S = Q K^T and dP = dO V^T by wgmma from shared memory (A and B
@@ -62,14 +65,15 @@ constexpr int kBK = 64;                  // keys a tile
 constexpr int kThreads = 128;            // one warpgroup
 constexpr int kTerms = 2;                // bf16 terms of ds
 
-template <int D>
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kTile = 64 * D * 2;          // bytes of a 64 x D tile
-  // Q, dO, two stages of K and of V.
-  static constexpr int kBytes = 6 * kTile + 1024;
+  static constexpr int kTileQK = 64 * DQK * 2;      // a 64 x DQK tile
+  static constexpr int kTileV = 64 * DV * 2;        // a 64 x DV tile
+  // Q, dO, two stages of K and of V (120 KB at (192, 128)).
+  static constexpr int kBytes = 3 * kTileQK + 3 * kTileV + 1024;
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -79,13 +83,14 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, int H, int Kh, int Sq,
                          int Sk, int sk_true, int causal, float scale) {
-  constexpr int NP = D / 64;
-  constexpr int kTile = Smem<D>::kTile;
+  constexpr int NP = DQK / 64;                         // panels of dQ
+  constexpr int kTileQK = Smem<DQK, DV>::kTileQK;
+  constexpr int kTileV = Smem<DQK, DV>::kTileV;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sDO = sQ + kTile;
-  const uint32_t sK = sDO + kTile;                     // two stages
-  const uint32_t sV = sK + 2 * kTile;                  // two stages
+  const uint32_t sDO = sQ + kTileQK;
+  const uint32_t sK = sDO + kTileV;                    // two stages
+  const uint32_t sV = sK + 2 * kTileQK;                // two stages
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -115,21 +120,22 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
   int n_k = (kend + kBK - 1) / kBK;
   if constexpr (kFault & kCausalLoopShort)
     n_k -= causal && n_k > 1 ? 1 : 0;
-  const bf16* kb = k + kvb * Sk * D;
-  const bf16* vb = v + kvb * Sk * D;
+  const bf16* kb = k + kvb * Sk * DQK;
+  const bf16* vb = v + kvb * Sk * DV;
 
-  load_tile<kBQ, D, kThreads>(sQ, q + rows * D, q0, Sq, tid);
-  load_tile<kBQ, D, kThreads>(sDO, dout + rows * D, q0, Sq, tid);
-  load_tile<kBK, D, kThreads>(sK, kb, 0, Sk, tid);
-  load_tile<kBK, D, kThreads>(sV, vb, 0, Sk, tid);
+  load_tile<kBQ, DQK, kThreads>(sQ, q + rows * DQK, q0, Sq, tid);
+  load_tile<kBQ, DV, kThreads>(sDO, dout + rows * DV, q0, Sq, tid);
+  load_tile<kBK, DQK, kThreads>(sK, kb, 0, Sk, tid);
+  load_tile<kBK, DV, kThreads>(sV, vb, 0, Sk, tid);
   cp_async_commit();
 
   for (int i = 0; i < n_k; ++i) {
     const int k0 = i * kBK;
     if (i + 1 < n_k) {
       const int st = (i + 1) & 1;
-      load_tile<kBK, D, kThreads>(sK + st * kTile, kb, k0 + kBK, Sk, tid);
-      load_tile<kBK, D, kThreads>(sV + st * kTile, vb, k0 + kBK, Sk, tid);
+      const int lt = pinned_int<DQK == 192>(tid);
+      load_tile<kBK, DQK, kThreads>(sK + st * kTileQK, kb, k0 + kBK, Sk, lt);
+      load_tile<kBK, DV, kThreads>(sV + st * kTileV, vb, k0 + kBK, Sk, lt);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -139,15 +145,15 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
     __syncthreads();
 
     const int st = i & 1;
-    const uint32_t sKt = sK + st * kTile, sVt = sV + st * kTile;
+    const uint32_t sKt = sK + st * kTileQK, sVt = sV + st * kTileV;
 
     float s[32], ds[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DQK / 16; ++kk)
       wgmma_ss(s, desc_k_major<kBQ>(sQ, kk), desc_k_major<kBK>(sKt, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DV / 16; ++kk)
       wgmma_ss(ds, desc_k_major<kBQ>(sDO, kk), desc_k_major<kBK>(sVt, kk),
                kk);
     wgmma_commit();
@@ -187,7 +193,7 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
     __syncthreads();                     // the stage is free for reuse
   }
 
-  const size_t base = rows * D;
+  const size_t base = rows * DQK;
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -195,34 +201,35 @@ flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q,
       const int col = 64 * p + 8 * j + c0;
       if (qa < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            dq + base + static_cast<size_t>(qa) * D + col) =
+            dq + base + static_cast<size_t>(qa) * DQK + col) =
             __floats2bfloat162_rn(acc[p][4 * j] * scale,
                                   acc[p][4 * j + 1] * scale);
       if (qb < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            dq + base + static_cast<size_t>(qb) * D + col) =
+            dq + base + static_cast<size_t>(qb) * DQK + col) =
             __floats2bfloat162_rn(acc[p][4 * j + 2] * scale,
                                   acc[p][4 * j + 3] * scale);
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int BH, int H, int Kh, int Sq, int Sk,
                    int sk_true, int causal, float scale,
                    cudaStream_t stream) {
   static smem_optin::SmemOptin optin;
-  const auto kernel = flash_bwd_dq_sm90_kernel<D>;
+  using Sm = Smem<DQK, DV>;
+  const auto kernel = flash_bwd_dq_sm90_kernel<DQK, DV>;
   int dev = 0, limit = 0;
   cudaError_t err = smem_optin::device_limit(optin, &dev, &limit);
   if (err != cudaSuccess) return err;
-  if (Smem<D>::kBytes > limit) return cudaErrorInvalidConfiguration;
+  if (Sm::kBytes > limit) return cudaErrorInvalidConfiguration;
   err = smem_optin::grant(optin, reinterpret_cast<const void*>(kernel), dev,
-                          Smem<D>::kBytes);
+                          Sm::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+  kernel<<<grid, kThreads, Sm::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -232,24 +239,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q and dout (BH, Sq, D), k and v (BH / H * Kh, Sk, D), all bf16; lse and
-// delta (BH, Sq) f32; dq (BH, Sq, D) bf16. All contiguous on the current
-// device, 16-byte aligned. D is 64 or 128. Returns the cudaError_t of the
+// q (BH, Sq, DQK), dout (BH, Sq, DV), k (BH / H * Kh, Sk, DQK), v (BH / H
+// * Kh, Sk, DV), all bf16; lse and delta (BH, Sq) f32; dq (BH, Sq, DQK)
+// bf16. All contiguous on the current device, 16-byte aligned. (DQK, DV)
+// is (64, 64), (128, 128) or (192, 128). Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int flash_attention_bwd_dq_sm90_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int BH, int H, int Kh,
-    int Sq, int Sk, int sk_true, int D, int causal, float scale,
+    int Sq, int Sk, int sk_true, int DQK, int DV, int causal, float scale,
     void* stream) {
   if (BH < 1 || H < 1 || Kh < 1 || H % Kh != 0 || BH % H != 0 || Sq < 1 ||
       Sk < 1 || sk_true < 1 || sk_true > Sk || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(DD)                                                             \
-  launch<DD>(q, k, v, dout, lse, delta, dq, BH, H, Kh, Sq, Sk, sk_true,    \
-             causal, scale, s)
-  if (D == 64) return static_cast<int>(DQ(64));
-  if (D == 128) return static_cast<int>(DQ(128));
+#define DQ(A, B)                                                           \
+  launch<A, B>(q, k, v, dout, lse, delta, dq, BH, H, Kh, Sq, Sk, sk_true,  \
+               causal, scale, s)
+  if (DQK == 64 && DV == 64) return static_cast<int>(DQ(64, 64));
+  if (DQK == 128 && DV == 128) return static_cast<int>(DQ(128, 128));
+  if (DQK == 192 && DV == 128) return static_cast<int>(DQ(192, 128));
 #undef DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,7 +14,9 @@
 //   out_i = acc / max(l, 1e-30),  lse_i = m + log(max(l, 1e-30))
 //
 // with m, l, corr, p, acc and out in fp32. Query head b reads KV head
-// (b / H) * Kh + (b % H) / rep, rep = H / Kh.
+// (b / H) * Kh + (b % H) / rep, rep = H / Kh. q and k have DQK columns, v
+// and out DV: the pairs (64, 64), (128, 128) and MLA's (192, 128) are
+// instantiated.
 //
 // Design: flash_attention_fwd_sm90.cu's (128 query rows a block in two
 // warpgroups, 64-key tiles loaded by cp.async into 128-byte-swizzled bf16
@@ -34,11 +36,18 @@
 //    is then added to the running one (acc * corr + tile), as in the bf16
 //    kernel.
 // Each warpgroup's 64 query rows are a tile of their own (three term tiles
-// of 64 x D), so the Q, K and V term tiles share one shape. Shared memory:
-// Q's terms 48 KB at D 64 (96 KB at D 128) and 48 KB (96 KB) a K/V stage.
-// At D 64 two stages, the next tile's load in flight while the current
-// one is used (145 KB, one block an SM); at D 128 one stage (193 KB): the
-// next tile loads once the current one is consumed.
+// of 64 x DQK), so the Q and K term tiles share one shape. Shared memory:
+// Q's terms 48 KB at (64, 64) (96 KB at (128, 128)) and 48 KB (96 KB) a
+// K/V stage. At (64, 64) two stages, the next tile's load in flight while
+// the current one is used (145 KB, one block an SM); at (128, 128) one
+// stage (193 KB): the next tile loads once the current one is consumed.
+// At (192, 128) two warpgroups' Q terms (144 KB), a stage of K's (72 KB)
+// and of V's (48 KB) come to 264 KB, past the 227 KB a block may hold:
+// that instantiation runs one warpgroup, 64 query rows a block (Q's terms
+// 72 KB, one stage: 193 KB), and each K/V tile is loaded for 64 query rows
+// instead of 128. Re-staging Q's terms (one bf16 plane at a time) would
+// keep 128 rows but reorder the six cross terms against the other pairs;
+// halving the block changes the grid and nothing of the arithmetic.
 //
 // What bounds it on the H100. 4*B*H*Sq*Sk*dh FLOPs (halved when causal),
 // each product as six bf16 products: at the qwen2-0.5B prefill in fp32 (B
@@ -53,32 +62,41 @@ namespace {
 
 using namespace flash_f32_sm90;
 
-constexpr int kBQ = 128;                 // query rows a block
 constexpr int kBK = 64;                  // keys a tile
-constexpr int kThreads = 256;            // two warpgroups
 
-template <int D>
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int kStages = D == 64 ? 2 : 1;
-  static constexpr int kTile = 64 * D * 2;          // bytes of a 64 x D tile
-  static constexpr int kSet = kTerms * kTile;       // one operand's terms
-  // Q's terms (each warpgroup's rows), then K's and V's terms a stage.
-  static constexpr int kBytes = 2 * kSet + kStages * 2 * kSet + 1024;
+  static constexpr int kWarpgroups = DQK == 192 ? 1 : 2;
+  static constexpr int kBQ = 64 * kWarpgroups;      // query rows a block
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kStages = DQK == 64 ? 2 : 1;
+  static constexpr int kTileQK = 64 * DQK * 2;      // a 64 x DQK tile
+  static constexpr int kTileV = 64 * DV * 2;        // a 64 x DV tile
+  static constexpr int kSetQK = kTerms * kTileQK;   // one operand's terms
+  static constexpr int kSetV = kTerms * kTileV;
+  static constexpr int kStage = kSetQK + kSetV;     // K's terms, then V's
+  // Q's terms (each warpgroup's rows), then the stages.
+  static constexpr int kBytes =
+      kWarpgroups * kSetQK + kStages * kStage + 1024;
   static constexpr int kMinBlocks = kBytes * 2 <= 227 * 1024 ? 2 : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
-flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
-                     float* __restrict__ out, float* __restrict__ lse, int H,
-                     int Kh, int Sq, int Sk, int sk_true, int causal,
-                     float scale) {
-  constexpr int NP = D / 64;
-  constexpr int kStages = Cfg<D>::kStages;
-  constexpr int kTile = Cfg<D>::kTile, kSet = Cfg<D>::kSet;
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Cfg<DQK, DV>::kThreads,
+                                  Cfg<DQK, DV>::kMinBlocks)
+flash_fwd_f32_kernel(TermPlanes in, float* __restrict__ out,
+                     float* __restrict__ lse, int H, int Kh, int Sq, int Sk,
+                     int sk_true, int causal, float scale) {
+  using C = Cfg<DQK, DV>;
+  constexpr int NP = DV / 64;                          // panels of out
+  constexpr int kBQ = C::kBQ, kThreads = C::kThreads;
+  constexpr int kStages = C::kStages;
+  constexpr int kTileQK = C::kTileQK, kTileV = C::kTileV;
+  constexpr int kSetQK = C::kSetQK;
+  constexpr bool kPin = DQK == 192;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sKV = sQ + 2 * kSet;       // stage s: K at + 2 s kSet, V next
+  const uint32_t sKV = sQ + C::kWarpgroups * kSetQK;   // stage s at s kStage
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -86,9 +104,7 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
   const int b = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
   const int rep = H / Kh;
-  const size_t kvb = static_cast<size_t>(b / H) * Kh + (b % H) / rep;
-  const size_t qoff = static_cast<size_t>(b) * Sq * D;
-  const size_t kvoff = kvb * Sk * D;
+  const size_t qoff = static_cast<size_t>(b) * Sq * DQK;
 
   // Keys past sk_true are masked for every row; under the causal mask so
   // are keys past the block's last row.
@@ -98,31 +114,34 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
 
   // Key tile t's K and V terms into stage st.
   auto load_keys = [&](int t, uint32_t st) {
+    const int lt = pinned_int<kPin>(tid), lb = pinned_int<kPin>(b);
+    const size_t kv = static_cast<size_t>(lb / H) * Kh + (lb % H) / rep;
+    const size_t koff = kv * Sk * DQK, voff = kv * Sk * DV;
 #pragma unroll
     for (int m = 0; m < kTerms; ++m) {
-      load_tile<kBK, D, kThreads>(st + m * kTile,
-                                  in.k + m * kv_plane + kvoff, t * kBK, Sk,
-                                  tid);
-      load_tile<kBK, D, kThreads>(st + kSet + m * kTile,
-                                  in.v + m * kv_plane + kvoff, t * kBK, Sk,
-                                  tid);
+      load_tile<kBK, DQK, kThreads>(st + m * kTileQK,
+                                    in.k[m] + koff, t * kBK, Sk,
+                                    lt);
+      load_tile<kBK, DV, kThreads>(st + kSetQK + m * kTileV,
+                                   in.v[m] + voff, t * kBK, Sk,
+                                   lt);
     }
     cp_async_commit();
   };
 
 #pragma unroll
-  for (int w = 0; w < 2; ++w)
+  for (int w = 0; w < C::kWarpgroups; ++w)
 #pragma unroll
     for (int m = 0; m < kTerms; ++m)
-      load_tile<64, D, kThreads>(sQ + w * kSet + m * kTile,
-                                 in.q + m * q_plane + qoff, q0 + w * 64, Sq,
-                                 tid);
+      load_tile<64, DQK, kThreads>(sQ + w * kSetQK + m * kTileQK,
+                                   in.q[m] + qoff, q0 + w * 64, Sq,
+                                   tid);
   load_keys(0, sKV);
 
   const int row0 = q0 + wg * 64;                       // warpgroup's rows
   const int ra = row0 + warp * 16 + (lane >> 2), rb = ra + 8;
   const int c0 = 2 * (lane & 3);                       // fragment column
-  const uint32_t sQw = sQ + wg * kSet;                 // its Q terms
+  const uint32_t sQw = sQ + wg * kSetQK;               // its Q terms
 
   float acc[NP][32];
 #pragma unroll
@@ -133,7 +152,7 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
 
   for (int t = 0; t < n_tiles; ++t) {
     if (kStages == 2 && t + 1 < n_tiles) {
-      load_keys(t + 1, sKV + ((t + 1) & 1) * 2 * kSet);
+      load_keys(t + 1, sKV + ((t + 1) & 1) * C::kStage);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -142,12 +161,12 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
     __syncthreads();
 
     const int k0 = t * kBK;
-    const uint32_t sKt = sKV + (kStages == 2 ? (t & 1) : 0) * 2 * kSet;
-    const uint32_t sVt = sKt + kSet;
+    const uint32_t sKt = sKV + (kStages == 2 ? (t & 1) : 0) * C::kStage;
+    const uint32_t sVt = sKt + kSetQK;
     if (!causal || k0 <= row0 + 63) {                  // warpgroup-uniform
       float s[32];
       wgmma_fence();
-      product_ss<64, kBK, D, kTile, kFirstScorePair>(s, sQw, sKt);
+      product_ss<64, kBK, DQK, kTileQK, kFirstScorePair>(s, sQw, sKt);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -192,7 +211,7 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         float o[32];
-        product_rs<kBK, kTile>(o, pt, sVt, p);
+        product_rs<kBK, kTileV>(o, pt, sVt, p);
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           acc[p][i] = acc[p][i] * ((i & 2) ? corr_b : corr_a) + o[i];
@@ -203,17 +222,17 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
   }
 
   const float lc_a = fmaxf(l_a, 1e-30f), lc_b = fmaxf(l_b, 1e-30f);
-  float* ob = out + qoff;
+  float* ob = out + static_cast<size_t>(b) * Sq * DV;
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 64 * p + 8 * j + c0;
       if (ra < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<size_t>(ra) * D + col) =
+        *reinterpret_cast<float2*>(ob + static_cast<size_t>(ra) * DV + col) =
             make_float2(acc[p][4 * j] / lc_a, acc[p][4 * j + 1] / lc_a);
       if (rb < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<size_t>(rb) * D + col) =
+        *reinterpret_cast<float2*>(ob + static_cast<size_t>(rb) * DV + col) =
             make_float2(acc[p][4 * j + 2] / lc_b, acc[p][4 * j + 3] / lc_b);
     }
   if ((lane & 3) == 0) {
@@ -223,54 +242,58 @@ flash_fwd_f32_kernel(TermPlanes in, size_t q_plane, size_t kv_plane,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* terms,
                    void* out, void* lse, int BH, int H, int Kh, int Sq,
                    int Sk, int sk_true, int causal, float scale,
                    cudaStream_t stream) {
+  using C = Cfg<DQK, DV>;
   static smem_optin::SmemOptin optin;
-  const auto kernel = flash_fwd_f32_kernel<D>;
+  const auto kernel = flash_fwd_f32_kernel<DQK, DV>;
   int dev = 0, limit = 0;
   cudaError_t err = smem_optin::device_limit(optin, &dev, &limit);
   if (err != cudaSuccess) return err;
-  if (Cfg<D>::kBytes > limit) return cudaErrorInvalidConfiguration;
+  if (C::kBytes > limit) return cudaErrorInvalidConfiguration;
   err = smem_optin::grant(optin, reinterpret_cast<const void*>(kernel), dev,
-                          Cfg<D>::kBytes);
+                          C::kBytes);
   if (err != cudaSuccess) return err;
-  const size_t nq = static_cast<size_t>(BH) * Sq * D;
-  const size_t nk = static_cast<size_t>(BH / H) * Kh * Sk * D;
+  if ((Sq + C::kBQ - 1) / C::kBQ > 65535) return cudaErrorInvalidValue;
+  const size_t nq = static_cast<size_t>(BH) * Sq * DQK;
+  const size_t kv_rows = static_cast<size_t>(BH / H) * Kh * Sk;
   TermPlanes planes;
-  err = split_inputs(q, k, v, nullptr, terms, nq, nk, &planes, stream);
+  err = split_inputs(q, k, v, nullptr, terms, nq, kv_rows * DQK,
+                     kv_rows * DV, 0, &planes, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, Cfg<D>::kBytes, stream>>>(
-      planes, nq, nk, static_cast<float*>(out), static_cast<float*>(lse), H,
-      Kh, Sq, Sk, sk_true, causal, scale);
+  const dim3 grid(BH, (Sq + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
+      planes, static_cast<float*>(out), static_cast<float*>(lse), H, Kh, Sq,
+      Sk, sk_true, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (BH, Sq, D), k and v (BH / H * Kh, Sk, D), all f32; terms (3 * (BH *
-// Sq * D + 2 * BH / H * Kh * Sk * D)) bf16 scratch for the inputs' term
-// planes; out (BH, Sq, D) and lse (BH, Sq) f32. All contiguous on the
-// current device, 16-byte aligned. D is 64 or 128 (the wrapper zero-pads
-// smaller head dims; the scale is passed in). Launches the split and the
+// q (BH, Sq, DQK), k (BH / H * Kh, Sk, DQK), v (BH / H * Kh, Sk, DV), all
+// f32; terms (3 * (BH * Sq * DQK + BH / H * Kh * Sk * (DQK + DV))) bf16
+// scratch for the inputs' term planes; out (BH, Sq, DV) and lse (BH, Sq)
+// f32. All contiguous on the current device, 16-byte aligned. (DQK, DV) is
+// (64, 64), (128, 128) or (192, 128) (the wrapper zero-pads smaller head
+// dims up to a pair; the scale is passed in). Launches the split and the
 // forward; returns the first cudaError_t (0 on success).
 extern "C" int flash_attention_fwd_f32_sm90_launch(
     const void* q, const void* k, const void* v, void* terms, void* out,
-    void* lse, int BH, int H, int Kh, int Sq, int Sk, int sk_true, int D,
-    int causal, float scale, void* stream) {
+    void* lse, int BH, int H, int Kh, int Sq, int Sk, int sk_true, int DQK,
+    int DV, int causal, float scale, void* stream) {
   if (BH < 1 || H < 1 || Kh < 1 || H % Kh != 0 || BH % H != 0 || Sq < 1 ||
-      Sk < 1 || sk_true < 1 || sk_true > Sk ||
-      (Sq + kBQ - 1) / kBQ > 65535)
+      Sk < 1 || sk_true < 1 || sk_true > Sk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return static_cast<int>(launch<64>(q, k, v, terms, out, lse, BH, H, Kh,
-                                       Sq, Sk, sk_true, causal, scale, s));
-  if (D == 128)
-    return static_cast<int>(launch<128>(q, k, v, terms, out, lse, BH, H, Kh,
-                                        Sq, Sk, sk_true, causal, scale, s));
+#define FWD(A, B)                                                          \
+  launch<A, B>(q, k, v, terms, out, lse, BH, H, Kh, Sq, Sk, sk_true,       \
+               causal, scale, s)
+  if (DQK == 64 && DV == 64) return static_cast<int>(FWD(64, 64));
+  if (DQK == 128 && DV == 128) return static_cast<int>(FWD(128, 128));
+  if (DQK == 192 && DV == 128) return static_cast<int>(FWD(192, 128));
+#undef FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,6 +14,8 @@
 //   out_i = acc / max(l, 1e-30) in bf16,  lse_i = m + log(max(l, 1e-30))
 //
 // Query head b reads KV head (b / H) * Kh + (b % H) / rep, rep = H / Kh.
+// q and k have DQK columns, v and out DV: the pairs (64, 64), (128, 128)
+// and MLA's (192, 128) are instantiated.
 //
 // Design (flash_sm90.cuh has the tile layout and the wgmma helpers). One
 // block per (batch-head, 128 query rows): two warpgroups of 64 rows each,
@@ -60,24 +62,27 @@ constexpr int kBK = 64;                  // keys a tile
 constexpr int kThreads = 256;            // two warpgroups
 constexpr int kTerms = 3;                // bf16 terms of p in p.V
 
-template <int D>
+// At (192, 128): Q 48 KB, two K stages 48 KB, two V stages 32 KB.
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kQ = kBQ * D * 2;          // bytes of the Q tile
-  static constexpr int kKV = kBK * D * 2;         // bytes of a K or V tile
-  static constexpr int kBytes = kQ + 4 * kKV + 1024;   // + alignment
+  static constexpr int kQ = kBQ * DQK * 2;        // bytes of the Q tile
+  static constexpr int kK = kBK * DQK * 2;        // bytes of a K tile
+  static constexpr int kV = kBK * DV * 2;         // bytes of a V tile
+  static constexpr int kBytes = kQ + 2 * kK + 2 * kV + 1024;  // + alignment
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       float* __restrict__ lse, int H, int Kh, int Sq, int Sk,
                       int sk_true, int causal, float scale) {
-  constexpr int NP = D / 64;
+  using Sm = Smem<DQK, DV>;
+  constexpr int NP = DV / 64;                          // panels of out
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + Smem<D>::kQ;                // two stages
-  const uint32_t sV = sK + 2 * Smem<D>::kKV;           // two stages
+  const uint32_t sK = sQ + Sm::kQ;                     // two stages
+  const uint32_t sV = sK + 2 * Sm::kK;                 // two stages
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -86,9 +91,9 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
   const int rep = H / Kh;
   const size_t kvb = static_cast<size_t>(b / H) * Kh + (b % H) / rep;
-  const bf16* qb = q + static_cast<size_t>(b) * Sq * D;
-  const bf16* kb = k + kvb * Sk * D;
-  const bf16* vb = v + kvb * Sk * D;
+  const bf16* qb = q + static_cast<size_t>(b) * Sq * DQK;
+  const bf16* kb = k + kvb * Sk * DQK;
+  const bf16* vb = v + kvb * Sk * DV;
 
   // Keys past sk_true are masked for every row; under the causal mask so
   // are keys past the block's last row.
@@ -96,9 +101,9 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) kend = min(kend, min(q0 + kBQ, Sq));
   const int n_tiles = (kend + kBK - 1) / kBK;
 
-  load_tile<kBQ, D, kThreads>(sQ, qb, q0, Sq, tid);
-  load_tile<kBK, D, kThreads>(sK, kb, 0, Sk, tid);
-  load_tile<kBK, D, kThreads>(sV, vb, 0, Sk, tid);
+  load_tile<kBQ, DQK, kThreads>(sQ, qb, q0, Sq, tid);
+  load_tile<kBK, DQK, kThreads>(sK, kb, 0, Sk, tid);
+  load_tile<kBK, DV, kThreads>(sV, vb, 0, Sk, tid);
   cp_async_commit();
 
   const int row0 = q0 + wg * 64;                       // warpgroup's rows
@@ -115,9 +120,11 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
-      const uint32_t st = ((t + 1) & 1) * Smem<D>::kKV;
-      load_tile<kBK, D, kThreads>(sK + st, kb, (t + 1) * kBK, Sk, tid);
-      load_tile<kBK, D, kThreads>(sV + st, vb, (t + 1) * kBK, Sk, tid);
+      const int st = (t + 1) & 1;
+      load_tile<kBK, DQK, kThreads>(sK + st * Sm::kK, kb, (t + 1) * kBK, Sk,
+                                    tid);
+      load_tile<kBK, DV, kThreads>(sV + st * Sm::kV, vb, (t + 1) * kBK, Sk,
+                                   tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -127,13 +134,13 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     const int k0 = t * kBK;
-    const uint32_t sKt = sK + (t & 1) * Smem<D>::kKV;
-    const uint32_t sVt = sV + (t & 1) * Smem<D>::kKV;
+    const uint32_t sKt = sK + (t & 1) * Sm::kK;
+    const uint32_t sVt = sV + (t & 1) * Sm::kV;
     if (!causal || k0 <= row0 + 63) {                  // warpgroup-uniform
       float s[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         wgmma_ss(s, desc_k_major<kBQ>(sQw, kk), desc_k_major<kBK>(sKt, kk),
                  kk);
       wgmma_commit();
@@ -190,19 +197,19 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float lc_a = fmaxf(l_a, 1e-30f), lc_b = fmaxf(l_b, 1e-30f);
-  bf16* ob = out + static_cast<size_t>(b) * Sq * D;
+  bf16* ob = out + static_cast<size_t>(b) * Sq * DV;
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 64 * p + 8 * j + c0;
       if (ra < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(ra) * D +
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(ra) * DV +
                                            col) =
             __floats2bfloat162_rn(acc[p][4 * j] / lc_a,
                                   acc[p][4 * j + 1] / lc_a);
       if (rb < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(rb) * D +
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(rb) * DV +
                                            col) =
             __floats2bfloat162_rn(acc[p][4 * j + 2] / lc_b,
                                   acc[p][4 * j + 3] / lc_b);
@@ -214,22 +221,23 @@ flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int BH, int H, int Kh, int Sq, int Sk,
                    int sk_true, int causal, float scale,
                    cudaStream_t stream) {
   static smem_optin::SmemOptin optin;
-  const auto kernel = flash_fwd_sm90_kernel<D>;
+  using Sm = Smem<DQK, DV>;
+  const auto kernel = flash_fwd_sm90_kernel<DQK, DV>;
   int dev = 0, limit = 0;
   cudaError_t err = smem_optin::device_limit(optin, &dev, &limit);
   if (err != cudaSuccess) return err;
-  if (Smem<D>::kBytes > limit) return cudaErrorInvalidConfiguration;
+  if (Sm::kBytes > limit) return cudaErrorInvalidConfiguration;
   err = smem_optin::grant(optin, reinterpret_cast<const void*>(kernel), dev,
-                          Smem<D>::kBytes);
+                          Sm::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+  kernel<<<grid, kThreads, Sm::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), H, Kh, Sq, Sk, sk_true, causal, scale);
@@ -238,24 +246,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q (BH, Sq, D), k and v (BH / H * Kh, Sk, D), out (BH, Sq, D), all bf16,
-// lse (BH, Sq) f32; contiguous on the current device, 16-byte aligned. D is
-// 64 or 128 (the wrapper zero-pads smaller head dims; the scale is passed
-// in). Returns the cudaError_t of the launch (0 on success).
+// q (BH, Sq, DQK), k (BH / H * Kh, Sk, DQK), v (BH / H * Kh, Sk, DV), out
+// (BH, Sq, DV), all bf16, lse (BH, Sq) f32; contiguous on the current
+// device, 16-byte aligned. (DQK, DV) is (64, 64), (128, 128) or (192, 128)
+// (the wrapper zero-pads smaller head dims up to a pair; the scale is
+// passed in). Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd_sm90_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    int BH, int H, int Kh, int Sq, int Sk, int sk_true, int D, int causal,
-    float scale, void* stream) {
+    int BH, int H, int Kh, int Sq, int Sk, int sk_true, int DQK, int DV,
+    int causal, float scale, void* stream) {
   if (BH < 1 || H < 1 || Kh < 1 || H % Kh != 0 || BH % H != 0 || Sq < 1 ||
       Sk < 1 || sk_true < 1 || sk_true > Sk ||
       (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return static_cast<int>(launch<64>(q, k, v, out, lse, BH, H, Kh, Sq, Sk,
-                                       sk_true, causal, scale, s));
-  if (D == 128)
-    return static_cast<int>(launch<128>(q, k, v, out, lse, BH, H, Kh, Sq, Sk,
-                                        sk_true, causal, scale, s));
+#define FWD(A, B)                                                          \
+  launch<A, B>(q, k, v, out, lse, BH, H, Kh, Sq, Sk, sk_true, causal, scale, \
+               s)
+  if (DQK == 64 && DV == 64) return static_cast<int>(FWD(64, 64));
+  if (DQK == 128 && DV == 128) return static_cast<int>(FWD(128, 128));
+  if (DQK == 192 && DV == 128) return static_cast<int>(FWD(192, 128));
+#undef FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

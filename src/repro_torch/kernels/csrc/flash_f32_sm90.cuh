@@ -142,31 +142,35 @@ __global__ void __launch_bounds__(256) split_inputs_kernel(SplitJobs jobs) {
   }
 }
 
-// The term planes of q (nq floats), of dO (nq, the backward only) and of
-// k and v (nk each), laid out in `terms` as q's, dO's, k's, v's kTerms
-// planes each; with dout null (the forward) q's, k's, v's, and planes->dout
-// null.
+// The term planes of q (nq floats), of dO (ndo, the backward only), of k
+// (nk) and of v (nv), laid out in `terms` as q's, dO's, k's, v's kTerms
+// planes each; the kernels get each plane's pointer (kernel parameters,
+// so an address costs no register); with dout null (the forward) q's,
+// k's, v's, and the dout planes null. q and k have the query/key head
+// dim's columns, dO and v the value head dim's.
 struct TermPlanes {
-  const bf16 *q, *dout, *k, *v;
+  const bf16 *q[kTerms], *dout[kTerms], *k[kTerms], *v[kTerms];
 };
 
 inline cudaError_t split_inputs(const void* q, const void* k, const void* v,
                                 const void* dout, void* terms, size_t nq,
-                                size_t nk, TermPlanes* planes,
-                                cudaStream_t stream) {
+                                size_t nk, size_t nv, size_t ndo,
+                                TermPlanes* planes, cudaStream_t stream) {
   bf16* t = static_cast<bf16*>(terms);
   SplitJobs jobs = {};
   int n_jobs = 0;
-  auto add = [&](const void* x, size_t n) {
-    jobs.job[n_jobs++] = {static_cast<const float*>(x), t, n};
-    t += kTerms * n;
-    return jobs.job[n_jobs - 1].t;
+  size_t n = 0;
+  auto add = [&](const void* x, size_t nx, const bf16* (&plane)[kTerms]) {
+    jobs.job[n_jobs++] = {static_cast<const float*>(x), t, nx};
+    for (int m = 0; m < kTerms; ++m) plane[m] = t + m * nx;
+    t += kTerms * nx;
+    n = nx > n ? nx : n;
   };
-  planes->q = add(q, nq);
-  planes->dout = dout ? add(dout, nq) : nullptr;
-  planes->k = add(k, nk);
-  planes->v = add(v, nk);
-  const size_t n = nq > nk ? nq : nk;
+  *planes = {};
+  add(q, nq, planes->q);
+  if (dout) add(dout, ndo, planes->dout);
+  add(k, nk, planes->k);
+  add(v, nv, planes->v);
   const size_t want = (n / 8 + 255) / 256;
   const dim3 grid(static_cast<unsigned>(want < 2048 ? want : 2048), n_jobs);
   split_inputs_kernel<<<grid, 256, 0, stream>>>(jobs);

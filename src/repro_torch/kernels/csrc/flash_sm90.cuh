@@ -5,11 +5,11 @@
 // swizzled shared-memory tile, its cp.async load, the wgmma descriptors and
 // instructions, and the split of an fp32 fragment into bf16 operands.
 //
-// Tile layout. A tile of R rows by D bf16 columns (D = 64 or 128) is kept as
-// D / 64 panels of R x 64; a panel row is 128 bytes, one 128-byte swizzle
-// atom row: its 16-byte chunk c lies at chunk c ^ (r & 7). Panels start at
-// 1024-byte boundaries. This is the layout that a wgmma descriptor with
-// 128-byte swizzling reads, K-major (rows are M or N, the panel's 64
+// Tile layout. A tile of R rows by D bf16 columns (D = 64, 128 or 192) is
+// kept as D / 64 panels of R x 64; a panel row is 128 bytes, one 128-byte
+// swizzle atom row: its 16-byte chunk c lies at chunk c ^ (r & 7). Panels
+// start at 1024-byte boundaries. This is the layout that a wgmma descriptor
+// with 128-byte swizzling reads, K-major (rows are M or N, the panel's 64
 // columns are K) and MN-major (rows are K, columns N) alike, so one tile
 // serves both: Q in S = Q K^T and as the B operand of dS^T Q.
 //
@@ -18,7 +18,9 @@
 // The stride byte offset is 1024 (eight 128-byte rows) in both majors; a
 // K-major k16 step moves the start by 32 bytes inside the atom, an MN-major
 // k16 step by 16 rows (2048 bytes). Every product here is m64n64k16, so one
-// instruction never spans two panels and the leading byte offset is unused.
+// instruction never spans two panels and the leading byte offset is unused;
+// a K of 192 (the query/key head dim of MLA) is twelve k16 steps over three
+// panels, each step inside one panel's swizzle atom.
 //
 // Fragments (PTX ISA, wgmma register fragments): the fp32 accumulator of an
 // m64n64 product gives thread (warp w, lane) rows 16w + lane/4 (a) and
@@ -92,6 +94,19 @@ __device__ __forceinline__ void load_tile(uint32_t s, const bf16* g, int row0,
                          : g;
     cp_async16(s + chunk_offset<R>(r, cc), src, in ? 16 : 0);
   }
+}
+
+// An index (tid, the block's head) as a value the compiler must take as
+// written here, at each tile load of a loop: the addresses a load derives
+// from it are then recomputed at the load instead of hoisted out of the
+// loop, where they would hold registers across it. The (192, 128)
+// instantiations take it (PIN true): without it the fp32 kernels and the
+// bf16 dq spilled there; the other pairs keep their addresses hoisted
+// (but for the fp32 dk/dv at (64, 64)), which costs them nothing.
+template <bool PIN>
+__device__ __forceinline__ int pinned_int(int x) {
+  if constexpr (PIN) asm volatile("" : "+r"(x));
+  return x;
 }
 
 // 64 floats at g[row0 ..] into shared memory at s by the first 64 threads;

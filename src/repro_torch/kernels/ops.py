@@ -321,13 +321,18 @@ def miru_readout(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
 # Flash attention (forward and backward)
 # ---------------------------------------------------------------------------
 
-def _head_dim(dh: int, dv: int) -> int:
-    """The kernels' head dim that ``dh`` and ``dv`` are zero-padded to."""
-    D = next((d for d in _flash_kernel.HEAD_DIMS if d >= max(dh, dv)), None)
-    if D is None:
-        raise ValueError(f"head dims {dh}/{dv} exceed the kernel's "
-                         f"{_flash_kernel.HEAD_DIMS[-1]}")
-    return D
+def _head_dim(dh: int, dv: int) -> tuple[int, int]:
+    """The kernels' (query/key, value) head dims that ``dh`` and ``dv``
+    are zero-padded to: the first of ``HEAD_DIM_PAIRS`` that holds both
+    (equal pairs: the smallest D >= max(dh, dv); MLA's 192 / 128 as it
+    is). Raises, naming the pairs, where none does."""
+    pair = next(((a, b) for a, b in _flash_kernel.HEAD_DIM_PAIRS
+                 if a >= dh and b >= dv), None)
+    if pair is None:
+        raise ValueError(f"head dims {dh}/{dv} fit none of the flash "
+                         f"kernels' (q/k, v) pairs "
+                         f"{_flash_kernel.HEAD_DIM_PAIRS}")
+    return pair
 
 
 def _heads_first(t: torch.Tensor) -> torch.Tensor:
@@ -377,11 +382,11 @@ def _flash_fwd(q, k, v, causal: bool, sk_true: int):
         out, lse = ref.flash_attention_fwd_ref(qt, kt, vt, causal, sk_true,
                                                H, Kh)
     else:
-        D = _head_dim(dh, dv)
+        DQK, DV = _head_dim(dh, dv)
         out, lse = _flash_fwd_kernel(q.dtype)(
-            F.pad(qt, (0, D - dh)).contiguous(),
-            F.pad(kt, (0, D - dh)).contiguous(),
-            F.pad(vt, (0, D - dv)).contiguous(), causal=causal,
+            F.pad(qt, (0, DQK - dh)).contiguous(),
+            F.pad(kt, (0, DQK - dh)).contiguous(),
+            F.pad(vt, (0, DV - dv)).contiguous(), causal=causal,
             sk_true=sk_true, q_heads=H, kv_heads=Kh,
             scale=float(dh) ** -0.5)
         out = out[..., :dv]
@@ -420,9 +425,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version, so nothing is padded. GQA KV heads are not repeated:
     q (B, Sq, H, dh) against k/v (B, Sk, Kh, ·) goes to the kernel as
     (B·H, Sq, ·) and (B·Kh, Sk, ·), the kernel mapping each query head to
-    its KV head. On the card the head dim is zero-padded to the kernel's
-    64 or 128 (exact: zero terms add nothing to q·k, and padded value
-    columns are sliced away; the scale stays dh^-0.5). On inputs that
+    its KV head. On the card the head dims are zero-padded to the
+    kernels' (query/key, value) pair (:func:`_head_dim`: (64, 64),
+    (128, 128) or MLA's (192, 128); exact: zero terms add nothing to q·k,
+    and padded value columns are sliced away; the scale stays dh^-0.5 of
+    the true dh); head dims that fit no pair raise. On inputs that
     require grad the call is differentiable in q, k and v, through
     :func:`flash_attention_bwd`. On the card bf16 inputs take the
     tensor-core kernel and fp32 inputs the fp32 one, a fixed rule by dtype
@@ -445,12 +452,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layouts and dtypes. dk/dv are each KV head's gradient summed over the
     query heads that read it (the GQA fold, in the kernel). On the card
     delta = Σ dout·out is a torch reduction (the reference computes it
-    outside its kernels too), the head dims are zero-padded to 64 or 128
-    as in the forward and the gradients sliced back; the dq kernel and
-    the dk/dv kernel launch once each, both by dtype as the forward (bf16
-    the tensor-core dq and dk/dv with its fold, fp32 the fp32 tensor-core
-    dq and dk/dv, each with its split of the inputs into bf16 terms and
-    dk/dv with its fold)."""
+    outside its kernels too), the head dims are zero-padded to the
+    kernels' pair as in the forward and the gradients sliced back; the dq
+    kernel and the dk/dv kernel launch once each, both by dtype as the
+    forward (bf16 the tensor-core dq and dk/dv with its fold, fp32 the
+    fp32 tensor-core dq and dk/dv, each with its split of the inputs into
+    bf16 terms and dk/dv with its fold)."""
     B, Sq, H, dh = q.shape
     Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true
@@ -462,12 +469,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qt, kt, vt, ot, lse, dot, causal, sk_true, H, Kh)
     else:
         delta = torch.sum(dot.to(torch.float32) * ot.to(torch.float32), -1)
-        D = _head_dim(dh, dv)
-        pad = lambda t, d: F.pad(t, (0, D - d)).contiguous()
+        DQK, DV = _head_dim(dh, dv)
+        pad = lambda t, d, D: F.pad(t, (0, D - d)).contiguous()
         kw = dict(causal=causal, sk_true=sk_true, q_heads=H, kv_heads=Kh,
                   scale=float(dh) ** -0.5)
-        args = (pad(qt, dh), pad(kt, dh), pad(vt, dv), pad(dot, dv),
-                lse.contiguous(), delta)
+        args = (pad(qt, dh, DQK), pad(kt, dh, DQK), pad(vt, dv, DV),
+                pad(dot, dv, DV), lse.contiguous(), delta)
         dq = _flash_dq_kernel(q.dtype)(*args, **kw)[..., :dh]
         dk, dvv = _flash_dkv_kernel(q.dtype)(*args, **kw)
         dk, dvv = dk[..., :dh], dvv[..., :dv]

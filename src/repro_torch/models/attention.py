@@ -1,6 +1,7 @@
-"""Attention, the GQA half: full, chunked and flash attention, the GQA
-block with qk-norm and biases, and the bf16 and int8 KV caches —
-counterpart of ``repro/models/attention.py``.
+"""Attention: full, chunked and flash attention, the GQA block with
+qk-norm and biases, the bf16 and int8 KV caches, and MLA (multi-head
+latent attention, deepseek-v3) with its latent cache — counterpart of
+``repro/models/attention.py``.
 
 The flash branch (KV longer than ``cfg.attn_chunk``) runs the
 hand-written flash-attention forward kernel through
@@ -16,10 +17,17 @@ behind a ``torch.autograd.Function``, where the reference's model
 differentiates its ``_flash`` custom VJP (which, in bf16, also rounds p
 and ds to bf16).
 
-Not ported with this half: MLA (``init_mla_params`` …) and the
-Ulysses/sharding-context branches of ``gqa_attention`` (the port has no
-distributed context yet; the reference's ``act_constraint`` is the
-identity here).
+MLA's prefill and training (:func:`mla_attention`) expand the latents to
+per-head keys of ``qk_nope + qk_rope`` columns and values of
+``v_head_dim``, and take the flash kernels past ``attn_chunk`` at that
+(dh, dv) pair (192 / 128 at deepseek-v3's widths, a pair the kernels are
+built for). Its decode (:func:`mla_decode`) is the reference's absorbed
+form, einsums over the bf16 latent cache (no kernel there, as in the
+reference).
+
+Not ported: the Ulysses/sharding-context branches of ``gqa_attention``
+and ``mla_attention`` (the port has no distributed context yet; the
+reference's ``act_constraint`` is the identity here).
 
 The int8 cache (``CacheSpec(dtype="int8")``, jamba's
 ``kv_cache_dtype``) stores each token's K and V as int8 codes with one
@@ -297,13 +305,20 @@ def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         new = {"k": k_new, "v": v_new}
-    idx = pos_index(pos, k_new.device)
+    _write_at(cache, new, pos_index(pos, k_new.device), write_rows)
+    return cache
+
+
+def _write_at(cache: dict, new: dict, idx: torch.Tensor,
+              write_rows: Optional[torch.Tensor]) -> None:
+    """Each ``new[name]`` (B, 1, ·) into ``cache[name]`` at position
+    ``idx`` (a (1,) tensor), in place, in the rows ``write_rows`` (None:
+    every row); the other rows keep what they held there."""
     for name, val in new.items():
         buf = cache[name]
         val = select_rows(write_rows, val.to(buf.dtype),
                           buf.index_select(1, idx))
         buf.index_copy_(1, idx, val)
-    return cache
 
 
 def cache_read(cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -339,4 +354,125 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                          causal=False,
                          kv_len=(pos_index(pos, x.device) + 1).expand(B))
     return dense(out.reshape(B, S, cfg.n_heads * hd), p["wo"],
+                 quant_mode=cfg.quant_mode), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def init_mla_params(key: Seed, cfg: ModelConfig,
+                    device: Union[str, torch.device] = "cuda") -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ks = split_seed(key, 6)
+    return {
+        "q_down": tn(ks[0], (D, qr), D ** -0.5, cfg.dtype, device),
+        "q_norm": torch.ones((qr,), dtype=cfg.dtype, device=device),
+        "q_up": tn(ks[1], (qr, H * (dn + dr)), qr ** -0.5, cfg.dtype,
+                   device),
+        "kv_down": tn(ks[2], (D, kvr + dr), D ** -0.5, cfg.dtype, device),
+        "kv_norm": torch.ones((kvr,), dtype=cfg.dtype, device=device),
+        "kv_up": tn(ks[3], (kvr, H * (dn + dv)), kvr ** -0.5, cfg.dtype,
+                    device),
+        "wo": tn(ks[4], (H * dv, D), (H * dv) ** -0.5, cfg.dtype, device),
+    }
+
+
+def _mla_query(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """q through ``q_down``, its norm and ``q_up``: (q_nope, q_rope), each
+    (B, S, H, ·)."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = dense(rms_norm(dense(x, p["q_down"], quant_mode=cfg.quant_mode),
+                       p["q_norm"], cfg.rmsnorm_eps),
+              p["q_up"], quant_mode=cfg.quant_mode)
+    q = q.reshape(B, S, cfg.n_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, causal: bool = True
+                  ) -> torch.Tensor:
+    """Training/prefill MLA: the latents expanded to per-head keys (the
+    nope part from ``kv_up``, the rope part shared by every head) and
+    values, then :func:`sdpa` at (dh, dv) = (nope + rope, v): the flash
+    kernels past ``attn_chunk``, scale (nope + rope)^-0.5. x (B, S, D);
+    positions (B, S) or (S,)."""
+    B, S, _ = x.shape
+    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_query(p, cfg, x)
+    kv = dense(x, p["kv_down"], quant_mode=cfg.quant_mode)
+    c_kv, k_rope = kv[..., :kvr], kv[..., kvr:]
+    kv_up = dense(rms_norm(c_kv, p["kv_norm"], cfg.rmsnorm_eps),
+                  p["kv_up"], quant_mode=cfg.quant_mode)
+    kv_up = kv_up.reshape(B, S, H, dn + dv)
+    k_nope, v = kv_up[..., :dn], kv_up[..., dn:]
+    posb = torch.broadcast_to(positions, (B, S))
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, posb, cfg.rope_theta)       # (B,S,dr) shared
+    k_rope = k_rope[:, :, None, :].expand(B, S, H, dr)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope], dim=-1)
+    out = sdpa(qf, kf, v, causal=causal, chunk=cfg.attn_chunk)
+    return dense(out.reshape(B, S, H * dv), p["wo"],
+                 quant_mode=cfg.quant_mode)
+
+
+def init_mla_cache(cfg: ModelConfig, spec: CacheSpec,
+                   device: Union[str, torch.device] = "cuda") -> dict:
+    """The latent cache, zeroed: ``c_kv`` (batch, max_len, kv_lora_rank)
+    and the roped key ``k_rope`` (batch, max_len, qk_rope_head_dim), in
+    bf16 whatever the model's dtype (as the reference; ``spec.dtype`` is
+    not read)."""
+    shape = (spec.batch, spec.max_len)
+    return {"c_kv": torch.zeros(shape + (cfg.kv_lora_rank,),
+                                dtype=torch.bfloat16, device=device),
+            "k_rope": torch.zeros(shape + (cfg.qk_rope_head_dim,),
+                                  dtype=torch.bfloat16, device=device)}
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               pos, angles: tuple[torch.Tensor, torch.Tensor],
+               write_rows: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, dict]:
+    """Absorbed-matrix MLA decode: x (B, 1, D) at position ``pos`` (an int
+    or a 0-d tensor); ``angles`` the rope (cos, sin) of ``pos`` at the
+    rope head dim (``layers.rope_angles``). The normed latent and the
+    roped key are written into the bf16 cache at ``pos`` in place, in the
+    rows ``write_rows`` (None: every row, as the reference; the other rows
+    keep their bits). Attention then runs in the latent space: W_UK
+    folded into q, scores = the latent part + the rope part times
+    (nope + rope)^-0.5, positions past ``pos`` masked, the probabilities
+    cast to x's dtype, W_UV applied after. Reads nothing back to the host
+    (capturable in a CUDA graph). Returns (out, cache)."""
+    B, S, _ = x.shape
+    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_query(p, cfg, x)
+    q_rope = apply_rope(q_rope, None, angles=angles)
+    kv = dense(x, p["kv_down"], quant_mode=cfg.quant_mode)
+    c_new = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.rmsnorm_eps)
+    kr_new = apply_rope(kv[..., kvr:], None, angles=angles)
+    idx = pos_index(pos, x.device)
+    _write_at(cache, {"c_kv": c_new, "k_rope": kr_new}, idx, write_rows)
+
+    w = p["kv_up"].reshape(kvr, H, dn + dv)
+    q_abs = torch.einsum("bshd,khd->bshk", q_nope,
+                         w[..., :dn].to(q_nope.dtype))      # (B,S,H,kvr)
+    c_all, kr_all = cache["c_kv"], cache["k_rope"]
+    scores = (torch.einsum("bshk,blk->bhsl", q_abs, c_all.to(q_abs.dtype))
+              + torch.einsum("bshr,blr->bhsl", q_rope,
+                             kr_all.to(q_rope.dtype))
+              ).to(torch.float32) * (dn + dr) ** -0.5
+    kv_len = (idx + 1).expand(B)
+    mask = torch.arange(c_all.shape[1], device=x.device)[None, :] \
+        < kv_len[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    lat = torch.einsum("bhsl,blk->bshk", probs, c_all.to(x.dtype))
+    out = torch.einsum("bshk,khv->bshv", lat, w[..., dn:].to(lat.dtype))
+    return dense(out.reshape(B, S, H * dv), p["wo"],
                  quant_mode=cfg.quant_mode), cache

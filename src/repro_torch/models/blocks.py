@@ -1,9 +1,10 @@
 """Layer blocks, stacks and the hybrid superblock — counterpart of
 ``repro/models/blocks.py``.
 
-Layer = pre-norm mixer (GQA attention or the mamba2 SSD mixer) + pre-norm
-FFN (SwiGLU, or the MoE of ``models/moe.py``). The layers' tensors are
-stacked along a leading L axis, so the parameter tree is the reference's;
+Layer = pre-norm mixer (GQA attention, MLA or the mamba2 SSD mixer) +
+pre-norm FFN (SwiGLU, or the MoE of ``models/moe.py``). The layers'
+tensors are stacked along a leading L axis, so the parameter tree is the
+reference's;
 where the reference scans over that axis, the port loops over it in
 Python (eager PyTorch has no scan to compile). With ``cfg.remat`` (the
 default) a layer run under autograd saves only its input and recomputes
@@ -16,9 +17,9 @@ is static (SSD mixers, one attention slot mid-period, MoE on the slots
 whole superblock is recomputed in the backward, as the reference's
 checkpoint around the superblock body.
 
-Decode writes the caches in place, the KV caches and the SSM states
-alike, in the rows ``write_rows`` (None: every row, the reference's
-behaviour).
+Decode writes the caches in place, the KV caches, MLA's latent caches
+and the SSM states alike, in the rows ``write_rows`` (None: every row,
+the reference's behaviour).
 
 The ``miru`` mixer (``cfg.mixer == "miru"``, the paper's cell as a
 sequence mixer) runs in the forward only, as in the reference, whose
@@ -30,7 +31,7 @@ is what the reference's scanned stack reaches by scaling one traced
 layer's counts by the layer count.
 
 Not ported yet, each raising with its ROADMAP item (queue A, LM zoo):
-MLA, cross-attention (encoder-decoder) and the modality frontends.
+cross-attention (encoder-decoder) and the modality frontends.
 """
 from __future__ import annotations
 
@@ -58,7 +59,6 @@ PyTree = Any
 def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
     """Raise for every layer kind the port does not run yet."""
     missing = [name for name, on in (
-        ("MLA attention (item 11a)", cfg.use_mla),
         ("encoder-decoder cross-attention (item 11b)",
          cross_attn or cfg.is_encoder_decoder),
         ("modality frontends (items 11b, 11c)", cfg.frontend != "none"),
@@ -66,8 +66,8 @@ def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue A, LM zoo); the port runs the dense, moe, ssm and "
-            "hybrid families")
+            "queue A, LM zoo); the port runs the dense, moe (MLA "
+            "included), ssm and hybrid families")
 
 
 def require_decodable(cfg: ModelConfig) -> None:
@@ -161,6 +161,8 @@ def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
         mixer = ssm_mod.init_ssm_params(ks[0], cfg, device)
     elif cfg.mixer == "miru":
         mixer = init_miru_mixer(ks[0], cfg, device)
+    elif cfg.use_mla:
+        mixer = attn.init_mla_params(ks[0], cfg, device)
     else:
         mixer = attn.init_gqa_params(ks[0], cfg, device)
     p: dict = {"norm1": torch.ones((D,), dtype=cfg.dtype, device=device),
@@ -195,6 +197,8 @@ def layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         mixed = ssm_mod.mamba2_forward(p["mixer"], cfg, h)
     elif cfg.mixer == "miru":
         mixed = miru_mixer(p["mixer"], cfg, h)
+    elif cfg.use_mla:
+        mixed = attn.mla_attention(p["mixer"], cfg, h, positions, causal)
     else:
         mixed = attn.gqa_attention(p["mixer"], cfg, h, positions, causal)
     return _ffn(p, cfg, x + mixed.to(x.dtype))
@@ -206,6 +210,9 @@ def _decode_mixer(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
     if is_ssm:
         return ssm_mod.mamba2_decode(lp["mixer"], cfg, h, cache,
                                      write_rows)[0]
+    if cfg.use_mla:
+        return attn.mla_decode(lp["mixer"], cfg, h, cache, pos, angles,
+                               write_rows)[0]
     return attn.gqa_decode(lp["mixer"], cfg, h, cache, pos, angles,
                            write_rows)[0]
 
@@ -267,9 +274,11 @@ def stack_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
 def _angles(cfg: ModelConfig, x: torch.Tensor, pos):
     """The rope (cos, sin) of ``pos`` (an int or a 0-d tensor): every
     attention layer of a decode rotates by the same position, so once a
-    step."""
+    step; at the rope head dim (MLA's ``qk_rope_head_dim``, else the
+    head dim)."""
+    dim = cfg.qk_rope_head_dim if cfg.use_mla else cfg.hd()
     return rope_angles(pos_index(pos, x.device).expand(x.shape[0], 1),
-                       cfg.hd(), cfg.rope_theta)
+                       dim, cfg.rope_theta)
 
 
 def stack_decode(stacked: PyTree, caches: PyTree, cfg: ModelConfig,

@@ -1,19 +1,21 @@
 """Top-level language models: init, loss value, prefill, decode —
-counterpart of ``repro/models/lm.py`` for the dense, moe, ssm and hybrid
-families.
+counterpart of ``repro/models/lm.py`` for the dense, moe (MLA included),
+ssm and hybrid families.
 
 A decoder-only model: token embedding, a stack of layers, a final
 RMSNorm and a tied or separate LM head. The stack is GQA + SwiGLU
 (dense), GQA + MoE (moe, after ``first_dense_layers`` dense layers), the
-mamba2 SSD mixer with no FFN (ssm) or jamba's superblocks (hybrid). The
-prefill's attention takes the flash-attention kernel when the prompt is
-longer than ``cfg.attn_chunk``; decode reads a bf16 or int8 KV cache
-through full attention and steps the SSM state. With
+mamba2 SSD mixer with no FFN (ssm) or jamba's superblocks (hybrid); with
+``cfg.use_mla`` (deepseek-v3) the attention is MLA. The prefill's
+attention takes the flash-attention kernel when the prompt is longer than
+``cfg.attn_chunk``; decode reads a bf16 or int8 KV cache through full
+attention (MLA: its bf16 latent cache through the absorbed form) and
+steps the SSM state. With
 ``cfg.quant_mode`` naming a device backend every projection but the
 router and a tied head runs on that substrate (``layers.dense``); with
 ``cfg.mixer == "miru"`` the layers' mixer is the MiRU recurrence
-(``blocks.miru_mixer``), which has no decode, as in the reference. MLA,
-encoder-decoder models and modality frontends raise with their ROADMAP
+(``blocks.miru_mixer``), which has no decode, as in the reference.
+Encoder-decoder models and modality frontends raise with their ROADMAP
 item.
 
 Parameters are a dict of tensors with the reference's tree (layers
@@ -142,8 +144,9 @@ def prefill(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> PyTree:
     """The decode caches, zeroed: stacked (L, batch, max_len, Kh·hd) K/V
-    in ``cfg.kv_cache_dtype`` (bf16, or int8 with its scales), the SSM
-    states (L, batch, …) of an ssm model, each superblock slot's of a
+    in ``cfg.kv_cache_dtype`` (bf16, or int8 with its scales), MLA's bf16
+    latent caches (``c_kv`` and ``k_rope``, (L, batch, max_len, ·)), the
+    SSM states (L, batch, …) of an ssm model, each superblock slot's of a
     hybrid one, and ``{"dense", "moe"}`` where an MoE model has
     ``first_dense_layers``. A ``mixer="miru"`` model has no decode
     (:func:`blocks.require_decodable`)."""
@@ -151,9 +154,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     if cfg.layer_pattern == "hybrid":
         return blocks.init_hybrid_caches(cfg, batch, max_len, dev)
-    one = ssm_mod.init_ssm_cache(cfg, batch, dev) \
-        if cfg.layer_pattern == "ssm" else attn.init_kv_cache(
-            cfg, attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype), dev)
+    spec = attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype)
+    if cfg.layer_pattern == "ssm":
+        one = ssm_mod.init_ssm_cache(cfg, batch, dev)
+    elif cfg.use_mla:
+        one = attn.init_mla_cache(cfg, spec, dev)
+    else:
+        one = attn.init_kv_cache(cfg, spec, dev)
 
     def stacked(n):
         return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
@@ -168,8 +175,8 @@ def clear_cache_rows(caches: PyTree, rows) -> PyTree:
     """Zero the batch rows ``rows`` of every cache tensor (batch is each
     tensor's second axis), in place: a slot given to a new request
     starts from a fresh cache's state. The SSM state needs it (a decode
-    reads all of it); a KV cache's stale entries are masked by position
-    anyway. Returns ``caches``."""
+    reads all of it); a KV cache's and MLA's latent cache's stale entries
+    are masked by position anyway. Returns ``caches``."""
     for t in tree_leaves(caches):
         t[:, rows] = 0
     return caches

@@ -5,10 +5,9 @@
                device.
 - sparsify:    K-WTA gradient sparsification (the paper's ζ) as a
                transform.
+- qstate:      8-bit block-quantized Adam moments (``adam_8bit``, the
+               optimizer of the largest configs, deepseek-v3's).
 - compression: top-k + error-feedback gradient compression.
-
-``adam_8bit`` (the reference's ``qstate``: block-quantized int8 moments
-for the largest configs) is not ported; it raises.
 """
 from repro_torch.optim.compression import topk_compress_error_feedback
 from repro_torch.optim.optimizers import (Optimizer, adam, adamw,
@@ -18,14 +17,8 @@ from repro_torch.optim.optimizers import (Optimizer, adam, adamw,
                                           cosine_schedule, scale,
                                           scale_by_adam, sgd,
                                           warmup_cosine)
+from repro_torch.optim.qstate import adam_8bit
 from repro_torch.optim.sparsify import kwta_sparsify
-
-
-def adam_8bit(*args, **kwargs):
-    """Not ported: the reference's 8-bit block-quantized Adam moments."""
-    raise NotImplementedError(
-        "adam_8bit (repro/optim/qstate.py) is not ported yet (ROADMAP "
-        "queue A, the rest of the LM zoo); use adamw")
 
 
 __all__ = [

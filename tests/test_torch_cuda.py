@@ -702,11 +702,11 @@ def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):
     kw = dict(causal=True, sk_true=64, q_heads=4, kv_heads=2, scale=0.1)
     lse = torch.zeros(4, 64, device=cuda)
     before = _flash_launches()
-    with pytest.raises(ValueError, match="D must be one of"):
+    with pytest.raises(ValueError, match="must be one of"):
         kflash.flash_attention_fwd_sm90(q, k, v, **kw)
-    with pytest.raises(ValueError, match="D must be one of"):
+    with pytest.raises(ValueError, match="must be one of"):
         kflash.flash_attention_bwd_dkv_sm90(q, k, v, q, lse, lse, **kw)
-    with pytest.raises(ValueError, match="D must be one of"):
+    with pytest.raises(ValueError, match="must be one of"):
         kflash.flash_attention_bwd_dq_sm90(q, k, v, q, lse, lse, **kw)
     q64, k64, v64 = (t[..., :64].contiguous() for t in (q, k, v))
     with pytest.raises(TypeError, match="bfloat16 only"):
@@ -727,13 +727,88 @@ def test_flash_bf16_calls_the_sm90_kernels_cannot_take_raise(cuda):
     q_odd = flat[1:].view(q64.shape)              # 2 bytes off alignment
     with pytest.raises(ValueError, match="16-byte aligned"):
         kflash.flash_attention_fwd_sm90(q_odd, k64, v64, **kw)
-    with pytest.raises(ValueError, match="exceed"):  # dh 192 > 128
+    with pytest.raises(ValueError, match="fit none"):  # (192, 192): no pair
         ops.flash_attention_fwd(*_flash_inputs(cuda, 1, 16, 16, 2, 1, 192,
                                                bf, 14))
     with pytest.raises(TypeError):
         q, k, v = _flash_inputs(cuda, 1, 16, 16, 2, 1, 64, bf, 15)
         ops.flash_attention_fwd(q, k.float(), v)
     assert _flash_launches() == before
+
+
+def _mla_flash_inputs(dev, B, Sq, Sk, H, dtype, seed, dh=192, dv=128):
+    """q, k (dh columns) and v (dv columns), MLA's head dims (rep 1)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+               for s in ((B, Sq, H, dh), (B, Sk, H, dh), (B, Sk, H, dv)))
+    return [t.to(dev, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,causal,sk_true", [
+    (1, 2048, 2048, 16, True, None),     # the deepseek prefill's tiles
+    (1, 2048, 2048, 16, False, None),
+    (2, 300, 333, 4, True, 290),         # Sk off the tiles, padded keys
+    (1, 130, 130, 3, False, None),       # Sq off the 64-row tiles
+])
+def test_flash_mla_pair_equals_plain(cuda, B, Sq, Sk, H, causal, sk_true,
+                                     dtype):
+    """The (192, 128) instantiations of the forward (bf16: the tensor-core
+    kernel; fp32: one warpgroup of 64 query rows a block) against the
+    plain version: one launch, out (B, Sq, H, 128), lse within 1e-5, fp32
+    out at rtol 2e-5 / atol 2e-6, bf16 within one ulp plus that."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_flash_inputs(cuda, B, Sq, Sk, H, dt, Sq + Sk + H)
+    before = _flash_launches()
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                       sk_true=sk_true)
+    torch.cuda.synchronize()
+    assert _launched(before, _FWD_COUNTER[dtype])
+    assert out.shape == (B, Sq, H, 128) and out.dtype == dt
+    want_o, want_l = ops.flash_attention_fwd(
+        q.cpu().float(), k.cpu().float(), v.cpu().float(), causal=causal,
+        sk_true=sk_true)
+    assert float((lse.cpu() - want_l).abs().max()) <= 1e-5
+    if dt == torch.float32:
+        np.testing.assert_allclose(out.cpu().numpy(), want_o.numpy(),
+                                   rtol=2e-5, atol=2e-6)
+    else:
+        assert testing.bf16_within(out.cpu(), want_o)[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,causal,sk_true", [
+    (1, 2048, 2048, 16, True, None),
+    (1, 2048, 2048, 16, False, None),
+    (2, 300, 333, 4, True, 290),
+    (1, 100, 200, 3, False, 150),
+])
+def test_flash_mla_pair_backward_equals_plain(cuda, B, Sq, Sk, H, causal,
+                                              sk_true, dtype):
+    """The (192, 128) dq and dk/dv of the dtype (bf16: dq's panels and
+    dk/dv's dV and dK blocks; fp32: K and V through one region in dq, Q
+    and dO in dk/dv's dK blocks), each launched once a call, against the
+    plain version at ``testing.grads_close``; dq and dk have 192 columns,
+    dv 128; keys past sk_true get no gradient; a second call the same
+    bits."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_flash_inputs(cuda, B, Sq, Sk, H, dt, Sq + Sk)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                       sk_true=sk_true)
+    dout = _mla_flash_inputs(cuda, B, Sq, Sq, H, dt, 2)[2]
+    before = _flash_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, sk_true)
+    torch.cuda.synchronize()
+    assert _launched(before, _DQ_COUNTER[dtype], _DKV_COUNTER[dtype])
+    want = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal, sk_true)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dt
+        assert testing.grads_close(g, w), float((g.float() - w).abs().max())
+    if sk_true is not None:
+        assert not got[1][:, sk_true:].any() and \
+            not got[2][:, sk_true:].any()
+    again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, sk_true)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_flash_gradients_through_the_function_match_full_attention(cuda):
@@ -808,6 +883,45 @@ def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     before = kflash.fwd_f32_sm90_launches
     lm.prefill(params, cfg, {"tokens": toks[:, :16]})   # S <= chunk: full
     assert kflash.fwd_f32_sm90_launches == before
+
+
+def test_mla_decode_in_the_engine_graph_follows_the_cpu(cuda):
+    """deepseek-v3's smoke config (fp32, MLA with its bf16 latent cache)
+    served by the engine on the card, its decode one CUDA graph
+    (``mla_decode`` with the graph's row mask as ``write_rows``), against
+    the CPU's eager engine on the same prompts: the tokens tie-aware, the
+    logits within 1e-3. Then a replay stepping slot 1 alone at position 7
+    leaves every latent row of the other slots the same bits and writes
+    slot 1's."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.utils import tree_leaves
+    cfg, params = _lm("cpu", name="deepseek-v3-671b")
+    prompts = [list(range(3 + i, 9 + 2 * i)) for i in range(4)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServeEngine(cfg, ServeConfig(
+            batch_slots=4, max_len=32, eos_token=-1, torch_device=dev,
+            keep_logits=True), params)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run_until_drained()
+        runs[dev.type] = (eng, reqs)
+    eng, reqs = runs["cuda"]
+    want = runs["cpu"][1]
+    assert eng._graph is not None and set(eng.caches["dense"]) == \
+        {"c_kv", "k_rope"}
+    testing.compare_tokens([r.tokens for r in reqs], [r.tokens for r in want],
+                           [torch.stack(r.logits) for r in reqs],
+                           [torch.stack(r.logits) for r in want],
+                           atol=1e-3).check()
+    before = [t.clone() for t in tree_leaves(eng.caches)]
+    eng._decode({1: cfg.vocab - 1}, 7)
+    torch.cuda.synchronize()
+    other = torch.tensor([True, False, True, True], device=cuda)
+    after = tree_leaves(eng.caches)
+    assert all(torch.equal(a[:, other], b[:, other])
+               for a, b in zip(after, before))
+    assert any(not torch.equal(a[:, 1, 7], b[:, 1, 7])
+               for a, b in zip(after, before))
 
 
 def test_trainer_on_the_card_follows_the_cpu(cuda):

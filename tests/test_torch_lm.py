@@ -288,23 +288,42 @@ def test_layers_match_reference():
         rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "seamless-m4t-medium",
-                                  "llava-next-34b"])
+@pytest.mark.parametrize("name", ["seamless-m4t-medium", "llava-next-34b"])
 def test_unported_families_raise(name):
     cfg = configs.get_smoke_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_params(prng.PRNGKey(0), cfg, "cpu")
 
 
+def test_deepseek_smoke_config_initialises_and_runs():
+    """deepseek-v3 (MLA, item 11a) is ported: its smoke config
+    initialises, prefills, decodes from the latent cache and gives a
+    finite loss (against the reference in ``tests/test_torch_mla.py``)."""
+    cfg = configs.get_smoke_config("deepseek-v3-671b")
+    tp = lm.init_params(prng.PRNGKey(0), cfg, "cpu")
+    assert set(tp["layers"]["mixer"]) == {"q_down", "q_norm", "q_up",
+                                          "kv_down", "kv_norm", "kv_up",
+                                          "wo"}
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 7))
+    assert torch.isfinite(lm.prefill(tp, cfg, {"tokens": toks})).all()
+    cache = lm.init_cache(cfg, 2, 8, "cpu")
+    assert cache["moe"]["c_kv"].shape == (cfg.n_layers - 1, 2, 8,
+                                          cfg.kv_lora_rank)
+    logits, _ = lm.decode_step(tp, cfg, cache, toks[:, :1], 0)
+    assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits).all()
+    loss = lm.loss_fn(tp, cfg, {"tokens": toks, "labels": toks,
+                                "mask": torch.ones(2, 7)})
+    assert torch.isfinite(loss)
+
+
 def test_unported_options_raise():
-    """MLA, encoder-decoder models and the modality frontends still raise,
+    """Encoder-decoder models and the modality frontends still raise,
     each naming its ROADMAP item; ``quant_mode``, the int8 cache and the
     ``miru`` mixer run (against the reference in
     ``tests/test_torch_lm_quant.py``), the mixer without a decode, as in
-    the reference."""
+    the reference; MLA runs (``tests/test_torch_mla.py``)."""
     cfg = configs.get_smoke_config("qwen2-0.5b")
-    for bad, item in ((dataclasses.replace(cfg, use_mla=True), "11a"),
-                      (dataclasses.replace(cfg, is_encoder_decoder=True),
+    for bad, item in ((dataclasses.replace(cfg, is_encoder_decoder=True),
                        "11b"),
                       (dataclasses.replace(cfg, frontend="vision"), "11c")):
         with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):

@@ -8,7 +8,10 @@ agree at rtol 1e-6 (atol 1e-7 for values that pass near zero): the
 element arithmetic is the reference's, in its order, and only
 transcendental functions (pow, cos, sqrt) may round differently in the
 last bit. The reference's own behavioural tests (``tests/test_optim.py``)
-are mirrored for the port, without ``adam_8bit`` (not ported: it raises).
+are mirrored for the port. ``adam_8bit``'s int8 codes and fp32 scales
+equal the reference's bit for bit on the same gradients (the reference
+run eagerly, as every transform here: under ``jax.jit`` XLA turns the
+division by 127 into a product with its reciprocal).
 """
 import numpy as np
 import pytest
@@ -56,6 +59,9 @@ PAIRS = {
                                          weight_decay=0.1)),
     "adamw_cosine": (lambda o: o.adamw(o.cosine_schedule(0.05, 4),
                                        max_grad_norm=None)),
+    "adam_8bit": (lambda o: o.adam_8bit(0.05)),
+    "adam_8bit_schedule": (lambda o: o.adam_8bit(o.warmup_cosine(0.05, 2, 6),
+                                                 max_grad_norm=None)),
     "kwta_sparsify": (lambda o: o.kwta_sparsify(o.adam(0.05), keep_frac=0.5,
                                                 min_size=4)),
     "compression": (lambda o: o.topk_compress_error_feedback(
@@ -121,9 +127,73 @@ def test_bf16_grads_clip_in_fp32_as_jax_promotes():
                                rtol=RTOL, atol=ATOL)
 
 
-def test_adam_8bit_is_not_ported():
-    with pytest.raises(NotImplementedError, match="LM zoo"):
-        optim.adam_8bit(0.01)
+def test_adam_8bit_state_is_int8_with_fp32_scales_on_the_params_device():
+    """As ``tests/test_optim.py::test_adam_8bit_state_is_int8``: the codes
+    keep the parameter's rank, the last dim padded to the 128 block; the
+    scales are fp32, one a block; a 0-d parameter takes (1,)."""
+    from repro_torch.optim.qstate import Adam8bitState
+    params = {"w": torch.zeros((300, 256)), "b": torch.zeros((130,)),
+              "s": torch.zeros(())}
+    state = optim.adam_8bit(0.01).init(params)
+    adam = next(s for s in state if isinstance(s, Adam8bitState))
+    assert adam.count.dtype == torch.int32 and adam.count.shape == ()
+    for m in (adam.mu, adam.nu):
+        assert m["w"].codes.dtype == torch.int8
+        assert m["w"].codes.shape == (300, 256)
+        assert m["w"].scales.shape == (300, 2)
+        assert m["w"].scales.dtype == torch.float32
+        assert m["b"].codes.shape == (256,) and m["b"].scales.shape == (2,)
+        assert m["s"].codes.shape == (128,) and m["s"].scales.shape == (1,)
+        assert all(t.device == params["w"].device
+                   for t in tree_leaves(m))
+
+
+def test_adam_8bit_codes_and_scales_equal_the_reference():
+    """``scale_by_adam_8bit`` over eight steps of the same gradients (a
+    last dim off the block, a 0-d leaf, a stacked 3-d one): every int8
+    code and fp32 scale of both moments equal to the reference's, bit for
+    bit; the updates at rtol 1e-6."""
+    from repro.optim import qstate as jqstate
+    from repro_torch.optim import qstate
+    rng = np.random.default_rng(3)
+    p0 = {"w": rng.normal(0, 1, (8, 200)).astype(np.float32),
+          "s": np.float32(0.3),
+          "layers": {"u": rng.normal(0, 1, (3, 4, 130)).astype(np.float32)}}
+    jopt, topt = jqstate.scale_by_adam_8bit(), qstate.scale_by_adam_8bit()
+    js = jopt.init(jax.tree.map(jnp.asarray, p0))
+    ts = topt.init(tree_map(torch.tensor, p0))
+    for step in range(8):
+        g = jax.tree.map(lambda a: (3 * rng.normal(0, 1, np.shape(a))
+                                    ).astype(np.float32), p0)
+        ju, js = jopt.update(jax.tree.map(jnp.asarray, g), js)
+        tu, ts = topt.update(tree_map(torch.tensor, g), ts)
+        want, got = jax.tree.leaves(js), tree_leaves(ts)
+        assert len(want) == len(got) == 13
+        for w, t in zip(want, got):
+            w = np.asarray(w)
+            assert t.dtype == {np.int8: torch.int8, np.float32: torch.float32,
+                               np.int32: torch.int32}[w.dtype.type]
+            assert np.array_equal(t.numpy(), w), f"step {step}"
+        _close(tu, ju, f"updates at step {step}")
+
+
+def test_adam_8bit_tracks_fp32_adam():
+    """As ``tests/test_optim.py::test_adam_8bit_tracks_fp32_adam``: 60
+    steps of each on the quadratic problem end in the same basin."""
+    params, loss_fn = _quad_problem(dim=8)
+    out = {}
+    for name, opt in (("fp32", optim.adam(0.05)),
+                      ("8bit", optim.adam_8bit(0.05, weight_decay=0.0,
+                                               max_grad_norm=None))):
+        p, state = params, opt.init(params)
+        for _ in range(60):
+            q = tree_map(lambda t: t.detach().requires_grad_(), p)
+            g = dict(zip(q, torch.autograd.grad(loss_fn(q),
+                                                list(q.values()))))
+            u, state = opt.update(g, state, p)
+            p = optim.apply_updates(p, u)
+        out[name] = float(loss_fn(p))
+    assert abs(out["8bit"] - out["fp32"]) < 0.1
 
 
 def test_all_matches_reference():
@@ -149,6 +219,7 @@ def _quad_problem(seed=0, dim=16):
     lambda: optim.sgd(0.1, momentum=0.9),
     lambda: optim.adam(0.05),
     lambda: optim.adamw(0.05, weight_decay=0.0),
+    lambda: optim.adam_8bit(0.05, weight_decay=0.0),
     lambda: optim.kwta_sparsify(optim.adam(0.05), keep_frac=0.5,
                                 min_size=4),
     lambda: optim.topk_compress_error_feedback(optim.adam(0.05),

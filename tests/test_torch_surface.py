@@ -81,13 +81,10 @@ TRIMS = {
 #: ROADMAP queue A items still to port: item → reference names
 #: ((file, name)) and whole files (file, None) it brings.
 TO_PORT = {
-    "11a (MLA)": [("models/attention.py", n) for n in (
-        "init_mla_params", "mla_attention", "init_mla_cache", "mla_decode")],
     # No top-level name of their own: the branches of lm.py and blocks.py
     # they bring raise today (blocks.require_ported).
     "11b (encoder-decoder, audio frontend)": [],
     "11c (vision frontend)": [],
-    "11f (optim/qstate)": [("optim/qstate.py", None)],
     "12 (distributed/, launch/, configs/shapes.py)": [
         (f, None) for f in (
             "distributed/__init__.py", "distributed/context.py",

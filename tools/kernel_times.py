@@ -156,7 +156,7 @@ def old_fp32_fwd_rows(cs, dev, src: Path) -> dict:
     # This tree's forward with one K/V stage at D 64, from a copy of its
     # source (the package's build has two).
     text = (_build.CSRC / "flash_attention_fwd_f32_sm90.cu").read_text()
-    stages = "kStages = D == 64 ? 2 : 1;"
+    stages = "kStages = DQK == 64 ? 2 : 1;"
     if text.count(stages) != 1:
         raise RuntimeError(f"no single {stages!r} in the fp32 forward")
     with tempfile.TemporaryDirectory() as tmp:
@@ -164,7 +164,7 @@ def old_fp32_fwd_rows(cs, dev, src: Path) -> dict:
         one.write_text(text.replace(stages, "kStages = 1;"))
         stage1, stage1_log = _build_file(one)
     fn1 = stage1.flash_attention_fwd_f32_sm90_launch
-    fn1.argtypes = [P] * 6 + [I] * 8 + [Fl, P]
+    fn1.argtypes = [P] * 6 + [I] * 9 + [Fl, P]
     fn1.restype = I
     B, S, H, Kh, dh = cs.LM_TRAIN_B, cs.LM_TRAIN_S, 14, 2, 64
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
@@ -192,7 +192,7 @@ def old_fp32_fwd_rows(cs, dev, src: Path) -> dict:
                                 dtype=torch.bfloat16, device=dev)
             err = fn1(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                       terms.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                      *ints, kw["scale"], stream())
+                      *ints[:-1], dh, ints[-1], kw["scale"], stream())
             assert err == 0, err
             return out, lse
 
