@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
 substrates, the Table I metering and the LM zoo's serving and training
-paths (dense, MoE, SSM, hybrid, MLA) on one NVIDIA GPU, and check them.
+paths (dense, MoE, SSM, hybrid, MLA, encoder-decoder, vision prefix) on
+one NVIDIA GPU, and check them.
 
 Run from the repository root with no arguments:
 
@@ -251,6 +252,33 @@ lm_mla. MLA and deepseek-v3 with 8-bit Adam: (i) the (192, 128) flash
    chunk 200: the fp32 (192, 128) kernels) against the CPU's: the
    routing and the prefill's logits (``LM_PREFILL_ATOL``), one step's
    loss, grad norm and every gradient; the phase's seconds;
+lm_multimodal. the encoder-decoder and the vision prefix: (i) the (64,
+   64) flash kernels of both dtypes, not causal, against their plain
+   versions at B·H 16: the forward at 4,096² (seamless's encoder), the
+   forward, dq and dk/dv at Sq 2,048 × Sk 4,096 (its cross-attention),
+   also with sk_true 3,000 (the flash checks' bounds, each kernel
+   launched once a call, the backward twice bit for bit); (ii)
+   seamless-m4t-medium at its published config in bf16 (977.7 M
+   parameters drawn on the card): a 1 × (4,096 frames, 2,048 tokens)
+   prefill with 36 bf16 flash forwards (12 encoder, 12 decoder, 12
+   cross) and no other kernel, two runs bit for bit, its busy share; one
+   AdamW step on it (72 forwards, 36 dq, 36 dk/dv), its loss, ms and
+   peak memory; an 8-row cross cache filled from the encoder (rows of
+   4,096 and 2,500 frames, 1.61 GB), 64 teacher-forced decode steps, each
+   row's largest logit difference from its forward and the greedy
+   agreement, finite; (iii) llava-next-34b at its published widths, depth
+   cut to 4 layers (3.15 B parameters): a 1 × (2,880 patches + 1,216
+   tokens) prefill (4 causal bf16 (128, 128) forwards over 4,096 keys),
+   the 8-slot engine at max_len 4,096 on 16 text requests of 32 new
+   tokens through its int8 cache (decode one CUDA graph a call), one
+   AdamW step at 2 layers (2.07 B parameters; at 4 the functional
+   AdamW's fp32 trees need ~90 GB) with its peak memory; (iv) fp32 twins with the published
+   head dims (``MM_TWIN_CUT``, chunk 200: the encoder, decoder and cross
+   attention on the fp32 flash kernels with padded keys) against the
+   CPU's: the prefill's logits (``LM_PREFILL_ATOL``), one step's loss,
+   grad norm and every gradient; seamless's decode from its encoder's
+   cross cache against its forward within ``MM_DECODE_ATOL``; the
+   phase's seconds;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -273,7 +301,13 @@ lm_mla. MLA and deepseek-v3 with 8-bit Adam: (i) the (192, 128) flash
    (192, 128) flash kernels of each dtype at the deepseek prefill's shape
    (1 × 2,048, 128 heads, causal) beside their plain versions and
    ``scaled_dot_product_attention`` under the backend that takes
-   dh != dv, with bounds from each product's width.
+   dh != dv, with bounds from each product's width; the flash kernels
+   of each dtype at lm_multimodal's shapes, seamless's (64, 64) ones (1
+   × 16 heads, not causal: the forward at 4,096², the forward, dq and
+   dk/dv at 2,048 × 4,096; bounds with no causal halving) and llava's
+   (128, 128) ones (1 × 56 query heads over 8 KV heads, causal at
+   4,096²: the forward, dq and dk/dv) beside their plain versions and
+   ``scaled_dot_product_attention`` (``flash_times``).
 
 The CPU runs that the card's results are held against (the twins) run
 at the start, in :data:`TWIN_WORKERS` worker processes of one thread
@@ -292,7 +326,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -571,6 +605,56 @@ MLA_TWIN_S, MLA_TWIN_CHUNK, MLA_TWIN_GRAD_REL = 256, 200, 1e-2
 MLA_CHECK_H, MLA_CHECK_S, MLA_CHECK_SKT = 16, 2048, 1900
 MLA_TIME_H = 128
 MLA_BUDGET_S = 150
+# The lm_multimodal phase: seamless-m4t-medium (configs/
+# seamless_m4t_medium.py CONFIG: 12 encoder + 12 decoder layers, d 1,024,
+# 16 heads of 64, d_ff 4,096, vocab 256,206; 977.7 M parameters) whole, in
+# bf16, and llava-next-34b (configs/llava_next_34b.py CONFIG: d 7,168, 56
+# query heads over 8 KV heads of 128, d_ff 20,480, vocab 64,000, int8
+# cache) at its published widths with depth cut to MM_LLAVA_LAYERS (3.15 B
+# parameters; its 60 layers hold 68.8 GB of weights), each drawn on the
+# card from seed 0. seamless prefills and trains one AdamW step on 1 ×
+# (MM_ENC_S frames, MM_DEC_S tokens): train_4k's frames a sequence, the
+# decoder's tokens cut so that the cross-attention runs at Sq != Sk; its
+# decode fills a cross cache of MM_DEC_ROWS rows from the encoder
+# (MM_ENC_LENS frames, half the rows each) and teacher-forces
+# MM_DECODE_T tokens. llava prefills 1 × (MM_PATCHES patches +
+# MM_LLAVA_TEXT tokens), train_4k's split, and serves the burst's first
+# MM_REQUESTS prompts, MM_MAX_NEW new tokens each, through the 8-slot
+# engine at MM_MAX_LEN (text-only, as the reference's decode); its AdamW
+# step on the same batch runs at MM_LLAVA_TRAIN_LAYERS (2.07 B
+# parameters): the port's AdamW is functional, so the old and the new
+# fp32 moments and two fp32 update trees are alive at once, about 28 B a
+# parameter, and at 4 layers (3.20 B) the step ran out of the card's 80
+# GB. The fp32 twins keep the published head dims (the
+# fp32 (64, 64) and (128, 128) kernels) and cut the rest (MM_TWIN_CUT),
+# weights drawn on the CPU from seed 1, the attention chunk cut to
+# MM_TWIN_CHUNK so that the encoder's, the decoder's and the cross
+# attention all take flash with padded keys: logits within
+# LM_PREFILL_ATOL, one step's loss, grad norm and each gradient at
+# lm_mla's twin tolerances; seamless's decode from its encoder's cross
+# cache equal to its forward within MM_DECODE_ATOL (the reference's bound
+# for bf16-cached attention, tests/test_models.py).
+MM_SEAMLESS, MM_LLAVA = "seamless-m4t-medium", "llava-next-34b"
+MM_ENC_S, MM_DEC_S = 4096, 2048
+MM_DEC_ROWS, MM_ENC_LENS, MM_DECODE_T = 8, (4096, 2500), 64
+MM_LLAVA_LAYERS, MM_PATCHES, MM_LLAVA_TEXT = 4, 2880, 1216
+MM_LLAVA_TRAIN_LAYERS = 2
+MM_MAX_LEN, MM_REQUESTS, MM_MAX_NEW = 4096, 16, 32
+MM_TWIN_LAYERS = 2
+MM_TWIN_CUT = {
+    MM_SEAMLESS: dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                      vocab=1024, n_enc_layers=2),
+    MM_LLAVA: dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=1024,
+                   vocab=1024, n_frontend_tokens=96)}
+MM_TWIN_PREFIX = {MM_SEAMLESS: 300, MM_LLAVA: 96}     # frames, patches
+MM_TWIN_TEXT = {MM_SEAMLESS: 256, MM_LLAVA: 160}
+MM_TWIN_CHUNK, MM_TWIN_DECODE_T, MM_DECODE_ATOL = 200, 32, 5e-2
+# The flash kernels at this slice's shapes against their plain versions
+# (MM_CHECKS): seamless's at B·H = MM_CHECK_H heads of 64, llava's at its
+# published MM_LLAVA_HEADS (query, KV) of 128.
+MM_CHECK_H, MM_CHECK_SKT = 16, 3000
+MM_LLAVA_HEADS = (56, 8)
+MM_BUDGET_S = 150
 # The scenarios phase: the paper's width (28×100×10) through the compiled
 # whole-sequence run (repro_torch.scenarios.run_compiled): SC_TASKS
 # permuted tasks of SC_TRAIN/SC_TEST examples, DFA, batch CL_BATCH,
@@ -1798,8 +1882,8 @@ def cpu_twin(kind: str) -> dict:
     ``faults`` (the faults phase's clean run and its mitigation),
     ``fault_gate`` (fault_bench's gate at its own setup), ``fleet``
     (the fleet phase's eight chips), ``zoo:<name>`` (the lm_zoo twins),
-    ``lmq:<part>`` (the lm_quant twins) and ``mla:<part>`` (the lm_mla
-    twins).
+    ``lmq:<part>`` (the lm_quant twins), ``mla:<part>`` (the lm_mla
+    twins) and ``mm:<name>:<part>`` (the lm_multimodal twins).
     Returns what the checks read, as plain values and CPU tensors."""
     import torch
     torch.set_num_threads(1)
@@ -1829,6 +1913,8 @@ def cpu_twin(kind: str) -> dict:
         return lmq_twin(kind[4:])
     if kind.startswith("mla:"):
         return mla_twin(kind[4:])
+    if kind.startswith("mm:"):
+        return mm_twin(kind[3:])
     if kind == "read_noise":
         run = protocol_run(cpu, read_noise_backend(), n_tasks=1,
                            epochs=RN_CPU_EPOCHS)
@@ -1869,7 +1955,9 @@ TWINS = ("protocol:analog", "protocol:wbs", "lm_train", "software",
          "loss_aware", "adam:ideal", "scenarios:wbs", "faults",
          "fault_gate", f"zoo:{ZOO_GRANITE}", f"zoo:{ZOO_MAMBA2}",
          f"zoo:{ZOO_JAMBA}", "lmq:train", "lmq:prefill", "lmq:miru",
-         "lmq:serve", "mla:prefill", "mla:train")
+         "lmq:serve", "mla:prefill", "mla:train",
+         *(f"mm:{n}:{k}" for n in ("seamless-m4t-medium", "llava-next-34b")
+           for k in ("prefill", "train")))
 
 
 def start_twins():
@@ -4266,19 +4354,25 @@ def zoo_serve(cfg, params, dev, part: str) -> tuple:
     return reqs, launches
 
 
-def zoo_prefill(cfg, params, dev, part: str, phase: str = "lm_zoo") -> dict:
-    """One ZOO_PREFILL_S-token prompt through ``lm.prefill`` twice (the
-    second timed, its launches counted; the two logits bit for bit equal:
-    the MoE combine and the SSD scan are fixed-order), finite logits of
-    the right shape; its busy share. Returns the timed run's launches."""
+def zoo_prefill(cfg, params, dev, part: str, phase: str = "lm_zoo",
+                batch: Optional[dict] = None) -> dict:
+    """``batch`` (default: one seeded ZOO_PREFILL_S-token prompt) through
+    ``lm.prefill`` twice (the second timed, its launches counted; the two
+    logits bit for bit equal: the MoE combine and the SSD scan are
+    fixed-order), finite logits of the text's shape; its busy share.
+    Returns the timed run's launches."""
     import numpy as np
     import torch
     from repro_torch.models import lm
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (1, ZOO_PREFILL_S)))
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (1, ZOO_PREFILL_S)))}
+    B, S = batch["tokens"].shape
+    prefix = {f"{k}_shape": list(batch[k].shape[:2])
+              for k in ("frames", "patches") if k in batch}
 
     def prefill():
-        out = lm.prefill(params, cfg, {"tokens": toks})
+        out = lm.prefill(params, cfg, batch)
         _sync(dev)
         return out
     first = prefill()
@@ -4288,11 +4382,12 @@ def zoo_prefill(cfg, params, dev, part: str, phase: str = "lm_zoo") -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     same = bool(torch.equal(first, logits))
-    finite = bool(torch.isfinite(logits).all())
+    finite = bool(torch.isfinite(logits).all()) and \
+        tuple(logits.shape) == (B, S, cfg.vocab)
     del first, logits
     emit(phase, part=part, config=cfg.name, layers=cfg.n_layers,
-         dtype=str(cfg.dtype), tokens=[1, ZOO_PREFILL_S], wall_ms=wall * 1e3,
-         tokens_per_s=ZOO_PREFILL_S / wall, launches=launches,
+         dtype=str(cfg.dtype), tokens=[B, S], **prefix, wall_ms=wall * 1e3,
+         tokens_per_s=B * S / wall, launches=launches,
          two_runs_bitwise_equal=same, finite=finite,
          traced_run=busy_share(prefill, wall))
     if not (same and finite):
@@ -4889,88 +4984,120 @@ def lm_quant_phase(dev, twins: dict) -> dict:
 # Phase lm_mla: MLA and deepseek-v3 with 8-bit Adam
 # ---------------------------------------------------------------------------
 
-#: The (192, 128) instantiations in the kernels line: name → the kernel
-#: whose counter they move (each wrapper counts all its pairs; the lm_mla
-#: paths run this pair alone).
-MLA_KERNELS = {f"{k}@192x128": k for k in (
-    "flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
-    "flash_attention_bwd_dkv_sm90", "flash_attention_fwd_f32_sm90",
-    "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
-MLA_TWIN_ROWS = tuple(range(0, MLA_TWIN_S, 8)) + (MLA_TWIN_S - 1,)
+class FlashShape(NamedTuple):
+    """One attention shape of a slice's path (B 1): its tag in the
+    kernels line, Sq, Sk, the query and KV heads, the (query/key, value)
+    head dims, the causal mask, whether the backward runs there too, and
+    the keys past ``sk_true`` (None: every key counts) that a check
+    masks."""
+    tag: str
+    sq: int
+    sk: int
+    h: int
+    kh: int
+    dh: int
+    dv: int
+    causal: bool
+    bwd: bool = True
+    sk_true: Optional[int] = None
 
 
-def mla_qkv(rng, dev, B, S, H, dtype):
-    """q, k (192 columns), v and dO (128), MLA's head dims, rep 1."""
+def flash_names(shapes) -> dict:
+    """The kernels-line names of the flash kernels of each dtype at
+    ``shapes``, ``<kernel>@<tag>`` → the kernel whose counter they move
+    (each wrapper counts all its shapes; which path's count a name takes
+    is set in :func:`main`)."""
+    tables = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
+    return {f"{k}@{s.tag}": k for s in shapes
+            for table in tables[:3 if s.bwd else 1] for k in table.values()}
+
+
+def flash_qkv(rng, dev, s: FlashShape, dtype):
+    """Seeded q (1, Sq, H, dh), k (1, Sk, Kh, dh), v (1, Sk, Kh, dv) and
+    dO (1, Sq, H, dv)."""
     import numpy as np
     import torch
-    return [torch.from_numpy(rng.normal(0, 1, (B, S, H, d)).astype(
-        np.float32)).to(dev, dtype) for d in (192, 192, 128, 128)]
+    return [torch.from_numpy(rng.normal(0, 1, (1, *sh)).astype(
+        np.float32)).to(dev, dtype) for sh in (
+        (s.sq, s.h, s.dh), (s.sk, s.kh, s.dh), (s.sk, s.kh, s.dv),
+        (s.sq, s.h, s.dv))]
 
 
-def check_mla_kernels(dev) -> dict:
-    """The (192, 128) forward, dq and dk/dv of each dtype against their
-    plain versions at B·H MLA_CHECK_H, Sq = Sk = MLA_CHECK_S, causal and
-    not, and causal with sk_true MLA_CHECK_SKT: out at the flash checks'
-    bounds (fp32 rtol 2e-5 / atol 2e-6, bf16 ``testing.bf16_within``),
-    lse at atol 1e-5, the gradients at ``testing.grads_close``, keys past
-    sk_true with no gradient, each kernel launched once a call, the
-    backward twice bit for bit. Returns the largest error of each."""
+def check_flash_at(dev, cases, seed: int) -> dict:
+    """The flash forward (and, where ``bwd``, dq and dk/dv) of each dtype
+    at each :class:`FlashShape` of ``cases`` against their plain versions
+    on the same inputs, at the flash checks' bounds: out fp32 rtol 2e-5 /
+    atol 2e-6, bf16 ``testing.bf16_within``; lse atol 1e-5; the
+    gradients ``testing.grads_close``, keys past sk_true with none; each
+    kernel launched once a call, the backward twice bit for bit. Returns
+    the largest error of each name of :func:`flash_names`."""
     import numpy as np
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
-    rng = np.random.default_rng(27)
-    err = {k: 0.0 for k in MLA_KERNELS}
-    S, H = MLA_CHECK_S, MLA_CHECK_H
-    heads = lambda t: t.float().transpose(1, 2).reshape(H, S, t.shape[3])
-    for causal, skt in ((True, None), (False, None), (True, MLA_CHECK_SKT)):
+    rng = np.random.default_rng(seed)
+    err = {k: 0.0 for k in flash_names(cases)}
+    heads = lambda t: t.float().transpose(1, 2).reshape(-1, t.shape[1],
+                                                        t.shape[3])
+    for s in cases:
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v, dout = mla_qkv(rng, dev, 1, S, H, dt)
+            q, k, v, dout = flash_qkv(rng, dev, s, dt)
             fwd, dq_k, dkv_k = (FLASH_FWD[str(dt)], FLASH_DQ[str(dt)],
                                 FLASH_DKV[str(dt)])
             before = read_launches()
-            out, lse = ops.flash_attention_fwd(q, k, v, causal, skt)
+            out, lse = ops.flash_attention_fwd(q, k, v, s.causal, s.sk_true)
             f_once = launched_once((fwd,), before)
             want, want_lse = ref.flash_attention_fwd_ref(
-                heads(q), heads(k), heads(v), causal, skt, H, H)
-            want = want.reshape(1, H, S, 128).transpose(1, 2)
-            before = read_launches()
-            got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal,
-                                          skt)
-            b_once = launched_once((dq_k, dkv_k), before)
-            want_g = testing.flash_bwd_plain(q, k, v, out, lse, dout, causal,
-                                             skt)
-            again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal,
-                                            skt)
-            torch.cuda.synchronize()
+                heads(q), heads(k), heads(v), s.causal, s.sk_true, s.h, s.kh)
+            want = want.reshape(1, s.h, s.sq, s.dv).transpose(1, 2)
             e = {"out": float((out.float() - want).abs().max()),
-                 "lse": float((lse.reshape(H, S) - want_lse).abs().max())}
-            e.update({n: float((g.float() - w).abs().max())
-                      for n, g, w in zip(("dq", "dk", "dv"), got, want_g)})
+                 "lse": float((lse.reshape(s.h, s.sq) - want_lse).abs()
+                              .max())}
             out_ok = bool(torch.allclose(out, want, rtol=2e-5, atol=2e-6)) \
                 if dt == torch.float32 else testing.bf16_within(out, want)[0]
-            grads_ok = all(testing.grads_close(g, w)
-                           for g, w in zip(got, want_g))
-            masked_ok = skt is None or not (got[1][:, skt:].any()
-                                            or got[2][:, skt:].any())
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            ok = out_ok and e["lse"] <= 1e-5 and grads_ok and masked_ok \
-                and same and f_once and b_once
-            err[f"{fwd}@192x128"] = max(err[f"{fwd}@192x128"], e["out"])
-            err[f"{dq_k}@192x128"] = max(err[f"{dq_k}@192x128"], e["dq"])
-            err[f"{dkv_k}@192x128"] = max(err[f"{dkv_k}@192x128"], e["dk"],
-                                          e["dv"])
-            emit("kernels", kernel=f"{fwd} + {dq_k} + {dkv_k}",
-                 head_dims=[192, 128], shape=[1, S, S, H, H], causal=causal,
-                 sk_true=skt, dtype=str(dt), max_abs_err=e,
-                 max_abs_grad={n: float(w.abs().max()) for n, w in
-                               zip(("dq", "dk", "dv"), want_g)},
-                 launched_once={"forward": f_once, "backward": b_once},
-                 backward_bitwise_run_to_run=same, ok=ok)
+            ok = out_ok and e["lse"] <= 1e-5 and f_once
+            err[f"{fwd}@{s.tag}"] = max(err[f"{fwd}@{s.tag}"], e["out"])
+            line = dict(kernel=fwd, head_dims=[s.dh, s.dv],
+                        shape=[1, s.sq, s.sk, s.h, s.kh], causal=s.causal,
+                        sk_true=s.sk_true, dtype=str(dt),
+                        launched_once={"forward": f_once})
+            del want
+            if s.bwd:
+                before = read_launches()
+                got = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              s.causal, s.sk_true)
+                b_once = launched_once((dq_k, dkv_k), before)
+                want_g = testing.flash_bwd_plain(q, k, v, out, lse, dout,
+                                                 s.causal, s.sk_true)
+                again = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                s.causal, s.sk_true)
+                torch.cuda.synchronize()
+                e.update({n: float((g.float() - w).abs().max())
+                          for n, g, w in zip(("dq", "dk", "dv"), got,
+                                             want_g)})
+                skt = s.sk_true
+                masked = skt is None or not (got[1][:, skt:].any()
+                                             or got[2][:, skt:].any())
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = ok and b_once and masked and same and all(
+                    testing.grads_close(g, w) for g, w in zip(got, want_g))
+                err[f"{dq_k}@{s.tag}"] = max(err[f"{dq_k}@{s.tag}"],
+                                             e["dq"])
+                err[f"{dkv_k}@{s.tag}"] = max(err[f"{dkv_k}@{s.tag}"],
+                                              e["dk"], e["dv"])
+                line.update(kernel=f"{fwd} + {dq_k} + {dkv_k}",
+                            launched_once={"forward": f_once,
+                                           "backward": b_once},
+                            max_abs_grad={n: float(w.abs().max()) for n, w in
+                                          zip(("dq", "dk", "dv"), want_g)},
+                            backward_bitwise_run_to_run=same)
+                del got, want_g, again
+            emit("kernels", **line, max_abs_err=e, ok=ok)
             if not ok:
-                raise AssertionError(f"(192, 128) flash kernels != plain at "
-                                     f"{dt}, causal {causal}, sk_true {skt}")
-            del q, k, v, dout, out, lse, got, want_g, again
+                raise AssertionError(f"flash kernels != plain at {s}, {dt}: "
+                                     f"{e}")
+            del q, k, v, dout, out, lse
+            torch.cuda.empty_cache()
     return err
 
 
@@ -4986,119 +5113,141 @@ def flash_widths(kind: str, dh: int, dv: int, split: bool = False) -> int:
             "dkv": dh + dv + x * (dv + dh)}[kind]
 
 
-def sdpa_at_mla_dims(q, k, v, dout):
-    """``F.scaled_dot_product_attention`` (causal) on (B, S, H, ·) q, k at
-    192 and v at 128, under the first backend of flash, cuDNN, memory-
-    efficient and math that takes it: (forward call, forward-and-backward
-    call, the backend's name), or (None, None, "none") when none does.
-    Timed here only; the port never calls it."""
+def sdpa_timer(q, k, v, dout, causal: bool = True):
+    """``F.scaled_dot_product_attention`` on (B, S, heads, ·) q, k, v
+    (``enable_gqa`` where q has more heads than k), under the first
+    backend of flash, cuDNN, memory-efficient and math that takes them:
+    (forward call, forward-and-backward call, the backend's name), or
+    (None, None, "none") when none does. Timed here only; the port never
+    calls it."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     g = dout.transpose(1, 2).contiguous()
+    kw = dict(is_causal=causal)
+    if q.shape[2] != k.shape[2]:
+        kw["enable_gqa"] = True
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel(backend):
-                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+                F.scaled_dot_product_attention(qh, kh, vh, **kw)
         except RuntimeError:
             continue
 
         def fwd(b=backend):
             with sdpa_kernel(b), torch.no_grad():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      is_causal=True)
+                return F.scaled_dot_product_attention(qh, kh, vh, **kw)
 
         def both(b=backend):
             with sdpa_kernel(b):
-                o = F.scaled_dot_product_attention(qh, kh, vh,
-                                                   is_causal=True)
+                o = F.scaled_dot_product_attention(qh, kh, vh, **kw)
                 return torch.autograd.grad(o, (qh, kh, vh), g)
         return fwd, both, backend.name
     return None, None, "none"
 
 
-def mla_times(dev) -> dict:
-    """The (192, 128) kernels at the deepseek prefill's and train step's
-    shape (1 × MLA_PREFILL_S, MLA_TIME_H heads, causal; bf16 through the
-    tensor-core kernels, fp32 through the fp32 route's), each beside its
-    plain version (CUDA events over 3 calls: its score tensors are GBs)
-    and ``F.scaled_dot_product_attention`` on the same inputs with the
-    backend that took dh != dv (the forward; for dq and dk/dv the whole
-    forward and backward, CUDA events), and the least time for the work:
-    2·(S²/2)·H·(its product widths, :func:`flash_widths`) FLOPs, q, k,
-    v (and dO, lse, delta) read once and the outputs written once."""
+def flash_times(dev, shapes, seed: int) -> dict:
+    """The flash kernels at each :class:`FlashShape` of ``shapes``: the
+    forward, and where ``bwd`` dq and dk/dv, of each dtype (bf16 through
+    the tensor-core kernels, fp32 through the fp32 route's), each beside
+    its plain version (CUDA events over 3 calls: its score tensors are
+    GBs) and ``F.scaled_dot_product_attention`` on the same inputs
+    (:func:`sdpa_timer`; for dq and dk/dv its whole forward and backward,
+    CUDA events), and the least time for the work: 2·H·Sq·Sk·(the
+    product widths, :func:`flash_widths`) FLOPs, halved when causal, q,
+    k, v (and dO, lse, delta) read once and the outputs written once."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
-    S, H, dh, dv = MLA_PREFILL_S, MLA_TIME_H, 192, 128
-    rng = np.random.default_rng(28)
-    kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=H,
-              scale=dh ** -0.5)
-    pairs = S * S / 2 * H
+    rng = np.random.default_rng(seed)
     out = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v, dout = mla_qkv(rng, dev, 1, S, H, dt)
-        heads = lambda t: t.transpose(1, 2).reshape(H, S, t.shape[3]
-                                                    ).contiguous()
-        qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(dout)
-        size = qt.element_size()
-        bf = dt == torch.bfloat16
-        fwd = kf.flash_attention_fwd_sm90 if bf else kf.flash_attention_fwd
-        dq_fn = kf.flash_attention_bwd_dq_sm90 if bf \
-            else kf.flash_attention_bwd_dq
-        dkv_fn = kf.flash_attention_bwd_dkv_sm90 if bf \
-            else kf.flash_attention_bwd_dkv
-        ot, lse = fwd(qt, kt, vt, **kw)
-        delta = torch.sum(dot.float() * ot.float(), -1)
-        lib_fwd, lib_both, backend = sdpa_at_mla_dims(q, k, v, dout)
-        lib_f = time_events(lib_fwd, reps=5) if lib_fwd else None
-        lib_b = time_events(lib_both, reps=5) if lib_both else None
-        lib = (f"F.scaled_dot_product_attention(is_causal), {dt}, backend "
-               f"{backend}")
-        rows = S * H * size
-        io = {"fwd": rows * (2 * dh + 2 * dv) + 4 * S * H,
-              "dq": rows * (2 * dh + 2 * dv) + 8 * S * H,
-              "dkv": rows * (3 * dh + 3 * dv) + 8 * S * H}
-        plain_f = time_events(lambda: ref.flash_attention_fwd_ref(
-            qt, kt, vt, True, S, H, H), reps=3)
-        plain_b = time_events(lambda: ref.flash_attention_bwd_ref(
-            qt, kt, vt, ot, lse, dot, True, S, H, H), reps=3)
-        args = (qt, kt, vt, dot, lse, delta)
-        for kind, fn, call, plain, lib_ms in (
-                ("fwd", fwd, lambda: fwd(qt, kt, vt, **kw), plain_f, lib_f),
-                ("dq", dq_fn, lambda: dq_fn(*args, **kw), plain_b, lib_b),
-                ("dkv", dkv_fn, lambda: dkv_fn(*args, **kw), plain_b,
-                 lib_b)):
-            name = {"fwd": FLASH_FWD, "dq": FLASH_DQ,
-                    "dkv": FLASH_DKV}[kind][str(dt)] + "@192x128"
-            flops = 2 * pairs * flash_widths(kind, dh, dv)
-            if bf:
-                b, by = bound_ms(0.0, io[kind], flops_bf16_tc=flops)
-                extra = {"bound_split_ms": bound_ms(
-                    0.0, io[kind], flops_bf16_tc=2 * pairs * flash_widths(
-                        kind, dh, dv, split=True))[0]}
-            else:
-                b, by = bound_ms(0.0, io[kind], flops_bf16_tc=6 * flops)
-                extra = {"bound_cuda_cores_ms": bound_ms(flops,
-                                                         io[kind])[0]}
-            out[name] = dict(
-                shape=[1, S, H, H, dh, dv], dtype=str(dt), causal=True,
-                ms=time_graph(call), plain_ms=plain,
-                plain="ref.flash_attention_fwd_ref" if kind == "fwd" else
-                "ref.flash_attention_bwd_ref: dq, dk and dv together",
-                library_ms=lib_ms, library=lib + (
-                    "" if kind == "fwd" else ": forward and backward "
-                    "together, CUDA events"), bound_ms=b, bound_by=by,
-                **extra)
-        del q, k, v, dout, qt, kt, vt, dot, ot, lse, delta, args
-        torch.cuda.empty_cache()
+    heads = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]
+                                                ).contiguous()
+    for s in shapes:
+        H, Kh, Sq, Sk, dh, dv = s.h, s.kh, s.sq, s.sk, s.dh, s.dv
+        kw = dict(causal=s.causal, sk_true=Sk, q_heads=H, kv_heads=Kh,
+                  scale=dh ** -0.5)
+        pairs = H * Sq * Sk / (2 if s.causal else 1)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, dout = flash_qkv(rng, dev, s, dt)
+            qt, kt, vt, dot = heads(q), heads(k), heads(v), heads(dout)
+            bf = dt == torch.bfloat16
+            fwd = kf.flash_attention_fwd_sm90 if bf else kf.flash_attention_fwd
+            dq_fn = kf.flash_attention_bwd_dq_sm90 if bf \
+                else kf.flash_attention_bwd_dq
+            dkv_fn = kf.flash_attention_bwd_dkv_sm90 if bf \
+                else kf.flash_attention_bwd_dkv
+            ot, lse = fwd(qt, kt, vt, **kw)
+            delta = torch.sum(dot.float() * ot.float(), -1)
+            lib_fwd, lib_both, backend = sdpa_timer(q, k, v, dout, s.causal)
+            lib_f = time_events(lib_fwd, reps=5) if lib_fwd else None
+            lib_b = time_events(lib_both, reps=5) \
+                if lib_both and s.bwd else None
+            flags = ", ".join(["is_causal"] * s.causal
+                              + ["enable_gqa"] * (H != Kh))
+            lib = (f"F.scaled_dot_product_attention"
+                   f"{f'({flags})' if flags else ''}, {dt}, backend "
+                   f"{backend}")
+            qs, ks = H * Sq * qt.element_size(), Kh * Sk * qt.element_size()
+            io = {"fwd": (qs + ks) * (dh + dv) + 4 * Sq * H,
+                  "dq": qs * (2 * dh + dv) + ks * (dh + dv) + 8 * Sq * H,
+                  "dkv": qs * (dh + dv) + ks * 2 * (dh + dv) + 8 * Sq * H}
+            plain_f = time_events(lambda: ref.flash_attention_fwd_ref(
+                qt, kt, vt, s.causal, Sk, H, Kh), reps=3)
+            plain_b = time_events(lambda: ref.flash_attention_bwd_ref(
+                qt, kt, vt, ot, lse, dot, s.causal, Sk, H, Kh), reps=3) \
+                if s.bwd else None
+            args = (qt, kt, vt, dot, lse, delta)
+            kinds = [("fwd", lambda: fwd(qt, kt, vt, **kw), plain_f, lib_f)]
+            if s.bwd:
+                kinds += [("dq", lambda: dq_fn(*args, **kw), plain_b, lib_b),
+                          ("dkv", lambda: dkv_fn(*args, **kw), plain_b,
+                           lib_b)]
+            for kind, call, plain, lib_ms in kinds:
+                name = {"fwd": FLASH_FWD, "dq": FLASH_DQ,
+                        "dkv": FLASH_DKV}[kind][str(dt)] + f"@{s.tag}"
+                flops = 2 * pairs * flash_widths(kind, dh, dv)
+                if bf:
+                    b, by = bound_ms(0.0, io[kind], flops_bf16_tc=flops)
+                    extra = {"bound_split_ms": bound_ms(
+                        0.0, io[kind], flops_bf16_tc=2 * pairs * flash_widths(
+                            kind, dh, dv, split=True))[0]}
+                else:
+                    b, by = bound_ms(0.0, io[kind], flops_bf16_tc=6 * flops)
+                    extra = {"bound_cuda_cores_ms": bound_ms(flops,
+                                                             io[kind])[0]}
+                out[name] = dict(
+                    shape=[1, Sq, Sk, H, Kh, dh, dv], dtype=str(dt),
+                    causal=s.causal, ms=time_graph(call), plain_ms=plain,
+                    plain="ref.flash_attention_fwd_ref" if kind == "fwd" else
+                    "ref.flash_attention_bwd_ref: dq, dk and dv together",
+                    library_ms=lib_ms, library=lib + (
+                        "" if kind == "fwd" else ": forward and backward "
+                        "together, CUDA events"), bound_ms=b, bound_by=by,
+                    **extra)
+            del q, k, v, dout, qt, kt, vt, dot, ot, lse, delta, args
+            torch.cuda.empty_cache()
     for name, t in out.items():
         emit("times", kernel=name, **t)
     return out
+
+
+# The (192, 128) shapes: checked at B·H MLA_CHECK_H (MLA's K/V are per
+# head: rep 1), Sq = Sk = MLA_CHECK_S, causal and not, and causal with
+# sk_true MLA_CHECK_SKT; timed at the deepseek prefill's (1 ×
+# MLA_PREFILL_S, MLA_TIME_H heads, causal).
+MLA_CHECKS = tuple(
+    FlashShape("192x128", MLA_CHECK_S, MLA_CHECK_S, MLA_CHECK_H, MLA_CHECK_H,
+               192, 128, causal, sk_true=skt)
+    for causal, skt in ((True, None), (False, None), (True, MLA_CHECK_SKT)))
+MLA_TIMES = (FlashShape("192x128", MLA_PREFILL_S, MLA_PREFILL_S, MLA_TIME_H,
+                        MLA_TIME_H, 192, 128, True),)
+MLA_KERNELS = flash_names(MLA_TIMES)
+MLA_TWIN_ROWS = tuple(range(0, MLA_TWIN_S, 8)) + (MLA_TWIN_S - 1,)
 
 
 def mla_model(dev, layers: int = MLA_LAYERS, dense: int = MLA_DENSE, **kw):
@@ -5149,16 +5298,20 @@ def mla_batch(cfg, S: int, dev, seed: int = 3) -> dict:
     return {k: torch.from_numpy(np.asarray(a)).to(dev) for k, a in b.items()}
 
 
-def mla_twin_train(dev) -> dict:
+def twin_step(cfg, params, batch: dict) -> dict:
     """One fp32 twin step's loss, grad norm and gradients (on the CPU)."""
     import torch
     from repro_torch.utils import flatten_dict
-    cfg, params = mla_twin_model(dev)
-    loss, grads = mla_value_and_grad(cfg, params,
-                                     mla_batch(cfg, MLA_TWIN_S, dev))
+    loss, grads = mla_value_and_grad(cfg, params, batch)
     flat = {k: g.cpu() for k, g in flatten_dict(grads).items()}
     gn = torch.sqrt(sum(torch.sum(torch.square(g)) for g in flat.values()))
     return {"loss": float(loss), "grad_norm": float(gn), "grads": flat}
+
+
+def mla_twin_train(dev) -> dict:
+    """The lm_mla twin's step (:func:`twin_step`)."""
+    cfg, params = mla_twin_model(dev)
+    return twin_step(cfg, params, mla_batch(cfg, MLA_TWIN_S, dev))
 
 
 def mla_twin(part: str) -> dict:
@@ -5317,7 +5470,7 @@ def lm_mla_phase(dev, twins: dict) -> dict:
     t_phase = time.perf_counter()
     out = {}
     bf16, f32 = "torch.bfloat16", "torch.float32"
-    err = check_mla_kernels(dev)
+    err = check_flash_at(dev, MLA_CHECKS, seed=27)
 
     cfg, params = mla_model(dev)
     n = sum(t.numel() for t in tree_leaves(params))
@@ -5398,6 +5551,391 @@ def lm_mla_phase(dev, twins: dict) -> dict:
     return out, err
 
 
+# This slice's attention shapes, each checked (MM_CHECKS) and timed
+# (MM_TIMES) at its path's size: seamless's encoder (MM_ENC_S², the
+# forward) and cross-attention (MM_DEC_S × MM_ENC_S, once more with
+# sk_true MM_CHECK_SKT) at B·H MM_CHECK_H heads of 64, rep 1, not causal;
+# llava's prefill and step, causal at (128, 128) with its MM_LLAVA_HEADS
+# query and KV heads over MM_PATCHES + MM_LLAVA_TEXT positions.
+MM_LLAVA_S = MM_PATCHES + MM_LLAVA_TEXT
+MM_TIMES = (
+    FlashShape("enc4096", MM_ENC_S, MM_ENC_S, MM_CHECK_H, MM_CHECK_H, 64, 64,
+               False, bwd=False),
+    FlashShape("cross2048x4096", MM_DEC_S, MM_ENC_S, MM_CHECK_H, MM_CHECK_H,
+               64, 64, False),
+    FlashShape("llava4096", MM_LLAVA_S, MM_LLAVA_S, *MM_LLAVA_HEADS, 128, 128,
+               True))
+MM_CHECKS = MM_TIMES + (MM_TIMES[1]._replace(sk_true=MM_CHECK_SKT),)
+MM_KERNELS = flash_names(MM_TIMES)
+
+
+def mm_model(name: str, dev, layers: Optional[int] = None):
+    """The published config in bf16 (depth cut to ``layers``), weights
+    drawn on the card from seed 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+
+
+def mm_twin_model(name: str, dev):
+    """The twins' model: the published head dims with MM_TWIN_CUT at
+    MM_TWIN_LAYERS, fp32, chunk MM_TWIN_CHUNK, weights drawn on the CPU
+    from seed 1."""
+    import torch
+    return zoo_model(name, dev, MM_TWIN_LAYERS, torch.float32, seed=1,
+                     attn_chunk=MM_TWIN_CHUNK, **MM_TWIN_CUT[name])
+
+
+def mm_batch(cfg, B: int, n_prefix: int, S: int, dev, seed: int = 3
+             ) -> dict:
+    """Seeded tokens, labels and mask (B, S) and the prefix (B, n_prefix,
+    D) in ``cfg.dtype``: frames for an encoder-decoder model, patches for
+    a vision one; drawn with numpy, so that the card and the CPU get the
+    same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_token_batch
+    rng = np.random.default_rng(seed)
+    b = {k: torch.from_numpy(np.asarray(a)).to(dev)
+         for k, a in lm_token_batch(rng, B, S, cfg.vocab).items()}
+    key = "frames" if cfg.is_encoder_decoder else "patches"
+    b[key] = torch.from_numpy(rng.normal(0, 1, (B, n_prefix, cfg.d_model))
+                              .astype(np.float32)).to(dev, cfg.dtype)
+    return b
+
+
+def mm_flash_sites(cfg) -> int:
+    """The attention calls a forward makes: encoder, decoder and cross
+    layers of an encoder-decoder model, else one a layer."""
+    if cfg.is_encoder_decoder:
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def mm_twin(part: str) -> dict:
+    """The CPU side of the lm_multimodal twins, ``<name>:prefill`` (the
+    logits) or ``<name>:train`` (one step's loss, grad norm and
+    gradients)."""
+    import torch
+    cpu = torch.device("cpu")
+    name, kind = part.rsplit(":", 1)
+    cfg, params = mm_twin_model(name, cpu)
+    batch = mm_batch(cfg, 1, MM_TWIN_PREFIX[name], MM_TWIN_TEXT[name], cpu)
+    if kind == "prefill":
+        return {"logits": mm_prefill_logits(cfg, params, batch)}
+    return twin_step(cfg, params, batch)
+
+
+def mm_prefill_logits(cfg, params, batch):
+    from repro_torch.models import lm
+    return lm.prefill(params, cfg, batch)[0].float().cpu()
+
+
+def mm_prefill(cfg, params, batch: dict, dev, part: str) -> dict:
+    """:func:`zoo_prefill` of ``batch`` with exactly one bf16 flash
+    forward an attention call and no other kernel. Returns its
+    launches."""
+    launches = zoo_prefill(cfg, params, dev, part, "lm_multimodal", batch)
+    n = mm_flash_sites(cfg)
+    if launches[FLASH_FWD["torch.bfloat16"]] != n or \
+            sum(launches.values()) != n:
+        raise AssertionError(f"lm_multimodal {part}: launches {launches}, "
+                             f"want {n} of the bf16 flash forward")
+    return launches
+
+
+def mm_train(cfg, params, batch: dict, dev, part: str) -> dict:
+    """One AdamW step (``optim.adamw(3e-4)``, fp32 moments) on ``batch``:
+    the loss, ms, peak memory; exactly two bf16 flash forwards an
+    attention call (the forward and its recompute under remat), one dq
+    and one dk/dv. The updated parameters are dropped. Returns the
+    launches."""
+    import math
+    import torch
+    from repro_torch import optim
+    from repro_torch.utils import tree_leaves
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = optim.adamw(3e-4)
+    state = opt.init(params)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = mla_value_and_grad(cfg, params, batch)
+    updates, state = opt.update(grads, state, params)
+    del grads
+    new = optim.apply_updates(params, updates)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = mm_flash_sites(cfg)
+    bf16 = "torch.bfloat16"
+    want = {FLASH_FWD[bf16]: 2 * n, FLASH_DQ[bf16]: n, FLASH_DKV[bf16]: n}
+    exact = all(launches[k] == want.get(k, 0) for k in launches)
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+    del updates, state, new
+    torch.cuda.empty_cache()
+    emit("lm_multimodal", part=part, config=cfg.name, layers=cfg.n_layers,
+         enc_layers=cfg.n_enc_layers, dtype=str(cfg.dtype),
+         tokens=list(batch["tokens"].shape), n_params=n_params,
+         optimizer="adamw(3e-4), fp32 moments", loss=float(loss),
+         step_ms=wall * 1e3, peak_memory_bytes=peak, launches=launches,
+         launches_exact=exact, finite=finite)
+    if not (finite and exact):
+        raise AssertionError(f"lm_multimodal {part}: finite {finite}, "
+                             f"launches {launches} (want {want})")
+    return launches
+
+
+def mm_fill_cross(cfg, params, frames, lens, T: int, dev) -> dict:
+    """A decode cache of ``len(lens)`` rows over ``T`` positions whose
+    cross K/V hold each row's encoder memory of its first ``lens[row]``
+    frames (``lm.encode_cross_kv``, one encoder run a length); the
+    positions past a row's length hold another row's K/V, which its
+    ``enc_len`` must mask."""
+    from repro_torch.models import lm
+    caches = lm.init_cache(cfg, len(lens), T, dev, enc_len=max(lens))
+    for n in sorted(set(lens), reverse=True):
+        rows = [i for i, m in enumerate(lens) if m == n]
+        k, v = lm.encode_cross_kv(params, cfg, frames[rows, :n])
+        caches["cross_k"][:, rows, :n] = k
+        caches["cross_v"][:, rows, :n] = v
+        caches["enc_len"][rows] = n
+        if n < max(lens):
+            caches["cross_k"][:, rows, n:] = caches["cross_k"][:, :1, n:]
+            caches["cross_v"][:, rows, n:] = caches["cross_v"][:, :1, n:]
+    return caches
+
+
+def mm_decode_against_forward(cfg, params, batch: dict, lens, dev) -> dict:
+    """Teacher-force the batch's tokens through ``lm.decode_step`` from
+    :func:`mm_fill_cross`'s cache, each step's logits against the
+    forward of the row's frames (its first ``lens[row]``) and tokens:
+    the largest difference and the greedy agreement of each row, the
+    launches of the fill and ms a decode step."""
+    import torch
+    from repro_torch.models import lm
+    toks, frames = batch["tokens"], batch["frames"]
+    B, T = toks.shape
+    reset_launches()
+    t0 = time.perf_counter()
+    caches = mm_fill_cross(cfg, params, frames, lens, T, dev)
+    _sync(dev)
+    fill_s = time.perf_counter() - t0
+    fill_launches = read_launches()
+    t0 = time.perf_counter()
+    dec = torch.stack([lm.decode_step(params, cfg, caches,
+                                      toks[:, t:t + 1], t)[0][:, 0]
+                       for t in range(T)], 1)
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / T
+    full = torch.cat([lm.prefill(params, cfg, {"tokens": toks[i:i + 1],
+                                               "frames": frames[i:i + 1, :n]})
+                      for i, n in enumerate(lens)])
+    d = (full.float() - dec.float()).abs().amax((1, 2))
+    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean(1)
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    cache_bytes = sum(caches[n].numel() * caches[n].element_size()
+                      for n in ("cross_k", "cross_v"))
+    return {"rows": B, "tokens": T, "enc_lens": list(lens),
+            "cross_cache_bytes": cache_bytes, "fill_s": fill_s,
+            "fill_launches": fill_launches, "ms_a_decode_step": step_ms,
+            "max_abs_d_logits_by_row": d.tolist(),
+            "greedy_agreement_by_row": agree.tolist(), "finite": finite}
+
+
+def mm_serve(cfg, params, dev) -> dict:
+    """The burst's first MM_REQUESTS prompts, MM_MAX_NEW new tokens each,
+    text-only through an 8-slot engine at MM_MAX_LEN (after a warm-up
+    engine's two requests), its decode one CUDA graph a call: ms a decode
+    call, tokens/s, the cache's bytes. Returns the burst's launches."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.utils import tree_bytes
+    prompts = lm_prompts(cfg.vocab)[:MM_REQUESTS]
+
+    def engine():
+        return ServeEngine(cfg, ServeConfig(
+            batch_slots=LM_SLOTS, max_len=MM_MAX_LEN, eos_token=-1,
+            torch_device=dev), params)
+    warm = engine()
+    for p in prompts[:2]:
+        warm.submit(p, 4)
+    warm.run_until_drained()
+    del warm
+    eng = engine()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, MM_MAX_NEW) for p in prompts]
+    eng.run_until_drained()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = eng.request_stats()
+    served = all(r.done and len(r.tokens) == MM_MAX_NEW for r in reqs)
+    emit("lm_multimodal", part="llava_serve", config=cfg.name,
+         layers=cfg.n_layers, dtype=str(cfg.dtype),
+         kv_cache_dtype=cfg.kv_cache_dtype, slots=LM_SLOTS,
+         max_len=MM_MAX_LEN, requests=stats["requests"], max_new=MM_MAX_NEW,
+         prompt_tokens=sum(len(p) for p in prompts), wall_s=wall,
+         ms_a_decode_call=wall * 1e3 / stats["decode_calls"],
+         decode_calls=stats["decode_calls"], steps_run=stats["steps_run"],
+         tokens_per_s=stats["tokens_per_s"], latency_ms=stats["latency_ms"],
+         cache_bytes=tree_bytes(eng.caches), graph=eng._graph is not None,
+         launches=launches, all_served=served)
+    if not served or (dev.type == "cuda" and eng._graph is None):
+        raise AssertionError(f"lm_multimodal llava serve: served {served}, "
+                             f"graph {eng._graph is not None}")
+    return launches
+
+
+def mm_twins(dev, twins: dict, out: dict) -> None:
+    """(iv) the fp32 twins against the CPU's: each model's prefill
+    logits, one step's loss, grad norm and gradients; then seamless's
+    decode from its encoder's cross cache against its forward."""
+    import torch
+    f32 = "torch.float32"
+    for name in (MM_SEAMLESS, MM_LLAVA):
+        short = name.split("-")[0]
+        cfg, params = mm_twin_model(name, dev)
+        batch = mm_batch(cfg, 1, MM_TWIN_PREFIX[name], MM_TWIN_TEXT[name],
+                         dev)
+        n = mm_flash_sites(cfg)
+        cut = {**MM_TWIN_CUT[name], "n_layers": MM_TWIN_LAYERS,
+               "dtype": "float32",
+               "attn_chunk": MM_TWIN_CHUNK,
+               "prefix": MM_TWIN_PREFIX[name], "tokens": MM_TWIN_TEXT[name],
+               "kept": f"head_dim {cfg.hd()}, heads {cfg.n_heads} over "
+                       f"{cfg.n_kv_heads} (cut from the published count)"}
+        cpu = twins[f"mm:{name}:prefill"].result()
+        reset_launches()
+        got = mm_prefill_logits(cfg, params, batch)
+        out[f"lm_mm_{short}_prefill_twin"] = launches = read_launches()
+        d = float((got - cpu["logits"]).abs().max())
+        ok = d <= LM_PREFILL_ATOL and launches[FLASH_FWD[f32]] == n and \
+            sum(launches.values()) == n
+        emit("lm_multimodal", part=f"{short}_prefill_twin", cut=cut,
+             launches=launches, max_abs_d_logits=d,
+             max_abs_logit=float(cpu["logits"].abs().max()),
+             atol=LM_PREFILL_ATOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"lm_multimodal {short} prefill twin: "
+                                 f"logits {d:.3g} from the CPU's, launches "
+                                 f"{launches}")
+        cpu = twins[f"mm:{name}:train"].result()
+        reset_launches()
+        run = twin_step(cfg, params, batch)
+        out[f"lm_mm_{short}_train_twin"] = launches = read_launches()
+        rel = lambda a, b: abs(a - b) / abs(b)
+        d_grads = {k: float((g - cpu["grads"][k]).abs().max()
+                            / cpu["grads"][k].abs().max().clamp_min(1e-30))
+                   for k, g in run["grads"].items()}
+        worst = max(d_grads, key=d_grads.get)
+        want = {FLASH_FWD[f32]: 2 * n, FLASH_DQ[f32]: n, FLASH_DKV[f32]: n}
+        ok = rel(run["loss"], cpu["loss"]) <= LM_TRAIN_LOSS_RTOL and \
+            rel(run["grad_norm"], cpu["grad_norm"]) <= LM_TRAIN_GNORM_RTOL \
+            and d_grads[worst] <= MLA_TWIN_GRAD_REL and \
+            all(launches[k] == want.get(k, 0) for k in launches)
+        emit("lm_multimodal", part=f"{short}_train_twin", cut=cut,
+             loss=run["loss"], cpu_loss=cpu["loss"],
+             grad_norm=run["grad_norm"], cpu_grad_norm=cpu["grad_norm"],
+             loss_rel_d=rel(run["loss"], cpu["loss"]),
+             grad_norm_rel_d=rel(run["grad_norm"], cpu["grad_norm"]),
+             worst_grad=worst, worst_grad_rel_d=d_grads[worst],
+             tolerances={"loss_rtol": LM_TRAIN_LOSS_RTOL,
+                         "grad_norm_rtol": LM_TRAIN_GNORM_RTOL,
+                         "grad_rel": MLA_TWIN_GRAD_REL},
+             launches=launches, ok=ok)
+        if not ok:
+            raise AssertionError(f"lm_multimodal {short} train twin off the "
+                                 f"CPU's: {run['loss']} vs {cpu['loss']}, "
+                                 f"{worst} {d_grads[worst]}")
+        if cfg.is_encoder_decoder:
+            n_f = MM_TWIN_PREFIX[name]
+            dec = mm_batch(cfg, 2, n_f, MM_TWIN_DECODE_T, dev, seed=4)
+            r = mm_decode_against_forward(cfg, params, dec,
+                                          (n_f, n_f * 2 // 3), dev)
+            ok = r["finite"] and max(r["max_abs_d_logits_by_row"]) <= \
+                MM_DECODE_ATOL
+            emit("lm_multimodal", part="seamless_decode_twin", cut=cut, **r,
+                 atol=MM_DECODE_ATOL, ok=ok)
+            if not ok:
+                raise AssertionError(f"lm_multimodal seamless decode twin: "
+                                     f"{r['max_abs_d_logits_by_row']}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def lm_multimodal_phase(dev, twins: dict) -> tuple:
+    """(i) the flash kernels at this slice's shapes against their plain
+    versions; (ii) seamless-m4t-medium whole: a 4,096-frame, 2,048-token
+    prefill (36 bf16 flash forwards), one AdamW step on it, a decode from
+    an 8-row cross cache of two memory lengths against each row's
+    forward; (iii) llava-next-34b at its published widths, 4 layers: a
+    2,880-patch + 1,216-token prefill (4 flash forwards), the engine
+    serving 16 text requests, one AdamW step at 2 layers; (iv) the fp32
+    twins against the CPU. Returns (each path's launches, the kernels' errors)."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    t_phase = time.perf_counter()
+    out = {}
+    err = check_flash_at(dev, MM_CHECKS, seed=28)
+
+    cfg, params = mm_model(MM_SEAMLESS, dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    emit("lm_multimodal", part="seamless_model", config=cfg.name,
+         layers=cfg.n_layers, enc_layers=cfg.n_enc_layers, n_params=n,
+         param_bytes=2 * n, dtype=str(cfg.dtype),
+         cut=f"none; the decoder's tokens cut to {MM_DEC_S} of train_4k's "
+             f"{MM_ENC_S} so that the cross-attention runs at Sq != Sk")
+    batch = mm_batch(cfg, 1, MM_ENC_S, MM_DEC_S, dev)
+    out["lm_mm_seamless_prefill"] = mm_prefill(cfg, params, batch, dev,
+                                               "seamless_prefill")
+    out["lm_mm_seamless_train"] = mm_train(cfg, params, batch, dev,
+                                           "seamless_train")
+    del batch
+    lens = [MM_ENC_LENS[i * len(MM_ENC_LENS) // MM_DEC_ROWS]
+            for i in range(MM_DEC_ROWS)]
+    r = mm_decode_against_forward(
+        cfg, params, mm_batch(cfg, MM_DEC_ROWS, MM_ENC_S, MM_DECODE_T, dev,
+                              seed=5), lens, dev)
+    out["lm_mm_seamless_cross_fill"] = r["fill_launches"]
+    emit("lm_multimodal", part="seamless_decode", config=cfg.name, **r)
+    if not r["finite"]:
+        raise AssertionError("lm_multimodal seamless decode: not finite")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params = mm_model(MM_LLAVA, dev, MM_LLAVA_LAYERS)
+    n = sum(t.numel() for t in tree_leaves(params))
+    emit("lm_multimodal", part="llava_model", config=cfg.name,
+         layers=cfg.n_layers, n_params=n, param_bytes=2 * n,
+         dtype=str(cfg.dtype),
+         cut=f"60 layers to {MM_LLAVA_LAYERS}; widths published")
+    batch = mm_batch(cfg, 1, MM_PATCHES, MM_LLAVA_TEXT, dev)
+    out["lm_mm_llava_prefill"] = mm_prefill(cfg, params, batch, dev,
+                                            "llava_prefill")
+    out["lm_mm_llava_serve"] = mm_serve(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = mm_model(MM_LLAVA, dev, MM_LLAVA_TRAIN_LAYERS)
+    out["lm_mm_llava_train"] = mm_train(cfg, params, batch, dev,
+                                        "llava_train")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    mm_twins(dev, twins, out)
+    emit("lm_multimodal", part="seconds",
+         seconds=time.perf_counter() - t_phase, budget_s=MM_BUDGET_S)
+    return out, err
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -5465,9 +6003,11 @@ def main() -> int:
         zoo = lm_zoo_phase(dev, twins)
         lmq = lm_quant_phase(dev, twins)
         mla, mla_err = lm_mla_phase(dev, twins)
+        mm, mm_err = lm_multimodal_phase(dev, twins)
         kw = kwta_path(dev)
         t = times(dev)
-        t.update(mla_times(dev))
+        t.update(flash_times(dev, MLA_TIMES, seed=28))
+        t.update(flash_times(dev, MM_TIMES, seed=29))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -5491,7 +6031,7 @@ def main() -> int:
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
                **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
-               **zoo, **lmq, **mla}
+               **zoo, **lmq, **mla, **mm}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",
@@ -5535,32 +6075,47 @@ def main() -> int:
                 "flash_attention_bwd_dq_sm90": "src/repro/kernels/"
                                                "flash_attention.py:161 "
                                                "(pallas_call :185), bf16"}
-    # The (192, 128) instantiations: their launches in the lm_mla path
-    # that runs each (the prefill for the bf16 forward, the adam_8bit step
-    # for the bf16 dq and dk/dv, the fp32 twins for the fp32 ones), which
-    # runs that pair alone; launches_by_path has the lm_mla paths' counts.
-    mla_own = {"flash_attention_fwd_sm90": "lm_mla_prefill",
-               "flash_attention_bwd_dq_sm90": "lm_mla_train",
-               "flash_attention_bwd_dkv_sm90": "lm_mla_train",
-               "flash_attention_fwd_f32_sm90": "lm_mla_prefill_twin",
-               "flash_attention_bwd_dq": "lm_mla_train_twin",
-               "flash_attention_bwd_dkv": "lm_mla_train_twin"}
+    # The slices' shapes: each name's launches in the path that runs its
+    # shape (a prefill for the bf16 forward, a train step for the bf16 dq
+    # and dk/dv, the fp32 twins for the fp32 ones): the lm_mla paths for
+    # (192, 128), which run that pair alone; for lm_multimodal, llava's
+    # paths for its (128, 128) shape and seamless's for the (64, 64) ones
+    # (a path's count is every launch of the kernel there: the encoder's,
+    # the decoder's and the cross-attention's).
+    path_of = {"flash_attention_fwd_sm90": "prefill",
+               "flash_attention_bwd_dq_sm90": "train",
+               "flash_attention_bwd_dkv_sm90": "train",
+               "flash_attention_fwd_f32_sm90": "prefill_twin",
+               "flash_attention_bwd_dq": "train_twin",
+               "flash_attention_bwd_dkv": "train_twin"}
+    where = {"192x128": ", (dh, dv) = (192, 128)",
+             "enc4096": ", not causal, Sq = Sk = 4,096 (the encoder)",
+             "cross2048x4096": ", not causal, Sq 2,048 against Sk 4,096 "
+                               "(the cross-attention)",
+             "llava4096": ", (dh, dv) = (128, 128), causal, GQA 56/8, "
+                          "Sq = Sk = 4,096 (llava's patches and text)"}
     err.update(mla_err)
-    for m, k in MLA_KERNELS.items():
-        source[m], own[m] = source[k], mla_own[k]
-        replaces[m] = replaces[k] + ", (dh, dv) = (192, 128)"
-    count = lambda k, c: c[MLA_KERNELS.get(k, k)]
+    err.update(mm_err)
+    for m, k in {**MLA_KERNELS, **MM_KERNELS}.items():
+        tag = m.split("@")[1]
+        model = "mla" if tag == "192x128" else "mm_llava" \
+            if tag == "llava4096" else "mm_seamless"
+        source[m], own[m] = source[k], f"lm_{model}_{path_of[k]}"
+        replaces[m] = replaces[k] + where[tag]
+    alias = {**MLA_KERNELS, **MM_KERNELS}
+    count = lambda k, c: c[alias.get(k, k)]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": source[k],
          "replaces": replaces[k], "launches": count(k, by_path[own[k]]),
          "launches_by_path": {p: count(k, c) for p, c in by_path.items()
-                              if k in KERNELS or p in mla},
+                              if k in KERNELS or p in (
+                                  mla if k in MLA_KERNELS else mm)},
          "max_abs_err": err[k], "ms": t[k]["ms"], "plain_ms": t[k]["plain_ms"],
          "bound_ms": t[k]["bound_ms"], "bound_by": t[k]["bound_by"],
          "library_ms": t[k]["library_ms"], "library": t[k]["library"],
          **{f: t[k][f] for f in ("bound_split_ms", "bound_cuda_cores_ms",
                                  "note", "lm_shapes") if f in t[k]}}
-        for k in (*KERNELS, *MLA_KERNELS)]}), flush=True)
+        for k in (*KERNELS, *MLA_KERNELS, *MM_KERNELS)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,6 +17,15 @@ is static (SSD mixers, one attention slot mid-period, MoE on the slots
 whole superblock is recomputed in the backward, as the reference's
 checkpoint around the superblock body.
 
+Encoder-decoder (seamless): a decoder layer (``cross_attn=True``) adds
+``norm_x`` and a GQA ``cross`` block; its forward runs cross-attention
+over the encoder's memory (no rope, no causal mask: past ``attn_chunk``
+keys the flash kernels, with Sq != Sk) after the self mixer and before
+the FFN. Its decode reads the cross K/V cached once per request (bf16,
+(L, B, enc, Kh·hd)) through full attention masked by each row's
+``enc_len``, with ``wq`` and ``wo`` as plain products (no quant_mode, no
+bias), as the reference's decode does; nothing is written there.
+
 Decode writes the caches in place, the KV caches, MLA's latent caches
 and the SSM states alike, in the rows ``write_rows`` (None: every row,
 the reference's behaviour).
@@ -29,9 +38,6 @@ miru mixer's recurrence through the substrate's ``device_recurrence``;
 each layer meters on the shared instance's telemetry as it runs, which
 is what the reference's scanned stack reaches by scaling one traced
 layer's counts by the layer count.
-
-Not ported yet, each raising with its ROADMAP item (queue A, LM zoo):
-cross-attention (encoder-decoder) and the modality frontends.
 """
 from __future__ import annotations
 
@@ -56,26 +62,10 @@ from repro_torch.utils import (Seed, split_seed, tree_leaves,
 PyTree = Any
 
 
-def require_ported(cfg: ModelConfig, cross_attn: bool = False) -> None:
-    """Raise for every layer kind the port does not run yet."""
-    missing = [name for name, on in (
-        ("encoder-decoder cross-attention (item 11b)",
-         cross_attn or cfg.is_encoder_decoder),
-        ("modality frontends (items 11b, 11c)", cfg.frontend != "none"),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue A, LM zoo); the port runs the dense, moe (MLA "
-            "included), ssm and hybrid families")
-
-
 def require_decodable(cfg: ModelConfig) -> None:
-    """Raise for a model the port cannot decode: one not ported yet
-    (:func:`require_ported`), or one with the miru mixer, which the
-    reference does not decode either (its ``stack_decode`` has no miru
-    branch and would run ``gqa_decode`` on the mixer's parameters)."""
-    require_ported(cfg)
+    """Raise for a model with the miru mixer, which the reference does not
+    decode either (its ``stack_decode`` has no miru branch and would run
+    ``gqa_decode`` on the mixer's parameters)."""
     if cfg.mixer == "miru":
         raise NotImplementedError(
             f"{cfg.name}: the miru mixer has no decode; the reference has "
@@ -154,7 +144,6 @@ def init_moe(key: Seed, cfg: ModelConfig,
 def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
                       is_moe: bool = False, cross_attn: bool = False,
                       device: Union[str, torch.device] = "cuda") -> dict:
-    require_ported(cfg, cross_attn)
     ks = split_seed(key, 4)
     D = cfg.d_model
     if is_ssm:
@@ -167,6 +156,9 @@ def init_layer_params(key: Seed, cfg: ModelConfig, is_ssm: bool = False,
         mixer = attn.init_gqa_params(ks[0], cfg, device)
     p: dict = {"norm1": torch.ones((D,), dtype=cfg.dtype, device=device),
                "mixer": mixer}
+    if cross_attn:
+        p["norm_x"] = torch.ones((D,), dtype=cfg.dtype, device=device)
+        p["cross"] = attn.init_gqa_params(ks[1], cfg, device)
     if cfg.d_ff > 0 or is_moe:
         p["norm2"] = torch.ones((D,), dtype=cfg.dtype, device=device)
         p["ffn"] = init_ffn_params(ks[2], cfg, is_moe, device)
@@ -191,7 +183,8 @@ def layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   memory: Optional[torch.Tensor] = None,
                   memory_positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    require_ported(cfg, cross_attn=memory is not None)
+    """One layer; with ``memory`` (B, T_enc, D) a decoder layer, whose
+    cross-attention over it follows the self mixer."""
     h = rms_norm(x, p["norm1"], cfg.rmsnorm_eps)
     if is_ssm:
         mixed = ssm_mod.mamba2_forward(p["mixer"], cfg, h)
@@ -201,7 +194,30 @@ def layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
         mixed = attn.mla_attention(p["mixer"], cfg, h, positions, causal)
     else:
         mixed = attn.gqa_attention(p["mixer"], cfg, h, positions, causal)
-    return _ffn(p, cfg, x + mixed.to(x.dtype))
+    x = x + mixed.to(x.dtype)
+    if memory is not None:
+        h = rms_norm(x, p["norm_x"], cfg.rmsnorm_eps)
+        x = x + attn.gqa_attention(p["cross"], cfg, h, positions,
+                                   causal=False, kv=(memory,),
+                                   kv_positions=memory_positions
+                                   ).to(x.dtype)
+    return _ffn(p, cfg, x)
+
+
+def _cross_decode(lp: dict, cfg: ModelConfig, x: torch.Tensor,
+                  k_m: torch.Tensor, v_m: torch.Tensor,
+                  enc_len: torch.Tensor) -> torch.Tensor:
+    """The decoder's cross-attention step over the cached memory K/V
+    (B, enc, Kh·hd), each row masked past its ``enc_len``: ``wq`` and
+    ``wo`` as plain products (no quant_mode, no bias), as the
+    reference's ``stack_decode``. Returns the residual stream."""
+    B, hd = x.shape[0], cfg.hd()
+    h = rms_norm(x, lp["norm_x"], cfg.rmsnorm_eps)
+    q = dense(h, lp["cross"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    o = attn.full_attention(q, k_m.reshape(B, -1, cfg.n_kv_heads, hd),
+                            v_m.reshape(B, -1, cfg.n_kv_heads, hd),
+                            causal=False, kv_len=enc_len)
+    return x + dense(o.reshape(B, 1, -1), lp["cross"]["wo"]).to(x.dtype)
 
 
 def _decode_mixer(lp: dict, cfg: ModelConfig, h: torch.Tensor, cache: dict,
@@ -283,11 +299,15 @@ def _angles(cfg: ModelConfig, x: torch.Tensor, pos):
 
 def stack_decode(stacked: PyTree, caches: PyTree, cfg: ModelConfig,
                  x: torch.Tensor, pos, is_ssm: bool = False,
-                 write_rows: Optional[torch.Tensor] = None
+                 write_rows: Optional[torch.Tensor] = None,
+                 cross_kv: Optional[tuple] = None,
+                 enc_len: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, PyTree]:
     """One-token decode through the stack; caches are stacked (L, …) and
     written in place (``write_rows`` as in ``attention.cache_insert`` and
-    ``ssm.mamba2_decode``)."""
+    ``ssm.mamba2_decode``). A decoder stack takes ``cross_kv`` (K and V,
+    each (L, B, enc, Kh·hd)) and ``enc_len`` (B,): each layer's
+    cross-attention reads them and writes nothing."""
     require_decodable(cfg)
     angles = None if is_ssm else _angles(cfg, x, pos)
     for i in range(n_stacked(stacked)):
@@ -295,7 +315,11 @@ def stack_decode(stacked: PyTree, caches: PyTree, cfg: ModelConfig,
         h = rms_norm(x, lp["norm1"], cfg.rmsnorm_eps)
         mixed = _decode_mixer(lp, cfg, h, layer_slice(caches, i), pos,
                               angles, is_ssm, write_rows)
-        x = _ffn(lp, cfg, x + mixed.to(x.dtype))
+        x = x + mixed.to(x.dtype)
+        if cross_kv is not None:
+            x = _cross_decode(lp, cfg, x, cross_kv[0][i], cross_kv[1][i],
+                              enc_len)
+        x = _ffn(lp, cfg, x)
     return x, caches
 
 

@@ -1,6 +1,7 @@
 """Top-level language models: init, loss value, prefill, decode —
-counterpart of ``repro/models/lm.py`` for the dense, moe (MLA included),
-ssm and hybrid families.
+counterpart of ``repro/models/lm.py`` for every family of the zoo: dense,
+moe (MLA included), ssm, hybrid, encoder-decoder and the modality
+prefixes.
 
 A decoder-only model: token embedding, a stack of layers, a final
 RMSNorm and a tied or separate LM head. The stack is GQA + SwiGLU
@@ -15,8 +16,22 @@ steps the SSM state. With
 router and a tied head runs on that substrate (``layers.dense``); with
 ``cfg.mixer == "miru"`` the layers' mixer is the MiRU recurrence
 (``blocks.miru_mixer``), which has no decode, as in the reference.
-Encoder-decoder models and modality frontends raise with their ROADMAP
-item.
+
+Encoder-decoder (``cfg.is_encoder_decoder``, seamless): the batch's
+``frames`` (B, T_enc, D), precomputed frame embeddings, go through
+``frontend_proj``, a bidirectional encoder stack and ``enc_norm``
+(:func:`_encode`); the decoder stack runs causal self-attention and
+cross-attention over that memory. Its decode cache holds the decoder's
+self K/V plus the memory's cross K/V, bf16 whatever
+``kv_cache_dtype`` is, and each row's ``enc_len``; :func:`init_cache`
+leaves the cross memory empty (``enc_len=0``), as the reference's
+engine serves it.
+
+A vision prefix (``cfg.frontend == "vision"``, llava): the batch's
+``patches`` (B, n_img, D) go through ``frontend_proj`` in front of the
+token embeddings, rope positions run over prefix and text, and the
+prefix is sliced off before the head; without ``patches`` the model is
+text-only, and its decode has no prefix, as in the reference.
 
 Parameters are a dict of tensors with the reference's tree (layers
 stacked along a leading L axis, superblocks along theirs);
@@ -54,16 +69,22 @@ def init_params(key: Seed, cfg: ModelConfig,
     are the reference's (fp32: within a few ulp) and take seconds per
     million parameters on the host; from a ``torch.Generator`` they are
     drawn on its device (use one on the card for a full-size model)."""
-    blocks.require_ported(cfg)
-    dev = device if torch.device(device).type == "meta" \
-        else resolve_device(device)
+    dev = _device(device)
     ks = split_seed(key, 8)
     D = cfg.d_model
     p: dict = {"embed": tn(ks[0], (cfg.vocab, D), 0.02, cfg.dtype, dev),
                "final_norm": torch.ones((D,), dtype=cfg.dtype, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = tn(ks[1], (D, cfg.vocab), D ** -0.5, cfg.dtype, dev)
-    if cfg.layer_pattern == "hybrid":
+    if cfg.frontend != "none":
+        p["frontend_proj"] = tn(ks[2], (D, D), D ** -0.5, cfg.dtype, dev)
+    if cfg.is_encoder_decoder:
+        p["encoder"] = blocks.init_stack(ks[3], cfg, cfg.n_enc_layers,
+                                         device=dev)
+        p["enc_norm"] = torch.ones((D,), dtype=cfg.dtype, device=dev)
+        p["decoder"] = blocks.init_stack(ks[4], cfg, cfg.n_layers,
+                                         cross_attn=True, device=dev)
+    elif cfg.layer_pattern == "hybrid":
         p["layers"] = blocks.init_hybrid_stack(ks[3], cfg, dev)
     elif cfg.layer_pattern == "ssm":
         p["layers"] = blocks.init_stack(ks[3], cfg, cfg.n_layers,
@@ -79,6 +100,13 @@ def init_params(key: Seed, cfg: ModelConfig,
         p["layers"] = blocks.init_stack(ks[3], cfg, cfg.n_layers,
                                         device=dev)
     return p
+
+
+def _device(device: Union[str, torch.device]) -> torch.device:
+    """``resolve_device``, with the ``meta`` device let through (shapes
+    and dtypes, no allocation)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
 
 
 def param_shapes(cfg: ModelConfig) -> PyTree:
@@ -102,14 +130,58 @@ def _lm_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return dense(x, p["lm_head"], quant_mode=cfg.quant_mode)
 
 
+def _frontend(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Precomputed frame or patch embeddings (B, T, D) on the params'
+    device in ``cfg.dtype``, through ``frontend_proj`` (a plain product:
+    no quant_mode, as the reference)."""
+    x = x.to(p["embed"].device, cfg.dtype)
+    return dense(x, p["frontend_proj"]) if cfg.frontend != "none" else x
+
+
+def _prefix_embeds(p: dict, cfg: ModelConfig, batch: dict
+                   ) -> Optional[torch.Tensor]:
+    """The modality prefix of a decoder-only model: the batch's
+    ``frames`` (audio) or ``patches`` (vision) through ``frontend_proj``;
+    None without a frontend or without its key in the batch."""
+    key = {"audio": "frames", "vision": "patches"}.get(cfg.frontend)
+    if key is None or key not in batch:
+        return None
+    return _frontend(p, cfg, batch[key])
+
+
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
 
+def _encode(p: dict, cfg: ModelConfig, frames: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """An encoder-decoder model's memory: ``frames`` (B, T_enc, D) through
+    ``frontend_proj``, the bidirectional encoder stack at positions
+    ``arange(T_enc)`` and ``enc_norm``. Returns (memory (B, T_enc, D),
+    its positions (T_enc,)). The decoder's cross-attention reads it; a
+    decode's cross cache holds each layer's ``cross.wk`` / ``wv`` of
+    it."""
+    mem = _frontend(p, cfg, frames)
+    mem_pos = torch.arange(mem.shape[1], device=mem.device)
+    mem = blocks.stack_forward(p["encoder"], cfg, mem, mem_pos,
+                               causal=False)
+    return rms_norm(mem, p["enc_norm"], cfg.rmsnorm_eps), mem_pos
+
+
 def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch {"tokens": (B, S) int}. Returns logits (B, S, V)."""
-    blocks.require_ported(cfg)
+    """batch {"tokens": (B, S) int}, plus "frames" (B, T_enc, D) for an
+    encoder-decoder model and, optionally, "patches" (B, n_img, D) for a
+    vision one. Returns the text's logits (B, S, V)."""
     x = _embed_tokens(p, batch["tokens"])
+    if cfg.is_encoder_decoder:
+        mem, mem_pos = _encode(p, cfg, batch["frames"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = blocks.stack_forward(p["decoder"], cfg, x, pos, memory=mem,
+                                 memory_positions=mem_pos)
+        return _lm_logits(p, cfg, x)
+    prefix = _prefix_embeds(p, cfg, batch)
+    if prefix is not None:
+        x = torch.cat([prefix, x], dim=1)
     pos = torch.arange(x.shape[1], device=x.device)
     if cfg.layer_pattern == "hybrid":
         x = blocks.hybrid_forward(p["layers"], cfg, x, pos)
@@ -119,6 +191,8 @@ def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = blocks.stack_forward(p["layers"], cfg, x, pos,
                                  is_ssm=cfg.layer_pattern == "ssm",
                                  is_moe=cfg.n_experts > 0)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
     return _lm_logits(p, cfg, x)
 
 
@@ -142,16 +216,33 @@ def prefill(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Union[str, torch.device] = "cuda") -> PyTree:
+               device: Union[str, torch.device] = "cuda",
+               enc_len: int = 0) -> PyTree:
     """The decode caches, zeroed: stacked (L, batch, max_len, Kh·hd) K/V
     in ``cfg.kv_cache_dtype`` (bf16, or int8 with its scales), MLA's bf16
     latent caches (``c_kv`` and ``k_rope``, (L, batch, max_len, ·)), the
     SSM states (L, batch, …) of an ssm model, each superblock slot's of a
     hybrid one, and ``{"dense", "moe"}`` where an MoE model has
-    ``first_dense_layers``. A ``mixer="miru"`` model has no decode
-    (:func:`blocks.require_decodable`)."""
+    ``first_dense_layers``. An encoder-decoder model's is ``{"self",
+    "cross_k", "cross_v", "enc_len"}``: the decoder's self K/V, the
+    memory's K and V (L, batch, ``enc_len``, Kh·hd) in bf16 whatever
+    ``kv_cache_dtype`` is, and each row's memory length (batch,) int32,
+    0. A ``mixer="miru"`` model has no decode
+    (:func:`blocks.require_decodable`). ``device="meta"`` gives shapes
+    and dtypes only."""
     blocks.require_decodable(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
+    if cfg.is_encoder_decoder:
+        cross = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads * cfg.hd())
+        return {"self": _stacked(attn.init_kv_cache(
+                    cfg, attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype),
+                    dev), cfg.n_layers, dev),
+                "cross_k": torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=dev),
+                "cross_v": torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=dev),
+                "enc_len": torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev)}
     if cfg.layer_pattern == "hybrid":
         return blocks.init_hybrid_caches(cfg, batch, max_len, dev)
     spec = attn.CacheSpec(batch, max_len, cfg.kv_cache_dtype)
@@ -162,23 +253,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     else:
         one = attn.init_kv_cache(cfg, spec, dev)
 
-    def stacked(n):
-        return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
-                for k, v in one.items()}
     if cfg.n_experts > 0 and cfg.first_dense_layers:
-        return {"dense": stacked(cfg.first_dense_layers),
-                "moe": stacked(cfg.n_layers - cfg.first_dense_layers)}
-    return stacked(cfg.n_layers)
+        return {"dense": _stacked(one, cfg.first_dense_layers, dev),
+                "moe": _stacked(one, cfg.n_layers - cfg.first_dense_layers,
+                                dev)}
+    return _stacked(one, cfg.n_layers, dev)
+
+
+def _stacked(one: dict, n: int, dev: torch.device) -> dict:
+    """``one`` layer's cache tensors, zeroed, stacked along a leading n."""
+    return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
+            for k, v in one.items()}
 
 
 def clear_cache_rows(caches: PyTree, rows) -> PyTree:
-    """Zero the batch rows ``rows`` of every cache tensor (batch is each
-    tensor's second axis), in place: a slot given to a new request
-    starts from a fresh cache's state. The SSM state needs it (a decode
-    reads all of it); a KV cache's and MLA's latent cache's stale entries
-    are masked by position anyway. Returns ``caches``."""
+    """Zero the batch rows ``rows`` of every cache tensor, in place: a
+    slot given to a new request starts from a fresh cache's state. Batch
+    is each stacked tensor's second axis and the encoder-decoder's
+    ``enc_len``'s first (found by its key): a cleared row has an empty
+    cross memory. The SSM state needs it (a decode reads all of it); a KV
+    cache's and MLA's latent cache's stale entries are masked by position
+    anyway. Returns ``caches``."""
+    enc_len = caches.get("enc_len") if isinstance(caches, dict) else None
     for t in tree_leaves(caches):
-        t[:, rows] = 0
+        if t is enc_len:
+            t[rows] = 0
+        else:
+            t[:, rows] = 0
     return caches
 
 
@@ -190,13 +291,20 @@ def decode_step(p: dict, cfg: ModelConfig, caches: PyTree,
     ``pos`` (an int or a 0-d tensor; the same for every row, as in the
     reference). The caches (K/V and SSM state) are written in place, in
     the rows ``write_rows`` (indices or a bool mask; None: every row, the
-    reference's behaviour). With a tensor ``pos`` and a mask the step
-    reads nothing back to the host and can be captured in a CUDA graph.
-    Returns (logits (B, 1, V), caches)."""
+    reference's behaviour); an encoder-decoder model's cross K/V and
+    ``enc_len`` are read, never written. With a tensor ``pos`` and a mask
+    the step reads nothing back to the host and can be captured in a
+    CUDA graph. Returns (logits (B, 1, V), caches)."""
     blocks.require_decodable(cfg)
     with torch.no_grad():
         x = _embed_tokens(p, tokens)
-        if cfg.layer_pattern == "hybrid":
+        if cfg.is_encoder_decoder:
+            x, _ = blocks.stack_decode(
+                p["decoder"], caches["self"], cfg, x, pos,
+                write_rows=write_rows,
+                cross_kv=(caches["cross_k"], caches["cross_v"]),
+                enc_len=caches["enc_len"])
+        elif cfg.layer_pattern == "hybrid":
             x, caches = blocks.hybrid_decode(p["layers"], caches, cfg, x,
                                              pos, write_rows)
         elif "dense_layers" in p:
@@ -209,6 +317,25 @@ def decode_step(p: dict, cfg: ModelConfig, caches: PyTree,
                 p["layers"], caches, cfg, x, pos,
                 is_ssm=cfg.layer_pattern == "ssm", write_rows=write_rows)
         return _lm_logits(p, cfg, x), caches
+
+
+def encode_cross_kv(p: dict, cfg: ModelConfig, frames: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross K and V an encoder-decoder decode reads, from ``frames``
+    (B, T_enc, D): the memory of :func:`_encode` through each decoder
+    layer's ``cross.wk`` and ``cross.wv`` (their biases where the config
+    has them), rounded to bf16. Returns two (L, B, T_enc, Kh·hd) tensors
+    to copy into an :func:`init_cache` tree built with ``enc_len`` ≥
+    T_enc (and the rows' ``enc_len`` set). The reference's engine has no
+    encoder pass; this is for checks and callers that fill the cache."""
+    with torch.no_grad():
+        mem, _ = _encode(p, cfg, frames)
+        cross = p["decoder"]["cross"]
+        kv = [torch.stack([dense(mem, cross[w][i], cross[b][i]
+                                 if b in cross else None).to(torch.bfloat16)
+                           for i in range(cfg.n_layers)])
+              for w, b in (("wk", "bk"), ("wv", "bv"))]
+    return kv[0], kv[1]
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:

@@ -465,6 +465,9 @@ def _launched(before, *names):
     (1, 130, 130, 4, 4, 64, True),       # rep 1
     (1, 96, 96, 4, 2, 128, True),        # head dim 128
     (2, 40, 40, 4, 2, 8, False),         # head dim 8, zero-padded to 64
+    (1, 4096, 4096, 16, 16, 64, False),  # seamless's encoder, not causal
+    (1, 2048, 4096, 16, 16, 64, False),  # seamless's cross-attention
+    (1, 4096, 4096, 56, 8, 128, True),   # llava's prefill, GQA 56/8
 ])
 def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                    dtype):
@@ -560,6 +563,9 @@ def test_flash_fp32_forward_with_padded_keys_equals_plain(cuda, H, Kh, dh,
     (1, 96, 200, 4, 1, 80, False, 150),       # head dim 80, padded to 128
     (1, 70, 70, 4, 2, 128, True, None),       # head dim 128
     (1, 300, 333, 14, 2, 128, False, 300),    # head dim 128, rep 7, sk_true
+    (1, 2048, 4096, 16, 16, 64, False, None),  # seamless's cross-attention
+    (1, 2048, 4096, 16, 16, 64, False, 3000),  # ... keys past sk_true
+    (1, 4096, 4096, 56, 8, 128, True, None),   # llava's step, GQA 56/8
 ])
 def test_flash_bwd_kernels_equal_plain(cuda, B, Sq, Sk, H, Kh, dh, causal,
                                        sk_true, dtype):
@@ -922,6 +928,124 @@ def test_mla_decode_in_the_engine_graph_follows_the_cpu(cuda):
                for a, b in zip(after, before))
     assert any(not torch.equal(a[:, 1, 7], b[:, 1, 7])
                for a, b in zip(after, before))
+
+
+def _encdec_cache(cfg, params, dev, B, max_len, lens):
+    """A seamless decode cache on ``dev`` whose rows hold the cross K/V
+    of their first ``lens[row]`` seeded frames (``lm.encode_cross_kv``)."""
+    from repro_torch.models import lm
+    frames = torch.randn((B, max(lens), cfg.d_model),
+                         generator=torch.Generator().manual_seed(2))
+    caches = lm.init_cache(cfg, B, max_len, dev, enc_len=max(lens))
+    for row, n in enumerate(lens):
+        k, v = lm.encode_cross_kv(params, cfg, frames[row:row + 1, :n])
+        caches["cross_k"][:, row, :n] = k[:, 0].to(dev)
+        caches["cross_v"][:, row, :n] = v[:, 0].to(dev)
+        caches["enc_len"][row] = n
+    return caches
+
+
+def test_encdec_decode_captured_in_a_graph_follows_the_cpu(cuda):
+    """seamless's smoke decode from a filled cross cache (rows of 8 and 5
+    frames), captured once as a CUDA graph with the row mask as
+    ``write_rows`` and replayed, against the CPU's eager decode: logits
+    within 1e-4 at each of 6 positions; a replay stepping row 1 alone
+    leaves row 0's self cache the same bits, and no replay writes the
+    cross cache or ``enc_len``."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    cfg, params = _lm("cpu", name="seamless-m4t-medium")
+    card = tree_to(params, cuda)
+    caches = {"cpu": _encdec_cache(cfg, params, "cpu", 2, 8, (8, 5))}
+    caches["cuda"] = tree_to(caches["cpu"], cuda)
+    cross = {n: caches["cuda"][n].clone()
+             for n in ("cross_k", "cross_v", "enc_len")}
+    toks = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    pos = torch.zeros((), dtype=torch.int64, device=cuda)
+    rows = torch.ones(2, dtype=torch.bool, device=cuda)
+    step = lambda: lm.decode_step(card, cfg, caches["cuda"], toks, pos,
+                                  write_rows=rows)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    rows.zero_()
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits = step()
+    rows.fill_(True)
+    seq = torch.randint(0, cfg.vocab, (2, 6),
+                        generator=torch.Generator().manual_seed(3))
+    for t in range(6):
+        toks.copy_(seq[:, t:t + 1])
+        pos.fill_(t)
+        graph.replay()
+        want, _ = lm.decode_step(params, cfg, caches["cpu"], seq[:, t:t + 1],
+                                 t)
+        np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    before = {k: v.clone() for k, v in caches["cuda"]["self"].items()}
+    rows.copy_(torch.tensor([False, True]))
+    pos.fill_(6)
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, v in caches["cuda"]["self"].items():
+        assert torch.equal(v[:, 0], before[k][:, 0])
+        assert not torch.equal(v[:, 1, 6], before[k][:, 1, 6])
+    for n, t in cross.items():
+        assert torch.equal(caches["cuda"][n], t), n
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium", "llava-next-34b"])
+def test_multimodal_engine_graph_follows_the_cpu(cuda, name):
+    """The engine on the card (its decode a CUDA graph; seamless over the
+    empty cross memory of ``init_cache``, captured with zero-size cross
+    tensors; llava text-only through its int8 cache) against the CPU's
+    eager engine on the same prompts: tokens tie-aware, logits within
+    1e-4."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg, params = _lm("cpu", name)
+    prompts = [list(range(2 + i, 8 + 2 * i)) for i in range(4)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServeEngine(cfg, ServeConfig(
+            batch_slots=3, max_len=32, eos_token=-1, torch_device=dev,
+            keep_logits=True), params)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run_until_drained()
+        runs[dev.type] = reqs
+        if dev.type == "cuda":
+            assert eng._graph is not None
+    testing.compare_tokens([r.tokens for r in runs["cuda"]],
+                           [r.tokens for r in runs["cpu"]],
+                           [r.logits for r in runs["cuda"]],
+                           [r.logits for r in runs["cpu"]], atol=1e-4)
+
+
+def test_multimodal_prefill_launches_the_flash_kernel_a_call(cuda):
+    """seamless's smoke prefill with ``attn_chunk`` 4 below 12 frames and
+    10 tokens: one fp32 flash forward for each encoder, decoder and cross
+    attention (6), logits within 1e-5 of the CPU's; llava's with its 8
+    patches before 12 tokens past chunk 16: one a layer."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_to
+    for name, chunk, n_prefix, want in (("seamless-m4t-medium", 4, 12, 6),
+                                        ("llava-next-34b", 16, 8, 2)):
+        cfg, params = _lm(cuda, name, attn_chunk=chunk)
+        g = torch.Generator().manual_seed(4)
+        key = "frames" if cfg.is_encoder_decoder else "patches"
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 10 + 2 * (
+            key == "patches")), generator=g),
+                 key: torch.randn((2, n_prefix, cfg.d_model), generator=g)}
+        before = kflash.fwd_f32_sm90_launches
+        logits = lm.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        assert kflash.fwd_f32_sm90_launches == before + want
+        cpu = lm.prefill(tree_to(params, "cpu"), cfg, batch)
+        np.testing.assert_allclose(logits.cpu().numpy(), cpu.numpy(),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_trainer_on_the_card_follows_the_cpu(cuda):

@@ -290,9 +290,25 @@ def test_layers_match_reference():
 
 @pytest.mark.parametrize("name", ["seamless-m4t-medium", "llava-next-34b"])
 def test_unported_families_raise(name):
+    """The encoder-decoder (item 11b) and vision-prefix (11c) families,
+    which raised before they were ported, run: each smoke config
+    initialises, prefills with its frames or patches, decodes and gives a
+    finite loss (against the reference in
+    ``tests/test_torch_multimodal.py``)."""
     cfg = configs.get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(prng.PRNGKey(0), cfg, "cpu")
+    tp = lm.init_params(prng.PRNGKey(0), cfg, "cpu")
+    assert tuple(tp["frontend_proj"].shape) == (cfg.d_model,) * 2
+    toks = torch.from_numpy(_tokens(cfg.vocab, 2, 7))
+    key, n = ("frames", 6) if cfg.is_encoder_decoder \
+        else ("patches", cfg.n_frontend_tokens)
+    batch = {"tokens": toks, key: torch.ones(2, n, cfg.d_model),
+             "labels": toks, "mask": torch.ones(2, 7)}
+    logits = lm.prefill(tp, cfg, batch)
+    assert logits.shape == (2, 7, cfg.vocab) and torch.isfinite(logits).all()
+    cache = lm.init_cache(cfg, 2, 8, "cpu")
+    logits, _ = lm.decode_step(tp, cfg, cache, toks[:, :1], 0)
+    assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits).all()
+    assert torch.isfinite(lm.loss_fn(tp, cfg, batch))
 
 
 def test_deepseek_smoke_config_initialises_and_runs():
@@ -317,17 +333,12 @@ def test_deepseek_smoke_config_initialises_and_runs():
 
 
 def test_unported_options_raise():
-    """Encoder-decoder models and the modality frontends still raise,
-    each naming its ROADMAP item; ``quant_mode``, the int8 cache and the
-    ``miru`` mixer run (against the reference in
-    ``tests/test_torch_lm_quant.py``), the mixer without a decode, as in
-    the reference; MLA runs (``tests/test_torch_mla.py``)."""
+    """``quant_mode``, the int8 cache and the ``miru`` mixer run (against
+    the reference in ``tests/test_torch_lm_quant.py``), the mixer without
+    a decode, as in the reference, which is the one refusal left; MLA runs
+    (``tests/test_torch_mla.py``), and so do the encoder-decoder and
+    vision families (``tests/test_torch_multimodal.py``)."""
     cfg = configs.get_smoke_config("qwen2-0.5b")
-    for bad, item in ((dataclasses.replace(cfg, is_encoder_decoder=True),
-                       "11b"),
-                      (dataclasses.replace(cfg, frontend="vision"), "11c")):
-        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
-            lm.init_params(prng.PRNGKey(0), bad, "cpu")
     tp = lm.init_params(prng.PRNGKey(0), cfg, "cpu")
     toks = {"tokens": torch.zeros(1, 4, dtype=torch.int64)}
     assert torch.isfinite(lm.forward(

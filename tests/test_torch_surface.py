@@ -81,17 +81,12 @@ TRIMS = {
 #: ROADMAP queue A items still to port: item → reference names
 #: ((file, name)) and whole files (file, None) it brings.
 TO_PORT = {
-    # No top-level name of their own: the branches of lm.py and blocks.py
-    # they bring raise today (blocks.require_ported).
-    "11b (encoder-decoder, audio frontend)": [],
-    "11c (vision frontend)": [],
-    "12 (distributed/, launch/, configs/shapes.py)": [
+    "12 (distributed/, launch/)": [
         (f, None) for f in (
             "distributed/__init__.py", "distributed/context.py",
             "distributed/sharding.py", "launch/__init__.py",
             "launch/dryrun.py", "launch/hlo_analysis.py",
-            "launch/make_report.py", "launch/mesh.py", "launch/roofline.py",
-            "configs/shapes.py")],
+            "launch/make_report.py", "launch/mesh.py", "launch/roofline.py")],
 }
 
 _QUEUED = {entry for entries in TO_PORT.values() for entry in entries}
