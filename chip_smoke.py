@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MiRU serving and training paths, the analog
 substrates, the Table I metering and the LM zoo's serving and training
-paths (dense, MoE, SSM, hybrid, MLA, encoder-decoder, vision prefix) on
-one NVIDIA GPU, and check them.
+paths (dense, MoE, SSM, hybrid, MLA, encoder-decoder, vision prefix),
+unsharded and under a sharding context, on one NVIDIA GPU, and check
+them.
 
 Run from the repository root with no arguments:
 
@@ -279,6 +280,18 @@ lm_multimodal. the encoder-decoder and the vision prefix: (i) the (64,
    grad norm and every gradient; seamless's decode from its encoder's
    cross cache against its forward within ``MM_DECODE_ATOL``; the
    phase's seconds;
+distributed. the sharded paths at world size 1: a one-rank NCCL group
+   (a FileStore) and a (1, 1) mesh over ("data", "model"); granite-moe
+   (published, 32 layers) and deepseek-v3 (published widths, 2 layers)
+   under ``ShardingContext(attn_mode="ulysses", moe_mode="ep")`` and
+   mamba2 (published, 48 layers) under Ulysses, each a 1 × 2,048 bf16
+   prefill with its parameters placed by ``param_specs``, against the
+   same prefill with no context: the logits bit for bit (else within
+   ``LM_PREFILL_ATOL``), one bf16 flash forward an attention layer and
+   no other kernel, both prefills' ms, the EP all-to-alls and bank
+   gathers; one MoE layer of each MoE model, EP against the global
+   dispatch bit for bit; a checkpoint restored onto the mesh as
+   DTensors bit for bit; the phase's seconds and ``nvidia-smi``'s line;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -5936,6 +5949,209 @@ def lm_multimodal_phase(dev, twins: dict) -> tuple:
     return out, err
 
 
+# ---------------------------------------------------------------------------
+# Phase distributed: the sharded paths at world size 1 (slice 13)
+# ---------------------------------------------------------------------------
+
+# The distributed phase: a world-size-1 NCCL group (a FileStore, no port)
+# and a (1, 1) mesh over ("data", "model") on the card. granite (its
+# published config, 32 layers), mamba2 (published, 48 layers) and
+# deepseek-v3 (published widths, MLA_LAYERS with MLA_DENSE dense: one
+# MoE layer) each prefill one seeded 1 × ZOO_PREFILL_S prompt in bf16
+# with their parameters placed by param_specs under a ShardingContext
+# (DIST_MODES) and with no context; the logits must be equal (bit for
+# bit is printed; past that, within LM_PREFILL_ATOL). At one rank EP is
+# the global dispatch, so one MoE layer's output on its own input is
+# held bit for bit. Each prefill is timed DIST_TIMED_RUNS times both ways,
+# alternately (the median printed), then traced once both ways (the
+# device's busy time). The phase aims to stay within DIST_BUDGET_S
+# (printed, not asserted).
+DIST_MODES = {ZOO_GRANITE: ("ulysses", "ep"), ZOO_MAMBA2: ("ulysses",
+                                                           "global"),
+              MLA: ("ulysses", "ep")}
+DIST_BUDGET_S, DIST_TIMED_RUNS = 40, 3
+
+
+def dist_prefill(cfg, params, ctx, dev, part: str) -> dict:
+    """``cfg``'s prefill of one seeded prompt with no context and, with
+    the parameters placed by ``param_specs`` (small banks replicated
+    under EP), under ``ctx``: each run once to warm up, then timed
+    ``DIST_TIMED_RUNS`` times alternately (each sharded run's launches
+    and collectives counted), then traced once; the logits finite, of the
+    prompt's shape, and equal. Returns the last sharded run's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import param_specs, sharding_scope
+    from repro_torch.distributed.context import (collectives,
+                                                 reset_collectives)
+    from repro_torch.distributed.sharding import place
+    from repro_torch.models import lm
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, ZOO_PREFILL_S))).to(dev)}
+    placed = place(params, param_specs(
+        cfg, params, ctx.mesh, replicate_small_banks=ctx.moe_mode == "ep"),
+        ctx.mesh)
+
+    def plain():
+        out = lm.prefill(params, cfg, batch)
+        _sync(dev)
+        return out
+
+    def sharded():
+        with sharding_scope(ctx):
+            out = lm.prefill(placed, cfg, batch)
+        _sync(dev)
+        return out
+
+    want, got = plain(), sharded()
+    plain_runs, runs = [], []
+    for _ in range(DIST_TIMED_RUNS):       # alternately, on one card
+        t0 = time.perf_counter()
+        want = plain()
+        plain_runs.append((time.perf_counter() - t0) * 1e3)
+        reset_launches()
+        reset_collectives()
+        t0 = time.perf_counter()
+        got = sharded()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        launches, coll = read_launches(), dict(collectives)
+    ms, plain_ms = float(np.median(runs)), float(np.median(plain_runs))
+    # Each traced once: the device's busy time both ways says whether the
+    # context's extra time is work on the card or on the host.
+    traced = {"sharded": busy_share(sharded, ms / 1e3),
+              "plain": busy_share(plain, plain_ms / 1e3)}
+    got = got.full_tensor()
+    bitwise = bool(torch.equal(got, want))
+    d = float((got.float() - want.float()).abs().max())
+    finite = bool(torch.isfinite(got).all()) and \
+        tuple(got.shape) == (1, ZOO_PREFILL_S, cfg.vocab)
+    attn_layers = 0 if cfg.layer_pattern == "ssm" else cfg.n_layers
+    emit("distributed", part=part, config=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), tokens=[1, ZOO_PREFILL_S],
+         attn_mode=ctx.attn_mode, moe_mode=ctx.moe_mode,
+         sharded_ms=ms, plain_ms=plain_ms, sharded_ms_runs=runs,
+         plain_ms_runs=plain_runs, context_ms=ms - plain_ms,
+         device_busy_ms={k: v["device_busy_s"] * 1e3
+                         for k, v in traced.items()},
+         busy_share={k: v["busy_share_of_untraced_wall"]
+                     for k, v in traced.items()},
+         top_kernels={k: v["top_kernels"] for k, v in traced.items()},
+         launches=launches, collectives=coll, logits_bitwise_equal=bitwise,
+         max_abs_d_logits=d, atol=LM_PREFILL_ATOL, finite=finite,
+         nvidia_smi=nvidia_smi())
+    fwd = launches[FLASH_FWD["torch.bfloat16"]]
+    if not finite or (not bitwise and d > LM_PREFILL_ATOL) or \
+            fwd != attn_layers or sum(launches.values()) != attn_layers:
+        raise AssertionError(
+            f"distributed {part}: finite {finite}, logits {d:.3g} from the "
+            f"plain prefill's, launches {launches} (want {attn_layers} "
+            f"bf16 flash forwards and nothing else)")
+    return launches
+
+
+def dist_moe_layer(cfg, params, ctx, dev, part: str) -> None:
+    """The first MoE layer's FFN on a seeded bf16 input, with no context
+    and under ``ctx`` (EP, the banks placed by ``param_specs``): bit for
+    bit equal, two all-to-alls issued."""
+    import torch
+    from repro_torch.distributed import param_specs, sharding_scope
+    from repro_torch.distributed.context import (collectives,
+                                                 reset_collectives)
+    from repro_torch.distributed.sharding import place
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import layer_slice
+    ffn = layer_slice(params["layers"], 0)["ffn"]
+    x = torch.randn((1, ZOO_PREFILL_S, cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(2),
+                    device=dev, dtype=cfg.dtype)
+    want = moe.moe_ffn(ffn, cfg, x)
+    specs = param_specs(cfg, {"ffn": ffn}, ctx.mesh,
+                        replicate_small_banks=True)["ffn"]
+    reset_collectives()
+    with sharding_scope(ctx):
+        got = moe.moe_ffn(place(ffn, specs, ctx.mesh), cfg,
+                          place(x, ctx.spec("btd"), ctx.mesh)).full_tensor()
+    _sync(dev)
+    coll = dict(collectives)
+    same = bool(torch.equal(got, want))
+    emit("distributed", part=part, config=cfg.name, tokens=[1, ZOO_PREFILL_S],
+         experts=cfg.n_experts, top_k=cfg.top_k, collectives=coll,
+         ep_equals_global_bitwise=same)
+    if not same or coll["all_to_all"] != 2:
+        raise AssertionError(f"distributed {part}: EP bitwise {same}, "
+                             f"collectives {coll}")
+
+
+def dist_restore(mesh, dev) -> None:
+    """A checkpoint of a small tree (bf16 and fp32 leaves) restored onto
+    the mesh as DTensors, bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.sharding import P
+    from repro_torch.train.checkpoint import CheckpointManager
+    g = torch.Generator().manual_seed(3)
+    tree = {"w": torch.randn((64, 32), generator=g).to(torch.bfloat16),
+            "opt": {"mu": torch.randn((64, 32), generator=g)}}
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        ck.save(1, tree)
+        _, got, _ = ck.restore(shardings={
+            "w": (mesh, P("data", None)), "opt": {"mu": (mesh, P(None,
+                                                                "model"))}})
+    ok = {k: bool(torch.equal(a.full_tensor().cpu(), b)
+                  and a.device.type == mesh.device_type)
+          for k, a, b in (("w", got["w"], tree["w"]),
+                          ("opt/mu", got["opt"]["mu"], tree["opt"]["mu"]))}
+    emit("distributed", part="elastic_restore", mesh=list(mesh.mesh.shape),
+         placements={"w": repr(got["w"].placements)}, bitwise=ok)
+    if not all(ok.values()):
+        raise AssertionError(f"distributed restore: {ok}")
+
+
+def distributed_phase(dev) -> dict:
+    """The sharded paths on a (1, 1) mesh of one NCCL rank: granite's,
+    mamba2's and deepseek's prefills under a sharding context (Ulysses
+    attention and SSD, EP MoE) against the prefills with no context, a
+    MoE layer's EP output bit for bit against the global one, and an
+    elastic restore. Returns each path's launches."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import ShardingContext
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    out = {}
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1,
+            device_id=dev)
+        try:
+            mesh = make_host_mesh(1)
+            for name, build in ((ZOO_GRANITE, lambda: zoo_model(
+                    ZOO_GRANITE, dev)), (ZOO_MAMBA2, lambda: zoo_model(
+                    ZOO_MAMBA2, dev)), (MLA, lambda: mla_model(dev))):
+                attn_mode, moe_mode = DIST_MODES[name]
+                ctx = ShardingContext(mesh=mesh, attn_mode=attn_mode,
+                                      moe_mode=moe_mode)
+                cfg, params = build()
+                part = name.split("-")[0]
+                out[f"distributed_{part}_prefill"] = dist_prefill(
+                    cfg, params, ctx, dev, f"{part}_prefill")
+                if cfg.n_experts:
+                    dist_moe_layer(cfg, params, ctx, dev, f"{part}_moe_layer")
+                del params
+                torch.cuda.empty_cache()
+            dist_restore(mesh, dev)
+        finally:
+            dist.destroy_process_group()
+    emit("distributed", part="seconds", seconds=time.perf_counter() - t_phase,
+         budget_s=DIST_BUDGET_S, nvidia_smi=nvidia_smi())
+    return out
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -6004,6 +6220,7 @@ def main() -> int:
         lmq = lm_quant_phase(dev, twins)
         mla, mla_err = lm_mla_phase(dev, twins)
         mm, mm_err = lm_multimodal_phase(dev, twins)
+        dst = distributed_phase(dev)
         kw = kwta_path(dev)
         t = times(dev)
         t.update(flash_times(dev, MLA_TIMES, seed=28))
@@ -6031,7 +6248,7 @@ def main() -> int:
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
                **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
-               **zoo, **lmq, **mla, **mm}
+               **zoo, **lmq, **mla, **mm, **dst}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

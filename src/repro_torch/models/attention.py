@@ -25,9 +25,26 @@ built for). Its decode (:func:`mla_decode`) is the reference's absorbed
 form, einsums over the bf16 latent cache (no kernel there, as in the
 reference).
 
-Not ported: the Ulysses/sharding-context branches of ``gqa_attention``
-and ``mla_attention`` (the port has no distributed context yet; the
-reference's ``act_constraint`` is the identity here).
+Under a sharding context (``distributed/context.py``) with DTensor
+activations, self-attention takes one of two sharded branches, each
+running :func:`sdpa` on every rank's local tensors under ``local_map``
+(the flash kernel on the card, never DTensor's own attention):
+
+- Ulysses (``attn_mode="ulysses"``, the heads dividing the model axis):
+  GQA's K/V are repeated to the query heads, q, k and v resharded from
+  sequence to heads (``bshd``, an all-to-all over the model axis), and
+  each rank attends over the whole sequence with its heads.
+- Gathered (``attn_mode="gather"``, or Ulysses with the heads not
+  dividing the axis, where K/V are constrained ``bshd_full`` as the
+  reference does): K/V whole on every rank, q kept sequence-sharded,
+  each rank's causal mask offset by its model rank × S_local. A
+  non-zero offset sends ``sdpa`` to :func:`full_attention`, not to the
+  flash kernel (which takes no query offset); at one rank the offset is
+  0, and without a mask (cross-attention) there is none. When the
+  sequence does not divide the axis, q is gathered whole too (offset 0).
+
+Cross-attention under a context takes the gathered branch (no mask).
+Without a context every path is as before and takes no DTensor.
 
 The int8 cache (``CacheSpec(dtype="int8")``, jamba's
 ``kv_cache_dtype``) stores each token's K and V as int8 codes with one
@@ -61,6 +78,9 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (act_constraint, current_context,
+                                             is_sharded, partial, run_local,
+                                             split_last, ulysses_enabled)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rope, dense, pos_index,
@@ -172,6 +192,40 @@ def sdpa(q, k, v, causal: bool, chunk: int, q_offset: int = 0,
     return full_attention(q, k, v, causal, q_offset, kv_len)
 
 
+def _ulysses_sdpa(q, k, v, causal: bool, chunk: int) -> torch.Tensor:
+    """Ulysses: q, k, v (the same head count) resharded sequence → heads
+    (``bshd``), :func:`sdpa` on each rank's heads over the whole
+    sequence, the output head-sharded."""
+    ctx = current_context()
+    q, k, v = (act_constraint(t, "bshd") for t in (q, k, v))
+    bshd = ctx.placements("bshd")
+    out = run_local(lambda q, k, v: sdpa(q, k, v, causal=causal,
+                                         chunk=chunk),
+                    (bshd,), (bshd, bshd, bshd), q, k, v)
+    return act_constraint(out, "bshd")
+
+
+def _gathered_sdpa(q, k, v, causal: bool, chunk: int) -> torch.Tensor:
+    """K/V whole on every rank, q sequence-sharded under sequence
+    parallelism (whole when S does not divide the model axis), each
+    rank's causal mask offset by the queries before its own."""
+    ctx = current_context()
+    n = ctx.size(ctx.model_axis)
+    seq = ctx.sequence_parallel and q.shape[1] % n == 0
+    full = ctx.placements("bshd_full")
+    qp = ctx.placements("bshd_seq") if seq else full
+    s_loc = q.shape[1] // n
+
+    def local(q, k, v):
+        off = ctx.mesh.get_local_rank(ctx.model_axis) * s_loc \
+            if seq and causal else 0
+        return sdpa(q, k, v, causal=causal, chunk=chunk, q_offset=off)
+
+    kv_grad = partial(full) if seq else full
+    return run_local(local, (qp,), (qp, full, full), q, k, v,
+                     grad_placements=(qp, kv_grad, kv_grad))
+
+
 # ---------------------------------------------------------------------------
 # GQA block-level attention with projections
 # ---------------------------------------------------------------------------
@@ -199,14 +253,12 @@ def init_gqa_params(key: Seed, cfg: ModelConfig,
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, src: torch.Tensor):
     """Projected q (B,S,H,hd), k and v (B,S_src,Kh,hd), qk-normed."""
-    B, S, _ = x.shape
-    hd = cfg.hd()
-    q = dense(x, p["wq"], p.get("bq"), cfg.quant_mode).reshape(
-        B, S, cfg.n_heads, hd)
-    k = dense(src, p["wk"], p.get("bk"), cfg.quant_mode).reshape(
-        B, src.shape[1], cfg.n_kv_heads, hd)
-    v = dense(src, p["wv"], p.get("bv"), cfg.quant_mode).reshape(
-        B, src.shape[1], cfg.n_kv_heads, hd)
+    q = split_last(dense(x, p["wq"], p.get("bq"), cfg.quant_mode),
+                   cfg.n_heads)
+    k = split_last(dense(src, p["wk"], p.get("bk"), cfg.quant_mode),
+                   cfg.n_kv_heads)
+    v = split_last(dense(src, p["wv"], p.get("bv"), cfg.quant_mode),
+                   cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
         k = rms_norm(k, p["k_norm"], cfg.rmsnorm_eps)
@@ -219,7 +271,8 @@ def gqa_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   kv_positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Self-attention (kv=None) or cross-attention (kv=(keys_src,)).
-    x (B,S,D); positions (B,S) or (S,)."""
+    x (B,S,D); positions (B,S) or (S,). Under a sharding context, the
+    Ulysses or the gathered branch (module docstring)."""
     B, S, _ = x.shape
     src = x if kv is None else kv[0]
     q, k, v = _qkv(p, cfg, x, src)
@@ -228,7 +281,21 @@ def gqa_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        cfg.rope_theta)
         k = apply_rope(k, torch.broadcast_to(positions, (B, S)),
                        cfg.rope_theta)
-    out = sdpa(q, k, v, causal=causal and kv is None, chunk=cfg.attn_chunk)
+    ctx = current_context()
+    if ctx is not None and is_sharded(q):
+        if kv is None and ulysses_enabled(cfg.n_heads):
+            rep = cfg.n_heads // cfg.n_kv_heads
+            out = _ulysses_sdpa(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                causal, cfg.attn_chunk)
+        else:
+            if kv is None and ctx.attn_mode == "ulysses":
+                k = act_constraint(k, "bshd_full")
+                v = act_constraint(v, "bshd_full")
+            out = _gathered_sdpa(q, k, v, causal and kv is None,
+                                 cfg.attn_chunk)
+    else:
+        out = sdpa(q, k, v, causal=causal and kv is None,
+                   chunk=cfg.attn_chunk)
     return dense(out.reshape(B, S, cfg.n_heads * cfg.hd()), p["wo"],
                  quant_mode=cfg.quant_mode)
 
@@ -383,12 +450,11 @@ def init_mla_params(key: Seed, cfg: ModelConfig,
 def _mla_query(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """q through ``q_down``, its norm and ``q_up``: (q_nope, q_rope), each
     (B, S, H, ·)."""
-    B, S, _ = x.shape
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dn = cfg.qk_nope_head_dim
     q = dense(rms_norm(dense(x, p["q_down"], quant_mode=cfg.quant_mode),
                        p["q_norm"], cfg.rmsnorm_eps),
               p["q_up"], quant_mode=cfg.quant_mode)
-    q = q.reshape(B, S, cfg.n_heads, dn + dr)
+    q = split_last(q, cfg.n_heads)
     return q[..., :dn], q[..., dn:]
 
 
@@ -408,7 +474,7 @@ def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     c_kv, k_rope = kv[..., :kvr], kv[..., kvr:]
     kv_up = dense(rms_norm(c_kv, p["kv_norm"], cfg.rmsnorm_eps),
                   p["kv_up"], quant_mode=cfg.quant_mode)
-    kv_up = kv_up.reshape(B, S, H, dn + dv)
+    kv_up = split_last(kv_up, H)
     k_nope, v = kv_up[..., :dn], kv_up[..., dn:]
     posb = torch.broadcast_to(positions, (B, S))
     q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
@@ -416,7 +482,11 @@ def mla_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k_rope = k_rope[:, :, None, :].expand(B, S, H, dr)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope], dim=-1)
-    out = sdpa(qf, kf, v, causal=causal, chunk=cfg.attn_chunk)
+    if current_context() is not None and is_sharded(qf):
+        out = (_ulysses_sdpa if ulysses_enabled(H) else _gathered_sdpa)(
+            qf, kf, v, causal, cfg.attn_chunk)
+    else:
+        out = sdpa(qf, kf, v, causal=causal, chunk=cfg.attn_chunk)
     return dense(out.reshape(B, S, H * dv), p["wo"],
                  quant_mode=cfg.quant_mode)
 

@@ -26,6 +26,10 @@ the FFN. Its decode reads the cross K/V cached once per request (bf16,
 ``enc_len``, with ``wq`` and ``wo`` as plain products (no quant_mode, no
 bias), as the reference's decode does; nothing is written there.
 
+Under a sharding context (``distributed/context.py``) the residual
+stream is laid out ``btd`` after every layer (every superblock), as the
+reference's scan body constrains it; without one that is the identity.
+
 Decode writes the caches in place, the KV caches, MLA's latent caches
 and the SSM states alike, in the rows ``write_rows`` (None: every row,
 the reference's behaviour).
@@ -50,6 +54,8 @@ from repro_torch import prng
 from repro_torch.backends.registry import inference_backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.miru import MiRUConfig
+from repro_torch.distributed.context import (act_constraint, is_sharded,
+                                             replicated)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -100,7 +106,11 @@ def miru_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     pre-scaled by the absmax s, so that the drive stays in the crossbar's
     [-1, 1] range (β·h is tanh-bounded and needs no rescale); the key is
     pinned to ``PRNGKey(0)``, so a stochastic spec draws the reference's
-    fixed realisation."""
+    fixed realisation. Under a sharding context it runs on whole tensors
+    gathered to every rank (its scan kernels take no DTensor)."""
+    if is_sharded(x):
+        return replicated(lambda x, *ps: miru_mixer(dict(zip(p, ps)), cfg, x),
+                          x, *p.values())
     B, S, D = x.shape
     if cfg.quant_mode != "none":
         backend = inference_backend(cfg.quant_mode)
@@ -284,6 +294,7 @@ def stack_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
             x = checkpoint(layer_forward, *args, use_reentrant=False)
         else:
             x = layer_forward(*args)
+        x = act_constraint(x, "btd")
     return x
 
 
@@ -363,6 +374,7 @@ def hybrid_forward(stacked: PyTree, cfg: ModelConfig, x: torch.Tensor,
                            use_reentrant=False)
         else:
             x = _superblock_forward(sb, cfg, x, positions)
+        x = act_constraint(x, "btd")
     return x
 
 

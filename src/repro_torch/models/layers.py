@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.backends.registry import inference_backend
+from repro_torch.distributed.context import is_sharded, replicated
 from repro_torch.utils import Seed, truncated_normal_init
 
 
@@ -39,7 +40,14 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     back by ``s``. No PRNG key is threaded: reads are the deterministic
     expectation. Under autograd the product's gradient is the
     straight-through one of the backend (``backends/wbs.ste_matmul``),
-    and ``s`` is differentiated as autograd takes it."""
+    and ``s`` is differentiated as autograd takes it. Under a sharding
+    context a quantized product runs on whole tensors gathered to every
+    rank (``context.replicated``): its absmax spans the whole tensor and
+    its kernels take no DTensor."""
+    if quant_mode != "none" and is_sharded(x):
+        return replicated(lambda x, w, *b: dense(x, w, *b,
+                                                quant_mode=quant_mode),
+                          x, w, *(() if b is None else (b,)))
     if quant_mode != "none":
         backend = inference_backend(quant_mode)
         s = torch.clamp_min(torch.max(torch.abs(x)), 1e-6)

@@ -48,6 +48,7 @@ from typing import Any, Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import act_constraint
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
@@ -171,8 +172,11 @@ def _encode(p: dict, cfg: ModelConfig, frames: torch.Tensor
 def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch {"tokens": (B, S) int}, plus "frames" (B, T_enc, D) for an
     encoder-decoder model and, optionally, "patches" (B, n_img, D) for a
-    vision one. Returns the text's logits (B, S, V)."""
-    x = _embed_tokens(p, batch["tokens"])
+    vision one. Returns the text's logits (B, S, V). Under a sharding
+    context with DTensor parameters the residual stream is laid out
+    ``btd`` after the embedding and before the head, and the logits
+    ``btv``, where the reference constrains them."""
+    x = act_constraint(_embed_tokens(p, batch["tokens"]), "btd")
     if cfg.is_encoder_decoder:
         mem, mem_pos = _encode(p, cfg, batch["frames"])
         pos = torch.arange(x.shape[1], device=x.device)
@@ -193,7 +197,8 @@ def forward(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
                                  is_moe=cfg.n_experts > 0)
     if prefix is not None:
         x = x[:, prefix.shape[1]:]
-    return _lm_logits(p, cfg, x)
+    x = act_constraint(x, "btd")
+    return act_constraint(_lm_logits(p, cfg, x), "btv")
 
 
 def loss_fn(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:

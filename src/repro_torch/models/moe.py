@@ -25,21 +25,51 @@ call, earlier tokens (row-major over (B, S)) first: at decode, T is the
 engine's batch of slots, so which other rows are in a decode can change
 a row's output (the reference's semantics, kept).
 
-Not ported: the expert-parallel ``shard_map`` path (the reference's
-``_moe_ffn_ep``), which waits for ``distributed/`` (ROADMAP queue A, the
-last item). Without a sharding context the reference takes the global
-path, as the port always does.
+Under a sharding context (``distributed/context.py``) with DTensor
+activations:
+
+- ``moe_mode="ep"``, when the experts divide the model axis or the bank
+  is at most 2.5e8 bytes (:func:`_ep_eligible`) and the step has enough
+  tokens whose block dims divide the mesh (:func:`_ep_divisible`): the
+  expert-parallel path (:func:`_moe_ffn_ep`, the reference's
+  ``shard_map``), each rank's block under ``local_map``. A rank routes
+  and dispatches its own tokens with the capacity C of its own T (the
+  same :func:`route` and :func:`dispatch`, so at one rank it is the
+  global path bit for bit); in exchange mode (E divides the axis) the
+  buffers go to the experts' owners by an all-to-all over the model axis
+  and back by another, the banks gathered over ``data`` in their dtype
+  inside the block (FSDP; not where ``data`` has one rank, whose banks
+  are whole); in replicated mode every rank holds every
+  expert and exchanges nothing. The combine stays a gather in k order.
+  Functional collectives carry the gradients. Without sequence
+  parallelism the ranks of the model axis route the same tokens: as
+  the reference's ``shard_map`` does for an axis its specs leave out,
+  the output's cotangent is divided by the axis size and the inputs'
+  gradients summed over it, so the banks' and the router's gradients
+  count each token once.
+- Otherwise (``moe_mode="global"``, a decode step, a step too small for
+  EP): the global path on whole tensors gathered to every rank first
+  (``context.replicated``): its sort, ``searchsorted`` and gathers have
+  no DTensor sharding rule. That keeps the values; it costs the gathers.
+
+Without a context the global path runs as it always has.
 """
 from __future__ import annotations
 
+import math
 from typing import Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (all_gather, collectives,
+                                             current_context, is_sharded,
+                                             partial, replicated, run_local)
+from repro_torch.distributed.sharding import P, mesh_shape, to_placements
 from repro_torch.models.layers import dense
-from repro_torch.utils import (Seed, ceil_div, split_seed,
+from repro_torch.utils import (Seed, ceil_div, flatten_dict, split_seed,
+                               unflatten_dict,
                                truncated_normal_init as tn)
 
 
@@ -107,34 +137,190 @@ def dispatch(top_e: torch.Tensor, E: int, C: int) -> dict:
             "kept": kept}
 
 
-def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) → (B, S, D), the reference's global sort-based path."""
-    B, S, D = x.shape
-    T, E, K = B * S, cfg.n_experts, cfg.top_k
-    C = capacity(cfg, T)
-    xt = x.reshape(T, D)
-    _, top_w, top_e = route(p["router"], xt, K)
-    d = dispatch(top_e, E, C)
+def _slots(xt: torch.Tensor, d: dict, K: int) -> torch.Tensor:
+    """The (E, C, D) buffer: each expert's first C slots, zeros past its
+    count."""
+    return torch.where(d["filled"][..., None], xt[d["src"] // K],
+                       torch.zeros((), dtype=xt.dtype, device=xt.device))
 
-    # Each expert's first C slots, zeros past its count.
-    xb = torch.where(d["filled"][..., None], xt[d["src"] // K],
-                     torch.zeros((), dtype=x.dtype, device=x.device))
-    h = F.silu(torch.bmm(xb, p["w_gate"].to(x.dtype))) \
-        * torch.bmm(xb, p["w_up"].to(x.dtype))
-    yb = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(E * C, D)
 
-    # Each token's K slots, k ascending.
+def _experts(xb: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU as batched products over the expert axis."""
+    h = F.silu(torch.bmm(xb, w_gate.to(xb.dtype))) \
+        * torch.bmm(xb, w_up.to(xb.dtype))
+    return torch.bmm(h, w_down.to(xb.dtype))
+
+
+def _combine(yb: torch.Tensor, d: dict, top_w: torch.Tensor, T: int,
+             K: int) -> torch.Tensor:
+    """Each token's K slots of the (E·C, D) outputs, weighted, k
+    ascending."""
     w = top_w.reshape(T * K).to(yb.dtype)
     out = torch.where(d["kept"][:, None], yb[d["row"]] * w[:, None],
                       torch.zeros((), dtype=yb.dtype, device=yb.device))
-    y = out.reshape(T, K, D).sum(dim=1)
+    return out.reshape(T, K, yb.shape[-1]).sum(dim=1)
 
+
+def _shared_expert(p: dict, cfg: ModelConfig, xt: torch.Tensor
+                   ) -> torch.Tensor:
+    sp = p["shared"]
+    return (F.silu(dense(xt, sp["w_gate"], quant_mode=cfg.quant_mode))
+            * dense(xt, sp["w_up"], quant_mode=cfg.quant_mode)
+            ) @ sp["w_down"].to(xt.dtype)
+
+
+def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) → (B, S, D): the global sort-based path, or under a
+    sharding context the expert-parallel one (module docstring)."""
+    ctx = current_context()
+    if ctx is None or not is_sharded(x):
+        return _moe_ffn_global(p, cfg, x)
+    if ctx.moe_mode == "ep" and _ep_eligible(p, cfg, x, ctx) \
+            and _ep_divisible(x, ctx):
+        y = _moe_ffn_ep(p, cfg, x, ctx)
+        if cfg.n_shared_experts:
+            y = y + _shared_expert(p, cfg, x.reshape(-1, x.shape[-1])
+                                   ).reshape(x.shape).to(y.dtype)
+        return y.to(x.dtype)
+    flat = flatten_dict(p)
+    return replicated(lambda x, *ts: _moe_ffn_global(
+        unflatten_dict(dict(zip(flat, ts))), cfg, x), x, *flat.values())
+
+
+def _moe_ffn_global(p: dict, cfg: ModelConfig, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """The reference's global sort-based path over the whole token set."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.n_experts, cfg.top_k
+    xt = x.reshape(T, D)
+    _, top_w, top_e = route(p["router"], xt, K)
+    d = dispatch(top_e, E, capacity(cfg, T))
+    yb = _experts(_slots(xt, d, K), p["w_gate"], p["w_up"], p["w_down"])
+    y = _combine(yb.reshape(-1, D), d, top_w, T, K)
     if cfg.n_shared_experts:
-        sp = p["shared"]
-        y = y + (F.silu(dense(xt, sp["w_gate"], quant_mode=cfg.quant_mode))
-                 * dense(xt, sp["w_up"], quant_mode=cfg.quant_mode)
-                 ) @ sp["w_down"].to(y.dtype)
+        y = y + _shared_expert(p, cfg, xt).to(y.dtype)
     return y.reshape(B, S, D).to(x.dtype)
+
+
+# Expert banks at most this many bytes may be replicated on every device
+# (granite: 40 experts × 63 MB/bank): dispatch is then fully local, no
+# MoE collectives. Larger banks need E % model_axis == 0 for the
+# all-to-all exchange.
+_REPLICATE_BANK_BYTES = 2.5e8
+
+
+def _bank_bytes(p: dict) -> int:
+    w = p["w_gate"]
+    return int(w.numel()) * w.element_size()
+
+
+def _ep_eligible(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx) -> bool:
+    if cfg.n_experts % ctx.size(ctx.model_axis) == 0:
+        return True
+    return _bank_bytes(p) <= _REPLICATE_BANK_BYTES
+
+
+def _ep_divisible(x: torch.Tensor, ctx) -> bool:
+    """EP needs the token block dims to divide the mesh axes, and enough
+    tokens a step to pay for the banks' gathers and the all-to-alls: a
+    decode step takes the global path."""
+    shape = mesh_shape(ctx.mesh)
+    if x.shape[0] * x.shape[1] < 16 * math.prod(shape.values()):
+        return False
+    if x.shape[0] % math.prod(shape[a] for a in ctx.batch_axes) != 0:
+        return False
+    if ctx.sequence_parallel and \
+            x.shape[1] % shape[ctx.model_axis] != 0:
+        return False
+    return True
+
+
+def _local_dispatch(xt: torch.Tensor, router: torch.Tensor, E: int, K: int,
+                    C: int) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Route T local tokens into an (E, C, D) buffer. Returns (buffer,
+    the (T, K) router weights, the dispatch of :func:`dispatch`)."""
+    _, top_w, top_e = route(router, xt, K)
+    d = dispatch(top_e, E, C)
+    return _slots(xt, d, K), top_w, d
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Row block i of ``t`` to the group's rank i; row block i of the
+    result from rank i. Differentiable."""
+    import torch.distributed._functional_collectives as funcol
+
+    collectives["all_to_all"] += 1
+    return funcol.all_to_all_single_autograd(t.contiguous(), None, None,
+                                             group)
+
+
+def _moe_ffn_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx
+                ) -> torch.Tensor:
+    """Expert-parallel dispatch under ``local_map`` (module docstring)."""
+    mesh, axis = ctx.mesh, ctx.model_axis
+    shape = mesh_shape(mesh)
+    n_ep = shape[axis]
+    E, K = cfg.n_experts, cfg.top_k
+    exchange = E % n_ep == 0
+    E_loc = E // n_ep if exchange else E
+    b = ctx.batch_axes if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+    x_spec = P(b, axis if ctx.sequence_parallel else None, None)
+    # The banks' FSDP gather over ``data``: none where the axis has one
+    # rank, whose bank is whole (it would copy every bank on the card).
+    fsdp_axis = "data" if exchange and shape.get("data", 1) > 1 and \
+        p["w_gate"].shape[1] % shape["data"] == 0 else None
+
+    def block(x_blk, router, w_gate, w_up, w_down):
+        if fsdp_axis is not None:
+            group = mesh.get_group(fsdp_axis)
+            w_gate = all_gather(w_gate, 1, group)
+            w_up = all_gather(w_up, 1, group)
+            w_down = all_gather(w_down, 2, group)
+        Bb, Sb, D = x_blk.shape
+        T = Bb * Sb
+        xt = x_blk.reshape(T, D)
+        C = capacity(cfg, T)
+        buf, top_w, d = _local_dispatch(xt, router, E, K, C)
+        if exchange:
+            # (E, C, D) → (n_ep, E_loc, C, D); dim 0 ↔ rank all-to-all,
+            # then expert-major (E_loc, n_ep·C, D).
+            recv = _all_to_all(buf.reshape(n_ep, E_loc, C, D),
+                               mesh.get_group(axis))
+            xb = recv.movedim(0, 1).reshape(E_loc, n_ep * C, D)
+        else:
+            xb = buf                                   # fully local
+        yb = _experts(xb, w_gate, w_up, w_down)
+        if exchange:
+            back = yb.reshape(E_loc, n_ep, C, D).movedim(1, 0)
+            got = _all_to_all(back, mesh.get_group(axis)).reshape(E * C, D)
+        else:
+            got = yb.reshape(E * C, D)
+        y = _combine(got, d, top_w, T, K).reshape(Bb, Sb, D).to(
+            x_blk.dtype)
+        if n_rep > 1 and y.requires_grad:
+            y.register_hook(lambda g: g / n_rep)
+        return y
+
+    if exchange:
+        wg_spec, wd_spec = P(axis, fsdp_axis, None), P(axis, None, fsdp_axis)
+    else:
+        wg_spec = wd_spec = P(None, None, None)
+    xp, rp, gp, dp = (to_placements(s, mesh) for s in
+                      (x_spec, P(None, None), wg_spec, wd_spec))
+    # The mesh dims x is whole on (the model axis without sequence
+    # parallelism): their ranks route the same tokens, and an expert's
+    # owner takes each token once from each of them. As the reference's
+    # shard_map does for the axes its specs leave out, the output's
+    # cotangent is divided by their size and every input's gradient
+    # summed over them.
+    n_rep = math.prod(n for n, pl in zip(shape.values(), xp)
+                      if pl.is_replicate())
+    return run_local(block, (xp,), (xp, rp, gp, gp, dp), x, p["router"],
+                     p["w_gate"], p["w_up"], p["w_down"],
+                     grad_placements=(partial(xp) if n_rep > 1 else xp,
+                                      partial(rp), partial(gp),
+                                      partial(gp), partial(dp)))
 
 
 def moe_load_stats(p: dict, cfg: ModelConfig, x: torch.Tensor) -> dict:

@@ -13,9 +13,20 @@ RMSNorm, out_proj. The dtypes follow the reference's: ``dt`` is cast to
 the activations' dtype before the scan, the inter-chunk recurrence runs
 in fp32 and its states go back to the activations' dtype.
 
-Not ported: the reference's Ulysses branch around the scan (a reshard of
-sequence to heads under a sharding context), which is the identity
-without one; the port has no sharding context.
+Under a sharding context (``distributed/context.py``) with DTensor
+activations: with ``attn_mode="ulysses"`` and the heads dividing the
+model axis, x is anchored sequence-sharded (``bshd_seq``) and resharded
+to heads (``bshd``, an all-to-all), dt to ``bsh``, B and C gathered
+(``bs__``), and each rank runs :func:`ssd_chunked` over the whole
+sequence for its heads under ``local_map`` (the reference's Ulysses for
+SSM). Otherwise the chunk scan (a Python loop over the chunks, each
+reading the state before it, whose indexing DTensor does not shard)
+runs on whole tensors gathered to every rank first
+(``context.replicated``): that keeps the values and costs the gathers.
+The depthwise causal conv (a pad and shifted slices over the sequence,
+which DTensor does not shard) runs on each rank's sequence shard under
+``local_map``, with the dconv − 1 rows before the shard gathered from the
+rank before it (:func:`_sharded_causal_conv`).
 
 :func:`mamba2_decode` takes ``write_rows`` as the KV cache does: the conv
 and SSD state of every row outside it stay as they were, bit for bit
@@ -31,6 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (act_constraint, all_gather,
+                                             current_context, is_sharded,
+                                             partial, replicated, run_local,
+                                             ulysses_enabled)
+from repro_torch.distributed.sharding import P, to_placements
 from repro_torch.models.layers import dense, promote, rms_norm, select_rows
 from repro_torch.utils import Seed, split_seed, truncated_normal_init as tn
 
@@ -184,26 +200,106 @@ def _split_xbc(xBC: torch.Tensor, d: dict):
             xBC[..., d_in + gn:].reshape(*lead, d["ngroups"], d["dstate"]))
 
 
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The depthwise causal conv over [x|B|C] (B, S, conv_dim), its
+    (dconv, conv_dim) taps summed in order, then the bias and SiLU.
+    ``halo`` is the dconv − 1 rows before ``xBC`` (zeros when None)."""
+    s = xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, w.shape[0] - 1, 0)) if halo is None \
+        else torch.cat([halo, xBC], dim=1)
+    conv = pad[:, 0:s, :] * w[0]
+    for i in range(1, w.shape[0]):
+        conv = conv + pad[:, i:i + s, :] * w[i]
+    return F.silu(conv + b)
+
+
+def _sharded_causal_conv(xBC, w, b) -> torch.Tensor:
+    """The causal conv on each rank's ``btd`` shard of [x|B|C]: under
+    sequence parallelism the dconv − 1 rows before a rank's shard come
+    from the rank before it on the model axis (an all-gather of each
+    shard's last rows; zeros on the first rank), so every output is the
+    same sum of the same values as on whole tensors. A sequence that does
+    not divide the axis into shards of at least dconv − 1 rows is
+    convolved whole on every rank (``context.replicated``)."""
+    ctx = current_context()
+    axis, halo = ctx.model_axis, w.shape[0] - 1
+    n = ctx.size(axis)
+    if ctx.sequence_parallel and n > 1 and (
+            xBC.shape[1] % n or xBC.shape[1] // n < halo):
+        return replicated(_causal_conv, xBC, w, b)
+    btd = ctx.placements("btd")
+    rep = to_placements(P(), ctx.mesh)
+
+    def local(x, w, b):
+        if n == 1 or not ctx.sequence_parallel or halo == 0:
+            return _causal_conv(x, w, b)
+        tails = all_gather(x[:, -halo:], 0, ctx.mesh.get_group(axis))
+        r = ctx.mesh.get_local_rank(axis)
+        # Every rank's output reads the gather, so that every rank runs
+        # its backward (a reduce-scatter) too.
+        before = torch.where(
+            torch.tensor(r > 0, device=x.device),
+            tails.reshape(n, x.shape[0], halo, x.shape[2])[r - 1],
+            torch.zeros((), dtype=x.dtype, device=x.device))
+        return _causal_conv(x, w, b, before)
+
+    return run_local(local, (btd,), (btd, rep, rep), xBC, w, b,
+                     grad_placements=(btd, partial(rep, btd),
+                                      partial(rep, btd)))
+
+
+def _ulysses_ssd(x, dt, a_log, Bm, Cm) -> torch.Tensor:
+    """SSD with the heads sharded over the model axis: each rank's heads'
+    whole-sequence :func:`ssd_chunked`, y head-sharded (``bshd``). B and
+    C are whole on every rank; with more than one group each rank takes
+    its heads' rows of them, repeated to a head each."""
+    ctx = current_context()
+    x = act_constraint(act_constraint(x, "bshd_seq"), "bshd")
+    dt = act_constraint(dt, "bsh")
+    Bm, Cm = act_constraint(Bm, "bs__"), act_constraint(Cm, "bs__")
+    h, g = x.shape[2], Bm.shape[2]
+
+    def local(x, dt, a_log, Bm, Cm):
+        hl = x.shape[2]
+        lo = ctx.mesh.get_local_rank(ctx.model_axis) * hl
+        if g > 1:
+            Bm, Cm = (torch.repeat_interleave(t, h // g, dim=2)[
+                :, :, lo:lo + hl] for t in (Bm, Cm))
+        return ssd_chunked(x, dt, a_log[lo:lo + hl], Bm, Cm)[0]
+
+    bshd, bsh = ctx.placements("bshd"), ctx.placements("bsh")
+    bs, rep = ctx.placements("bs__"), to_placements(P(), ctx.mesh)
+    y = run_local(local, (bshd,), (bshd, bsh, rep, bs, bs),
+                  x, dt, a_log, Bm, Cm,
+                  grad_placements=(bshd, bsh, partial(rep), partial(bs),
+                                   partial(bs)))
+    return act_constraint(y, "bshd")
+
+
 def mamba2_forward(p: dict, cfg: ModelConfig, u: torch.Tensor
                    ) -> torch.Tensor:
     """u (B, S, D) → (B, S, D). The training and prefill path (chunked
-    SSD)."""
+    SSD); under a sharding context the Ulysses or the gathered scan
+    (module docstring)."""
     d = _dims(cfg)
     b, s, _ = u.shape
     z, xBC, dt = _split_proj(dense(u, p["in_proj"],
                                    quant_mode=cfg.quant_mode), d)
 
-    # Depthwise causal conv over [x|B|C], its taps summed in order.
-    w = p["conv_w"]                                     # (dconv, conv_dim)
-    pad = F.pad(xBC, (0, 0, d["dconv"] - 1, 0))
-    conv = pad[:, 0:s, :] * w[0]
-    for i in range(1, d["dconv"]):
-        conv = conv + pad[:, i:i + s, :] * w[i]
-    xBC = F.silu(conv + p["conv_b"])
-
+    if current_context() is None or not is_sharded(xBC):
+        xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    else:
+        xBC = _sharded_causal_conv(xBC, p["conv_w"], p["conv_b"])
     x, Bm, Cm = _split_xbc(xBC, d)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
-    y, _ = ssd_chunked(x, dt.to(x.dtype), p["a_log"], Bm, Cm)
+    if current_context() is None or not is_sharded(x):
+        y, _ = ssd_chunked(x, dt.to(x.dtype), p["a_log"], Bm, Cm)
+    elif ulysses_enabled(d["nheads"]):
+        y = _ulysses_ssd(x, dt.to(x.dtype), p["a_log"], Bm, Cm)
+    else:
+        y = replicated(lambda *a: ssd_chunked(*a)[0], x, dt.to(x.dtype),
+                       p["a_log"], Bm, Cm)
     y = y.to(u.dtype) + x.to(u.dtype) \
         * p["d_skip"][None, None, :, None].to(u.dtype)
     y = y.reshape(b, s, d["d_in"])

@@ -26,10 +26,16 @@ of the logits, and the stream is not compared after that.
 
 The flash backward's kernels are held to its plain version
 (:func:`flash_bwd_plain`) by :func:`grads_close`.
+
+:class:`Ranks` runs a function on the ranks of a gloo process group in
+spawned processes, for the tests of the sharded paths on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -356,3 +362,61 @@ def record_lse_mismatch(path, inputs: dict, lse: torch.Tensor,
                 "lse_again": lse2.detach().cpu(),
                 "want_lse_again": want2.detach().cpu(), **rec}, path)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Ranks of a process group, for the sharded paths on the CPU
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, world: int, directory: str, fn, args,
+               timeout: float) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(directory, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        out = fn(rank, world, *args)
+        if rank == 0:
+            torch.save(out, os.path.join(directory, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """``fn(rank, world, *args)`` running on each of ``world`` spawned
+    processes, joined in a gloo process group through a ``FileStore``
+    under ``directory`` (no port to collide with another run), one CPU
+    thread each; a collective that hangs fails after ``timeout`` seconds,
+    as does :meth:`result`. ``fn`` must be importable by name in the
+    children."""
+
+    def __init__(self, fn, world: int, directory, *args,
+                 timeout: float = 240.0):
+        import torch.multiprocessing as mp
+
+        self.name, self.timeout = fn.__name__, timeout
+        self.directory = Path(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.deadline = time.monotonic() + timeout
+        self.procs = mp.start_processes(
+            _rank_main, nprocs=world, join=False, start_method="spawn",
+            args=(world, str(self.directory), fn, args, timeout))
+
+    def result(self):
+        """Rank 0's result (anything ``torch.save`` takes), once every rank
+        has ended; an exception in a rank is raised here with its
+        traceback."""
+        try:
+            while not self.procs.join(
+                    timeout=max(1.0, self.deadline - time.monotonic())):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(f"{self.name} past {self.timeout} s")
+        finally:
+            for proc in self.procs.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return torch.load(self.directory / "rank0.pt", weights_only=False)
+

@@ -17,7 +17,9 @@ bf16 leaves go to disk as their uint16 bits with ``"bfloat16"`` in the
 manifest's dtypes (numpy has no bfloat16, and the port does not depend on
 ``ml_dtypes``); a reference bf16 checkpoint, whose leaves numpy holds as
 opaque 2-byte voids, is refused with an error. ``restore(device=)``
-places the leaves on a device, where the reference takes ``shardings=``.
+places the leaves on a device; ``restore(shardings=)`` lays each leaf it
+names out on a mesh as a DTensor (the reference's elastic restore: the
+checkpoint holds logical arrays, so any mesh takes it).
 """
 from __future__ import annotations
 
@@ -140,11 +142,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None,
-                device: Optional[Union[str, torch.device]] = None
+                device: Optional[Union[str, torch.device]] = None,
+                shardings: Optional[PyTree] = None
                 ) -> tuple[int, dict, dict]:
         """Returns (step, tree, extra): the numeric leaves as tensors (on
         ``device``, else the CPU), tagged subtrees revived (the endurance
-        tracker)."""
+        tracker). ``shardings``: a tree of ``(mesh, spec)`` leaves (a
+        ``DeviceMesh`` and a ``distributed.sharding.P``) matched to the
+        checkpoint's leaves by flat key; each leaf it names comes back as
+        a DTensor on that mesh, laid out by the spec, from the whole array
+        every rank reads (elastic restore onto the current mesh)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -157,9 +164,25 @@ class CheckpointManager:
         for key in npz.files:
             path = key.replace("__", "/")
             flat[path] = _from_disk(npz[key], dtypes.get(path), path, d)
-        tree = _revive(unflatten_dict(flat))
-        return manifest["step"], _to_tensors(tree, device), \
-            manifest.get("extra", {})
+        tree = _to_tensors(_revive(unflatten_dict(flat)), device)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import place
+
+            flat = flatten_dict(tree)
+            for k, (mesh, spec) in _flat_shardings(shardings).items():
+                flat[k] = place(flat[k].to(mesh.device_type), spec, mesh)
+            tree = unflatten_dict(flat)
+        return manifest["step"], tree, manifest.get("extra", {})
+
+
+def _flat_shardings(tree, prefix: str = "") -> dict:
+    """{flat key: (mesh, spec)} of a nested dict of ``(mesh, spec)``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_shardings(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
 
 
 def _from_disk(a: np.ndarray, dtype: Optional[str], path: str, d: Path):

@@ -81,12 +81,10 @@ TRIMS = {
 #: ROADMAP queue A items still to port: item → reference names
 #: ((file, name)) and whole files (file, None) it brings.
 TO_PORT = {
-    "12 (distributed/, launch/)": [
+    "13 (launch/'s dry-run tools)": [
         (f, None) for f in (
-            "distributed/__init__.py", "distributed/context.py",
-            "distributed/sharding.py", "launch/__init__.py",
             "launch/dryrun.py", "launch/hlo_analysis.py",
-            "launch/make_report.py", "launch/mesh.py", "launch/roofline.py")],
+            "launch/make_report.py", "launch/roofline.py")],
 }
 
 _QUEUED = {entry for entries in TO_PORT.values() for entry in entries}
