@@ -292,6 +292,25 @@ distributed. the sharded paths at world size 1: a one-rank NCCL group
    gathers; one MoE layer of each MoE model, EP against the global
    dispatch bit for bit; a checkpoint restored onto the mesh as
    DTensors bit for bit; the phase's seconds and ``nvidia-smi``'s line;
+launch. the dry-run tools (``repro_torch/launch/``) against the card:
+   (i) qwen2-0.5B exactly in bf16 (world size 1, no context), the lm
+   phase's 2 × 2,048-token prefill and one AdamW step at lm_train's
+   shape, each counted by ``hlo_analysis.count`` on the card and on
+   ``meta`` tensors: FLOPs, bytes, collectives and every kernel event
+   equal, one flash forward event a layer in the prefill (48 forward, 24
+   dq, 24 dk/dv in the step), each as many as the kernels' launch
+   counters; (ii) each timed by CUDA events (median of 3 after a
+   warm-up) beside its roofline time from those counts at the H100's
+   datasheet peaks (``launch/roofline.py``) and ``roofline_frac``, none
+   below the roofline over ``LAUNCH_ROOF_SLACK``; (iii) the predicted
+   peak (the ``meta`` run's arguments and temporaries) within
+   ``LAUNCH_PEAK_REL`` of ``max_memory_allocated`` over the card's run,
+   less what the card held besides its arguments; (iv) ``python -m
+   repro_torch.launch.dryrun`` at its default device type on
+   ``LAUNCH_CLI`` (qwen2-0.5b × decode_32k at (16, 16), mamba2-370m ×
+   long_500k at (2, 16, 16)), each in a subprocess, each cell ``ok``,
+   its counts printed (records under ``chiprun_out/dryrun/``); the
+   phase's seconds;
 8. times: CUDA-event timings of each kernel, its plain version and,
    where one exists, one PyTorch call computing the same function (for
    k-WTA the exact top-k, a different function; for the flash backward
@@ -763,12 +782,6 @@ FLASH_DKV = {"torch.bfloat16": "flash_attention_bwd_dkv_sm90",
              "torch.float32": "flash_attention_bwd_dkv"}
 # CPU twins run beside the card's phases, one thread each.
 TWIN_WORKERS = 4
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 and fp64 on CUDA
-# cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_FP64_FLOPS = 34e12
-PEAK_BF16_TENSOR_FLOPS = 989e12    # dense, tensor cores
-PEAK_BYTES = 3.35e12
 # A model of one step of the fused WBS scan at H 100, at the least: a
 # 108-long chain of dependent FMAs (4 cycles each), a double tanh, the
 # ADC's division and the codes' round trip through the cluster (an
@@ -903,10 +916,12 @@ def bound_ms(flops: float, n_bytes: float, flops64: float = 0.0,
              flops_bf16_tc: float = 0.0) -> tuple[float, str]:
     """The least time for the work: fp32 FLOPs at the fp32 peak plus fp64
     FLOPs at the fp64 peak plus bf16 tensor-core FLOPs at their peak, or
-    bytes at the memory rate, whichever is larger."""
-    t_ops = flops / PEAK_FP32_FLOPS + flops64 / PEAK_FP64_FLOPS \
-        + flops_bf16_tc / PEAK_BF16_TENSOR_FLOPS
-    t_bytes = n_bytes / PEAK_BYTES
+    bytes at the memory rate, whichever is larger, at the H100 SXM's
+    datasheet peaks (``repro_torch/launch/roofline.py``)."""
+    from repro_torch.launch import roofline as pk
+    t_ops = flops / pk.PEAK_FP32_FLOPS + flops64 / pk.PEAK_FP64_FLOPS \
+        + flops_bf16_tc / pk.PEAK_FLOPS
+    t_bytes = n_bytes / pk.HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2897,15 +2912,14 @@ def wbs_lm_times(dev, rng) -> dict:
     a loop over K: timed by events around 3 calls, not in a graph); and
     ``torch.matmul`` of the float product (fp32, TF32 off)."""
     import torch
-    from repro_torch.kernels import ref, wbs_matmul
+    from repro_torch.kernels import ref, wbs_matmul, work
+    from repro_torch.launch import roofline
     out = {}
     with torch.no_grad():
         for key, (M, K, N) in LMQ_WBS_SHAPES.items():
             inp = matmul_inputs(rng, dev, M, K, N)
             x = inp["sign"].float() * inp["code"].float() / 255.0
-            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS
-            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
-            b, by = bound_ms(flops, n_bytes)
+            b, by = bound_ms(*work.wbs_matmul(M, K, N, N_BITS)[:2])
             out[key] = dict(
                 shape=[M, K, N],
                 ms=time_graph(lambda: wbs_matmul.wbs_matmul(
@@ -2916,7 +2930,7 @@ def wbs_lm_times(dev, rng) -> dict:
                 library="torch.matmul of the float product (fp32, TF32 "
                         "off)", bound_ms=b, bound_by=by,
                 bound_plane_fmas_ms=2.0 * M * K * N * N_BITS
-                / PEAK_FP32_FLOPS * 1e3)
+                / roofline.PEAK_FP32_FLOPS * 1e3)
     return out
 
 
@@ -2926,7 +2940,8 @@ def times(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import (miru_readout, miru_scan, ops, ref,
-                                     wbs_matmul, wbs_miru_scan)
+                                     wbs_matmul, wbs_miru_scan, work)
+    from repro_torch.launch import roofline
     rng = np.random.default_rng(1)
     out = {}
     with torch.no_grad():
@@ -2940,10 +2955,8 @@ def times(dev) -> dict:
                 * 2.0 ** -N_BITS
             # By linearity Σ_b g_b·(plane_b⊙sign)@w = (sign⊙Σ_b
             # g_b·plane_b)@w: one product plus an n_bits-term decode per
-            # input.
-            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS
-            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
-            b, by = bound_ms(flops, n_bytes)
+            # input (kernels/work.py).
+            b, by = bound_ms(*work.wbs_matmul(M, K, N, N_BITS)[:2])
             out[key] = dict(
                 shape=[M, K, N],
                 ms=time_graph(lambda: wbs_matmul.wbs_matmul(
@@ -2966,9 +2979,8 @@ def times(dev) -> dict:
                 "wbs_matmul_read_noise@drive": (CL_BATCH, N_X, N_H,
                                                 1.0)}.items():
             inp = matmul_inputs(rng, dev, M, K, N, xs)
-            flops = 2.0 * M * K * N + 2.0 * M * K * N_BITS + 3.0 * K * N
-            n_bytes = 2 * M * K + 4 * K * N + 4 * N_BITS + 4 * M * N
-            b, by = bound_ms(flops, n_bytes, flops64=8.0 * K * N)
+            b, by = bound_ms(*work.wbs_matmul(M, K, N, N_BITS,
+                                              read_noise=True))
             out[key] = dict(
                 shape=[M, K, N], read_sigma=READ_SIGMA,
                 ms=time_graph(lambda: wbs_matmul.wbs_matmul_read_noise(
@@ -3000,9 +3012,7 @@ def times(dev) -> dict:
                 [2.0 ** -(k + 1) for k in range(N_BITS)]).expand(T, N_BITS)
             gains = gains.contiguous()
             geom = wbs_miru_scan.geometry(B, H)
-            flops = 2.0 * B * T * H * H * N_BITS
-            n_bytes = 4 * (B * T * H + H * H + B * H + H + T * N_BITS) \
-                + 3 * 4 * B * T * H
+            flops, n_bytes = work.wbs_miru_scan(B, T, H, N_BITS)[:2]
             b, by = bound_ms(flops, n_bytes)
             out[key] = dict(
                 shape=[B, T, H],
@@ -3014,7 +3024,7 @@ def times(dev) -> dict:
                     inp["drive"], u_scaled, inp["h0"], inp["b_h"], BETA, LAM,
                     N_BITS, ADC_BITS, ADC_RANGE, W_SCALE), reps=2, rounds=3),
                 library_ms=None, library=None, bound_ms=b, bound_by=by,
-                bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3,
+                bound_bytes_ms=n_bytes / roofline.HBM_BW * 1e3,
                 serial_floor_model_ms=T * SCAN_STEP_CYCLES
                 / (mhz * 1e3),
                 max_sm_mhz=mhz, cluster_rows=geom.rows, cluster=geom.cluster,
@@ -3030,8 +3040,7 @@ def times(dev) -> dict:
         # measurement). No single PyTorch call computes the recurrence.
         B, T, H = SW_BATCH, T_SEQ, N_H
         inp = scan_inputs(rng, dev, B, T, H, with_h0=True)
-        flops = 2.0 * B * T * H * H
-        n_bytes = 4 * (3 * B * T * H + H * H + B * H)
+        flops, n_bytes = work.miru_scan(B, T, H)[:2]
         b, by = bound_ms(flops, n_bytes)
         out["miru_scan"] = dict(
             shape=[B, T, H],
@@ -3041,7 +3050,7 @@ def times(dev) -> dict:
                 inp["drive"], inp["u_h"], inp["h0"], BETA, LAM),
                 reps=2, rounds=3),
             library_ms=None, library=None, bound_ms=b, bound_by=by,
-            bound_bytes_ms=n_bytes / PEAK_BYTES * 1e3,
+            bound_bytes_ms=n_bytes / roofline.HBM_BW * 1e3,
             serial_floor_model_ms=T * (MIRU_ADD_CYCLES * H
                                        + MIRU_TAIL_CYCLES) / (mhz * 1e3),
             max_sm_mhz=mhz, u_place=miru_scan.u_place(H), blocks=B,
@@ -3057,8 +3066,7 @@ def times(dev) -> dict:
                        ("miru_readout@eval", CL_TEST)):
             h = torch.from_numpy(rng.uniform(-1, 1, (M, N_H)).astype(
                 np.float32)).to(dev)
-            b, by = bound_ms(2.0 * M * N_H * N_Y + M * N_Y,
-                             4 * (M * N_H + N_H * N_Y + N_Y + M * N_Y))
+            b, by = bound_ms(*work.miru_readout(M, N_H, N_Y)[:2])
             g = miru_readout.geometry(M, N_H, N_Y,
                                       miru_readout.sm_count(dev))
             rows, cols = g.grid(M, N_Y)
@@ -3117,7 +3125,7 @@ def lm_times(dev, rng) -> dict:
     backward's kernels (:func:`flash_bwd_times`) and the k-WTA bisection
     at kernel_bench's shape beside the exact top-k."""
     import torch
-    from repro_torch.kernels import flash_attention, kwta, ref
+    from repro_torch.kernels import flash_attention, kwta, ref, work
     out = {}
     B, S, H, Kh, dh = LM_PREFILL_B, LM_PREFILL_S, 14, 2, 64
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
@@ -3139,10 +3147,8 @@ def lm_times(dev, rng) -> dict:
         # each product of six: its bound is that bf16 tensor-core work,
         # beside the fp32 products on the CUDA cores
         # (bound_cuda_cores_ms).
-        flops = 4.0 * B * H * S * S * dh / 2
-        size = qt.element_size()
-        n_bytes = size * (2 * B * H * S * dh + 2 * B * Kh * S * dh) \
-            + 4 * B * H * S
+        flops, n_bytes = work.flash_fwd(B, H, Kh, S, S, dh, dh, True,
+                                        qt.element_size())[:2]
         if dt == torch.bfloat16:
             b, by = flash_bound(flops, n_bytes, dt)
         else:
@@ -3174,7 +3180,7 @@ def lm_times(dev, rng) -> dict:
             + [(KWTA_SHAPES[0], torch.bfloat16)]:
         x = torch.from_numpy(rng.normal(0, 1, (R, N)).astype(
             "float32")).to(dev, dt)
-        b, by = bound_ms(R * N * (iters + 3.0), 2 * x.element_size() * R * N)
+        b, by = bound_ms(*work.kwta(R, N, iters, x.element_size())[:2])
         p = kwta.plan(N, dt)
         blocks, threads = kwta.launch_shape(R, p)
         key = "kwta" if (R, N, dt) == (64, 1024, torch.float32) \
@@ -3204,7 +3210,7 @@ def flash_bwd_times(dev, rng) -> dict:
     port runs it (delta's torch reduction, dq and dk/dv)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import flash_attention, ref, work
     B, S, H, Kh, dh = LM_TRAIN_B, LM_TRAIN_S, 14, 2, 64
     kw = dict(causal=True, sk_true=S, q_heads=H, kv_heads=Kh,
               scale=dh ** -0.5)
@@ -3216,8 +3222,7 @@ def flash_bwd_times(dev, rng) -> dict:
     # (bound_split_ms). The fp32 kernels carry every operand in three bf16
     # terms and make each product of six: their bound is that bf16
     # tensor-core work, beside the fp32 products on the CUDA cores
-    # (bound_cuda_cores_ms).
-    prod = 2.0 * B * H * S * S * dh / 2
+    # (bound_cuda_cores_ms). The work is kernels/work.py's.
     out = {}
     for dt, dq_k, dkv_k in ((torch.bfloat16, "flash_attention_bwd_dq_sm90",
                              "flash_attention_bwd_dkv_sm90"),
@@ -3233,11 +3238,8 @@ def flash_bwd_times(dev, rng) -> dict:
         ot, lse = fwd(qt, kt, vt, **kw)
         delta = torch.sum(dot.float() * ot.float(), -1)
         args = (qt, kt, vt, dot, lse, delta)
-        size = qt.element_size()
-        reads = size * (2 * B * H * S * dh + 2 * B * Kh * S * dh) \
-            + 2 * 4 * B * H * S
-        dq_bytes = reads + size * B * H * S * dh
-        dkv_bytes = reads + 2 * size * B * Kh * S * dh
+        shape = (B, H, Kh, S, S, dh, dh, True, qt.element_size())
+        dq_w, dkv_w = work.flash_bwd_dq(*shape), work.flash_bwd_dkv(*shape)
         plain = time_graph(lambda: ref.flash_attention_bwd_ref(
             qt, kt, vt, ot, lse, dot, True, S, H, Kh), reps=2, rounds=3)
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -3260,33 +3262,32 @@ def flash_bwd_times(dev, rng) -> dict:
                       plain_ms=plain, plain="ref.flash_attention_bwd_ref: "
                       "dq, dk and dv together", library_ms=lib,
                       library=lib_name)
-        for key, fn, n_prod, n_bytes in ((dq_k, dq_fn, 3, dq_bytes),
-                                         (dkv_k, dkv_fn, 4, dkv_bytes)):
+        for key, fn, w in ((dq_k, dq_fn, dq_w), (dkv_k, dkv_fn, dkv_w)):
             out[key] = dict(ms=time_graph(lambda: fn(*args, **kw)), **common)
             if dt == torch.bfloat16:
-                b, by = flash_bound(n_prod * prod, n_bytes, dt)
+                b, by = flash_bound(w.flops, w.bytes, dt)
             else:
-                b, by = bound_ms(0.0, n_bytes,
-                                 flops_bf16_tc=6 * n_prod * prod)
+                b, by = bound_ms(0.0, w.bytes, flops_bf16_tc=6 * w.flops)
                 out[key].update(
-                    bound_cuda_cores_ms=flash_bound(n_prod * prod, n_bytes,
+                    bound_cuda_cores_ms=flash_bound(w.flops, w.bytes,
                                                     dt)[0],
                     note="the split of the inputs into bf16 terms"
                          + (" and the fold" if key == dkv_k else ""))
             out[key].update(bound_ms=b, bound_by=by)
         if dt != torch.bfloat16:
             continue
-        out[dq_k]["bound_split_ms"] = flash_bound(4 * prod, dq_bytes, dt)[0]
+        out[dq_k]["bound_split_ms"] = flash_bound(dq_w.flops * 4 / 3,
+                                                  dq_w.bytes, dt)[0]
         out[dkv_k].update(
-            bound_split_ms=flash_bound(6 * prod, dkv_bytes, dt)[0],
+            bound_split_ms=flash_bound(dkv_w.flops * 3 / 2, dkv_w.bytes,
+                                       dt)[0],
             note="the dk/dv kernel and the fold of the rep partials")
 
         def whole():
             d = torch.sum(dot.float() * ot.float(), -1)
             dq_fn(qt, kt, vt, dot, lse, d, **kw)
             dkv_fn(qt, kt, vt, dot, lse, d, **kw)
-        b, by = flash_bound(7 * prod, reads + size * B * H * S * dh
-                            + 2 * size * B * Kh * S * dh, dt)
+        b, by = flash_bound(*work.flash_bwd(*shape)[:2], dt)
         out["flash_attention_bwd@whole"] = dict(
             ms=time_graph(whole), bound_ms=b, bound_by=by, **common,
             note="delta's torch reduction, the tensor-core dq and dk/dv")
@@ -5169,13 +5170,14 @@ def flash_times(dev, shapes, seed: int) -> dict:
     its plain version (CUDA events over 3 calls: its score tensors are
     GBs) and ``F.scaled_dot_product_attention`` on the same inputs
     (:func:`sdpa_timer`; for dq and dk/dv its whole forward and backward,
-    CUDA events), and the least time for the work: 2·H·Sq·Sk·(the
-    product widths, :func:`flash_widths`) FLOPs, halved when causal, q,
-    k, v (and dO, lse, delta) read once and the outputs written once."""
+    CUDA events), and the least time for the work (``kernels/work.py``:
+    2·H·Sq·Sk·(the product widths) FLOPs, halved when causal, q, k, v
+    (and dO, lse, delta) read once and the outputs written once; the
+    split's extra products by :func:`flash_widths`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as kf
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     rng = np.random.default_rng(seed)
     out = {}
     heads = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]
@@ -5205,10 +5207,10 @@ def flash_times(dev, shapes, seed: int) -> dict:
             lib = (f"F.scaled_dot_product_attention"
                    f"{f'({flags})' if flags else ''}, {dt}, backend "
                    f"{backend}")
-            qs, ks = H * Sq * qt.element_size(), Kh * Sk * qt.element_size()
-            io = {"fwd": (qs + ks) * (dh + dv) + 4 * Sq * H,
-                  "dq": qs * (2 * dh + dv) + ks * (dh + dv) + 8 * Sq * H,
-                  "dkv": qs * (dh + dv) + ks * 2 * (dh + dv) + 8 * Sq * H}
+            shape = (1, H, Kh, Sq, Sk, dh, dv, s.causal, qt.element_size())
+            works = {"fwd": work.flash_fwd(*shape),
+                     "dq": work.flash_bwd_dq(*shape),
+                     "dkv": work.flash_bwd_dkv(*shape)}
             plain_f = time_events(lambda: ref.flash_attention_fwd_ref(
                 qt, kt, vt, s.causal, Sk, H, Kh), reps=3)
             plain_b = time_events(lambda: ref.flash_attention_bwd_ref(
@@ -5223,16 +5225,16 @@ def flash_times(dev, shapes, seed: int) -> dict:
             for kind, call, plain, lib_ms in kinds:
                 name = {"fwd": FLASH_FWD, "dq": FLASH_DQ,
                         "dkv": FLASH_DKV}[kind][str(dt)] + f"@{s.tag}"
-                flops = 2 * pairs * flash_widths(kind, dh, dv)
+                flops, n_bytes = works[kind][:2]
                 if bf:
-                    b, by = bound_ms(0.0, io[kind], flops_bf16_tc=flops)
+                    b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=flops)
                     extra = {"bound_split_ms": bound_ms(
-                        0.0, io[kind], flops_bf16_tc=2 * pairs * flash_widths(
+                        0.0, n_bytes, flops_bf16_tc=2 * pairs * flash_widths(
                             kind, dh, dv, split=True))[0]}
                 else:
-                    b, by = bound_ms(0.0, io[kind], flops_bf16_tc=6 * flops)
+                    b, by = bound_ms(0.0, n_bytes, flops_bf16_tc=6 * flops)
                     extra = {"bound_cuda_cores_ms": bound_ms(flops,
-                                                             io[kind])[0]}
+                                                             n_bytes)[0]}
                 out[name] = dict(
                     shape=[1, Sq, Sk, H, Kh, dh, dv], dtype=str(dt),
                     causal=s.causal, ms=time_graph(call), plain_ms=plain,
@@ -6152,6 +6154,207 @@ def distributed_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase launch: the dry-run tools against the card
+# ---------------------------------------------------------------------------
+
+# No measured step time may fall below its roofline time over this.
+LAUNCH_ROOF_SLACK = 1.05
+# The predicted peak (arguments + temporaries) within this of the card's.
+LAUNCH_PEAK_REL = 0.10
+# The CLI cells run on this machine (arch, shape, --multi-pod).
+LAUNCH_CLI = (("qwen2-0.5b", "decode_32k", False),
+              ("mamba2-370m", "long_500k", True))
+LAUNCH_CLI_TIMEOUT_S = 300
+LAUNCH_BUDGET_S = 60
+
+
+def launch_cli(args: list, out_dir: Path) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun`` with ``args`` in a process
+    of its own (its fake process group meets no other), records under
+    ``out_dir``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--out-dir", str(out_dir)], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def launch_counts(a) -> dict:
+    """What phase launch holds equal between the card and ``meta``."""
+    d = a.as_dict()
+    return {k: d[k] for k in ("flops", "bytes_accessed", "collective_bytes",
+                              "per_collective", "kernels")}
+
+
+def launch_phase(dev) -> dict:
+    """The dry-run tools against the card. (i) qwen2-0.5B exactly (bf16,
+    world size 1, no context): the lm phase's prefill of 2 × 2,048 tokens
+    and one AdamW step at lm_train's shape, each under the analysis on
+    the card and on ``meta`` tensors of the same shapes: FLOPs, bytes,
+    collectives and every kernel event equal, the prefill's flash events
+    one a layer and its launches as many, the step's forward, dq and
+    dk/dv events its launches. (ii) Each timed by CUDA events (median of
+    3 after a warm-up) against its roofline time from (i)'s counts at the
+    H100's datasheet peaks (``launch/roofline.py``): none below it over
+    ``LAUNCH_ROOF_SLACK``. (iii) The step's predicted peak (the ``meta``
+    run's arguments and temporaries) against ``max_memory_allocated``
+    over the card's step, less what was allocated besides its arguments,
+    within ``LAUNCH_PEAK_REL``. (iv) ``python -m
+    repro_torch.launch.dryrun`` on ``LAUNCH_CLI`` with the default
+    device type, each cell ``ok``, its counts printed. Returns the two
+    paths' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import dryrun, hlo_analysis, roofline
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_size
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    procs = [launch_cli(["--arch", a, "--shape", sh]
+                        + ["--multi-pod"] * pod, out_dir)
+             for a, sh, pod in LAUNCH_CLI]
+    cfg = lm_config()
+    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    rng = np.random.default_rng(30)
+    ints = lambda B, S: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    meta = lambda B, S, dt: torch.empty((B, S), dtype=dt, device="meta")
+    mparams = lm.param_shapes(cfg)
+    opt, opt_name = dryrun.make_optimizer(cfg, tree_size(mparams))
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    # Each path: its step, then its arguments on the card and on meta.
+    paths = {
+        "prefill": (lambda p, b: lm.prefill(p, cfg, b),
+                    lambda: (params, {"tokens": ints(LM_PREFILL_B,
+                                                     LM_PREFILL_S)}),
+                    lambda: (mparams, {"tokens": meta(
+                        LM_PREFILL_B, LM_PREFILL_S, torch.int32)})),
+        "train": (lambda p, o, b: dryrun.train_step(cfg, opt, p, o, b),
+                  lambda: (params, opt.init(params), {
+                      "tokens": ints(B, S), "labels": ints(B, S),
+                      "mask": torch.ones((B, S), device=dev)}),
+                  lambda: (mparams, opt.init(mparams), {
+                      "tokens": meta(B, S, torch.int32),
+                      "labels": meta(B, S, torch.int32),
+                      "mask": meta(B, S, torch.float32)}))}
+    launches, out = {}, {}
+    for part, (fn, card_make, meta_make) in paths.items():
+        card_args, meta_args = card_make(), meta_make()
+        fn(*card_args)                       # warm-up: each device's
+        fn(*meta_args)                       # cached rope frequencies
+        _sync(dev)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with hlo_analysis.count(card_args) as card:
+            res = fn(*card_args)
+            _sync(dev)
+        del res
+        launches[f"launch_{part}"] = read_launches()
+        card_peak = torch.cuda.max_memory_allocated(dev)
+        with hlo_analysis.count(meta_args) as pred:
+            fn(*meta_args)
+        runs = []
+        for _ in range(3):
+            runs.append(time_events(lambda: fn(*card_args), reps=1))
+        ms = float(np.median(runs))
+        c, m = launch_counts(card), launch_counts(pred)
+        roof_ms = max(m["flops"] / roofline.PEAK_FLOPS,
+                      m["bytes_accessed"] / roofline.HBM_BW,
+                      m["collective_bytes"] / roofline.LINK_BW) * 1e3
+        # What the card held besides the step's own arguments.
+        other = before - card.argument_bytes
+        measured_peak = card_peak - other
+        predicted_peak = pred.peak_bytes
+        out[part] = dict(
+            counts_equal=c == m, counts=m, card_counts=None if c == m else c,
+            launches=launches[f"launch_{part}"], ms_runs=runs, ms=ms,
+            roofline_ms=roof_ms, roofline_frac=roof_ms / ms,
+            compute_ms=m["flops"] / roofline.PEAK_FLOPS * 1e3,
+            memory_ms=m["bytes_accessed"] / roofline.HBM_BW * 1e3,
+            predicted_peak_bytes=predicted_peak,
+            predicted_argument_bytes=pred.argument_bytes,
+            card_tracker_peak_bytes=card.peak_bytes,
+            max_memory_allocated=card_peak, allocated_before=before,
+            allocated_besides_arguments=other,
+            measured_peak_bytes=measured_peak,
+            peak_rel=abs(predicted_peak - measured_peak) / measured_peak)
+        emit("launch", part=part, config=cfg.name, dtype=str(cfg.dtype),
+             optimizer=opt_name if part == "train" else None,
+             peaks={"PEAK_FLOPS": roofline.PEAK_FLOPS, "HBM_BW": roofline.HBM_BW,
+                    "LINK_BW": roofline.LINK_BW, "source": "datasheet"},
+             nvidia_smi=nvidia_smi(), **out[part])
+        del card_args, meta_args, card, pred
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    cli = []
+    for (a, sh, pod), p in zip(LAUNCH_CLI, procs):
+        try:
+            stdout, stderr = p.communicate(timeout=LAUNCH_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        cli.append(dict(arch=a, shape=sh, multi_pod=pod, rc=p.returncode,
+                        stdout=stdout.strip()[-400:],
+                        stderr=stderr.strip()[-1500:] if p.returncode
+                        else ""))
+    recs = []
+    for a, sh, pod in LAUNCH_CLI:
+        f = out_dir / f"{a}--{sh}--{'2x16x16' if pod else '16x16'}.json"
+        recs.append(json.loads(f.read_text()) if f.exists() else {})
+    seconds = time.perf_counter() - t_phase
+    emit("launch", part="cli", cells=cli,
+         trace_s=[r.get("trace_s") for r in recs],
+         ok=[r.get("ok", False) for r in recs],
+         counts=[{k: r.get(k) for k in ("torch_version", "reshard_costs",
+                                         "collectives")} | {
+             k: (r.get("hlo_analysis") or {}).get(k) for k in (
+                 "flops", "bytes_accessed", "collective_bytes", "kernels")}
+             for r in recs])
+    emit("launch", part="seconds", seconds=seconds,
+         budget_s=LAUNCH_BUDGET_S, nvidia_smi=nvidia_smi())
+    bad = [f"{p}: the card's counts {out[p]['card_counts']} are not meta's "
+           f"{out[p]['counts']}" for p in out if not out[p]["counts_equal"]]
+    bad += [f"{p}: {out[p]['ms']:.3f} ms is below its roofline "
+            f"{out[p]['roofline_ms']:.3f} ms / {LAUNCH_ROOF_SLACK}"
+            for p in out
+            if out[p]["ms"] < out[p]["roofline_ms"] / LAUNCH_ROOF_SLACK]
+    bad += [f"{p}: predicted peak {out[p]['predicted_peak_bytes']} against "
+            f"{out[p]['measured_peak_bytes']} on the card"
+            for p in out if out[p]["peak_rel"] > LAUNCH_PEAK_REL]
+    fwd = FLASH_FWD["torch.bfloat16"]
+    ev = {p: out[p]["counts"]["kernels"] for p in out}
+    want = {"prefill": {"flash_attention_fwd": cfg.n_layers},
+            "train": {"flash_attention_fwd": 2 * cfg.n_layers,
+                      "flash_attention_bwd_dq": cfg.n_layers,
+                      "flash_attention_bwd_dkv": cfg.n_layers}}
+    got_launch = {"prefill": {"flash_attention_fwd":
+                              launches["launch_prefill"][fwd]},
+                  "train": {"flash_attention_fwd":
+                            launches["launch_train"][fwd],
+                            "flash_attention_bwd_dq":
+                            launches["launch_train"][FLASH_DQ[
+                                "torch.bfloat16"]],
+                            "flash_attention_bwd_dkv":
+                            launches["launch_train"][FLASH_DKV[
+                                "torch.bfloat16"]]}}
+    for p in out:
+        got = {k: v["count"] for k, v in ev[p].items()}
+        if got != want[p] or got_launch[p] != want[p]:
+            bad.append(f"{p}: kernel events {got}, launches {got_launch[p]}"
+                       f", want {want[p]}")
+    bad += [f"the CLI on {c['arch']} × {c['shape']}: rc {c['rc']}, "
+            f"{c['stdout']} {c['stderr']}" for c, r in zip(cli, recs)
+            if c["rc"] != 0 or not r.get("ok")]
+    if bad:
+        raise AssertionError("launch: " + "; ".join(bad))
+    return launches
+
+
 def require_no_local_memory(libs: dict) -> None:
     """Fail if nvcc gave a tensor-core flash kernel (the forward, dq or
     dk/dv: every library named ``*_sm90``), the ideal scan, the readout
@@ -6221,6 +6424,7 @@ def main() -> int:
         mla, mla_err = lm_mla_phase(dev, twins)
         mm, mm_err = lm_multimodal_phase(dev, twins)
         dst = distributed_phase(dev)
+        lch = launch_phase(dev)
         kw = kwta_path(dev)
         t = times(dev)
         t.update(flash_times(dev, MLA_TIMES, seed=28))
@@ -6248,7 +6452,7 @@ def main() -> int:
                "train_ragged": rag["launches"],
                "train_loss_aware": la["launches"], "ops_kwta": kw,
                **{f"scenarios_{b}": c for b, c in sc.items()}, **ft, **flt,
-               **zoo, **lmq, **mla, **mm, **dst}
+               **zoo, **lmq, **mla, **mm, **dst, **lch}
     own = {"wbs_matmul": "serve", "wbs_matmul_read_noise": "train_read_noise",
            "wbs_miru_scan": "serve", "miru_scan": "train_software",
            "miru_readout": "serve",

@@ -139,19 +139,101 @@ def act_constraint(x: torch.Tensor, kind: str) -> torch.Tensor:
     return x.redistribute(ctx.mesh, target)
 
 
-def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x (…, n·d) viewed (…, n, d). A DTensor first gathers its last dim
-    on each mesh dim whose size does not divide n (DTensor cannot split
-    a dim into blocks that straddle its shards)."""
-    if is_sharded(x):
-        from torch.distributed.tensor import Replicate, Shard
+def whole_dim(x: torch.Tensor, dim: int, n: int = 0) -> torch.Tensor:
+    """A DTensor ``x`` with ``dim`` gathered on each mesh dim that shards
+    it; with ``n``, only as far as needed for the mesh dims left sharding
+    it (in mesh order) to split it into n equal blocks each. Any other
+    tensor as it is."""
+    if not is_sharded(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
 
-        last = Shard(x.ndim - 1)
-        pl = tuple(Replicate() if p == last and n % x.device_mesh.size(i)
-                   else p for i, p in enumerate(x.placements))
-        if pl != tuple(x.placements):
-            x = x.redistribute(x.device_mesh, pl)
-    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    d, ways, pl = Shard(dim % x.ndim), 1, list(x.placements)
+    for i, p in enumerate(pl):
+        if p == d:
+            if n and n % (ways * x.device_mesh.size(i)) == 0:
+                ways *= x.device_mesh.size(i)
+            else:
+                pl[i] = Replicate()
+    return x if tuple(pl) == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, tuple(pl))
+
+
+def split_dim(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """x's ``dim`` (of size n·d) viewed (n, d). A DTensor first gathers
+    that dim where its shards would straddle the n blocks
+    (:func:`whole_dim`): DTensor cannot split it so."""
+    dim %= x.ndim
+    x = whole_dim(x, dim, n)
+    return x.reshape(*x.shape[:dim], n, x.shape[dim] // n,
+                     *x.shape[dim + 1:])
+
+
+def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (…, n·d) viewed (…, n, d), by :func:`split_dim`."""
+    return split_dim(x, -1, n)
+
+
+def write_rows_at(buf: torch.Tensor, val: torch.Tensor, idx: torch.Tensor
+                  ) -> bool:
+    """``buf.index_copy_(1, idx, val)`` for a DTensor ``buf`` (a cache,
+    its dim 1 the sequence), on each rank's local tensors: the rank
+    writes ``val`` where ``idx`` falls in its own shard of dim 1 and
+    keeps what it held elsewhere (DTensor cannot update a sharded dim in
+    place, and some releases have no rule for ``index_copy_`` at all).
+    No host read: a rank outside the shard rewrites its first row with
+    itself. Returns False, doing nothing, where ``buf`` is no DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not is_sharded(buf):
+        return False
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = buf.device_mesh
+    _, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    pl = tuple(Replicate() if p == Shard(1) else p for p in buf.placements)
+    if isinstance(val, DTensor):
+        val = val.redistribute(mesh, pl).to_local()
+    if isinstance(idx, DTensor):
+        idx = idx.full_tensor()
+    local = buf.to_local()
+    rows = local.shape[1]
+    li = (idx - offset[1]).clamp(0, rows - 1)
+    inside = ((idx >= offset[1]) & (idx < offset[1] + rows)).reshape(
+        (1, 1) + (1,) * (local.ndim - 2))
+    old = local.index_select(1, li)
+    local.index_copy_(1, li, torch.where(inside, val.to(local.dtype), old))
+    return True
+
+
+class _MergeLast(torch.autograd.Function):
+    """(…, n, d) viewed (…, n·d), its gradient split back by
+    :func:`split_last`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-2]
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_last(g, ctx.n)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """x (…, n, d) viewed (…, n·d), the inverse of :func:`split_last`. A
+    DTensor first gathers d where it is sharded (no placement holds two
+    sharded dims joined) and n where its shards are uneven, and its
+    gradient, which may come sharded over the joined dim, goes back
+    through :func:`split_last` (a reshape's own backward would split
+    that dim into blocks that straddle its shards)."""
+    if is_sharded(x):
+        x = whole_dim(whole_dim(x, -1), -2, x.shape[-2])
+        if x.requires_grad:
+            return _MergeLast.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
 
 
 def ulysses_enabled(n_heads: int) -> bool:

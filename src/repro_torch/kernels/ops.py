@@ -19,6 +19,13 @@ operands). The readout backpropagates as the linear product it is.
 The flash forward is differentiable: on inputs that require grad it runs
 inside a ``torch.autograd.Function`` whose backward is the dq and dk/dv
 kernels (:func:`flash_attention_bwd`).
+
+Under an analysis (``launch/hlo_analysis.py``, :data:`work.recorder` set)
+each wrapper that launches a kernel reports one event a launch with the
+work of :mod:`repro_torch.kernels.work`, and its body runs uncounted; on
+``meta`` inputs the wrapper then makes outputs of the right shape
+without running the plain version. With no analysis the cost is one
+None check.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.kernels import miru_scan as _miru_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import wbs_matmul as _matmul_kernel
 from repro_torch.kernels import wbs_miru_scan as _scan_kernel
+from repro_torch.kernels import work as _work
 
 
 def tracks_grad(*tensors: Optional[torch.Tensor]) -> bool:
@@ -95,6 +103,20 @@ def wbs_matmul(sign: torch.Tensor, code: torch.Tensor, w: torch.Tensor,
     noise. On the card one kernel launch computes the call: the kernels
     take any M and N, so nothing is padded or sliced."""
     _forward_only(w)
+    return _wbs_matmul(sign, code, w, gains, adc_bits, adc_range,
+                       read_sigma, read_key)
+
+
+@_work.launches(
+    lambda sign, code, w, gains, adc_bits, adc_range, read_sigma, read_key: [(
+        "wbs_matmul_read_noise" if read_sigma > 0 else "wbs_matmul",
+        _work.wbs_matmul(*sign.shape, w.shape[-1], gains.shape[-1],
+                         sign.element_size() + code.element_size(),
+                         read_sigma > 0))],
+    lambda sign, code, w, *_: sign.new_empty(
+        (sign.shape[0], w.shape[-1]), dtype=torch.float32))
+def _wbs_matmul(sign, code, w, gains, adc_bits, adc_range, read_sigma,
+                read_key):
     if read_sigma > 0:
         if read_key is None:
             raise ValueError("read_sigma > 0 requires read_key")
@@ -164,6 +186,11 @@ def wbs_input_drive(x_seq: torch.Tensor, w_h: torch.Tensor, n_bits: int,
     return y * weight_scale
 
 
+@_work.launches(
+    lambda drive, u_h, b_h, h0, beta, lam, n_bits, *_: [(
+        "wbs_miru_scan", _work.wbs_miru_scan(*drive.shape, n_bits))],
+    lambda drive, *_: tuple(drive.new_empty(drive.shape, dtype=torch.float32)
+                            for _ in range(3)))
 def _wbs_miru_scan_fwd(drive, u_h, b_h, h0, beta, lam, n_bits, adc_bits,
                        adc_range, weight_scale, gains):
     """The forward of :func:`wbs_miru_scan` on values: the kernel for CUDA
@@ -279,6 +306,14 @@ def miru_scan(xw: torch.Tensor, u_h: torch.Tensor, h0: torch.Tensor,
     plain version: the kernel takes every H up to ``miru_scan.MAX_H`` and
     raises beyond."""
     _forward_only(xw, u_h, h0)
+    return _miru_scan(xw, u_h, h0, beta, lam)
+
+
+@_work.launches(
+    lambda xw, *_: [("miru_scan", _work.miru_scan(*xw.shape))],
+    lambda xw, *_: tuple(xw.new_empty(xw.shape, dtype=torch.float32)
+                         for _ in range(2)))
+def _miru_scan(xw, u_h, h0, beta, lam):
     if not xw.is_cuda:
         return ref.miru_scan_ref(xw, u_h, h0, beta, lam)
     return _miru_kernel.miru_scan(
@@ -308,13 +343,20 @@ def miru_readout(h: torch.Tensor, w_o: torch.Tensor, b_o: torch.Tensor
     CPU. h (..., K), w_o (K, N), b_o (N,) → (..., N) f32."""
     lead = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1])
-    if not h.is_cuda:
-        y = ref.miru_readout_ref(h2, w_o, b_o)
-    else:
-        y = _Readout.apply(h2.to(torch.float32).contiguous(),
-                           w_o.to(torch.float32).contiguous(),
-                           b_o.to(torch.float32).contiguous())
-    return y.reshape(*lead, w_o.shape[-1])
+    return _miru_readout(h2, w_o, b_o).reshape(*lead, w_o.shape[-1])
+
+
+@_work.launches(
+    lambda h2, w_o, b_o: [("miru_readout",
+                           _work.miru_readout(*h2.shape, w_o.shape[-1]))],
+    lambda h2, w_o, b_o: h2.new_empty((h2.shape[0], w_o.shape[-1]),
+                                      dtype=torch.float32))
+def _miru_readout(h2, w_o, b_o):
+    if not h2.is_cuda:
+        return ref.miru_readout_ref(h2, w_o, b_o)
+    return _Readout.apply(h2.to(torch.float32).contiguous(),
+                          w_o.to(torch.float32).contiguous(),
+                          b_o.to(torch.float32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +416,21 @@ def _flash_dkv_kernel(dtype: torch.dtype):
             else _flash_kernel.flash_attention_bwd_dkv)
 
 
+def _flash_work(q, k, v, causal, sk_true) -> tuple:
+    """(B, H, Kh, Sq, Sk, dh, dv, causal, itemsize): the arguments of
+    :mod:`~repro_torch.kernels.work`'s flash formulas."""
+    (B, Sq, H, dh), Kh, dv = q.shape, k.shape[2], v.shape[-1]
+    return B, H, Kh, Sq, sk_true, dh, dv, causal, q.element_size()
+
+
+@_work.launches(
+    lambda q, k, v, causal, sk_true: [("flash_attention_fwd", _work.flash_fwd(
+        *_flash_work(q, k, v, causal, sk_true)))],
+    lambda q, k, v, *_: (
+        _heads_back(q.new_empty((q.shape[0] * q.shape[2], q.shape[1],
+                                 v.shape[-1])), q.shape[0]),
+        q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                    dtype=torch.float32)))
 def _flash_fwd(q, k, v, causal: bool, sk_true: int):
     B, Sq, H, dh = q.shape
     Kh, dv = k.shape[2], v.shape[-1]
@@ -461,6 +518,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, dh = q.shape
     Sk, Kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     sk_true = Sk if sk_true is None else sk_true
+    return _flash_bwd(q, k, v, out, lse, dout, causal, sk_true)
+
+
+@_work.launches(
+    lambda q, k, v, out, lse, dout, causal, sk_true: [
+        ("flash_attention_bwd_dq", _work.flash_bwd_dq(
+            *_flash_work(q, k, v, causal, sk_true))),
+        ("flash_attention_bwd_dkv", _work.flash_bwd_dkv(
+            *_flash_work(q, k, v, causal, sk_true)))],
+    lambda q, k, v, *_: tuple(_heads_back(t.new_empty(
+        (t.shape[0] * t.shape[2], t.shape[1], t.shape[3])), t.shape[0])
+        for t in (q, k, v)))
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, sk_true: int):
+    B, Sq, H, dh = q.shape
+    Kh, dv = k.shape[2], v.shape[-1]
     qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
     ot, dot = _heads_first(out), _heads_first(dout)
     lse = lse.reshape(B * H, Sq)
@@ -500,8 +572,16 @@ def kwta(x: torch.Tensor, k: int, iters: int = 32) -> torch.Tensor:
         return x
     if N > KWTA_ROW_LIMIT:
         out = ref.kwta_ref(x2, k)
-    elif not x2.is_cuda:
-        out = ref.kwta_bisect_ref(x2, k, iters)
     else:
-        out = _kwta_kernel.kwta(x2.contiguous(), k, iters)
+        out = _kwta(x2, k, iters)
     return out[0] if squeeze else out
+
+
+@_work.launches(
+    lambda x2, k, iters: [("kwta", _work.kwta(*x2.shape, iters,
+                                              x2.element_size()))],
+    lambda x2, k, iters: x2.new_empty(x2.shape))
+def _kwta(x2: torch.Tensor, k: int, iters: int) -> torch.Tensor:
+    if not x2.is_cuda:
+        return ref.kwta_bisect_ref(x2, k, iters)
+    return _kwta_kernel.kwta(x2.contiguous(), k, iters)

@@ -79,8 +79,10 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (act_constraint, current_context,
-                                             is_sharded, partial, run_local,
-                                             split_last, ulysses_enabled)
+                                             is_sharded, merge_last, partial,
+                                             run_local, split_dim,
+                                             split_last, ulysses_enabled,
+                                             write_rows_at)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rope, dense, pos_index,
@@ -107,7 +109,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K/V."""
     B, Sq, H, dh = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Sq, Kh, H // Kh, dh)
+    qg = split_dim(q, 2, Kh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", *promote(qg, k)
                           ).to(torch.float32) * dh ** -0.5
     si = torch.arange(Sk, device=q.device)
@@ -296,7 +298,7 @@ def gqa_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = sdpa(q, k, v, causal=causal and kv is None,
                    chunk=cfg.attn_chunk)
-    return dense(out.reshape(B, S, cfg.n_heads * cfg.hd()), p["wo"],
+    return dense(merge_last(out), p["wo"],
                  quant_mode=cfg.quant_mode)
 
 
@@ -383,6 +385,8 @@ def _write_at(cache: dict, new: dict, idx: torch.Tensor,
     every row); the other rows keep what they held there."""
     for name, val in new.items():
         buf = cache[name]
+        if write_rows is None and write_rows_at(buf, val, idx):
+            continue
         val = select_rows(write_rows, val.to(buf.dtype),
                           buf.index_select(1, idx))
         buf.index_copy_(1, idx, val)
@@ -416,8 +420,8 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                          pos, write_rows)
     k_all, v_all = cache_read(cache)
     L = k_all.shape[1]
-    out = full_attention(q, k_all.reshape(B, L, cfg.n_kv_heads, hd),
-                         v_all.reshape(B, L, cfg.n_kv_heads, hd),
+    out = full_attention(q, split_last(k_all, cfg.n_kv_heads),
+                         split_last(v_all, cfg.n_kv_heads),
                          causal=False,
                          kv_len=(pos_index(pos, x.device) + 1).expand(B))
     return dense(out.reshape(B, S, cfg.n_heads * hd), p["wo"],

@@ -48,7 +48,7 @@ from typing import Any, Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.context import act_constraint
+from repro_torch.distributed.context import act_constraint, whole_dim
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
@@ -344,4 +344,8 @@ def encode_cross_kv(p: dict, cfg: ModelConfig, frames: torch.Tensor
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    """The last position's argmax. Sharded logits gather their vocab
+    first: DTensor's own sharded argmax fails where two mesh dims shard
+    the vocab."""
+    return torch.argmax(whole_dim(logits[:, -1, :], -1), dim=-1).to(
+        torch.int32)

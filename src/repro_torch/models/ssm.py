@@ -44,8 +44,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (act_constraint, all_gather,
                                              current_context, is_sharded,
-                                             partial, replicated, run_local,
-                                             ulysses_enabled)
+                                             merge_last, partial, replicated,
+                                             run_local, ulysses_enabled)
 from repro_torch.distributed.sharding import P, to_placements
 from repro_torch.models.layers import dense, promote, rms_norm, select_rows
 from repro_torch.utils import Seed, split_seed, truncated_normal_init as tn
@@ -283,7 +283,6 @@ def mamba2_forward(p: dict, cfg: ModelConfig, u: torch.Tensor
     SSD); under a sharding context the Ulysses or the gathered scan
     (module docstring)."""
     d = _dims(cfg)
-    b, s, _ = u.shape
     z, xBC, dt = _split_proj(dense(u, p["in_proj"],
                                    quant_mode=cfg.quant_mode), d)
 
@@ -302,7 +301,7 @@ def mamba2_forward(p: dict, cfg: ModelConfig, u: torch.Tensor
                        p["a_log"], Bm, Cm)
     y = y.to(u.dtype) + x.to(u.dtype) \
         * p["d_skip"][None, None, :, None].to(u.dtype)
-    y = y.reshape(b, s, d["d_in"])
+    y = merge_last(y)
     y = rms_norm(y * F.silu(z.to(u.dtype)), p["norm"], cfg.rmsnorm_eps)
     return dense(y, p["out_proj"], quant_mode=cfg.quant_mode)
 
@@ -324,7 +323,6 @@ def mamba2_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, cache: dict,
     in place, in the rows ``write_rows`` (indices or a bool mask over B;
     None: every row, as the reference). Returns (out (B, 1, D), cache)."""
     d = _dims(cfg)
-    b = u.shape[0]
     z, xBC, dt = _split_proj(dense(u[:, 0, :], p["in_proj"],
                                    quant_mode=cfg.quant_mode), d)
 
@@ -338,8 +336,7 @@ def mamba2_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, cache: dict,
         cache["ssm"], x_t.to(torch.float32), dt_t, p["a_log"],
         B_t.to(torch.float32), C_t.to(torch.float32))
     y = y.to(u.dtype) + x_t * p["d_skip"][None, :, None].to(u.dtype)
-    y = rms_norm(y.reshape(b, d["d_in"]) * F.silu(z), p["norm"],
-                 cfg.rmsnorm_eps)
+    y = rms_norm(merge_last(y) * F.silu(z), p["norm"], cfg.rmsnorm_eps)
     out = dense(y, p["out_proj"], quant_mode=cfg.quant_mode)
     for name, new in (("conv", conv_buf[:, 1:]), ("ssm", new_ssm)):
         cache[name].copy_(select_rows(write_rows, new, cache[name]))

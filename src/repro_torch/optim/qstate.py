@@ -10,7 +10,9 @@ them for its sharding. States live on the parameters' device.
 The arithmetic is the reference's, in its order: a code is
 ``round(block / absmax · 127)`` clipped to ±127, ``torch.round`` and
 ``jnp.round`` both rounding half to even, so on the same fp32 moments the
-codes and scales are the reference's bit for bit.
+codes and scales are the reference's bit for bit. The blocks are views
+of the last dim (``context.split_dim``, ``merge_last``), so a sharded
+moment whose block count does not divide its shards is gathered first.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.context import merge_last, split_dim
 from repro_torch.optim.optimizers import (Optimizer, _count,
                                           add_decayed_weights, chain,
                                           clip_by_global_norm, scale,
@@ -37,22 +40,22 @@ def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """float (..., N) → (int8 codes (..., Np), fp32 scales (..., Np/B))."""
     n = x.shape[-1]
     xp = torch.nn.functional.pad(x, (0, _padded(n) - n))
-    blocks = xp.reshape(*xp.shape[:-1], -1, _BLOCK)
+    blocks = split_dim(xp, -1, xp.shape[-1] // _BLOCK)
     scales = torch.amax(torch.abs(blocks), dim=-1)
     safe = torch.where(scales == 0, torch.ones_like(scales), scales)[..., None]
     codes = torch.clamp(torch.round(blocks / safe * 127.0), -127, 127
                         ).to(torch.int8)
-    return codes.reshape(xp.shape), scales
+    return merge_last(codes), scales
 
 
 def _dequantize(codes: torch.Tensor, scales: torch.Tensor, n: int
                 ) -> torch.Tensor:
-    blocks = codes.reshape(*codes.shape[:-1], -1, _BLOCK)
+    blocks = split_dim(codes, -1, codes.shape[-1] // _BLOCK)
     # A tensor divisor: CUDA turns division by a Python scalar into a
     # product with its reciprocal, which is not the reference's rounding.
     x = blocks.to(torch.float32) * (scales / torch.full_like(
         scales, 127.0))[..., None]
-    return x.reshape(codes.shape)[..., :n]
+    return merge_last(x)[..., :n]
 
 
 class QMoment(NamedTuple):

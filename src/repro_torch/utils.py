@@ -210,15 +210,41 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return torch.mean(logz - ll)
 
 
+class _TakeLabel(torch.autograd.Function):
+    """``torch.gather(logits, -1, idx)`` whose backward scatters into
+    ``zeros_like(logits)``: the same values and, on plain tensors, the
+    same ops as autograd's gather backward, which starts from
+    ``grad.new_zeros(logits.shape)``. On DTensor logits that
+    ``new_zeros``, of another shape than its input, is replicated: a zero
+    tensor of the whole global logits on every rank. ``zeros_like`` keeps
+    the logits' placements."""
+
+    @staticmethod
+    def forward(ctx, logits, idx):
+        ctx.save_for_backward(logits, idx)
+        return torch.gather(logits, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, idx = ctx.saved_tensors
+        zeros = torch.zeros_like(logits)
+        if type(zeros) is torch.Tensor:          # in place, as autograd's
+            return zeros.scatter_add_(-1, idx, grad), None
+        return zeros.scatter_add(-1, idx, grad), None    # DTensor may reshard
+
+
 def softmax_cross_entropy_masked(logits: torch.Tensor, labels: torch.Tensor,
                                  mask: torch.Tensor) -> torch.Tensor:
     """Token-masked mean cross-entropy (LM training). logits (..., V);
-    labels (...,) int; mask (...,) {0, 1}."""
+    labels (...,) int; mask (...,) {0, 1}. The label's logit keeps its
+    trailing axis until it is subtracted: on vocab-sharded DTensor logits
+    the gather's masked partial sum is reduced there, and DTensor masks
+    it only in the gather's own shape."""
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ll = _TakeLabel.apply(logits, labels[..., None].long())
     mask = mask.to(logits.dtype)
-    return torch.sum((logz - ll) * mask) / torch.clamp_min(torch.sum(mask),
-                                                           1.0)
+    return torch.sum((logz[..., None] - ll)[..., 0] * mask) / \
+        torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

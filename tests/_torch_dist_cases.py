@@ -296,3 +296,34 @@ def restore(rank, world, directory, model):
     return {"locals": locals_, "placements": repr(w.placements),
             "full": _np(w), "b": tree["b"].numpy(),
             "b_type": type(tree["b"]).__name__}
+
+
+# ---------------------------------------------------------------------------
+# A decode into caches sharded over their sequence
+# ---------------------------------------------------------------------------
+
+def sharded_decode(rank, world, arch, positions):
+    """``lm.decode_step`` of the smoke ``arch`` at batch 1 on a (2, 2)
+    mesh, the caches laid out by ``cache_specs`` (batch 1 divides no
+    axis: the sequence goes over "model", the channels over "data"), one
+    step at each of ``positions``: the logits of each step and the final
+    caches, whole."""
+    from repro_torch.distributed import cache_specs
+
+    cfg = get_smoke_config(arch)
+    p = lm.init_params(prng.PRNGKey(0), cfg, device="cpu")
+    mesh = make_host_mesh(2, device_type="cpu")
+    placed = place(p, param_specs(cfg, p, mesh, fsdp=False), mesh)
+    caches = lm.init_cache(cfg, 1, 16, device="cpu")
+    caches = place(caches, cache_specs(caches, mesh, False), mesh)
+    out = []
+    with sharding_scope(_ctx(mesh, sequence_parallel=False)):
+        for i, pos in enumerate(positions):
+            tok = place(torch.tensor([[3 + i]], dtype=torch.int32), P(None,
+                                                                      None),
+                        mesh)
+            logits, caches = lm.decode_step(placed, cfg, caches, tok,
+                                            place(torch.tensor(pos), P(),
+                                                  mesh))
+            out.append(_np(logits))
+    return out, {k: _np(v.float()) for k, v in caches.items()}

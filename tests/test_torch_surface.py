@@ -76,16 +76,17 @@ TRIMS = {
     ("kernels/flash_attention.py", "NEG_INF"): "the Pallas kernels' "
         "masked score; the port's lives beside its plain versions "
         "(kernels/ref.py :: NEG_INF) and in the CUDA sources",
+    ("launch/hlo_analysis.py", "parse_module"): "parses XLA's HLO text; "
+        "the port counts the program it dispatches (a TorchDispatchMode)",
+    ("launch/hlo_analysis.py", "Instr"): "an HLO instruction of the "
+        "parsed text; as parse_module",
+    ("launch/hlo_analysis.py", "Computation"): "an HLO computation of the "
+        "parsed text; as parse_module",
 }
 
 #: ROADMAP queue A items still to port: item → reference names
 #: ((file, name)) and whole files (file, None) it brings.
-TO_PORT = {
-    "13 (launch/'s dry-run tools)": [
-        (f, None) for f in (
-            "launch/dryrun.py", "launch/hlo_analysis.py",
-            "launch/make_report.py", "launch/roofline.py")],
-}
+TO_PORT: dict = {}
 
 _QUEUED = {entry for entries in TO_PORT.values() for entry in entries}
 
